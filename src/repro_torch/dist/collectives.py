@@ -1,0 +1,61 @@
+"""XOR collectives over the zone (data) dim of zone-stacked tensors.
+
+The reference runs these inside a shard_map, one device per rank, built
+from all-to-all / all-gather plus local folds (XOR is not a native
+collective reduction in XLA or NCCL).  With the whole zone on one device
+(dist/sharding.py), a collective over the zone axis is a fold over the
+data dim of the stacked tensor; `dim` names that dim
+(`ZoneMesh.data_dim`).  Every operand is an int32 word tensor.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def xor_fold(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """XOR reduction along one dim (pairwise halving: log2(n) passes)."""
+    x = x.movedim(dim, 0)
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        top = x[:h] ^ x[h:2 * h]
+        if x.shape[0] % 2:
+            top[0] ^= x[2 * h]
+        x = top
+    return x[0]
+
+
+def xor_reduce_scatter(row: torch.Tensor, dim: int) -> torch.Tensor:
+    """`(*M, n)` rows -> `(*M, n // G)`: rank i along `dim` keeps segment
+    i of the XOR of the G rows of its zone."""
+    g, n = row.shape[dim], row.shape[-1]
+    if n % g:
+        raise ValueError(f"row of {n} words does not split into {g} segments")
+    segs = row.reshape(*row.shape[:-1], g, n // g)
+    return xor_fold(segs, dim).movedim(-2, dim)
+
+
+def all_gather_row(seg: torch.Tensor, dim: int) -> torch.Tensor:
+    """`(*M, s)` segments -> `(*M, G * s)`: every rank of a zone receives
+    the concatenation of its zone's segments in rank order."""
+    full = seg.movedim(dim, -2)
+    full = full.reshape(*full.shape[:-2], -1).unsqueeze(dim)
+    return full.expand(*seg.shape[:-1], full.shape[-1])
+
+
+def xor_all_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """XOR of x across each zone, delivered to every rank (same shape).
+    Returns a broadcast view: read it, do not write into it."""
+    return xor_fold(x, dim).unsqueeze(dim).expand_as(x)
+
+
+def syndrome_reduce_scatter(row: torch.Tensor, dim: int) -> torch.Tensor:
+    """`(*M, n)` rows -> the r = 1 syndrome stack `(*M, 1, n // G)`: its
+    only plane is the XOR parity."""
+    return xor_reduce_scatter(row, dim).unsqueeze(-2)
+
+
+def syndrome_apply_delta(synd: torch.Tensor, sdelta: torch.Tensor,
+                         dim: int) -> torch.Tensor:
+    """Bulk stack delta: `synd ^ reduce-scatter(sdelta)`, plane by plane.
+    `synd`: `(*M, r, s)`; `sdelta`: `(*M, r, n)` pre-weighted delta rows."""
+    return synd ^ xor_reduce_scatter(sdelta, dim)

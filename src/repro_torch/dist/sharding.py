@@ -1,0 +1,130 @@
+"""The zone model on one device: a mesh descriptor and zone-stacked tensors.
+
+The reference places each state leaf on a `jax.sharding.Mesh` with a
+`PartitionSpec`; every device holds one local shard.  Here the whole zone
+lives on one device, so a leaf is held **zone-stacked**:
+`(*mesh_dims, *local_shape)` — entry `[i, j, ...]` is what device
+`(i, j, ...)` of the mesh would hold.  Replicated axes are materialized as
+real copies, because copies can diverge (a rank loss garbles only the lost
+rank's copy of a data-replicated leaf) and the protection engine must see
+exactly what each device holds.
+
+`shard` / `unshard` move between a global tensor and its stacked form;
+`local_shape` is the spec-to-shard rule (`NamedSharding.shard_shape`).
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+
+
+class P(tuple):
+    """A partition spec: one entry per tensor dim — None (replicated), a
+    mesh axis name, or a tuple of names (major to minor).  Trailing dims
+    beyond the spec are replicated."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+class ZoneMesh:
+    """Stands in for `jax.sharding.Mesh`: named axes and their sizes.
+
+    The zone (parity group) runs along `data_axis`; every other mesh
+    coordinate holds an independent zone of G = size(data_axis) ranks.
+    """
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 data_axis: str = "data"):
+        self.shape = tuple(int(s) for s in shape)
+        self.axis_names = tuple(axis_names)
+        if len(self.shape) != len(self.axis_names):
+            raise ValueError(f"mesh shape {self.shape} does not match axis "
+                             f"names {self.axis_names}")
+        if data_axis not in self.axis_names:
+            raise ValueError(f"data axis {data_axis!r} not in mesh axes "
+                             f"{self.axis_names}")
+        self.data_axis = data_axis
+
+    def axis_size(self, name: str) -> int:
+        return self.shape[self.axis_names.index(name)]
+
+    @property
+    def data_dim(self) -> int:
+        """Position of the zone axis among the stacked leading dims."""
+        return self.axis_names.index(self.data_axis)
+
+    @property
+    def group_size(self) -> int:
+        return self.axis_size(self.data_axis)
+
+    def __repr__(self) -> str:
+        return (f"ZoneMesh({self.shape}, {self.axis_names}, "
+                f"data_axis={self.data_axis!r})")
+
+
+def _entries(spec, ndim: int) -> list:
+    """Spec -> one tuple of mesh axis names per tensor dim."""
+    spec = tuple(spec) if spec is not None else ()
+    if len(spec) > ndim:
+        raise ValueError(f"spec {spec} has more entries than {ndim} dims")
+    out = []
+    for e in spec + (None,) * (ndim - len(spec)):
+        out.append(() if e is None else ((e,) if isinstance(e, str)
+                                         else tuple(e)))
+    return out
+
+
+def local_shape(global_shape: Sequence[int], spec, mesh: ZoneMesh) -> tuple:
+    """Per-device shard shape of a leaf (`NamedSharding.shard_shape`)."""
+    out = []
+    for n, axes in zip(global_shape, _entries(spec, len(global_shape))):
+        k = math.prod(mesh.axis_size(a) for a in axes)
+        if n % k:
+            raise ValueError(f"dim of size {n} does not divide over mesh "
+                             f"axes {axes} of total size {k}")
+        out.append(n // k)
+    return tuple(out)
+
+
+def shard(x: torch.Tensor, spec, mesh: ZoneMesh) -> torch.Tensor:
+    """Global tensor -> zone-stacked `(*mesh.shape, *local_shape)`."""
+    entries = _entries(spec, x.dim())
+    dims, axis_pos, local_pos = [], {}, []
+    for n, axes in zip(x.shape, entries):
+        for a in axes:
+            axis_pos[a] = len(dims)
+            dims.append(mesh.axis_size(a))
+        local_pos.append(len(dims))
+        dims.append(n // math.prod(mesh.axis_size(a) for a in axes))
+    y = x.reshape(dims)
+    perm = []
+    for a in mesh.axis_names:
+        if a not in axis_pos:                 # replicated: a copy per coord
+            y = y.unsqueeze(-1)
+            axis_pos[a] = y.dim() - 1
+        perm.append(axis_pos[a])
+    y = y.permute(perm + local_pos)
+    return y.expand(*mesh.shape, *y.shape[len(mesh.shape):]).contiguous()
+
+
+def unshard(y: torch.Tensor, spec, mesh: ZoneMesh) -> torch.Tensor:
+    """Zone-stacked -> global tensor.  Along replicated axes the copy at
+    coordinate 0 is taken — the one `np.asarray` of a jax.Array shows."""
+    n_mesh = len(mesh.shape)
+    local = tuple(y.shape[n_mesh:])
+    entries = _entries(spec, len(local))
+    used = {a for axes in entries for a in axes}
+    idx = tuple(slice(None) if a in used else 0 for a in mesh.axis_names)
+    y = y[idx]
+    kept = [a for a in mesh.axis_names if a in used]
+    order, gshape = [], []
+    for i, axes in enumerate(entries):
+        order += [kept.index(a) for a in axes] + [len(kept) + i]
+        gshape.append(local[i] * math.prod(mesh.axis_size(a) for a in axes))
+    return y.permute(order).reshape(gshape)

@@ -1,0 +1,118 @@
+"""Build the CUDA kernels with nvcc and load them with ctypes.
+
+Each `csrc/<name>.cu` has a plain `extern "C"` launcher and compiles on
+its own into `build/repro_torch/<name>-<hash>.so` at the repo root (the
+hash covers the source and the flags, so an edited source never loads a
+stale library).  `build()` starts one nvcc per missing library, all at
+once, and waits for them; the first kernel call builds everything.
+
+Every launcher returns the `cudaError_t` of its launch, and `check`
+raises on a non-zero one.  `LAUNCHES` counts each entry point's kernel
+launches: a wrapper adds one right after its launch, and nowhere else,
+so a run can show which kernels its path went through.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("fletcher", "commit_fused")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+NVCC_TIMEOUT_S = 600
+
+LAUNCHES: dict = {}
+_libs: dict = {}
+_lock = threading.Lock()
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build where the "
+                           "CUDA toolkit is installed (set CUDA_HOME)")
+    return path
+
+
+def library_path(name: str) -> pathlib.Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{tag[:12]}.so"
+
+
+def build(names=SOURCES) -> dict:
+    """Compile every library not yet built; returns {name: path}."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    try:
+        for name in names:
+            out = library_path(name)
+            if out.exists():
+                continue
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            jobs.append((name, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        errors = []
+        for name, out, tmp, proc in jobs:
+            log, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
+            if proc.returncode:
+                errors.append(f"{name}.cu:\n{log}")
+            else:
+                os.replace(tmp, out)
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    finally:
+        for *_, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {name: library_path(name) for name in names}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for `csrc/<name>.cu` (built on first use)."""
+    with _lock:
+        if name not in _libs:
+            path = build()[name]
+            _libs[name] = ctypes.CDLL(str(path))
+        return _libs[name]
+
+
+def check(err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what}: kernel launch failed with cudaError_t "
+                           f"{err}")
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def check_pages(x, name: str) -> None:
+    """Raise unless `x` is what the page kernels take: a contiguous CUDA
+    int32 tensor of `(..., n, bw)` pages, bw % 4 == 0, 16-byte aligned."""
+    import torch
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {x.device}")
+    if x.dtype != torch.int32:
+        raise ValueError(f"{name}: expected int32 words, got {x.dtype}")
+    if x.dim() < 2 or x.shape[-1] % 4 or x.shape[-1] == 0:
+        raise ValueError(f"{name}: expected (..., n, bw) pages with "
+                         f"bw % 4 == 0, got {tuple(x.shape)}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{name}: pages must be contiguous and 16-byte "
+                         "aligned")

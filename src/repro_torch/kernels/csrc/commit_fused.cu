@@ -1,0 +1,149 @@
+// commit_pages<VERIFY, DIGEST>: the fused commit sweep on Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernels
+//   src/repro/kernels/commit_fused.py:83   fused_commit (_fused_kernel, :49)
+//   src/repro/kernels/commit_fused.py:103  _verify_call -> fused_verify_commit
+//                                          :120, fused_commit_old_terms :134
+//                                          (_fused_verify_kernel, :60)
+//   src/repro/kernels/commit_fused.py:393  _verify_stream_call ->
+//                                          fused_verify_commit_stream :406
+//                                          (_stream_verify_kernel, :307)
+// Those entry points compute one function; the streamed form only adds the
+// digest.  VERIFY=false, DIGEST=false is fused_commit; VERIFY=true is
+// fused_verify_commit (and fused_commit_old_terms with stored = 0, as the
+// reference does); VERIFY=true, DIGEST=true is fused_verify_commit_stream.
+//
+// Function, per page p of bw u32 words:
+//   delta[p]  = old[p] ^ new[p]
+//   terms[p]  = Fletcher (A, B) of new[p]
+//   mism[p]   = Fletcher (A, B) of old[p] ^ stored[p]          (VERIFY)
+//   digest[r] += (A, B + (n - 1 - local) * bw * A) of new[p]   (DIGEST)
+// The verdict bad = any(mism != 0) stays outside the kernel, as in the
+// reference (commit_fused.py:130).
+//
+// Bound: memory bytes — two page reads and one page write per page (the
+// term tables are 1/512 of that at bw = 1024); the integer work is ~7 ops
+// a word, far below the card's op rate.
+// Design: one CTA of 256 threads per page, one uint4 of old and of new per
+// thread (coalesced 16 B a thread), the delta stored as it is formed, the
+// two or four Fletcher sums accumulated in uint32 with natural wrap and
+// reduced with warp shuffles.  The per-rank digest is an exact integer
+// atomicAdd into a zeroed (ranks, 2) table.  One launch covers every rank.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+__device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// CTA-wide sum of K per-thread values; the result is valid in thread 0.
+template <int K>
+__device__ __forceinline__ void block_sum(uint32_t (&v)[K]) {
+  __shared__ uint32_t sh[K][kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    v[k] = warp_sum(v[k]);
+    if (lane == 0) sh[k][warp] = v[k];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      v[k] = warp_sum(lane < kWarps ? sh[k][lane] : 0u);
+  }
+}
+
+__device__ __forceinline__ void fletcher_add(const uint4 w, uint32_t wt,
+                                             uint32_t& a, uint32_t& b) {
+  a += w.x + w.y + w.z + w.w;
+  b += wt * w.x + (wt - 1u) * w.y + (wt - 2u) * w.z + (wt - 3u) * w.w;
+}
+
+template <bool VERIFY, bool DIGEST>
+__global__ void __launch_bounds__(kThreads)
+commit_pages(const uint32_t* __restrict__ old_w,
+             const uint32_t* __restrict__ new_w,
+             const uint32_t* __restrict__ stored, uint32_t* __restrict__ delta,
+             uint32_t* __restrict__ terms, uint32_t* __restrict__ mism,
+             uint32_t* __restrict__ digest, int bw, int pages_per_rank) {
+  const int64_t page = blockIdx.x;
+  const uint4* po = reinterpret_cast<const uint4*>(old_w + page * bw);
+  const uint4* pn = reinterpret_cast<const uint4*>(new_w + page * bw);
+  uint4* pd = reinterpret_cast<uint4*>(delta + page * bw);
+  // s[0], s[1]: new page's (A, B); s[2], s[3]: old page's (VERIFY)
+  uint32_t s[VERIFY ? 4 : 2] = {};
+  for (int v = threadIdx.x; v < bw / 4; v += kThreads) {
+    const uint4 o = po[v];
+    const uint4 n = pn[v];
+    pd[v] = make_uint4(o.x ^ n.x, o.y ^ n.y, o.z ^ n.z, o.w ^ n.w);
+    const uint32_t wt = static_cast<uint32_t>(bw - 4 * v);
+    fletcher_add(n, wt, s[0], s[1]);
+    if constexpr (VERIFY) fletcher_add(o, wt, s[2], s[3]);
+  }
+  block_sum(s);
+  if (threadIdx.x != 0) return;
+  terms[2 * page] = s[0];
+  terms[2 * page + 1] = s[1];
+  if constexpr (VERIFY) {
+    mism[2 * page] = s[2] ^ stored[2 * page];
+    mism[2 * page + 1] = s[3] ^ stored[2 * page + 1];
+  }
+  if constexpr (DIGEST) {
+    const int64_t rank = page / pages_per_rank;
+    const uint32_t local = static_cast<uint32_t>(page - rank * pages_per_rank);
+    const uint32_t after =
+        (static_cast<uint32_t>(pages_per_rank) - 1u - local) *
+        static_cast<uint32_t>(bw);
+    atomicAdd(&digest[2 * rank], s[0]);
+    atomicAdd(&digest[2 * rank + 1], s[1] + after * s[0]);
+  }
+}
+
+template <bool VERIFY, bool DIGEST>
+void launch(dim3 grid, cudaStream_t st, const void* o, const void* n,
+            const void* stored, void* d, void* t, void* m, void* g, int bw,
+            int ppr) {
+  commit_pages<VERIFY, DIGEST><<<grid, kThreads, 0, st>>>(
+      static_cast<const uint32_t*>(o), static_cast<const uint32_t*>(n),
+      static_cast<const uint32_t*>(stored), static_cast<uint32_t*>(d),
+      static_cast<uint32_t*>(t), static_cast<uint32_t*>(m),
+      static_cast<uint32_t*>(g), bw, ppr);
+}
+
+}  // namespace
+
+// old/new/delta: (n_pages, bw) u32, bw % 4 == 0, 16-byte aligned;
+// terms: (n_pages, 2); stored/mism: (n_pages, 2) (VERIFY only);
+// digest: (n_pages / pages_per_rank, 2), zeroed by the caller (DIGEST only).
+// Returns the cudaError_t of the launch.
+extern "C" int commit_pages_launch(const void* old_w, const void* new_w,
+                                   const void* stored, void* delta,
+                                   void* terms, void* mism, void* digest,
+                                   long long n_pages, int bw,
+                                   int pages_per_rank, int verify,
+                                   int with_digest, void* stream) {
+  if (n_pages == 0) return 0;
+  const dim3 grid(static_cast<unsigned>(n_pages));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (verify && with_digest)
+    launch<true, true>(grid, s, old_w, new_w, stored, delta, terms, mism,
+                       digest, bw, pages_per_rank);
+  else if (verify)
+    launch<true, false>(grid, s, old_w, new_w, stored, delta, terms, mism,
+                        digest, bw, pages_per_rank);
+  else if (with_digest)
+    launch<false, true>(grid, s, old_w, new_w, stored, delta, terms, mism,
+                        digest, bw, pages_per_rank);
+  else
+    launch<false, false>(grid, s, old_w, new_w, stored, delta, terms, mism,
+                         digest, bw, pages_per_rank);
+  return static_cast<int>(cudaGetLastError());
+}

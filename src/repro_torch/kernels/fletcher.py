@@ -1,0 +1,69 @@
+"""Per-page Fletcher-64 terms: the Hopper kernel's wrapper and plain version.
+
+The CUDA kernel `fletcher_pages<DIGEST>` (csrc/fletcher.cu) replaces the
+Pallas kernels `fletcher_blocks` (src/repro/kernels/fletcher.py:38) and
+`fletcher_stream` (:82).  It is bound by memory bytes: one read of every
+word, with the term table 1/512 of that at bw = 1024.  See the source for
+the design.
+
+Pages come as `(*lead, n, bw)` int32 words; every leading index is one
+rank, whose `n` pages get their own digest.  `fletcher_pages_plain` is the
+plain PyTorch version: the CPU path, and what the kernel is held against.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.checksum import combine
+from repro_torch.kernels import _build
+from repro_torch.utils import as_u64, sum32, wrap32
+
+
+def fletcher_pages_plain(blocks: torch.Tensor) -> torch.Tensor:
+    """`(*lead, n, bw)` -> `(*lead, n, 2)` terms (A, B) mod 2^32."""
+    bw = blocks.shape[-1]
+    if bw >= 1 << 20:
+        raise ValueError(f"block of {bw} words: int64 sums would overflow")
+    w = bw - torch.arange(bw, device=blocks.device)
+    u = as_u64(blocks)
+    return wrap32(torch.stack([sum32(u, -1), sum32(u * w, -1)], dim=-1))
+
+
+def fletcher_stream_plain(blocks: torch.Tensor) -> tuple:
+    """Terms plus each rank's `(*lead, 2)` row digest."""
+    terms = fletcher_pages_plain(blocks)
+    return terms, combine(terms, blocks.shape[-1])
+
+
+def _lib():
+    lib = _build.library("fletcher")
+    fn = lib.fletcher_pages_launch
+    if not fn.argtypes:                     # declared once per process
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
+    return fn
+
+
+def fletcher_pages_cuda(blocks: torch.Tensor, *, digest: bool,
+                        name: str) -> tuple:
+    """Launch `fletcher_pages<digest>` once over every rank's pages.
+
+    Returns (terms `(*lead, n, 2)`, digest `(*lead, 2)` or None) and counts
+    one launch under `name`.
+    """
+    _build.check_pages(blocks, name)
+    *lead, n, bw = blocks.shape
+    terms = torch.empty(*lead, n, 2, dtype=torch.int32, device=blocks.device)
+    dig = (torch.zeros(*lead, 2, dtype=torch.int32, device=blocks.device)
+           if digest else None)
+    err = _lib()(blocks.data_ptr(), terms.data_ptr(),
+                 dig.data_ptr() if digest else None, blocks.numel() // bw, bw, n,
+                 int(digest), torch.cuda.current_stream(
+                     blocks.device).cuda_stream)
+    _build.check(err, name)
+    _build.count_launch(name)
+    return terms, dig

@@ -1,0 +1,539 @@
+"""`Pool` — the Pangolin-style front door to the protection stack.
+
+The synchronous half of the reference's facade (pool.py): one object that
+owns the `Protector`, the `Scrubber` and every recovery path, so callers
+never touch that plumbing directly.
+
+    ================  =============================================
+    Pangolin          this library
+    ================  =============================================
+    pgl_open          Pool.open(state, specs, mesh=..., config=...)
+    pgl_begin/commit  with pool.transaction() as tx: tx.stage(new)
+                      (or pool.commit(new, ...) directly)
+    pgl_tx_abort      canary mismatch / exception inside the context
+    scrubbing thread  pool.maybe_scrub() on the commit cadence
+                      (pool.scrub() forces one)
+    SIGBUS handler    pool.recover(Fault.rank_loss(r))
+    corruption repair pool.recover(Fault.scribble(rank, pages))
+    ================  =============================================
+
+Callers hand the pool *global* tensors with their partition specs; the
+pool holds them zone-stacked on one device (dist/sharding.py), and
+`pool.state` gives the global view back.  The pool runs on `cuda` unless
+the caller passes `device="cpu"`; with no GPU present, the default raises.
+The pool holds the tensors it is given: stage a new tensor, do not
+mutate a staged one in place.
+
+Not in this port slice, and refused with `NotImplementedError` naming the
+ROADMAP slice that ports it: redundancy > 1, window > 1, pipeline_depth
+> 1, commit_async, rescale, tenancy and straggler mitigation.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch import utils
+from repro_torch.configs.base import ProtectConfig
+from repro_torch.core import microbuffer
+from repro_torch.core import recovery as recovery_mod
+from repro_torch.core.scrub import ScrubReport, Scrubber
+from repro_torch.core.txn import R_GE_2, Mode, ProtectedState, Protector
+from repro_torch.dist import sharding
+from repro_torch.obs import health as obs_health
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.trace import Tracer
+
+PyTree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class Fault:
+    """One recovery request — the argument to `Pool.recover`.
+
+        Fault.rank_loss(r)          one data-rank's row lost (media error)
+        Fault.scribble(rank, pages) silent corruption at (rank, page)s
+        Fault.multi_loss(*ranks)    e ranks lost at once (r >= 2 slice)
+        Fault.from_event(event)     adapt a runtime FailureEvent
+    """
+    kind: str                                   # rank_loss | multi_loss
+                                                # | scribble
+    rank: Optional[int] = None
+    ranks: Optional[Tuple[int, ...]] = None
+    locations: Optional[Tuple[Tuple[int, int], ...]] = None
+
+    @staticmethod
+    def rank_loss(rank: int) -> "Fault":
+        return Fault("rank_loss", rank=int(rank))
+
+    @staticmethod
+    def multi_loss(*ranks: int) -> "Fault":
+        dead = tuple(sorted(int(r) for r in ranks))
+        if len(set(dead)) != len(dead) or len(dead) < 2:
+            raise ValueError(
+                f"multi loss needs >= 2 distinct ranks, got {ranks}")
+        return Fault("multi_loss", ranks=dead)
+
+    @staticmethod
+    def scribble(rank: int, pages: Sequence[int]) -> "Fault":
+        return Fault("scribble",
+                     locations=tuple((int(rank), int(p)) for p in pages))
+
+    @classmethod
+    def from_event(cls, event) -> "Fault":
+        """Adapt a runtime/failure.py FailureEvent (duck-typed)."""
+        if event.kind == "rank_loss":
+            return cls.rank_loss(event.lost_rank)
+        if event.kind in ("multi_loss", "double_loss"):
+            return cls.multi_loss(*event.lost_ranks)
+        if event.kind == "scribble":
+            return cls("scribble",
+                       locations=tuple((int(r), int(p))
+                                       for r, p in event.locations))
+        raise ValueError(f"no recovery path for fault kind {event.kind!r}")
+
+
+class Transaction:
+    """`pgl_tx_begin .. pgl_tx_commit` as a context manager.
+
+    Stage the update with `stage(new_state)` (global tensors); register
+    canary-guarded staging buffers with `watch(...)`.  On exit the
+    canaries are verified and the staged state commits through the pool —
+    a smashed canary (or `abort()`) aborts without touching protected
+    state.  An exception inside the block also aborts and propagates.
+    """
+
+    def __init__(self, pool: "Pool", *, data_cursor=0, rng_key=None):
+        self._pool = pool
+        self._data_cursor = data_cursor
+        self._rng_key = rng_key
+        self._staged: Optional[PyTree] = None
+        self._commit_kw: dict = {}
+        self._guarded: list = []          # (buffer, nd) pairs
+        self._aborted = False
+        self._ok: Optional[torch.Tensor] = None
+
+    def stage(self, new_state: PyTree, *, dirty_pages=None,
+              verify_old: bool = False) -> None:
+        """Stage the transaction's result (the micro-buffer contents)."""
+        self._staged = new_state
+        self._commit_kw = {"dirty_pages": dirty_pages,
+                           "verify_old": verify_old}
+
+    def watch(self, guarded: torch.Tensor, *, nd: bool = False
+              ) -> torch.Tensor:
+        """Register a canary-guarded staging buffer for verification at
+        commit; returns the buffer unchanged for chaining."""
+        self._guarded.append((guarded, nd))
+        return guarded
+
+    def guard(self, row: torch.Tensor) -> torch.Tensor:
+        """Append a canary page to a 1-D int32 staging buffer and watch it."""
+        return self.watch(microbuffer.guard(row))
+
+    def abort(self) -> None:
+        """Abort explicitly: nothing commits when the block exits."""
+        self._aborted = True
+
+    @property
+    def canary_ok(self) -> bool:
+        """Host verdict over every watched guard page (True if none)."""
+        return all(bool(microbuffer.check_nd(b) if nd else
+                        microbuffer.check(b)) for b, nd in self._guarded)
+
+    @property
+    def aborted(self) -> bool:
+        return self._aborted
+
+    @property
+    def ok(self) -> bool:
+        """Did the commit land?  (Syncs on the commit's verdict.)"""
+        if self._aborted or self._ok is None:
+            return False
+        return bool(self._ok)
+
+    @property
+    def committed(self) -> bool:
+        """Alias of `ok` — True only when the commit actually landed,
+        including verdicts reached on the device (a verify-at-open
+        mismatch aborts after the host canary passed)."""
+        return self.ok
+
+    def __enter__(self) -> "Transaction":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if exc_type is not None:
+            self._aborted = True          # exception == pgl_tx_abort
+            return False                  # propagate
+        if self._staged is None:
+            return False                  # nothing staged: a no-op tx
+        canary_ok = (not self._aborted) and self.canary_ok
+        self._ok = self._pool.commit(
+            self._staged, data_cursor=self._data_cursor,
+            rng_key=self._rng_key, canary_ok=canary_ok, **self._commit_kw)
+        if not canary_ok:
+            self._aborted = True
+        return False
+
+
+class Pool:
+    """The single public entry point over one protected state layout."""
+
+    def __init__(self, mesh: sharding.ZoneMesh, abstract_state: PyTree,
+                 state_specs: PyTree,
+                 config: Optional[ProtectConfig] = None, *,
+                 device=None,
+                 on_freeze: Optional[Callable] = None,
+                 on_resume: Optional[Callable] = None,
+                 metrics: Optional[MetricsRegistry] = None,
+                 tracer: Optional[Tracer] = None):
+        self.config = config if config is not None else ProtectConfig()
+        gaps = self.config.unported()
+        if gaps:
+            raise NotImplementedError(
+                "not in this port slice: " + "; ".join(gaps))
+        self.device = utils.resolve_device(device)
+        self.mesh = mesh
+        self.state_specs = state_specs
+        self._spec_leaves = utils.tree_leaves(state_specs)
+        self.on_freeze = on_freeze
+        self.on_resume = on_resume
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.tracer = tracer if tracer is not None else Tracer()
+        self.protector = Protector(
+            mesh, abstract_state, state_specs,
+            mode=self.config.resolved_mode,
+            redundancy=self.config.resolved_redundancy,
+            block_words=self.config.block_words,
+            hybrid_threshold=self.config.hybrid_threshold,
+            log_capacity=self.config.log_capacity,
+            stream_threshold_words=self.config.stream_threshold_words,
+            stream_chunk_words=self.config.stream_chunk_words)
+        self.scrubber = Scrubber(self.protector,
+                                 period=self.config.scrub_period)
+        self.scrubber.metrics = self.metrics
+        self._due_scrubs = 0          # full_scrub_every cadence counter
+        self.prot: Optional[ProtectedState] = None
+        r_armed = self.redundancy if self.mode.has_parity else 0
+        self.metrics.gauge("pool_window").set(1)
+        self.metrics.gauge("pool_redundancy").set(r_armed)
+        self.metrics.gauge("pool_budget_remaining").set(r_armed)
+        self._m_commits = self.metrics.counter("pool_commits_total")
+        self._m_aborted = self.metrics.counter("pool_commit_aborted_total")
+        self._m_commit_ms = self.metrics.histogram("pool_commit_dispatch_ms")
+        # health bookkeeping (host flags; pool.health() folds these)
+        self._n_recoveries = 0
+        self._n_followups = 0
+        self._suspect = False
+        self._last_reverify_ok: Optional[bool] = None
+        self._unrepaired_pages = 0
+        # faults arriving while a recovery is in flight (from freeze /
+        # resume callbacks) queue here and drain after it
+        self._recovering = False
+        self._pending_faults: list = []
+
+    # -- open -------------------------------------------------------------------
+
+    @classmethod
+    def open(cls, state: PyTree, specs: PyTree, *, mesh: sharding.ZoneMesh,
+             config: Optional[ProtectConfig] = None, **kw) -> "Pool":
+        """The `pgl_open` analogue: protect `state` (global tensors or
+        numpy arrays, one spec each) and return the pool."""
+        state = utils.tree_map(torch.as_tensor, state)
+        pool = cls(mesh, state, specs, config, **kw)
+        return pool.init(state)
+
+    def init(self, state: PyTree) -> "Pool":
+        """Build parity/checksums/row for `state` (fresh protection)."""
+        self.prot = self.protector.init(self.to_zone(state))
+        self._unrepaired_pages = 0
+        self._last_reverify_ok = None
+        self._suspect = False
+        return self
+
+    def to_zone(self, state: PyTree) -> PyTree:
+        """Global tensors -> zone-stacked leaves on the pool's device."""
+        leaves, treedef = utils.tree_flatten(state)
+        if len(leaves) != len(self._spec_leaves):
+            raise ValueError(f"{len(leaves)} leaves for "
+                             f"{len(self._spec_leaves)} specs")
+        out = [sharding.shard(torch.as_tensor(x).to(self.device), spec,
+                              self.mesh)
+               for x, spec in zip(leaves, self._spec_leaves)]
+        return utils.tree_unflatten(treedef, out)
+
+    # -- introspection ----------------------------------------------------------
+
+    @property
+    def mode(self) -> Mode:
+        return self.protector.mode
+
+    @property
+    def redundancy(self) -> int:
+        return self.protector.redundancy
+
+    @property
+    def state(self) -> Optional[PyTree]:
+        """The live protected state as global tensors (along replicated
+        axes, the copy at mesh coordinate 0)."""
+        if self.prot is None:
+            return None
+        leaves, treedef = utils.tree_flatten(self.prot.state)
+        return utils.tree_unflatten(treedef, [
+            sharding.unshard(x, spec, self.mesh)
+            for x, spec in zip(leaves, self._spec_leaves)])
+
+    @property
+    def step(self) -> int:
+        """Committed transaction count (host value)."""
+        return int(self.prot.step) & 0xFFFFFFFF
+
+    def overhead_report(self) -> dict:
+        rep = self.protector.overhead_report()
+        rep["window"] = 1
+        return rep
+
+    def stats(self) -> dict:
+        """One host-side snapshot of the pool's telemetry (no device sync)."""
+        return {
+            "mode": self.mode.value,
+            "redundancy": self.redundancy,
+            "engine": "sync",
+            "window": 1,
+            "commits": int(self._m_commits.value),
+            "aborted_commits": int(self._m_aborted.value),
+            "commit_dispatch_ms": self._m_commit_ms.summary(),
+            "scrub": self.scrubber.coverage(),
+            "recoveries": self._n_recoveries,
+            "recovery_followups": self._n_followups,
+            "suspect": self._suspect,
+            "metrics": self.metrics.snapshot(),
+        }
+
+    def health(self) -> obs_health.HealthReport:
+        """Green / degraded / critical with named reasons (host state)."""
+        return obs_health.assess(
+            window=1, max_window=1, dropped_replicas=(),
+            suspect=self._suspect,
+            redundancy=self.redundancy if self.mode.has_parity else 0,
+            budget_exhausted=False,
+            scrub_coverage=self.scrubber.coverage(),
+            unrepaired_pages=self._unrepaired_pages,
+            reverify_failed=self._last_reverify_ok is False,
+            recoveries=self._n_recoveries,
+            recovery_followups=self._n_followups)
+
+    def commit_program(self, *, dirty_pages=None, verify_old: bool = False):
+        """The synchronous-commit function the facade routes through."""
+        return self.protector.commit_program(dirty_pages=dirty_pages,
+                                             verify_old=verify_old)
+
+    # -- commit -----------------------------------------------------------------
+
+    def commit(self, state_new: PyTree, *, dirty_pages=None, data_cursor=0,
+               rng_key=None, canary_ok: bool = True,
+               verify_old: bool = False) -> torch.Tensor:
+        """One transactional update of global `state_new`; returns the
+        verdict as a 0-d bool tensor (read it to sync)."""
+        if self.prot is None:
+            raise RuntimeError("Pool.commit before init()")
+        t0 = time.perf_counter()
+        self.prot, ok = self.commit_program(
+            dirty_pages=dirty_pages, verify_old=verify_old)(
+                self.prot, self.to_zone(state_new), data_cursor=data_cursor,
+                rng_key=rng_key, canary_ok=canary_ok)
+        self.scrubber.on_commit()
+        self._m_commits.inc()
+        if not canary_ok:
+            self._m_aborted.inc()
+        self._m_commit_ms.observe((time.perf_counter() - t0) * 1e3)
+        return ok
+
+    def transaction(self, *, data_cursor=0, rng_key=None) -> Transaction:
+        """`pgl_tx_begin`: returns the staging context manager."""
+        return Transaction(self, data_cursor=data_cursor, rng_key=rng_key)
+
+    def commit_async(self, *args, **kw):
+        raise NotImplementedError(
+            "commit_async: the async commit ring is a later port slice "
+            "(ROADMAP queue A, slice S3)")
+
+    def rescale(self, *args, **kw):
+        raise NotImplementedError(
+            "rescale: elastic resize is a later port slice (ROADMAP "
+            "queue A, slice S6)")
+
+    # -- scrub ------------------------------------------------------------------
+
+    def scrub(self) -> ScrubReport:
+        """Force one global scrub; repairs detected scribbles in place."""
+        if self.prot is None:
+            raise RuntimeError("Pool.scrub before init()")
+        with self.tracer.span("scrub", scope="full") as span:
+            self.prot, report = self.scrubber.run(
+                self.prot, freeze=self._freeze, resume=self._resume)
+            span.annotate(suspect=bool(report.suspect),
+                          bad_pages=len(report.bad_locations),
+                          repaired=bool(report.repaired))
+        self._fold_scrub_health(report)
+        repaired_ok = report.repaired and bool(report.repair_ok)
+        if report.bad_locations and not repaired_ok:
+            self._unrepaired_pages = len(report.bad_locations)
+        else:
+            self._unrepaired_pages = 0
+        return report
+
+    def precheck(self) -> ScrubReport:
+        """The rank-local syndrome scrub: state blocks vs checksums,
+        row-cache coherence and the folded-syndrome compare."""
+        if self.prot is None:
+            raise RuntimeError("Pool.precheck before init()")
+        with self.tracer.span("scrub", scope="precheck") as span:
+            report = self.scrubber.precheck(self.prot)
+            span.annotate(suspect=bool(report.suspect))
+        self._fold_scrub_health(report)
+        return report
+
+    def _fold_scrub_health(self, report: ScrubReport) -> None:
+        """Suspicion follows the latest checked pass; a clean pass also
+        retires a stale reverify-failed flag."""
+        if not report.checked:
+            return
+        self._suspect = bool(report.suspect)
+        if not report.suspect:
+            self._last_reverify_ok = None
+
+    def maybe_scrub(self) -> Optional[ScrubReport]:
+        """Run a scrub iff the cadence says one is due.  With
+        `full_scrub_every = N > 1` a due scrub first runs the pre-check;
+        only every Nth due scrub, or a suspect pre-check, goes global."""
+        if not self.scrubber.due():
+            return None
+        n = self.config.full_scrub_every
+        self._due_scrubs += 1
+        if n > 1 and self._due_scrubs % n:
+            report = self.precheck()
+            if not report.suspect:
+                self.scrubber.mark_checked()
+                return report
+        return self.scrub()
+
+    # -- recovery ---------------------------------------------------------------
+
+    def recover(self, fault: Fault, *, reverify: bool = True
+                ) -> Optional[recovery_mod.RecoveryReport]:
+        """One recovery path for every fault (the SIGBUS-handler analogue).
+
+        `reverify=True` re-runs the full syndrome/checksum verification
+        after reconstruction (`report.synd_ok`, `report.reverified`).  A
+        fault arriving while a recovery is in flight is queued and drained
+        after it; that call returns None and the outer report counts it in
+        `followups`.
+        """
+        if self.prot is None:
+            raise RuntimeError("Pool.recover before init()")
+        if not isinstance(fault, Fault):
+            fault = Fault.from_event(fault)   # accept raw FailureEvents
+        if self._recovering:
+            self._pending_faults.append((fault, time.perf_counter()))
+            self.metrics.counter("pool_recovery_queued_total").inc()
+            return None
+        self._recovering = True
+        try:
+            rep = self._recover_one(fault, reverify=reverify)
+            drained = 0
+            while self._pending_faults:
+                qfault, t_enq = self._pending_faults.pop(0)
+                self._recover_one(
+                    qfault, reverify=reverify,
+                    queue_wait_ms=(time.perf_counter() - t_enq) * 1e3)
+                drained += 1
+            rep.followups = drained
+            self._n_followups += drained
+            return rep
+        finally:
+            self._recovering = False
+            self._pending_faults.clear()
+
+    def _recover_one(self, fault: Fault, *, reverify: bool,
+                     queue_wait_ms: Optional[float] = None
+                     ) -> recovery_mod.RecoveryReport:
+        t_total = time.perf_counter()
+        with self.tracer.span("recovery", fault_kind=fault.kind) as span:
+            if fault.kind == "rank_loss":
+                prot, rep = recovery_mod.recover_from_rank_loss(
+                    self.protector, self.prot, fault.rank,
+                    freeze=self._freeze, resume=self._resume)
+            elif fault.kind == "scribble":
+                prot, rep = recovery_mod.recover_from_scribble(
+                    self.protector, self.prot, fault.locations,
+                    freeze=self._freeze, resume=self._resume)
+            elif fault.kind == "multi_loss":
+                raise NotImplementedError(f"Fault.multi_loss: {R_GE_2}")
+            else:
+                raise ValueError(
+                    f"no recovery path for fault {fault.kind!r}")
+            self.prot = prot
+            if reverify:
+                t_rv = time.perf_counter()
+                self._reverify(rep)
+                rep.reverify_ms = (time.perf_counter() - t_rv) * 1e3
+            rep.queue_wait_ms = queue_wait_ms
+            rep.total_ms = (time.perf_counter() - t_total) * 1e3
+            self._publish_recovery(rep)
+            ev = rep.to_event()
+            # the span's own `kind` ("recovery") wins; the report's kind
+            # rides as recovery_kind
+            ev["recovery_kind"] = ev.pop("kind")
+            span.annotate(**ev)
+            return rep
+
+    def _publish_recovery(self, rep: recovery_mod.RecoveryReport) -> None:
+        self._suspect = True                  # until the next clean scrub
+        self._n_recoveries += 1
+        self._last_reverify_ok = rep.reverified
+        reg = self.metrics
+        reg.counter("pool_recoveries_total", kind=rep.kind).inc()
+        for name, v in (("pool_recovery_solve_ms", rep.solve_ms),
+                        ("pool_recovery_reverify_ms", rep.reverify_ms),
+                        ("pool_recovery_queue_wait_ms", rep.queue_wait_ms),
+                        ("pool_recovery_total_ms", rep.total_ms)):
+            if v is not None:
+                reg.histogram(name).observe(v)
+        if rep.reverified is False:
+            reg.counter("pool_reverify_failed_total").inc()
+
+    def _reverify(self, rep: recovery_mod.RecoveryReport) -> None:
+        """Re-run the syndrome / checksum / row-cache verification after a
+        reconstruction; folds the verdict into the report."""
+        mode = self.protector.mode
+        if not (mode.has_parity or mode.has_cksums):
+            return
+        out = self.protector.scrub(self.prot)
+        ok = True
+        if "synd_ok" in out:
+            rep.synd_ok = [bool(v) for v in out["synd_ok"].tolist()]
+            ok = ok and all(rep.synd_ok)
+        if "bad_pages" in out:
+            ok = ok and not bool(out["bad_pages"].any())
+        if "row_cache_ok" in out:
+            ok = ok and bool(out["row_cache_ok"])
+        rep.reverified = ok
+        rep.verified = bool(rep.verified) and ok
+
+    # -- freeze/resume hooks ----------------------------------------------------
+
+    def _freeze(self):
+        """Paper's pool freeze: drain outstanding work before repair."""
+        if self.on_freeze is not None:
+            self.on_freeze()
+        elif self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _resume(self):
+        if self.on_resume is not None:
+            self.on_resume()

@@ -73,3 +73,8 @@ def tiny_dense_cfg():
         name="t_dense", family="dense", n_layers=2, d_model=32, n_heads=4,
         n_kv=2, d_ff=64, vocab=128, param_dtype="float32",
         compute_dtype="float32")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skips where CUDA is absent)")

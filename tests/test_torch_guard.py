@@ -1,0 +1,77 @@
+"""Guards on the port's boundary: the package and chip_smoke.py import
+neither JAX nor the reference; configurations this slice does not run are
+refused, never downgraded; and the pool's default device is the card."""
+import ast
+import pathlib
+
+import pytest
+import torch
+
+from repro_torch import P, Pool, ProtectConfig, ZoneMesh
+from repro_torch.core.txn import Protector
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_warm_commits.py"]
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_the_reference(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: {name}"
+
+
+def _tiny():
+    mesh = ZoneMesh((4, 1), ("data", "model"))
+    state = {"w": torch.zeros(8, 16)}
+    return mesh, state, {"w": P("data")}
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(redundancy=2), dict(mode="mlpc2"), dict(window=4),
+    dict(pipeline_depth=2), dict(overlap_commit=True),
+    dict(straggler_threshold=1.5)])
+def test_unported_configurations_raise(cfg):
+    mesh, state, specs = _tiny()
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
+        Pool.open(state, specs, mesh=mesh, config=ProtectConfig(**cfg),
+                  device="cpu")
+
+
+def test_unported_entry_points_raise():
+    mesh, state, specs = _tiny()
+    pool = Pool.open(state, specs, mesh=mesh, device="cpu")
+    with pytest.raises(NotImplementedError, match="S3"):
+        pool.commit_async(state)
+    with pytest.raises(NotImplementedError, match="S6"):
+        pool.rescale(mesh)
+    with pytest.raises(NotImplementedError, match="S1"):
+        Protector(mesh, state, specs, mode="mlp", redundancy=2)
+    from repro_torch import Fault
+    with pytest.raises(NotImplementedError, match="S1"):
+        pool.recover(Fault.multi_loss(0, 1))
+
+
+def test_default_device_is_the_card(monkeypatch):
+    from repro_torch import convert
+    from repro_torch.runtime import failure
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mesh, state, specs = _tiny()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Pool.open(state, specs, mesh=mesh)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        failure.smashed_canary_buffer(64)
+    fields = {"state": {"w": state["w"].numpy()}, "step": 0}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.to_port(fields)
+    assert convert.to_port(fields, device="cpu").step.device.type == "cpu"
