@@ -1,28 +1,39 @@
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
-1. Card and build: the card's name and power limit; both CUDA kernels
-   built from src/repro_torch/kernels/csrc/ (one nvcc per source, in
-   parallel), with the build time.
+1. Card and build: the card's name and power limit; the three CUDA
+   libraries built from src/repro_torch/kernels/csrc/ (one nvcc per
+   source, in parallel), with the build time.
 2. Kernels against their plain PyTorch versions on the card, byte for
-   byte: each of the six entry points at the main path's shape — 100
+   byte: each of the fifteen entry points at the main path's shape — 100
    ranks x 2600 pages of 1024 words, with `stored` corrupted on a few
-   pages — and at edge shapes (1 page, 13 pages, 64-word pages); then each
-   timed with CUDA events (median of 12 runs after warm-up) beside its
-   plain version and its least time on the card.
-3. The main path at the pool size of Pangolin's headline figure: a zone of
-   G = 100 data ranks holding about 1.065 GB of rows (2600 pages a rank),
-   so the parity is about 1% of the pool.  Through `Pool`, with random
-   weights from a seed: open (mlpc, r = 1), a bulk transaction with
+   pages, the syndrome sweeps at r = 3 — at the 16-page patch shape, and at
+   edge shapes (1 page, 13 pages, 64-word pages; the syndrome sweeps at
+   r = 2 and r = 4); then each timed at the main path's shape with CUDA
+   events (median of 12 runs after warm-up) beside its plain version, its
+   least time on the card (by bytes, and by the integer operations of the
+   byte-table GF multiply) and the integer-op time of the 32-step multiply
+   it runs.
+3. The r = 1 main path at the pool size of Pangolin's headline figure: a
+   zone of G = 100 data ranks holding about 1.065 GB of rows (2600 pages a
+   rank), so the parity is about 1% of the pool.  Through `Pool`, with
+   random weights from a seed: open (mlpc, r = 1), a bulk transaction with
    verify, a bulk commit, 16-page patches with and without verify, the
    same patch on an mlp pool, rank loss + recover, scribble + scrub +
-   repair, canary abort.  After each phase the invariants are recomputed
-   with the plain versions: synd = XOR fold of the rows, cksums = Fletcher
-   terms of the rows, digest = combine(cksums), row = flatten(state).
-4. The kernel launches of the main path (every count zeroed just before
-   it, read just after); each of the six entry points must have run.
-5. Peak device memory of the main path.
+   repair, canary abort.
+4. The r = 3 main path on the same zone: open (mlpc, redundancy 3), a bulk
+   transaction with verify (streamed), a bulk commit, 16-page patches with
+   and without verify, the patch on an mlp r = 3 pool, the pre-check, the
+   loss of ranks 5, 37 and 99 at once recovered by `Fault.multi_loss`
+   (the rebuilt rows must equal a copy taken before the loss), a scrub.
+5. After each phase the invariants are recomputed apart from the engine:
+   every syndrome plane k = XOR over ranks i of g^(k·i)·row_i, built rank by
+   rank with the plain GF multiply; cksums = Fletcher terms of the rows;
+   digest = combine(cksums); row = flatten(state).
+6. Each path's kernel launches (every count zeroed just before the path,
+   read just after); every entry point of the path must have run.  Peak
+   device memory of each path.
 
 Every phase raises on failure.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -46,24 +57,95 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 G, PAGES, BW = 100, 2600, 1024
-LOST, SCRIBBLED = 37, 5        # the ranks phases f and g damage
+R = 3                          # the redundancy of the r >= 2 main path
+LOST, SCRIBBLED = 37, 5        # the ranks the r = 1 path damages
+MULTI_LOST = (5, 37, 99)       # the ranks the r = 3 path loses at once
 SEED = 0
 
-KERNELS = {   # entry point: (CUDA source, TPU kernel replaced, int ops/word)
-    "fletcher_blocks": ("src/repro_torch/kernels/csrc/fletcher.cu",
-                        "src/repro/kernels/fletcher.py:38", 3),
-    "fletcher_stream": ("src/repro_torch/kernels/csrc/fletcher.cu",
-                        "src/repro/kernels/fletcher.py:82", 3),
-    "fused_commit": ("src/repro_torch/kernels/csrc/commit_fused.cu",
-                     "src/repro/kernels/commit_fused.py:83", 4),
-    "fused_verify_commit": ("src/repro_torch/kernels/csrc/commit_fused.cu",
-                            "src/repro/kernels/commit_fused.py:103", 7),
-    "fused_commit_old_terms": ("src/repro_torch/kernels/csrc/commit_fused.cu",
-                               "src/repro/kernels/commit_fused.py:103", 7),
-    "fused_verify_commit_stream": (
-        "src/repro_torch/kernels/csrc/commit_fused.cu",
-        "src/repro/kernels/commit_fused.py:393", 7),
+# Integer ops a word of each function, for its operation bound.  Fletcher
+# (A, B) of a word: an add, a multiply, an add (3); the XOR delta adds 1.
+# The GF(2^32) product by a constant c in its cheapest known form, the
+# byte-table multiply: c·x = T0[x & 255] ^ T1[(x >> 8) & 255] ^ ... with
+# four 256-entry tables of c·(b << 8j), so 4 lookups and 3 XORs (7) a word
+# for each weighted plane (plane 0 is the raw delta, g^0 = 1).  The byte
+# selects are not counted, so this is a floor.  Even timed at the shared
+# memory's 32 lanes an SM a clock, the lookups of an r = 3 sweep take a
+# sixth of its bytes bound: the bytes bind every GF function.
+GF_TABLE_OPS = 7
+
+
+# The cost of this implementation's multiply, reported beside the bound and
+# not a bound: 32 steps of acc ^= cur & bit mask; cur = (cur << 1) ^ (sign
+# mask & POLY).  The compiled sweeps form the doubling chain cur = x·g^i
+# once a word for every plane (2 ALU instructions a step: SHF for the sign
+# mask, LOP3 for the xor; the shift left issues on the FMA pipe) and add one
+# LOP3 a step for each weighted plane (scripts/torch_sass_counts.py).
+def clmul_ops(planes):
+    return 32 * (2 + planes) if planes else 0
+
+
+def no_gf(r):
+    return 0
+
+
+def weighted(r):
+    return r - 1
+
+
+CUDA = "src/repro_torch/kernels/csrc/"
+KERNELS = {   # entry point: (CUDA source, TPU kernel replaced, ops a word
+    #                besides the GF multiply, weighted planes(r))
+    "fletcher_blocks": (CUDA + "fletcher.cu",
+                        "src/repro/kernels/fletcher.py:38", 3, no_gf),
+    "fletcher_stream": (CUDA + "fletcher.cu",
+                        "src/repro/kernels/fletcher.py:82", 3, no_gf),
+    "fused_commit": (CUDA + "commit_fused.cu",
+                     "src/repro/kernels/commit_fused.py:83", 4, no_gf),
+    "fused_verify_commit": (CUDA + "commit_fused.cu",
+                            "src/repro/kernels/commit_fused.py:103", 7,
+                            no_gf),
+    "fused_commit_old_terms": (CUDA + "commit_fused.cu",
+                               "src/repro/kernels/commit_fused.py:103", 7,
+                               no_gf),
+    "fused_verify_commit_stream": (CUDA + "commit_fused.cu",
+                                   "src/repro/kernels/commit_fused.py:393",
+                                   7, no_gf),
+    "fused_commit_stream": (CUDA + "commit_fused.cu",
+                            "src/repro/kernels/commit_fused.py:377", 4,
+                            no_gf),
+    "fused_commit_old_terms_stream": (CUDA + "commit_fused.cu",
+                                      "src/repro/kernels/commit_fused.py:393",
+                                      7, no_gf),
+    "gf_scale": (CUDA + "gf_parity.cu", "src/repro/kernels/gf_parity.py:83",
+                 0, lambda r: 1),
+    "sdelta_stack": (CUDA + "gf_parity.cu",
+                     "src/repro/kernels/gf_parity.py:224", 0, weighted),
+    "fused_commit_s": (CUDA + "gf_parity.cu",
+                       "src/repro/kernels/gf_parity.py:151", 4, weighted),
+    "fused_verify_commit_s": (CUDA + "gf_parity.cu",
+                              "src/repro/kernels/gf_parity.py:151", 7,
+                              weighted),
+    "fused_commit_old_terms_s": (CUDA + "gf_parity.cu",
+                                 "src/repro/kernels/gf_parity.py:151", 7,
+                                 weighted),
+    "fused_commit_s_stream": (CUDA + "gf_parity.cu",
+                              "src/repro/kernels/gf_parity.py:311", 4,
+                              weighted),
+    "fused_verify_commit_s_stream": (CUDA + "gf_parity.cu",
+                                     "src/repro/kernels/gf_parity.py:311", 7,
+                                     weighted),
 }
+# the entry points each main path must launch
+PATH_R1 = ("fletcher_blocks", "fletcher_stream", "fused_commit",
+           "fused_verify_commit", "fused_commit_old_terms",
+           "fused_verify_commit_stream")
+PATH_R3 = ("gf_scale", "sdelta_stack", "fused_commit_s",
+           "fused_verify_commit_s", "fused_commit_old_terms_s",
+           "fused_verify_commit_s_stream")
+# the entry points that take the syndrome coefficients (checked at each r)
+WITH_R = ("gf_scale", "sdelta_stack", "fused_commit_s",
+          "fused_verify_commit_s", "fused_commit_old_terms_s",
+          "fused_commit_s_stream", "fused_verify_commit_s_stream")
 
 
 def emit(**kw):
@@ -77,12 +159,26 @@ def check(cond, what):
 
 # -- 2. kernels against their plain versions ---------------------------------
 
-def entry_calls(ops, fl, cf, old, new, stored):
-    """{name: (kernel call, plain call)}; each returns a tuple of tensors."""
+def entry_calls(old, new, stored, coeffs, scale_x):
+    """{name: (kernel call, plain call)}; each returns a tuple of tensors.
+    Pages `(*lead, n, bw)`; `coeffs` the `(*lead, r)` table of the
+    syndrome entry points (r >= 2); `scale_x` the words gf_scale takes."""
+    from repro_torch.kernels import commit_fused as cf
+    from repro_torch.kernels import fletcher as fl
+    from repro_torch.kernels import gf_parity as gfk
+    from repro_torch.kernels import ops
     zeros = torch.zeros_like(stored)
+    rows = new.reshape(*new.shape[:-2], -1)
+    c_last = int(coeffs.reshape(-1)[-1]) & 0xFFFFFFFF
 
     def bad(t):
         return (t != 0).any(-1)
+
+    def s_plain(st=None, digest=False, keep=(0, 1, 2, 3)):
+        out = gfk.syndrome_pages_plain(old, new, coeffs, st, digest)
+        out = (out[0], out[1], bad(out[2]) if st is stored else out[2],
+               out[3])
+        return tuple(out[i] for i in keep)
     return {
         "fletcher_blocks": (lambda: (ops.fletcher_blocks(new),),
                             lambda: (fl.fletcher_pages_plain(new),)),
@@ -101,22 +197,55 @@ def entry_calls(ops, fl, cf, old, new, stored):
             lambda: ops.fused_verify_commit_stream(old, new, stored),
             lambda: (lambda d, t, m, g: (d, t, bad(m), g))(
                 *cf.commit_pages_plain(old, new, stored, digest=True))),
+        "fused_commit_stream": (
+            lambda: ops.fused_commit_stream(old, new),
+            lambda: (lambda d, t, _, g: (d, t, g))(
+                *cf.commit_pages_plain(old, new, digest=True))),
+        "fused_commit_old_terms_stream": (
+            lambda: ops.fused_commit_old_terms_stream(old, new),
+            lambda: cf.commit_pages_plain(old, new, zeros, digest=True)),
+        "gf_scale": (lambda: (ops.gf_scale(scale_x, c_last),),
+                     lambda: (gfk.gf_scale_plain(scale_x, c_last),)),
+        "sdelta_stack": (lambda: (ops.syndrome_scale(rows, coeffs),),
+                         lambda: (gfk.sdelta_stack_plain(rows, coeffs),)),
+        "fused_commit_s": (lambda: ops.fused_commit_s(old, new, coeffs),
+                           lambda: s_plain(keep=(0, 1))),
+        "fused_verify_commit_s": (
+            lambda: ops.fused_verify_commit_s(old, new, stored, coeffs),
+            lambda: s_plain(stored, keep=(0, 1, 2))),
+        "fused_commit_old_terms_s": (
+            lambda: ops.fused_commit_old_terms_s(old, new, coeffs),
+            lambda: s_plain(zeros, keep=(0, 1, 2))),
+        "fused_commit_s_stream": (
+            lambda: ops.fused_commit_s_stream(old, new, coeffs),
+            lambda: s_plain(digest=True, keep=(0, 1, 3))),
+        "fused_verify_commit_s_stream": (
+            lambda: ops.fused_verify_commit_s_stream(old, new, stored,
+                                                     coeffs),
+            lambda: s_plain(stored, digest=True)),
     }
 
 
-def io_bytes(name, n_pages, ranks):
+def io_bytes(name, n_pages, ranks, r, scale_words):
     """Bytes the function must move: each input read once, each output
-    written once (terms 8 B a page, bad 1 B a page, digest 8 B a rank)."""
+    written once (terms 8 B a page, bad 1 B a page, digest 8 B a rank, the
+    coefficient table 4 B a rank a plane)."""
     page = BW * 4
-    reads = {"fletcher_blocks": n_pages * page,
-             "fletcher_stream": n_pages * page}.get(name, 2 * n_pages * page)
+    if name == "gf_scale":
+        return 2 * scale_words * 4
+    if name == "sdelta_stack":
+        return n_pages * page * (1 + r) + ranks * r * 4
+    syndrome = name.endswith("_s") or name.endswith("_s_stream")
+    reads = n_pages * page * (1 if name.startswith("fletcher") else 2)
     writes = n_pages * 8                                  # new terms
     if name.startswith("fused"):
-        writes += n_pages * page                          # delta
+        writes += n_pages * page * (r if syndrome else 1)  # delta planes
+    if syndrome:
+        reads += ranks * r * 4                            # coefficients
     if "verify" in name:
         reads += n_pages * 8                              # stored terms
         writes += n_pages                                 # bad
-    if name == "fused_commit_old_terms":
+    if "old_terms" in name:
         writes += n_pages * 8                             # old terms
     if name.endswith("stream"):
         writes += ranks * 8                               # digest
@@ -125,6 +254,7 @@ def io_bytes(name, n_pages, ranks):
 
 def max_abs_err(got, want):
     err = 0
+    check(len(got) == len(want), f"{len(got)} outputs vs {len(want)}")
     for a, b in zip(got, want):
         check(a.shape == b.shape and a.dtype == b.dtype,
               f"output {tuple(a.shape)} {a.dtype} vs {tuple(b.shape)} "
@@ -153,63 +283,105 @@ def cuda_ms(fn, runs=12, warm=2):
     return statistics.median(times)
 
 
+def coeff_table(lead, r, dev):
+    """Each leading index's syndrome coefficients: ranks of a G = 100 zone
+    (the main path's own table for (G, 1) leads, else its last ranks)."""
+    from repro_torch import ZoneMesh
+    from repro_torch.core import gf
+    if tuple(lead) == (G, 1):
+        return gf.rank_syndrome_coeffs(G, r, ZoneMesh((G, 1), ("data", "m")),
+                                       dev)
+    n = 1
+    for d in lead:
+        n *= d
+    table = torch.from_numpy(gf.syndrome_array(G, r)[G - n:].view("int32"))
+    return table.reshape(*lead, r).to(dev)
+
+
 def kernels_vs_plain(dev):
-    from repro_torch.kernels import commit_fused as cf
-    from repro_torch.kernels import fletcher as fl
-    from repro_torch.kernels import ops
+    from repro_torch.kernels.fletcher import fletcher_pages_plain
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def pages(shape):
         return torch.randint(-2**31, 2**31, shape, dtype=torch.int32,
                              device=dev, generator=gen)
 
-    shapes = [(G, 1, PAGES, BW), (G, 1, 16, BW), (1, BW), (13, BW),
-              (3, 13, 64)]
+    seg = PAGES * BW // G
+    # (page shape, the syndrome sweeps' r values); the first is the main
+    # path's full-row shape, the second its 16-page patch
+    shapes = [((G, 1, PAGES, BW), (R,)), ((G, 1, 16, BW), (R,)),
+              ((1, BW), (2, 4)), ((13, BW), (2, 4)), ((3, 13, 64), (2, 4))]
     timing = {}
-    for shape in shapes:
+    for shape, rs in shapes:
         old, new = pages(shape), pages(shape)
-        stored = fl.fletcher_pages_plain(old)
+        stored = fletcher_pages_plain(old)
         stored[..., ::997, 1] ^= 1                 # a few corrupted pages
-        calls = entry_calls(ops, fl, cf, old, new, stored)
-        for name, (kernel, plain) in calls.items():
-            got = kernel()
-            torch.cuda.synchronize()
-            err = max_abs_err(got, plain())
-            check(err == 0, f"{name} at {shape}: kernel != plain (err {err})")
-            if shape == shapes[0]:
-                n_pages = old.numel() // BW
-                nbytes = io_bytes(name, n_pages, G)
-                ops_n = KERNELS[name][2] * old.numel()
-                bound_b = nbytes / HBM_BYTES_PER_S * 1e3
-                bound_o = ops_n / INT32_OPS_PER_S * 1e3
-                timing[name] = dict(
-                    shape=list(shape), bytes=nbytes, max_abs_err=err,
-                    kernel_ms=cuda_ms(kernel), plain_ms=cuda_ms(plain, runs=5),
-                    bound_ms=max(bound_b, bound_o),
-                    bound_by="bytes" if bound_b >= bound_o else "operations")
-        del old, new, stored, calls
+        main = shape == shapes[0][0]
+        # gf_scale takes one (G, 1, seg) deficit plane on the main path
+        scale_x = (new.reshape(G, 1, -1)[..., :seg].contiguous() if main
+                   else new)
+        for i, r in enumerate(rs):
+            coeffs = coeff_table(shape[:-2], r, dev)
+            calls = entry_calls(old, new, stored, coeffs, scale_x)
+            for name, (kernel, plain) in calls.items():
+                if i and name not in WITH_R:
+                    continue                   # r-free: checked once
+                got = kernel()
+                torch.cuda.synchronize()
+                err = max_abs_err(got, plain())
+                check(err == 0, f"{name} at {shape}, r = {r}: kernel != "
+                      f"plain (err {err})")
+                if main:
+                    n_pages = old.numel() // BW
+                    nbytes = io_bytes(name, n_pages, G, r, scale_x.numel())
+                    words = (scale_x.numel() if name == "gf_scale"
+                             else old.numel())
+                    base, planes = KERNELS[name][2], KERNELS[name][3](r)
+                    ops_n = (base + GF_TABLE_OPS * planes) * words
+                    algo_n = (base + clmul_ops(planes)) * words
+                    bound_b = nbytes / HBM_BYTES_PER_S * 1e3
+                    bound_o = ops_n / INT32_OPS_PER_S * 1e3
+                    timing[name] = dict(
+                        shape=list(scale_x.shape if name == "gf_scale"
+                                   else shape),
+                        r=r if name in WITH_R else None, bytes=nbytes,
+                        int_ops=ops_n, max_abs_err=err,
+                        clmul_ops_ms=algo_n / INT32_OPS_PER_S * 1e3,
+                        kernel_ms=cuda_ms(kernel),
+                        plain_ms=cuda_ms(plain, runs=5),
+                        bound_bytes_ms=bound_b, bound_ops_ms=bound_o,
+                        bound_ms=max(bound_b, bound_o),
+                        bound_by="bytes" if bound_b >= bound_o
+                        else "operations")
+            del calls, coeffs
+        del old, new, stored, scale_x
         torch.cuda.empty_cache()
-        emit(phase="kernels_vs_plain", shape=list(shape), equal=True)
+        emit(phase="kernels_vs_plain", shape=list(shape), r=list(rs),
+             equal=True)
     return timing
 
 
-# -- 3. the main path --------------------------------------------------------
+# -- 3.-5. the main paths ----------------------------------------------------
 
 def invariants(pool, tag):
-    """Recompute the protection with the plain versions and compare."""
-    from repro_torch.core import checksum, layout
+    """Recompute the protection apart from the engine and compare: each
+    syndrome plane k is the XOR over ranks i of g^(k·i)·row_i, folded rank
+    by rank with the plain GF multiply (no code shared with the engine's
+    folds or kernels); rank i holds segment i of every plane."""
+    from repro_torch.core import checksum, gf, layout
     from repro_torch.kernels.fletcher import fletcher_pages_plain
     prot, lo, mode = pool.prot, pool.protector.layout, pool.mode
     rows = layout.flatten_row(lo, prot.state)
     check(torch.equal(rows, prot.row), f"{tag}: row cache != flatten(state)")
     if mode.has_parity:
-        # XOR of the G rows, one rank at a time (no code shared with the
-        # engine's folds); rank i holds segment i of it
         dd = pool.mesh.data_dim
-        fold = functools.reduce(torch.bitwise_xor, rows.unbind(dd))
-        segs = fold.reshape(*fold.shape[:-1], G, -1).movedim(-2, dd)
-        check(torch.equal(prot.synd[..., 0, :], segs),
-              f"{tag}: synd != fold of rows")
+        for k in range(pool.redundancy):
+            fold = functools.reduce(torch.bitwise_xor, (
+                gf.mul_const(row_i, gf.pow_g_int(k * i)) if k else row_i
+                for i, row_i in enumerate(rows.unbind(dd))))
+            segs = fold.reshape(*fold.shape[:-1], G, -1).movedim(-2, dd)
+            check(torch.equal(prot.synd[..., k, :], segs),
+                  f"{tag}: syndrome plane {k} != weighted fold of rows")
     terms = fletcher_pages_plain(rows.reshape(*rows.shape[:-1], -1, BW))
     if mode.has_cksums:
         check(torch.equal(prot.cksums, terms), f"{tag}: cksums != terms")
@@ -259,37 +431,61 @@ def patch_pages(lo):
     return slice(start, start + 16 * BW), dirty
 
 
-def main_path(dev):
-    from repro_torch import Fault, Pool, ProtectConfig
-    from repro_torch.kernels import _build
-    from repro_torch.runtime import failure
+class PathRun:
+    """One main path's run: its launch counts from zero, its phase lines
+    (host ms around the phase, synchronized, then the invariants), and
+    its peak device memory."""
 
-    mesh, specs, state = zone_state(dev)
+    def __init__(self, dev, tag):
+        from repro_torch.kernels import _build
+        self.build, self.dev, self.tag = _build, dev, tag
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launches()
 
-    def launched(before):
-        return {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
-                if v - before.get(k, 0)}
-
-    def phase(tag, fn, pool=None):
-        """Time `fn` (host clock, synchronized), then check the invariants
-        of `pool` — or of the pool `fn` returns."""
-        before = dict(_build.LAUNCHES)
+    def phase(self, tag, fn, pool=None):
+        """Time `fn`, then check the invariants of `pool` — or of the pool
+        `fn` returns.  Returns (fn's result, the phase's launches)."""
+        before = dict(self.build.LAUNCHES)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
+        launched = {k: v - before.get(k, 0)
+                    for k, v in self.build.LAUNCHES.items()
+                    if v - before.get(k, 0)}
         invariants(out if pool is None else pool, tag)
-        emit(phase=tag, ms=ms, launches=launched(before))
-        return out, launched(before)
+        emit(path=self.tag, phase=tag, ms=ms, launches=launched)
+        return out, launched
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    _build.reset_launches()
+    def end(self, must_launch):
+        counts = dict(self.build.LAUNCHES)
+        missing = [k for k in must_launch if not counts.get(k)]
+        check(not missing, f"{self.tag}: entry points never launched on "
+              f"the path: {missing}")
+        peak = torch.cuda.max_memory_allocated(self.dev)
+        emit(path=self.tag, phase="memory", max_memory_allocated=peak,
+             launches=counts)
+        return counts
 
-    pool, _ = phase("a_open_mlpc", lambda: Pool.open(
-        state, specs, mesh=mesh, device=dev,
-        config=ProtectConfig(mode="mlpc")))
+
+def open_pool(cur, specs, mesh, dev, **cfg):
+    from repro_torch import Pool, ProtectConfig
+    return Pool.open(cur, specs, mesh=mesh, device=dev,
+                     config=ProtectConfig(**cfg))
+
+
+def main_path(dev):
+    """The r = 1 main path (phases a-h)."""
+    from repro_torch import Fault
+    from repro_torch.runtime import failure
+
+    mesh, specs, state = zone_state(dev)
+    run = PathRun(dev, "r1")
+    pool, _ = run.phase("a_open_mlpc", lambda: open_pool(
+        state, specs, mesh, dev, mode="mlpc"))
     rep = pool.overhead_report()
     lo = pool.protector.layout
     check(lo.row_words == PAGES * BW and lo.n_blocks == PAGES,
@@ -307,14 +503,14 @@ def main_path(dev):
             tx.stage(new, verify_old=True)
         check(tx.ok, "bulk verified transaction did not commit")
         return new
-    cur, l_b = phase("b_bulk_verify", bulk_verify, pool)
+    cur, l_b = run.phase("b_bulk_verify", bulk_verify, pool)
     check(l_b.get("fused_verify_commit_stream") == 1, f"b launches {l_b}")
 
     def bulk():
         new = bumped(cur)
         check(bool(pool.commit(new, data_cursor=2)), "bulk commit failed")
         return new
-    cur, l_c = phase("c_bulk", bulk, pool)
+    cur, l_c = run.phase("c_bulk", bulk, pool)
     check(l_c.get("fletcher_stream") == 1, f"c launches {l_c}")
 
     patch, dirty = patch_pages(lo)
@@ -329,18 +525,17 @@ def main_path(dev):
             tx.stage(newer, dirty_pages=dirty)
         check(tx.ok, "patch did not commit")
         return newer
-    cur, l_d = phase("d_patch_16_pages", patches, pool)
+    cur, l_d = run.phase("d_patch_16_pages", patches, pool)
     check(l_d.get("fused_verify_commit") == 1 and
           l_d.get("fused_commit") == 1, f"d launches {l_d}")
     check(pool.step == 4, f"step {pool.step}")
 
     def mlp_patch():
-        mlp = Pool.open(cur, specs, mesh=mesh, device=dev,
-                        config=ProtectConfig(mode="mlp"))
+        mlp = open_pool(cur, specs, mesh, dev, mode="mlp")
         check(bool(mlp.commit(bumped(cur, words=patch), dirty_pages=dirty)),
               "mlp patch failed")
         return mlp
-    mlp, l_e = phase("e_mlp_patch", mlp_patch)
+    mlp, l_e = run.phase("e_mlp_patch", mlp_patch)
     check(l_e.get("fused_commit_old_terms") == 1, f"e launches {l_e}")
     del mlp
     torch.cuda.empty_cache()
@@ -355,7 +550,7 @@ def main_path(dev):
               "rank loss did not garble the lost rank")
         rep = pool.recover(Fault.from_event(event))
         check(rep.verified and rep.reverified, f"recovery {rep}")
-    phase("f_rank_loss_recover", rank_loss, pool)
+    run.phase("f_rank_loss_recover", rank_loss, pool)
     check(torch.equal(pool.prot.row, before_loss), "f: rows differ")
 
     def scribble():
@@ -364,7 +559,7 @@ def main_path(dev):
         report = pool.scrub()
         check(report.bad_locations == [(SCRIBBLED, 12)], f"scrub {report}")
         check(report.repaired and report.repair_ok, f"repair {report}")
-    phase("g_scribble_scrub_repair", scribble, pool)
+    run.phase("g_scribble_scrub_repair", scribble, pool)
     check(torch.equal(pool.prot.row, before_loss), "g: rows differ")
     del before_loss
 
@@ -384,10 +579,98 @@ def main_path(dev):
                                  now.step, now.log.mark,
                                  now.state["w_fsdp"])):
             check(torch.equal(a, b), "an abort changed protected state")
-    phase("h_canary_abort", canary_abort, pool)
+    run.phase("h_canary_abort", canary_abort, pool)
+    return run.end(PATH_R1)
 
-    counts = dict(_build.LAUNCHES)
-    return counts, torch.cuda.max_memory_allocated(dev)
+
+def main_path_r3(dev):
+    """The r = 3 main path (phases A-H) on the same zone."""
+    from repro_torch import Fault
+    from repro_torch.runtime import failure
+
+    mesh, specs, cur = zone_state(dev)
+    run = PathRun(dev, "r3")
+    pool, l_a = run.phase("A_open_mlpc_r3", lambda: open_pool(
+        cur, specs, mesh, dev, mode="mlpc", redundancy=R))
+    check(pool.redundancy == R and pool.prot.synd.shape[-2] == R,
+          f"stack {tuple(pool.prot.synd.shape)}")
+    check(l_a.get("sdelta_stack") == 1, f"A launches {l_a}")
+    emit(phase="A_layout", syndrome_fraction=pool.overhead_report()[
+        "syndrome_fraction"], stack_shape=list(pool.prot.synd.shape))
+
+    def bulk_verify():
+        new = bumped(cur)
+        with pool.transaction(data_cursor=1) as tx:
+            tx.stage(new, verify_old=True)
+        check(tx.ok, "bulk verified transaction did not commit")
+        return new
+    cur, l_b = run.phase("B_bulk_verify", bulk_verify, pool)
+    check(l_b.get("fused_verify_commit_s_stream") == 1, f"B launches {l_b}")
+
+    def bulk():
+        new = bumped(cur)
+        check(bool(pool.commit(new, data_cursor=2)), "bulk commit failed")
+        return new
+    cur, l_c = run.phase("C_bulk", bulk, pool)
+    check(l_c.get("fletcher_stream") == 1 and l_c.get("sdelta_stack") == 1,
+          f"C launches {l_c}")
+
+    patch, dirty = patch_pages(pool.protector.layout)
+
+    def patches():
+        new = bumped(cur, words=patch)
+        with pool.transaction(data_cursor=3) as tx:
+            tx.stage(new, dirty_pages=dirty, verify_old=True)
+        check(tx.ok, "verified patch did not commit")
+        newer = bumped(new, words=patch)
+        with pool.transaction(data_cursor=4) as tx:
+            tx.stage(newer, dirty_pages=dirty)
+        check(tx.ok, "patch did not commit")
+        return newer
+    cur, l_d = run.phase("D_patch_16_pages", patches, pool)
+    check(l_d.get("fused_verify_commit_s") == 1 and
+          l_d.get("fused_commit_s") == 1, f"D launches {l_d}")
+
+    def mlp_patch():
+        mlp = open_pool(cur, specs, mesh, dev, mode="mlp", redundancy=R)
+        check(bool(mlp.commit(bumped(cur, words=patch), dirty_pages=dirty)),
+              "mlp patch failed")
+        return mlp
+    mlp, l_e = run.phase("E_mlp_r3_patch", mlp_patch)
+    check(l_e.get("fused_commit_old_terms_s") == 1, f"E launches {l_e}")
+    del mlp
+    torch.cuda.empty_cache()
+
+    def precheck():
+        report = pool.precheck()
+        check(report.local_only and not report.suspect and
+              report.synd_ok == [True] * R, f"precheck {report}")
+    _, l_f = run.phase("F_precheck", precheck, pool)
+    check(l_f.get("sdelta_stack") == 1, f"F launches {l_f}")
+
+    before_loss = pool.prot.row.clone()
+
+    def multi_loss():
+        pool.prot, event = failure.inject_multi_rank_loss(
+            pool.protector, pool.prot, MULTI_LOST)
+        for rank in MULTI_LOST:
+            check(not torch.equal(pool.prot.state["w_fsdp"][rank],
+                                  cur["w_fsdp"].view(G, 1, 2560, BW)[rank]),
+                  f"multi loss did not garble rank {rank}")
+        rep = pool.recover(Fault.from_event(event))
+        check(rep.verified and rep.reverified and rep.synd_ok == [True] * R
+              and rep.lost_ranks == list(MULTI_LOST), f"recovery {rep}")
+    _, l_g = run.phase("G_multi_loss_recover", multi_loss, pool)
+    check(l_g.get("gf_scale", 0) >= 1, f"G launches {l_g}")
+    check(torch.equal(pool.prot.row, before_loss), "G: rows differ")
+    del before_loss
+
+    def scrub():
+        report = pool.scrub()
+        check(not report.suspect and report.synd_ok == [True] * R,
+              f"scrub {report}")
+    run.phase("H_scrub", scrub, pool)
+    return run.end(PATH_R3)
 
 
 def main():
@@ -408,23 +691,26 @@ def main():
          sources=list(_build.SOURCES))
 
     timing = kernels_vs_plain(dev)
-    counts, peak = main_path(dev)
-    missing = [k for k in ops.ENTRY_POINTS if not counts.get(k)]
-    check(not missing, f"entry points never launched on the main path: "
-          f"{missing}")
-    emit(phase="memory", max_memory_allocated=peak)
+    paths = {"r1": main_path(dev), "r3": main_path_r3(dev)}
+    rows = []
     for name in ops.ENTRY_POINTS:
         t = timing[name]
-        emit(name=name, shape=t["shape"], bytes=t["bytes"],
-             kernel_ms=t["kernel_ms"], plain_ms=t["plain_ms"],
-             bound_ms=t["bound_ms"], library_ms=None, launches=counts[name])
-    print(json.dumps({"kernels": [dict(
-        name=name, route="cuda", source=KERNELS[name][0],
-        replaces=KERNELS[name][1], launches=counts[name],
-        max_abs_err=timing[name]["max_abs_err"], ms=timing[name]["kernel_ms"],
-        plain_ms=timing[name]["plain_ms"], bound_ms=timing[name]["bound_ms"],
-        bound_by=timing[name]["bound_by"], library_ms=None)
-        for name in ops.ENTRY_POINTS]}), flush=True)
+        by_path = {p: c.get(name, 0) for p, c in paths.items()}
+        emit(name=name, shape=t["shape"], r=t["r"], bytes=t["bytes"],
+             int_ops=t["int_ops"], kernel_ms=t["kernel_ms"],
+             plain_ms=t["plain_ms"], bound_bytes_ms=t["bound_bytes_ms"],
+             bound_ops_ms=t["bound_ops_ms"],
+             clmul_ops_ms=t["clmul_ops_ms"], library_ms=None,
+             launches_by_path=by_path)
+        # no PyTorch call computes these functions (Fletcher terms, the
+        # GF(2^32) product): library_ms is null
+        rows.append(dict(
+            name=name, route="cuda", source=KERNELS[name][0],
+            replaces=KERNELS[name][1], launches=sum(by_path.values()),
+            max_abs_err=t["max_abs_err"], ms=t["kernel_ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=None))
+    print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

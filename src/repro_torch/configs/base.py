@@ -125,9 +125,6 @@ class ProtectConfig:
         """What this configuration asks for that the port does not run
         yet, each with the ROADMAP item that ports it."""
         out = []
-        if self.resolved_redundancy > 1:
-            out.append(f"redundancy={self.resolved_redundancy} (ROADMAP "
-                       "queue A, slice S1: the r >= 2 syndrome stack)")
         if self.window > 1:
             out.append(f"window={self.window} (ROADMAP queue A, slice S2: "
                        "the deferred epoch engine)")

@@ -1,21 +1,28 @@
-"""XOR parity over zone rows (Pangolin §3.1, §3.5), the r = 1 syndrome stack.
+"""Parity over zone rows (Pangolin §3.1, §3.5) and its Reed-Solomon
+extension, the syndrome stack S_0..S_{r-1} (S_k = XOR_i g^(k·i)·row_i over
+GF(2^32), core/gf.py; S_0 is the classic XOR parity).
 
 The reference runs these inside a shard_map on each rank's local row; here
 rows are zone-stacked `(*mesh_dims, row_words)` and `dim` is the data
-(zone) dim.  The stack is `(*mesh_dims, r, seg_words)`; at r = 1 its only
-plane is the classic XOR parity.  The r >= 2 Reed-Solomon planes
-(`reconstruct_e` and the GF weighting) are the next port slice.
+(zone) dim.  The stack is `(*mesh_dims, r, seg_words)`.  `coeffs` is each
+rank's `(*mesh_dims, r)` coefficient table (`gf.rank_syndrome_coeffs`),
+None at r = 1.
 
-  * build  — full XOR reduce-scatter of the rows (init, bulk commits);
-  * bulk delta — parity ^= reduce-scatter(old ^ new) from the fused sweep;
-  * patch  — the dirty pages' deltas, XOR-reduced across the zone and
-             applied to the owners' segments (the paper's atomic XOR);
-  * reconstruct — lost row = XOR of survivors XOR parity (§3.6).
+  * build  — the weighted reduce-scatter of the rows (init, bulk commits);
+  * bulk delta — stack ^= reduce-scatter of the fused sweep's weighted
+             deltas;
+  * patch  — the dirty pages' weighted deltas, XOR-reduced across the zone
+             and applied to the owners' segments (the paper's atomic XOR);
+  * reconstruct — one lost row = XOR of survivors XOR parity (§3.6); e <= r
+             lost rows through the e x e Vandermonde inverse.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from repro_torch.core import gf
 from repro_torch.core.layout import ZoneLayout
 from repro_torch.dist import collectives as coll
 
@@ -31,9 +38,10 @@ def gather_pages(row: torch.Tensor, page_idx: torch.Tensor,
     return page_view(row, block_words)[..., page_idx, :]
 
 
-def build_syndromes(row: torch.Tensor, dim: int) -> torch.Tensor:
-    """Full stack build: `(*M, n)` rows -> `(*M, 1, n // G)`."""
-    return coll.syndrome_reduce_scatter(row, dim)
+def build_syndromes(row: torch.Tensor, dim: int,
+                    coeffs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full stack build: `(*M, n)` rows -> `(*M, r, n // G)`."""
+    return coll.syndrome_reduce_scatter(row, dim, coeffs)
 
 
 def apply_sdelta(synd: torch.Tensor, sdelta_rows: torch.Tensor,
@@ -65,11 +73,12 @@ def patch_syndrome_delta(synd: torch.Tensor, sdelta_pages: torch.Tensor,
     return pages.movedim(0, dim).reshape(synd.shape)
 
 
-def verify_syndromes(row: torch.Tensor, synd: torch.Tensor,
-                     dim: int) -> torch.Tensor:
+def verify_syndromes(row: torch.Tensor, synd: torch.Tensor, dim: int,
+                     coeffs: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Zone invariant per syndrome: `(*M_other, r)` bool, one verdict per
-    zone, True iff every rank's stored segment matches the rows."""
-    fresh = coll.syndrome_reduce_scatter(row, dim)
+    zone and syndrome, True iff every rank's stored segment of S_k matches
+    the rows."""
+    fresh = coll.syndrome_reduce_scatter(row, dim, coeffs)
     return (fresh == synd).all(dim=-1).all(dim=dim)
 
 
@@ -84,3 +93,30 @@ def reconstruct_row(row: torch.Tensor, parity_seg: torch.Tensor,
     contrib = row.index_fill(dim, lost, 0)
     lost_seg = coll.xor_reduce_scatter(contrib, dim) ^ parity_seg
     return coll.all_gather_row(lost_seg, dim)
+
+
+def reconstruct_e(row: torch.Tensor, synd: torch.Tensor, lost_ranks,
+                  dim: int, coeffs: Optional[torch.Tensor]) -> tuple:
+    """Rebuild e <= r lost ranks' rows in every zone from the stack.
+
+    `row`: `(*M, n)`; `synd`: `(*M, r, n // G)`; `lost_ranks`: distinct
+    host ints; `coeffs`: the `(*M, r)` table (None at r = 1).  Survivors
+    contribute their rows to the first e syndromes and the lost ranks
+    contribute zeros, so S_k ^ s_k = XOR_j g^(k·a_j)·X_j for k < e, which
+    `gf.solve_e` inverts.  Returns the e rebuilt rows in `lost_ranks`
+    order, each a broadcast view that every rank of a zone receives.
+    """
+    ranks = tuple(int(a) for a in lost_ranks)
+    e = len(ranks)
+    if e < 1 or len(set(ranks)) != e:
+        raise ValueError(f"erasure recovery needs distinct ranks, got {ranks}")
+    if e > synd.shape[-2]:
+        raise ValueError(f"{e} erasures need {e} syndromes; the stack holds "
+                         f"{synd.shape[-2]}")
+    lost = torch.tensor(ranks, device=row.device)
+    contrib = row.index_fill(dim, lost, 0)
+    survivors = coll.syndrome_reduce_scatter(
+        contrib, dim, None if e == 1 else coeffs[..., :e].contiguous())
+    deficits = (synd[..., :e, :] ^ survivors).movedim(-2, 0).contiguous()
+    return tuple(coll.all_gather_row(seg, dim)
+                 for seg in gf.solve_e(deficits, ranks))

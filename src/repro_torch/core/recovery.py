@@ -1,17 +1,18 @@
 """Online recovery orchestration (Pangolin §3.6).
 
-Two entry points, both funneling into the Protector's reconstruction ops:
+Three entry points, all funneling into the Protector's reconstruction ops:
 
   * `recover_from_rank_loss` — media-error path: a failure event reports a
     lost rank; the pool freezes, survivors rebuild the row from parity,
     the pool resumes.
+  * `recover_from_e_loss`    — e <= r ranks lost at once, rebuilt from the
+    syndrome stack through the e x e Vandermonde solve; e > r is refused.
   * `recover_from_scribble`  — corruption path: checksum mismatches (from
     a scrub) identify (rank, page) victims; targeted page reconstruction
     repairs them in place.
 
-The e <= r multi-loss path (`recover_from_e_loss`) needs the r >= 2
-syndrome stack and arrives with that port slice.  Recovery is idempotent
-(pure reconstruction from surviving rows + parity).
+Recovery is idempotent (pure reconstruction from surviving rows + the
+stack).
 """
 from __future__ import annotations
 
@@ -86,6 +87,50 @@ def recover_from_rank_loss(protector: txn_mod.Protector,
         resume()
     return prot, RecoveryReport("rank_loss", lost_rank, [], verified,
                                 freeze is not None, solve_ms=solve_ms)
+
+
+def recover_from_e_loss(protector: txn_mod.Protector,
+                        prot: txn_mod.ProtectedState,
+                        lost_ranks: Sequence[int],
+                        freeze: Optional[Callable] = None,
+                        resume: Optional[Callable] = None):
+    """Rebuild e <= r lost data-ranks' rows from the syndrome stack.
+
+    e = 1 takes the single-parity path.  e > r raises before anything is
+    touched: an e x e solve through an r < e stack would return garbage
+    rows.
+    """
+    ranks = sorted(int(a) for a in lost_ranks)
+    e = len(ranks)
+    protector.check_budget(ranks)
+    if freeze is not None:
+        freeze()
+    t0 = time.perf_counter()
+    if e == 1:
+        prot, ok = protector.recover_rank(prot, ranks[0])
+    else:
+        prot, ok = protector.recover_e(prot, ranks)
+    verified = bool(ok)
+    solve_ms = (time.perf_counter() - t0) * 1e3
+    if resume is not None:
+        resume()
+    if e == 1:
+        return prot, RecoveryReport("rank_loss", ranks[0], [], verified,
+                                    freeze is not None, solve_ms=solve_ms)
+    return prot, RecoveryReport("multi_loss", None, [], verified,
+                                freeze is not None, lost_ranks=ranks,
+                                solve_ms=solve_ms)
+
+
+def recover_from_double_loss(protector: txn_mod.Protector,
+                             prot: txn_mod.ProtectedState,
+                             lost_ranks: Sequence[int],
+                             freeze: Optional[Callable] = None,
+                             resume: Optional[Callable] = None):
+    """The e = 2 erasure recovery."""
+    a, b = (int(r) for r in lost_ranks)
+    return recover_from_e_loss(protector, prot, (a, b), freeze=freeze,
+                               resume=resume)
 
 
 def recover_from_scribble(protector: txn_mod.Protector,

@@ -6,13 +6,14 @@ The `Protector` wraps a state pytree with Pangolin's protection stack:
     prot', ok = protector.commit(prot, new_state, ...)     # transactional update
     report    = protector.scrub(prot)                      # verification
     prot', ok = protector.recover_rank(prot, lost)         # online media recovery
+    prot', ok = protector.recover_e(prot, lost_ranks)      # e <= r losses
     prot', ok = protector.repair_pages(prot, ranks, pages) # scribble repair
 
-It is the synchronous engine of the reference (core/txn.py) at r = 1,
-computing the same bytes.  Every state leaf and every protection field is
-zone-stacked — `(*mesh_dims, ...)`, one entry per device of the
-reference's mesh (dist/sharding.py) — so one call covers the whole zone
-and the reference's collectives become folds over the data dim.
+It is the synchronous engine of the reference (core/txn.py), at any
+redundancy r = 1..4, computing the same bytes.  Every state leaf and every
+protection field is zone-stacked — `(*mesh_dims, ...)`, one entry per
+device of the reference's mesh (dist/sharding.py) — so one call covers the
+whole zone and the reference's collectives become folds over the data dim.
 
 Verdicts follow the reference exactly.  A zone's verdict is the AND over
 its data ranks (the reference's `pmin` over the data axis), so it is per
@@ -38,6 +39,7 @@ import torch
 
 from repro_torch import utils
 from repro_torch.core import checksum as ck
+from repro_torch.core import gf
 from repro_torch.core import layout as layout_mod
 from repro_torch.core import parity as parity_mod
 from repro_torch.core import redolog
@@ -74,8 +76,6 @@ class Mode(enum.Enum):
 
 MAX_REDUNDANCY = 4
 _MODE_ALIASES = {"mlp2": ("mlp", 2), "mlpc2": ("mlpc", 2)}
-R_GE_2 = ("redundancy r >= 2 is the next port slice (ROADMAP queue A, "
-          "slice S1: core/gf.py and the GF(2^32) syndrome kernels)")
 
 
 def resolved_mode(mode, redundancy: int = 1) -> tuple:
@@ -130,7 +130,7 @@ def select(ok: torch.Tensor, new: torch.Tensor,
 
 
 class Protector:
-    """The synchronous protection engine for one zone layout (r = 1)."""
+    """The synchronous protection engine for one zone layout."""
 
     def __init__(self, mesh: ZoneMesh, abstract_state: PyTree,
                  state_specs: PyTree, *, mode: Mode = Mode.MLPC,
@@ -149,8 +149,6 @@ class Protector:
                 f"redundancy={redundancy} on a zone of {self.group_size} "
                 f"data ranks — at most num_ranks - 1 = "
                 f"{self.group_size - 1} simultaneous losses are solvable")
-        if mode.has_parity and redundancy > 1:
-            raise NotImplementedError(R_GE_2)
         self.redundancy = redundancy if mode.has_parity else 1
         self.hybrid_threshold = hybrid_threshold
         self.log_capacity = log_capacity
@@ -161,6 +159,7 @@ class Protector:
             abstract_state, self.group_size, state_specs, mesh,
             block_words=block_words)
         self._programs: dict = {}
+        self._coeff_tables: dict = {}
 
     # -- zone helpers -----------------------------------------------------------
 
@@ -174,6 +173,17 @@ class Protector:
         shape[self.data_dim] = self.group_size
         return torch.arange(self.group_size, device=device).reshape(
             shape).expand(self.mesh.shape)
+
+    def coeffs(self, device) -> Optional[torch.Tensor]:
+        """Every device's syndrome coefficients, `(*mesh_dims, r)` int32 on
+        `device` (built once per device), or None at r = 1."""
+        if self.redundancy == 1:
+            return None
+        key = str(device)
+        if key not in self._coeff_tables:
+            self._coeff_tables[key] = gf.rank_syndrome_coeffs(
+                self.group_size, self.redundancy, self.mesh, device)
+        return self._coeff_tables[key]
 
     def _zone_all(self, ok: torch.Tensor) -> torch.Tensor:
         """AND over each zone's ranks, back on every device (the `pmin`)."""
@@ -209,7 +219,8 @@ class Protector:
         device = row.device
         synd = cksums = dig = None
         if mode.has_parity:
-            synd = parity_mod.build_syndromes(row, self.data_dim)
+            synd = parity_mod.build_syndromes(row, self.data_dim,
+                                              self.coeffs(device))
         if mode.has_cksums:
             cksums = ck.block_checksums(row, lo.block_words)
             dig = ck.combine(cksums, lo.block_words)
@@ -239,9 +250,12 @@ class Protector:
         (the kernel adds the row digest) once the row reaches
         `stream_threshold_words`.  `verify_old` re-flattens the old row
         from the live state and verifies it against the checksums in the
-        same sweep; a mismatch anywhere in a zone aborts that zone.
+        same sweep; a mismatch anywhere in a zone aborts that zone.  At
+        r >= 2 the sweeps emit every rank's r weighted delta planes from
+        the one read of (old, new); at r = 1 they route to the
+        single-parity kernels.
         """
-        lo, mode = self.layout, self.mode
+        lo, mode, r = self.layout, self.mode, self.redundancy
         bw, dd = lo.block_words, self.data_dim
         n_axes = len(self.mesh.shape)
         meta_only = dirty_pages is not None and len(dirty_pages) == 0
@@ -262,6 +276,7 @@ class Protector:
                 row_new = layout_mod.flatten_row(lo, state_new)
             ok = torch.ones(self.mesh.shape, dtype=torch.bool,
                             device=row_new.device)
+            coeffs = self.coeffs(row_new.device)
             synd, cksums, digest = prot.synd, prot.cksums, prot.digest
             if meta_only:
                 pass          # the paper's "free" metadata-only transaction
@@ -271,41 +286,42 @@ class Protector:
                 new_pages = parity_mod.gather_pages(row_new, idx, bw)
                 if mode.has_cksums:
                     if verify_old:
-                        delta, fresh, bad = kops.fused_verify_commit(
-                            old_pages, new_pages, prot.cksums[..., idx, :])
+                        sdelta, fresh, bad = kops.fused_verify_commit_s(
+                            old_pages, new_pages, prot.cksums[..., idx, :],
+                            coeffs)
                         ok = self._zone_clean(ok, bad)
                     else:
-                        delta, fresh = kops.fused_commit(old_pages, new_pages)
+                        sdelta, fresh = kops.fused_commit_s(
+                            old_pages, new_pages, coeffs)
                     cksums = ck.set_blocks(prot.cksums, fresh, idx)
                     digest = ck.combine(cksums, bw)
                 else:
-                    delta, fresh, old_ck = kops.fused_commit_old_terms(
-                        old_pages, new_pages)
+                    sdelta, fresh, old_ck = kops.fused_commit_old_terms_s(
+                        old_pages, new_pages, coeffs)
                     digest = ck.update_digest(prot.digest, old_ck, fresh,
                                               idx, lo.n_blocks, bw)
                 if mode.has_parity:
-                    # the delta is the r = 1 stack's only plane
                     synd = parity_mod.patch_syndrome_delta(
-                        prot.synd, delta.unsqueeze(-3), idx, lo, dd)
+                        prot.synd, sdelta, idx, lo, dd)
             else:
                 pages_new = parity_mod.page_view(row_new, bw)
                 dig_new = None
                 if verify_old and mode.has_cksums:
                     # old is swept for verify anyway: the same pass yields
-                    # the delta the parity consumes (S ^ rs(delta))
+                    # the r weighted deltas the stack consumes
+                    # (S ^ rs(sdelta) == rs-stack(new))
                     pages_old = parity_mod.page_view(row_old, bw)
                     if scb is None:
-                        delta, fresh, bad = kops.fused_verify_commit(
-                            pages_old, pages_new, prot.cksums)
+                        sdelta, fresh, bad = kops.fused_verify_commit_s(
+                            pages_old, pages_new, prot.cksums, coeffs)
                     else:
-                        delta, fresh, bad, dig_new = (
-                            kops.fused_verify_commit_stream(
-                                pages_old, pages_new, prot.cksums,
-                                chunk_blocks=scb))
+                        sdelta, fresh, bad, dig_new = (
+                            kops.fused_verify_commit_s_stream(
+                                pages_old, pages_new, prot.cksums, coeffs))
                     ok = self._zone_clean(ok, bad)
                     if mode.has_parity:
                         synd = parity_mod.apply_sdelta(
-                            prot.synd, delta.reshape(*self.mesh.shape, 1, -1),
+                            prot.synd, sdelta.reshape(*self.mesh.shape, r, -1),
                             dd)
                 else:
                     # without verify the old row is not read at all
@@ -315,7 +331,7 @@ class Protector:
                         fresh, dig_new = kops.fletcher_stream(
                             pages_new, chunk_blocks=scb)
                     if mode.has_parity:
-                        synd = parity_mod.build_syndromes(row_new, dd)
+                        synd = parity_mod.build_syndromes(row_new, dd, coeffs)
                 if mode.has_cksums:
                     cksums = fresh
                 digest = ck.combine(fresh, bw) if dig_new is None else dig_new
@@ -409,7 +425,8 @@ class Protector:
             out["bad_pages"] = ck.verify_blocks(row, prot.cksums,
                                                 lo.block_words)
         if mode.has_parity:
-            ok = parity_mod.verify_syndromes(row, prot.synd, self.data_dim)
+            ok = parity_mod.verify_syndromes(row, prot.synd, self.data_dim,
+                                             self.coeffs(row.device))
             out["synd_ok"] = ok.reshape(-1, ok.shape[-1])[0]
         if mode.has_parity or mode.has_cksums:
             out["row_cache_ok"] = (row == prot.row).all()
@@ -421,7 +438,9 @@ class Protector:
         against a *folded* syndrome — each rank XOR-folds its weighted row
         per (syndrome, owner segment) into an (r, G) word matrix, the
         zone XOR-combines those, and each owner compares the fold of its
-        stored segments.  A fold catches any single corruption."""
+        stored segments.  The rows are weighted into their r planes by the
+        `sdelta_stack` kernel (at r >= 2).  A fold catches any single
+        corruption."""
         lo, mode, r, g = self.layout, self.mode, self.redundancy, \
             self.group_size
         dd, shape = self.data_dim, self.mesh.shape
@@ -431,7 +450,8 @@ class Protector:
             bad = ck.verify_blocks(row, prot.cksums, lo.block_words)
             out["bad_count"] = bad.sum()
         if mode.has_parity:
-            segs = row.reshape(*shape, r, g, -1)   # r = 1: the row itself
+            weighted = kops.syndrome_scale(row, self.coeffs(row.device))
+            segs = weighted.reshape(*shape, r, g, -1)
             folds = coll.xor_fold(segs, dim=-1)              # (*M, r, G)
             want = coll.xor_all_reduce(folds, dd)            # (*M, r, G)
             me = self.rank_index(row.device)
@@ -468,9 +488,57 @@ class Protector:
             prot, state=layout_mod.unflatten_row(lo, row_out),
             row=row_out), self._verified(row_out, prot)
 
+    def check_budget(self, lost_ranks) -> None:
+        """Raise when the simultaneous loss of `lost_ranks` exceeds what the
+        syndrome stack solves online (e > r; r = 0 without parity): an
+        e x e solve through an r < e stack would return garbage rows."""
+        ranks = [int(a) for a in lost_ranks]
+        e = len(ranks)
+        r = self.redundancy if self.mode.has_parity else 0
+        if e > r:
+            raise RuntimeError(
+                f"syndrome budget exhausted: ranks {ranks} are lost "
+                f"simultaneously (e={e}) but this pool holds redundancy={r} "
+                "syndrome row(s) — at most r losses solve online.  Restore "
+                "from the checkpoint + redo-log tier and re-arm the stack by "
+                "re-protecting (pool.init), or raise "
+                f"ProtectConfig.redundancy>={e} (<= 4) before the next storm")
+
+    def recover_e(self, prot: ProtectedState, lost_ranks) -> tuple:
+        """Online reconstruction of e <= r lost data ranks' rows in every
+        zone, through the e x e Vandermonde inverse (`parity.reconstruct_e`).
+        Also the path for losses with a scribble outstanding: name the
+        scribbled rank as an extra loss."""
+        lo, dd = self.layout, self.data_dim
+        ranks = tuple(sorted(int(a) for a in lost_ranks))
+        e = len(ranks)
+        if len(set(ranks)) != e:
+            raise ValueError(f"erasure recovery needs distinct ranks, got "
+                             f"{ranks}")
+        self.check_budget(ranks)
+        row = layout_mod.flatten_row(lo, prot.state)
+        rebuilt = parity_mod.reconstruct_e(row, prot.synd, ranks, dd,
+                                           self.coeffs(row.device))
+        me = self.rank_index(row.device)
+        row_out = row
+        for a, row_a in zip(ranks, rebuilt):
+            row_out = select(me == a, row_a, row_out)
+        return dataclasses.replace(
+            prot, state=layout_mod.unflatten_row(lo, row_out),
+            row=row_out), self._verified(row_out, prot)
+
+    def recover_two(self, prot: ProtectedState, lost_a: int,
+                    lost_b: int) -> tuple:
+        """The e = 2 erasure recovery."""
+        a, b = sorted((int(lost_a), int(lost_b)))
+        if a == b:
+            raise ValueError("double-loss recovery needs two distinct ranks")
+        return self.recover_e(prot, (a, b))
+
     def repair_pages(self, prot: ProtectedState, bad_rank, bad_page) -> tuple:
         """Targeted scribble repair of (rank, page) locations: each bad page
-        is the XOR of the other ranks' pages and its parity page."""
+        is the XOR of the other ranks' pages and its parity page (the
+        stack's S_0 plane)."""
         lo, dd = self.layout, self.data_dim
         bw = lo.block_words
         pps = lo.seg_words // bw

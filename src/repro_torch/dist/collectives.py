@@ -9,7 +9,11 @@ data dim of the stacked tensor; `dim` names that dim
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from repro_torch.kernels import ops as kops
 
 
 def xor_fold(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -48,10 +52,16 @@ def xor_all_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
     return xor_fold(x, dim).unsqueeze(dim).expand_as(x)
 
 
-def syndrome_reduce_scatter(row: torch.Tensor, dim: int) -> torch.Tensor:
-    """`(*M, n)` rows -> the r = 1 syndrome stack `(*M, 1, n // G)`: its
-    only plane is the XOR parity."""
-    return xor_reduce_scatter(row, dim).unsqueeze(-2)
+def syndrome_reduce_scatter(row: torch.Tensor, dim: int,
+                            coeffs: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """`(*M, n)` rows -> the `(*M, r, n // G)` syndrome stack: rank i keeps
+    segment i of every S_k = XOR_j g^(k·j)·row_j.  `coeffs` is the
+    `(*M, r)` table of each rank's g^(k·j) (`gf.rank_syndrome_coeffs`), or
+    None for r = 1, whose only plane is the XOR parity.  The `sdelta_stack`
+    kernel weights each row into its r planes from one read; each plane
+    then folds as `xor_reduce_scatter` does."""
+    return xor_reduce_scatter(kops.syndrome_scale(row, coeffs), dim)
 
 
 def syndrome_apply_delta(synd: torch.Tensor, sdelta: torch.Tensor,

@@ -2,8 +2,8 @@
 
 Each `csrc/<name>.cu` has a plain `extern "C"` launcher and compiles on
 its own into `build/repro_torch/<name>-<hash>.so` at the repo root (the
-hash covers the source and the flags, so an edited source never loads a
-stale library).  `build()` starts one nvcc per missing library, all at
+hash covers the source, every `csrc/` header it includes, and the flags,
+so an edited source or header never loads a stale library).  `build()` starts one nvcc per missing library, all at
 once, and waits for them; the first kernel call builds everything.
 
 Every launcher returns the `cudaError_t` of its launch, and `check`
@@ -17,16 +17,18 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("fletcher", "commit_fused")
+SOURCES = ("fletcher", "commit_fused", "gf_parity")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 NVCC_TIMEOUT_S = 600
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 LAUNCHES: dict = {}
 _libs: dict = {}
@@ -42,10 +44,27 @@ def nvcc() -> str:
     return path
 
 
+def compiled_files(name: str) -> list:
+    """`csrc/<name>.cu` and every header under `csrc/` that it includes,
+    directly or through another header (`#include "..."` only)."""
+    files, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in files:
+            continue
+        files.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            header = path.parent / inc.decode()
+            if header.is_file():
+                todo.append(header)
+    return files
+
+
 def library_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{tag[:12]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in compiled_files(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names=SOURCES) -> dict:
@@ -102,17 +121,19 @@ def reset_launches() -> None:
     LAUNCHES.clear()
 
 
-def check_pages(x, name: str) -> None:
-    """Raise unless `x` is what the page kernels take: a contiguous CUDA
-    int32 tensor of `(..., n, bw)` pages, bw % 4 == 0, 16-byte aligned."""
+def check_pages(x, name: str, pages: bool = True) -> None:
+    """Raise unless `x` is what the kernels take: a contiguous, 16-byte
+    aligned CUDA int32 tensor of `(..., n, bw)` pages with bw % 4 == 0 (or,
+    with `pages=False`, of `(..., m)` words with m % 4 == 0)."""
     import torch
     if x.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {x.device}")
     if x.dtype != torch.int32:
         raise ValueError(f"{name}: expected int32 words, got {x.dtype}")
-    if x.dim() < 2 or x.shape[-1] % 4 or x.shape[-1] == 0:
-        raise ValueError(f"{name}: expected (..., n, bw) pages with "
-                         f"bw % 4 == 0, got {tuple(x.shape)}")
+    what = "(..., n, bw) pages with bw" if pages else "(..., m) words with m"
+    if x.dim() < (2 if pages else 1) or x.shape[-1] % 4 or x.shape[-1] == 0:
+        raise ValueError(f"{name}: expected {what} % 4 == 0, got "
+                         f"{tuple(x.shape)}")
     if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError(f"{name}: pages must be contiguous and 16-byte "
+        raise ValueError(f"{name}: words must be contiguous and 16-byte "
                          "aligned")

@@ -5,13 +5,17 @@
 //   src/repro/kernels/commit_fused.py:103  _verify_call -> fused_verify_commit
 //                                          :120, fused_commit_old_terms :134
 //                                          (_fused_verify_kernel, :60)
+//   src/repro/kernels/commit_fused.py:377  fused_commit_stream
+//                                          (_stream_commit_kernel, :284)
 //   src/repro/kernels/commit_fused.py:393  _verify_stream_call ->
-//                                          fused_verify_commit_stream :406
+//                                          fused_verify_commit_stream :406,
+//                                          fused_commit_old_terms_stream :417
 //                                          (_stream_verify_kernel, :307)
-// Those entry points compute one function; the streamed form only adds the
-// digest.  VERIFY=false, DIGEST=false is fused_commit; VERIFY=true is
-// fused_verify_commit (and fused_commit_old_terms with stored = 0, as the
-// reference does); VERIFY=true, DIGEST=true is fused_verify_commit_stream.
+// Those entry points compute one function; the streamed forms only add the
+// digest.  VERIFY=false is fused_commit (fused_commit_stream with DIGEST);
+// VERIFY=true is fused_verify_commit (fused_verify_commit_stream with
+// DIGEST), and with stored = 0, as the reference does,
+// fused_commit_old_terms (fused_commit_old_terms_stream with DIGEST).
 //
 // Function, per page p of bw u32 words:
 //   delta[p]  = old[p] ^ new[p]
@@ -32,40 +36,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "pages.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// CTA-wide sum of K per-thread values; the result is valid in thread 0.
-template <int K>
-__device__ __forceinline__ void block_sum(uint32_t (&v)[K]) {
-  __shared__ uint32_t sh[K][kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    v[k] = warp_sum(v[k]);
-    if (lane == 0) sh[k][warp] = v[k];
-  }
-  __syncthreads();
-  if (warp == 0) {
-#pragma unroll
-    for (int k = 0; k < K; ++k)
-      v[k] = warp_sum(lane < kWarps ? sh[k][lane] : 0u);
-  }
-}
-
-__device__ __forceinline__ void fletcher_add(const uint4 w, uint32_t wt,
-                                             uint32_t& a, uint32_t& b) {
-  a += w.x + w.y + w.z + w.w;
-  b += wt * w.x + (wt - 1u) * w.y + (wt - 2u) * w.z + (wt - 3u) * w.w;
-}
+using pages::block_sum;
+using pages::fletcher_add;
+using pages::kThreads;
 
 template <bool VERIFY, bool DIGEST>
 __global__ void __launch_bounds__(kThreads)
@@ -98,12 +75,10 @@ commit_pages(const uint32_t* __restrict__ old_w,
   }
   if constexpr (DIGEST) {
     const int64_t rank = page / pages_per_rank;
-    const uint32_t local = static_cast<uint32_t>(page - rank * pages_per_rank);
-    const uint32_t after =
-        (static_cast<uint32_t>(pages_per_rank) - 1u - local) *
-        static_cast<uint32_t>(bw);
-    atomicAdd(&digest[2 * rank], s[0]);
-    atomicAdd(&digest[2 * rank + 1], s[1] + after * s[0]);
+    pages::digest_add(digest, rank,
+                      static_cast<uint32_t>(page - rank * pages_per_rank),
+                      static_cast<uint32_t>(pages_per_rank),
+                      static_cast<uint32_t>(bw), s[0], s[1]);
   }
 }
 

@@ -1,0 +1,224 @@
+// The GF(2^32)-weighted syndrome sweeps on Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernels of src/repro/kernels/gf_parity.py:
+//   :83   gf_scale (_gf_scale_kernel, :68)             -> weight_words<1, false>
+//   :151  _s_call -> fused_commit_s :162, fused_verify_commit_s :171,
+//         fused_commit_old_terms_s :184 (_make_s_kernel, :107)
+//                                                    -> syndrome_pages<R, V, false>
+//   :224  sdelta_stack :206 (_make_sdelta_stack_kernel, :196)
+//                                                    -> weight_words<R, true>
+//   :311  _s_stream_call -> fused_commit_s_stream :321,
+//         fused_verify_commit_s_stream :331 (_make_stream_s_kernel, :245)
+//                                                    -> syndrome_pages<R, V, true>
+//
+// Function.  A rank's syndrome delta plane k is c_k · (old ^ new) in
+// GF(2^32), with the rank's coefficients c_k = g^(k·rank) from a (ranks, R)
+// table; c_0 = g^0 = 1, so plane 0 is the raw delta, written without a
+// multiply.  syndrome_pages, per page p of bw u32 words (rank = p / n,
+// local = p % n):
+//   sdelta[rank, k, local]  = c_k · (old[p] ^ new[p])              k < R
+//   terms[p]  = Fletcher (A, B) of new[p]
+//   mism[p]   = Fletcher (A, B) of old[p] ^ stored[p]                (VERIFY)
+//   digest[rank] += (A, B + (n - 1 - local) * bw * A) of new[p]      (DIGEST)
+// with sdelta laid out (ranks, R, n, bw), plane-major within each rank, so
+// a rank's planes view as (R, n * bw) rows for the bulk syndrome update and
+// as (R, n, bw) pages for the patch.  fused_commit_old_terms_s is the VERIFY
+// instance with stored = 0.  weight_words, element-wise over (L, m) words:
+//   out[l, k] = c[l, k] · x[l]         (plane 0 raw when RAW0: sdelta_stack)
+//   out[0, 0] = c · x                  (one scalar, R = 1: gf_scale)
+//
+// Bound: the function is bound by its bytes (5 words of traffic a word for
+// the r = 3 fused sweep); this kernel is bound by the integer ALU work of
+// its 32-step multiply, which shares the doubling chain x·g^i across planes
+// and issues about 2 + (weighted planes) ALU instructions a word a step
+// (scripts/torch_sass_counts.py; the bounds and times are in PERF.md §6).
+// Design: the simple form of commit_pages (commit_fused.cu) — one CTA of
+// 256 threads per page, one uint4 of old and of new per thread, each
+// weighted plane formed in registers from the one delta and stored as it
+// is formed (old and new are read once whatever R), Fletcher sums reduced
+// with warp shuffles, the digest as exact integer atomics.  Each thread
+// reads its rank's R coefficients once.  weight_words is a grid-stride uint4
+// loop, one grid row per leading index.  The faster multiply (per-rank byte
+// tables in shared memory) is later work.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "gf.cuh"
+#include "pages.cuh"
+
+namespace {
+
+using gf::gf_mul4;
+using pages::block_sum;
+using pages::fletcher_add;
+using pages::kThreads;
+
+__device__ __forceinline__ uint4 xor4(uint4 a, uint4 b) {
+  return make_uint4(a.x ^ b.x, a.y ^ b.y, a.z ^ b.z, a.w ^ b.w);
+}
+
+template <int R, bool VERIFY, bool DIGEST>
+__global__ void __launch_bounds__(kThreads)
+syndrome_pages(const uint32_t* __restrict__ old_w,
+               const uint32_t* __restrict__ new_w,
+               const uint32_t* __restrict__ coeffs,
+               const uint32_t* __restrict__ stored,
+               uint32_t* __restrict__ sdelta, uint32_t* __restrict__ terms,
+               uint32_t* __restrict__ mism, uint32_t* __restrict__ digest,
+               int bw, int pages_per_rank) {
+  const int64_t page = blockIdx.x;
+  const int64_t rank = page / pages_per_rank;
+  const int64_t local = page - rank * pages_per_rank;
+  uint32_t c[R];
+#pragma unroll
+  for (int k = 1; k < R; ++k) c[k] = coeffs[rank * R + k];
+  const uint4* po = reinterpret_cast<const uint4*>(old_w + page * bw);
+  const uint4* pn = reinterpret_cast<const uint4*>(new_w + page * bw);
+  // plane k of this page: (rank * R + k) * n * bw + local * bw words
+  const int64_t plane4 = static_cast<int64_t>(pages_per_rank) * bw / 4;
+  uint4* pd = reinterpret_cast<uint4*>(sdelta) + rank * R * plane4 +
+              local * bw / 4;
+  // s[0], s[1]: new page's (A, B); s[2], s[3]: old page's (VERIFY)
+  uint32_t s[VERIFY ? 4 : 2] = {};
+  for (int v = threadIdx.x; v < bw / 4; v += kThreads) {
+    const uint4 o = po[v];
+    const uint4 n = pn[v];
+    const uint4 d = xor4(o, n);
+    pd[v] = d;
+#pragma unroll
+    for (int k = 1; k < R; ++k) pd[k * plane4 + v] = gf_mul4(d, c[k]);
+    const uint32_t wt = static_cast<uint32_t>(bw - 4 * v);
+    fletcher_add(n, wt, s[0], s[1]);
+    if constexpr (VERIFY) fletcher_add(o, wt, s[2], s[3]);
+  }
+  block_sum(s);
+  if (threadIdx.x != 0) return;
+  terms[2 * page] = s[0];
+  terms[2 * page + 1] = s[1];
+  if constexpr (VERIFY) {
+    mism[2 * page] = s[2] ^ stored[2 * page];
+    mism[2 * page + 1] = s[3] ^ stored[2 * page + 1];
+  }
+  if constexpr (DIGEST)
+    pages::digest_add(digest, rank, static_cast<uint32_t>(local),
+                      static_cast<uint32_t>(pages_per_rank),
+                      static_cast<uint32_t>(bw), s[0], s[1]);
+}
+
+// coeffs: (lead, R) table, or nullptr for `scalar` on every plane.
+template <int R, bool RAW0>
+__global__ void __launch_bounds__(kThreads)
+weight_words(const uint32_t* __restrict__ x,
+             const uint32_t* __restrict__ coeffs, uint32_t scalar,
+             uint32_t* __restrict__ out, int64_t lead, int64_t m4) {
+  for (int64_t l = blockIdx.y; l < lead; l += gridDim.y) {
+    uint32_t c[R];
+#pragma unroll
+    for (int k = RAW0 ? 1 : 0; k < R; ++k)
+      c[k] = coeffs != nullptr ? coeffs[l * R + k] : scalar;
+    const uint4* px = reinterpret_cast<const uint4*>(x) + l * m4;
+    uint4* po = reinterpret_cast<uint4*>(out) + l * R * m4;
+    for (int64_t j = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+         j < m4; j += static_cast<int64_t>(gridDim.x) * kThreads) {
+      const uint4 w = px[j];
+      if constexpr (RAW0) po[j] = w;
+#pragma unroll
+      for (int k = RAW0 ? 1 : 0; k < R; ++k) po[k * m4 + j] = gf_mul4(w, c[k]);
+    }
+  }
+}
+
+struct PageArgs {
+  const void *old_w, *new_w, *coeffs, *stored;
+  void *sdelta, *terms, *mism, *digest;
+  int bw, ppr;
+};
+
+template <int R, bool VERIFY, bool DIGEST>
+void launch_pages(dim3 grid, cudaStream_t st, const PageArgs& a) {
+  syndrome_pages<R, VERIFY, DIGEST><<<grid, kThreads, 0, st>>>(
+      static_cast<const uint32_t*>(a.old_w),
+      static_cast<const uint32_t*>(a.new_w),
+      static_cast<const uint32_t*>(a.coeffs),
+      static_cast<const uint32_t*>(a.stored), static_cast<uint32_t*>(a.sdelta),
+      static_cast<uint32_t*>(a.terms), static_cast<uint32_t*>(a.mism),
+      static_cast<uint32_t*>(a.digest), a.bw, a.ppr);
+}
+
+template <int R>
+void launch_pages_r(dim3 grid, cudaStream_t st, const PageArgs& a, int verify,
+                    int with_digest) {
+  if (verify && with_digest)
+    launch_pages<R, true, true>(grid, st, a);
+  else if (verify)
+    launch_pages<R, true, false>(grid, st, a);
+  else if (with_digest)
+    launch_pages<R, false, true>(grid, st, a);
+  else
+    launch_pages<R, false, false>(grid, st, a);
+}
+
+template <int R, bool RAW0>
+void launch_words(dim3 grid, cudaStream_t st, const void* x,
+                  const void* coeffs, uint32_t scalar, void* out,
+                  int64_t lead, int64_t m4) {
+  weight_words<R, RAW0><<<grid, kThreads, 0, st>>>(
+      static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(coeffs),
+      scalar, static_cast<uint32_t*>(out), lead, m4);
+}
+
+}  // namespace
+
+// old/new: (n_pages, bw) u32, bw % 4 == 0, 16-byte aligned, n_pages a
+// multiple of pages_per_rank; coeffs: (n_pages / pages_per_rank, r);
+// sdelta: (n_pages / pages_per_rank, r, pages_per_rank, bw); terms:
+// (n_pages, 2); stored/mism: (n_pages, 2) (verify only); digest:
+// (n_pages / pages_per_rank, 2), zeroed by the caller (with_digest only).
+// r is 2, 3 or 4.  Returns the cudaError_t of the launch.
+extern "C" int syndrome_pages_launch(const void* old_w, const void* new_w,
+                                     const void* coeffs, const void* stored,
+                                     void* sdelta, void* terms, void* mism,
+                                     void* digest, long long n_pages, int bw,
+                                     int pages_per_rank, int r, int verify,
+                                     int with_digest, void* stream) {
+  if (n_pages == 0) return 0;
+  const dim3 grid(static_cast<unsigned>(n_pages));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const PageArgs a{old_w, new_w, coeffs, stored, sdelta,
+                   terms, mism,  digest, bw,     pages_per_rank};
+  switch (r) {
+    case 2: launch_pages_r<2>(grid, s, a, verify, with_digest); break;
+    case 3: launch_pages_r<3>(grid, s, a, verify, with_digest); break;
+    case 4: launch_pages_r<4>(grid, s, a, verify, with_digest); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x: (lead, m) u32, m % 4 == 0, 16-byte aligned; out: (lead, r, m).
+// raw0 = 1 (sdelta_stack, r = 2..4): plane 0 is x, plane k is coeffs[l, k] · x.
+// raw0 = 0 (gf_scale, r = 1): out = scalar · x; coeffs is unused.
+// Returns the cudaError_t of the launch.
+extern "C" int weight_words_launch(const void* x, const void* coeffs,
+                                   unsigned scalar, void* out,
+                                   long long lead, long long m, int r,
+                                   int raw0, void* stream) {
+  if (lead == 0 || m == 0) return 0;
+  const int64_t m4 = m / 4;
+  const unsigned bx = static_cast<unsigned>(
+      (m4 + kThreads - 1) / kThreads < 65535 ? (m4 + kThreads - 1) / kThreads
+                                             : 65535);
+  const dim3 grid(bx, static_cast<unsigned>(lead < 65535 ? lead : 65535));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!raw0 && r == 1)
+    launch_words<1, false>(grid, s, x, nullptr, scalar, out, lead, m4);
+  else if (raw0 && r == 2)
+    launch_words<2, true>(grid, s, x, coeffs, 0u, out, lead, m4);
+  else if (raw0 && r == 3)
+    launch_words<3, true>(grid, s, x, coeffs, 0u, out, lead, m4);
+  else if (raw0 && r == 4)
+    launch_words<4, true>(grid, s, x, coeffs, 0u, out, lead, m4);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,5 +1,4 @@
-"""Dispatch for the protection kernels (the r = 1 routes of the reference's
-kernels/ops.py).
+"""Dispatch for the protection kernels (the reference's kernels/ops.py).
 
 A CUDA tensor launches the hand-written Hopper kernel, and anything the
 kernel cannot take raises — there is no fallback.  A CPU tensor takes the
@@ -8,16 +7,32 @@ raises.
 
 Pages come as `(*lead, n, bw)` int32 words; each leading index is one
 rank of the zone-stacked state, and one launch covers all of them (every
-kernel is per-page independent; only the digest is per rank).  The six
-entry points and the kernel behind each:
+kernel is per-page independent; only the digest is per rank).  The
+syndrome sweeps take each rank's coefficients as a `(*lead, r)` table
+(`gf.rank_syndrome_coeffs`), or None at r = 1, which routes to the
+single-parity kernels as the reference does (ops.py:113-150) and adds the
+plane dim.  The launch counters (named after the reference's entry
+points) and the kernel behind each:
 
-    fletcher_blocks             fletcher_pages<DIGEST=false>
-    fletcher_stream             fletcher_pages<DIGEST=true>
-    fused_commit                commit_pages<VERIFY=false, DIGEST=false>
-    fused_verify_commit         commit_pages<VERIFY=true,  DIGEST=false>
-    fused_commit_old_terms      commit_pages<VERIFY=true,  DIGEST=false>,
-                                stored = 0
-    fused_verify_commit_stream  commit_pages<VERIFY=true,  DIGEST=true>
+    fletcher_blocks                fletcher_pages<DIGEST=false>
+    fletcher_stream                fletcher_pages<DIGEST=true>
+    fused_commit                   commit_pages<VERIFY=false, DIGEST=false>
+    fused_verify_commit            commit_pages<VERIFY=true,  DIGEST=false>
+    fused_commit_old_terms         commit_pages<VERIFY=true,  DIGEST=false>,
+                                   stored = 0
+    fused_verify_commit_stream     commit_pages<VERIFY=true,  DIGEST=true>
+    fused_commit_stream            commit_pages<VERIFY=false, DIGEST=true>
+    fused_commit_old_terms_stream  commit_pages<VERIFY=true,  DIGEST=true>,
+                                   stored = 0
+    gf_scale                       weight_words<1, RAW0=false>
+    sdelta_stack                   weight_words<r, RAW0=true>
+                                   (behind syndrome_scale)
+    fused_commit_s                 syndrome_pages<r, VERIFY=false, DIGEST=false>
+    fused_verify_commit_s          syndrome_pages<r, VERIFY=true,  DIGEST=false>
+    fused_commit_old_terms_s       syndrome_pages<r, VERIFY=true,  DIGEST=false>,
+                                   stored = 0
+    fused_commit_s_stream          syndrome_pages<r, VERIFY=false, DIGEST=true>
+    fused_verify_commit_s_stream   syndrome_pages<r, VERIFY=true,  DIGEST=true>
 """
 from __future__ import annotations
 
@@ -27,10 +42,15 @@ import torch
 
 from repro_torch.kernels import commit_fused as _cf
 from repro_torch.kernels import fletcher as _fl
+from repro_torch.kernels import gf_parity as _gf
 
 ENTRY_POINTS = ("fletcher_blocks", "fletcher_stream", "fused_commit",
                 "fused_verify_commit", "fused_commit_old_terms",
-                "fused_verify_commit_stream")
+                "fused_verify_commit_stream", "fused_commit_stream",
+                "fused_commit_old_terms_stream", "gf_scale", "sdelta_stack",
+                "fused_commit_s", "fused_verify_commit_s",
+                "fused_commit_old_terms_s", "fused_commit_s_stream",
+                "fused_verify_commit_s_stream")
 
 
 def _on_card(x: torch.Tensor) -> bool:
@@ -39,6 +59,11 @@ def _on_card(x: torch.Tensor) -> bool:
     if x.device.type == "cpu":
         return False
     raise ValueError(f"no protection kernel for device {x.device}")
+
+
+def _bad(mism: torch.Tensor) -> torch.Tensor:
+    """A page is bad where its old terms ^ stored are not all zero."""
+    return (mism != 0).any(dim=-1)
 
 
 def fletcher_blocks(blocks: torch.Tensor) -> torch.Tensor:
@@ -77,7 +102,7 @@ def fused_verify_commit(old: torch.Tensor, new: torch.Tensor,
             old, new, stored, digest=False, name="fused_verify_commit")
     else:
         delta, ck, mism, _ = _cf.commit_pages_plain(old, new, stored)
-    return delta, ck, (mism != 0).any(dim=-1)
+    return delta, ck, _bad(mism)
 
 
 def fused_commit_old_terms(old: torch.Tensor, new: torch.Tensor) -> tuple:
@@ -102,7 +127,117 @@ def fused_verify_commit_stream(old: torch.Tensor, new: torch.Tensor,
     else:
         delta, ck, mism, dig = _cf.commit_pages_plain(old, new, stored,
                                                       digest=True)
-    return delta, ck, (mism != 0).any(dim=-1), dig
+    return delta, ck, _bad(mism), dig
+
+
+def fused_commit_stream(old: torch.Tensor, new: torch.Tensor) -> tuple:
+    """(delta, new terms, per-rank row digest of the new pages)."""
+    if _on_card(new):
+        delta, ck, _, dig = _cf.commit_pages_cuda(
+            old, new, digest=True, name="fused_commit_stream")
+    else:
+        delta, ck, _, dig = _cf.commit_pages_plain(old, new, digest=True)
+    return delta, ck, dig
+
+
+def fused_commit_old_terms_stream(old: torch.Tensor,
+                                  new: torch.Tensor) -> tuple:
+    """(delta, new terms, old terms, digest): the streamed verify sweep
+    with stored = 0."""
+    zeros = torch.zeros(*new.shape[:-1], 2, dtype=torch.int32,
+                        device=new.device)
+    if _on_card(new):
+        return _cf.commit_pages_cuda(old, new, zeros, digest=True,
+                                     name="fused_commit_old_terms_stream")
+    return _cf.commit_pages_plain(old, new, zeros, digest=True)
+
+
+# -- the GF(2^32) syndrome stack (r >= 2) ------------------------------------
+
+def gf_scale(x: torch.Tensor, coeff: int) -> torch.Tensor:
+    """Element-wise y = coeff · x in GF(2^32), coeff a host u32."""
+    if _on_card(x):
+        return _gf.gf_scale_cuda(x, coeff, name="gf_scale")
+    return _gf.gf_scale_plain(x, coeff)
+
+
+def syndrome_scale(x: torch.Tensor,
+                   coeffs: Optional[torch.Tensor]) -> torch.Tensor:
+    """`(*lead, m)` words -> the `(*lead, r, m)` weighted stack from one
+    read of x (the `sdelta_stack` kernel): plane 0 raw, plane k =
+    coeffs[..., k] · x.  coeffs None means r = 1: the words themselves, as
+    a view."""
+    if coeffs is None:
+        return x.unsqueeze(-2)
+    if _on_card(x):
+        return _gf.sdelta_stack_cuda(x, coeffs, name="sdelta_stack")
+    return _gf.sdelta_stack_plain(x, coeffs)
+
+
+def _s_sweep(old, new, coeffs, stored, digest, name):
+    if _on_card(new):
+        return _gf.syndrome_pages_cuda(old, new, coeffs, stored,
+                                       digest=digest, name=name)
+    return _gf.syndrome_pages_plain(old, new, coeffs, stored, digest)
+
+
+def fused_commit_s(old: torch.Tensor, new: torch.Tensor,
+                   coeffs: Optional[torch.Tensor] = None) -> tuple:
+    """(sdelta `(*lead, r, n, bw)`, new terms)."""
+    if coeffs is None:
+        delta, ck = fused_commit(old, new)
+        return delta.unsqueeze(-3), ck
+    sdelta, ck, _, _ = _s_sweep(old, new, coeffs, None, False,
+                                "fused_commit_s")
+    return sdelta, ck
+
+
+def fused_verify_commit_s(old: torch.Tensor, new: torch.Tensor,
+                          stored: torch.Tensor,
+                          coeffs: Optional[torch.Tensor] = None) -> tuple:
+    """(sdelta, new terms, bad `(*lead, n)`)."""
+    if coeffs is None:
+        delta, ck, bad = fused_verify_commit(old, new, stored)
+        return delta.unsqueeze(-3), ck, bad
+    sdelta, ck, mism, _ = _s_sweep(old, new, coeffs, stored, False,
+                                   "fused_verify_commit_s")
+    return sdelta, ck, _bad(mism)
+
+
+def fused_commit_old_terms_s(old: torch.Tensor, new: torch.Tensor,
+                             coeffs: Optional[torch.Tensor] = None) -> tuple:
+    """(sdelta, new terms, old terms)."""
+    if coeffs is None:
+        delta, ck, old_ck = fused_commit_old_terms(old, new)
+        return delta.unsqueeze(-3), ck, old_ck
+    zeros = torch.zeros(*new.shape[:-1], 2, dtype=torch.int32,
+                        device=new.device)
+    return _s_sweep(old, new, coeffs, zeros, False,
+                    "fused_commit_old_terms_s")[:3]
+
+
+def fused_commit_s_stream(old: torch.Tensor, new: torch.Tensor,
+                          coeffs: Optional[torch.Tensor] = None) -> tuple:
+    """(sdelta, new terms, per-rank row digest)."""
+    if coeffs is None:
+        delta, ck, dig = fused_commit_stream(old, new)
+        return delta.unsqueeze(-3), ck, dig
+    sdelta, ck, _, dig = _s_sweep(old, new, coeffs, None, True,
+                                  "fused_commit_s_stream")
+    return sdelta, ck, dig
+
+
+def fused_verify_commit_s_stream(old: torch.Tensor, new: torch.Tensor,
+                                 stored: torch.Tensor,
+                                 coeffs: Optional[torch.Tensor] = None
+                                 ) -> tuple:
+    """(sdelta, new terms, bad, per-rank row digest)."""
+    if coeffs is None:
+        delta, ck, bad, dig = fused_verify_commit_stream(old, new, stored)
+        return delta.unsqueeze(-3), ck, bad, dig
+    sdelta, ck, mism, dig = _s_sweep(old, new, coeffs, stored, True,
+                                     "fused_verify_commit_s_stream")
+    return sdelta, ck, _bad(mism), dig
 
 
 def stream_chunk_blocks(n_blocks: int, block_words: int, *,

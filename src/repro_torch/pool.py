@@ -15,6 +15,10 @@ never touch that plumbing directly.
                       (pool.scrub() forces one)
     SIGBUS handler    pool.recover(Fault.rank_loss(r))
     corruption repair pool.recover(Fault.scribble(rank, pages))
+    (beyond paper)    pool.recover(Fault.multi_loss(*ranks)) — any
+                      e <= r simultaneous rank losses, rebuilt online
+                      from the GF(2^32) syndrome stack
+                      (ProtectConfig(redundancy=r))
     ================  =============================================
 
 Callers hand the pool *global* tensors with their partition specs; the
@@ -25,8 +29,8 @@ The pool holds the tensors it is given: stage a new tensor, do not
 mutate a staged one in place.
 
 Not in this port slice, and refused with `NotImplementedError` naming the
-ROADMAP slice that ports it: redundancy > 1, window > 1, pipeline_depth
-> 1, commit_async, rescale, tenancy and straggler mitigation.
+ROADMAP slice that ports it: window > 1, pipeline_depth > 1,
+commit_async, rescale, tenancy and straggler mitigation.
 """
 from __future__ import annotations
 
@@ -41,7 +45,7 @@ from repro_torch.configs.base import ProtectConfig
 from repro_torch.core import microbuffer
 from repro_torch.core import recovery as recovery_mod
 from repro_torch.core.scrub import ScrubReport, Scrubber
-from repro_torch.core.txn import R_GE_2, Mode, ProtectedState, Protector
+from repro_torch.core.txn import Mode, ProtectedState, Protector
 from repro_torch.dist import sharding
 from repro_torch.obs import health as obs_health
 from repro_torch.obs.metrics import MetricsRegistry
@@ -56,7 +60,9 @@ class Fault:
 
         Fault.rank_loss(r)          one data-rank's row lost (media error)
         Fault.scribble(rank, pages) silent corruption at (rank, page)s
-        Fault.multi_loss(*ranks)    e ranks lost at once (r >= 2 slice)
+        Fault.multi_loss(*ranks)    e ranks lost at once (needs
+                                    redundancy >= e syndromes)
+        Fault.double_loss(a, b)     the e = 2 alias
         Fault.from_event(event)     adapt a runtime FailureEvent
     """
     kind: str                                   # rank_loss | multi_loss
@@ -76,6 +82,10 @@ class Fault:
             raise ValueError(
                 f"multi loss needs >= 2 distinct ranks, got {ranks}")
         return Fault("multi_loss", ranks=dead)
+
+    @staticmethod
+    def double_loss(a: int, b: int) -> "Fault":
+        return Fault.multi_loss(a, b)
 
     @staticmethod
     def scribble(rank: int, pages: Sequence[int]) -> "Fault":
@@ -229,6 +239,7 @@ class Pool:
         self._n_recoveries = 0
         self._n_followups = 0
         self._suspect = False
+        self._budget_exhausted = False
         self._last_reverify_ok: Optional[bool] = None
         self._unrepaired_pages = 0
         # faults arriving while a recovery is in flight (from freeze /
@@ -248,11 +259,16 @@ class Pool:
         return pool.init(state)
 
     def init(self, state: PyTree) -> "Pool":
-        """Build parity/checksums/row for `state` (fresh protection)."""
+        """Build parity/checksums/row for `state` (fresh protection).  Also
+        the re-arm point after a budget-exhausted storm: it clears the
+        health flags and restores the full syndrome budget."""
         self.prot = self.protector.init(self.to_zone(state))
+        self._budget_exhausted = False
         self._unrepaired_pages = 0
         self._last_reverify_ok = None
         self._suspect = False
+        self.metrics.gauge("pool_budget_remaining").set(
+            self.redundancy if self.mode.has_parity else 0)
         return self
 
     def to_zone(self, state: PyTree) -> PyTree:
@@ -311,6 +327,7 @@ class Pool:
             "recoveries": self._n_recoveries,
             "recovery_followups": self._n_followups,
             "suspect": self._suspect,
+            "budget_exhausted": self._budget_exhausted,
             "metrics": self.metrics.snapshot(),
         }
 
@@ -320,7 +337,7 @@ class Pool:
             window=1, max_window=1, dropped_replicas=(),
             suspect=self._suspect,
             redundancy=self.redundancy if self.mode.has_parity else 0,
-            budget_exhausted=False,
+            budget_exhausted=self._budget_exhausted,
             scrub_coverage=self.scrubber.coverage(),
             unrepaired_pages=self._unrepaired_pages,
             reverify_failed=self._last_reverify_ok is False,
@@ -427,6 +444,10 @@ class Pool:
     def recover(self, fault: Fault, *, reverify: bool = True
                 ) -> Optional[recovery_mod.RecoveryReport]:
         """One recovery path for every fault (the SIGBUS-handler analogue).
+        A `Fault.multi_loss` of e ranks solves online when e <= redundancy;
+        e > r raises the budget-exhausted error (naming the dead ranks and
+        the available r) and latches the health surface critical until
+        `init` re-arms the pool.
 
         `reverify=True` re-runs the full syndrome/checksum verification
         after reconstruction (`report.synd_ok`, `report.reverified`).  A
@@ -464,6 +485,17 @@ class Pool:
                      ) -> recovery_mod.RecoveryReport:
         t_total = time.perf_counter()
         with self.tracer.span("recovery", fault_kind=fault.kind) as span:
+            if fault.kind == "multi_loss":
+                # refuse an over-budget solve up front, before anything is
+                # touched
+                try:
+                    self.protector.check_budget(fault.ranks)
+                except RuntimeError:
+                    self._budget_exhausted = True
+                    self.metrics.counter(
+                        "pool_budget_exhausted_total").inc()
+                    self.metrics.gauge("pool_budget_remaining").set(0)
+                    raise
             if fault.kind == "rank_loss":
                 prot, rep = recovery_mod.recover_from_rank_loss(
                     self.protector, self.prot, fault.rank,
@@ -473,7 +505,9 @@ class Pool:
                     self.protector, self.prot, fault.locations,
                     freeze=self._freeze, resume=self._resume)
             elif fault.kind == "multi_loss":
-                raise NotImplementedError(f"Fault.multi_loss: {R_GE_2}")
+                prot, rep = recovery_mod.recover_from_e_loss(
+                    self.protector, self.prot, fault.ranks,
+                    freeze=self._freeze, resume=self._resume)
             else:
                 raise ValueError(
                     f"no recovery path for fault {fault.kind!r}")

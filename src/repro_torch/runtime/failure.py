@@ -3,6 +3,8 @@
   * `inject_rank_loss`    — garbles one data-rank's entire state shard in
     every zone (chip/host failure, HBM UE); the returned FailureEvent is
     what the runtime feeds to recovery.
+  * `inject_multi_rank_loss` — garbles e data-ranks' shards at once
+    (overlapping failures, recoverable online when e <= r).
   * `inject_scribble`     — XORs a mask into chosen words of one rank's
     flat row (SDC / wild-store analogue), invisible until a checksum
     verification catches it.
@@ -10,7 +12,7 @@
     overran (caught at commit, before state is touched).
 
 Every injector returns a new ProtectedState; the tensors it was given are
-not modified.  The multi-rank loss injectors arrive with the r >= 2 slice.
+not modified.
 """
 from __future__ import annotations
 
@@ -47,6 +49,30 @@ def inject_rank_loss(protector: Protector, prot: ProtectedState,
             FailureEvent("rank_loss", lost_rank=int(rank)))
 
 
+def inject_multi_rank_loss(protector: Protector, prot: ProtectedState,
+                           ranks) -> tuple:
+    """Garble e >= 2 distinct data-ranks' shards at once; returns (prot,
+    event) with a "multi_loss" event carrying every lost rank."""
+    ranks = [int(r) for r in ranks]
+    dead = sorted(set(ranks))
+    if len(dead) != len(ranks) or len(dead) < 2:
+        raise ValueError(f"multi loss needs >= 2 distinct ranks, got {ranks}")
+    lo = protector.layout
+    row = layout_mod.flatten_row(lo, prot.state)
+    me = protector.rank_index(row.device)
+    victim = torch.isin(me, torch.tensor(dead, device=row.device))
+    out = select(victim, row ^ word(0xA5A5A5A5), row)
+    return (dataclasses.replace(prot, state=layout_mod.unflatten_row(lo, out)),
+            FailureEvent("multi_loss", lost_ranks=dead))
+
+
+def inject_double_rank_loss(protector: Protector, prot: ProtectedState,
+                            ranks) -> tuple:
+    """The e = 2 multi-rank loss."""
+    a, b = (int(r) for r in ranks)
+    return inject_multi_rank_loss(protector, prot, (a, b))
+
+
 def inject_scribble(protector: Protector, prot: ProtectedState,
                     rank: int, word_offsets: Sequence[int],
                     xor_mask: int = 0x00010000) -> tuple:
@@ -80,6 +106,17 @@ def seeded_rank_loss(protector: Protector, prot: ProtectedState,
     if rank is None:
         rank = int(_rng(seed, "rank_loss").integers(protector.group_size))
     return inject_rank_loss(protector, prot, rank)
+
+
+def seeded_multi_rank_loss(protector: Protector, prot: ProtectedState,
+                           seed: int, e: int = 2,
+                           ranks: Optional[Sequence[int]] = None) -> tuple:
+    """Deterministic e-rank loss: victims drawn without replacement from
+    (seed, "multi_loss")."""
+    if ranks is None:
+        ranks = _rng(seed, "multi_loss").choice(
+            protector.group_size, size=e, replace=False)
+    return inject_multi_rank_loss(protector, prot, [int(r) for r in ranks])
 
 
 def scribble_plan(protector: Protector, seed: int,

@@ -8,11 +8,18 @@ The reference's meshes are built with Auto axis types: under jax 0.9
 shapes and axis names are those of the conftest fixtures.
 """
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 from jax.sharding import AxisType, NamedSharding, PartitionSpec
 
+from repro.core import gf as ref_gf
+from repro.core.txn import Mode as RefMode
+from repro.core.txn import Protector as RefProtector
+from repro.kernels import ref
 from repro_torch import convert, utils
+from repro_torch.core.txn import Mode, Protector
+from repro_torch.dist import sharding
 from repro_torch.dist.sharding import P, ZoneMesh
 
 MESHES = {
@@ -34,7 +41,6 @@ def zone_mesh(name):
 
 def small_state_np():
     """conftest.small_state's values as numpy (bf16 via ml_dtypes) + specs."""
-    import jax.numpy as jnp
     state = {
         "w1": np.asarray(jnp.arange(8 * 64, dtype=jnp.float32)
                          .reshape(8, 64) * 0.1),
@@ -134,3 +140,98 @@ def rand_u32(shape, seed):
 def as_words(a: np.ndarray) -> torch.Tensor:
     """u32 numpy -> port int32 words on the CPU."""
     return torch.from_numpy(np.ascontiguousarray(a).view(np.int32).copy())
+
+
+def state_like(seed, like):
+    """A fresh global state of `like`'s shapes from a seeded numpy rng
+    (bf16 rounded by JAX so both packages get the same bits)."""
+    rng = np.random.default_rng(seed)
+    return {
+        "w1": rng.standard_normal(like["w1"].shape).astype(np.float32),
+        "w2": np.asarray(jnp.asarray(rng.standard_normal(like["w2"].shape),
+                                     jnp.bfloat16)),
+        "scale": np.float32(rng.standard_normal()),
+    }
+
+
+def patched(cur, **leaves):
+    out = dict(cur)
+    out.update(leaves)
+    return out
+
+
+class Pair:
+    """One reference and one port Protector driven in lockstep on
+    `small_state_np` at block_words = 64 (w1 fills page 0, w2 pages 1-2,
+    scale page 3)."""
+
+    def __init__(self, mesh_name, mode, **kw):
+        self.mesh, self.zmesh = jax_mesh(mesh_name), zone_mesh(mesh_name)
+        self.cur, self.specs = small_state_np()
+        ref_state = to_jax(self.cur, self.specs, self.mesh)
+        self.ref = RefProtector(self.mesh, jax.eval_shape(lambda: ref_state),
+                                jax_specs(self.specs), mode=RefMode(mode),
+                                block_words=64, **kw)
+        self.port = Protector(self.zmesh, to_torch(self.cur),
+                              port_specs(self.specs), mode=Mode(mode),
+                              block_words=64, **kw)
+        self.rp = self.ref.init(ref_state)
+        self.pp = self.port.init(self.zone(self.cur))
+        self.check()
+
+    def zone(self, state_np):
+        ps = port_specs(self.specs)
+        return {k: sharding.shard(v, ps[k], self.zmesh)
+                for k, v in to_torch(state_np).items()}
+
+    def check(self):
+        assert_prot_same(self.rp, self.mesh, self.pp)
+
+    def commit(self, new_np, *, seed=0, canary_ok=True, **kw):
+        key = jax.random.PRNGKey(seed)
+        words = [int(w) for w in np.asarray(jax.random.key_data(key))[:2]]
+        self.rp, rok = self.ref.commit(
+            self.rp, to_jax(new_np, self.specs, self.mesh), rng_key=key,
+            data_cursor=seed + 1, canary_ok=canary_ok, **kw)
+        self.pp, pok = self.port.commit(
+            self.pp, self.zone(new_np), rng_key=words, data_cursor=seed + 1,
+            canary_ok=canary_ok, **kw)
+        assert bool(pok) == bool(rok)
+        self.check()
+        if bool(rok):
+            self.cur = new_np
+        return bool(rok)
+
+
+# -- inputs and byte checks of the GF sweep tests -----------------------------
+
+GF_SHAPES = [(1, 64), (13, 128), (16, 1024)]
+
+
+def sweep_pages(n, bw, seed):
+    """Seeded u32 (old, new) pages and the old pages' stored terms with a
+    few rows corrupted."""
+    old, new = rand_u32((n, bw), seed), rand_u32((n, bw), seed + 1)
+    stored = np.asarray(ref.fletcher_blocks_ref(jnp.asarray(old))).copy()
+    stored[::3, 0] ^= 1                    # a few corrupted stored rows
+    return old, new, stored
+
+
+def sweep_inputs(r, n, bw):
+    """(torch, jax) forms of seeded (old, new, stored, one rank's
+    coefficient row of a G = 100 zone) for the sweeps at r."""
+    old, new, stored = sweep_pages(n, bw, seed=31 * r + n)
+    co = ref_gf.syndrome_array(100, r)[99]
+    return ([as_words(a) for a in (old, new, stored, co)],
+            [jnp.asarray(a) for a in (old, new, stored, co)])
+
+
+def eq_words(got, *wants):
+    got = words(got) if got.dtype == torch.int32 else got.numpy()
+    for want in wants:
+        np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def check_outputs(got, *wants):
+    for outs in zip(got, *wants, strict=True):
+        eq_words(*outs)

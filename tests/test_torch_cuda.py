@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Marked `cuda`: they skip where no GPU is present.  This file imports
-neither JAX nor the reference, so it also runs on a machine that has only
-PyTorch and the CUDA toolkit:
+neither JAX nor the reference (only the port and chip_smoke.py's kernel
+calls), so it also runs on a machine that has only PyTorch and the CUDA
+toolkit; run it from the repo root:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -11,7 +12,6 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build, ops
-from repro_torch.kernels import commit_fused as port_cf
 from repro_torch.kernels import fletcher as port_fl
 
 
@@ -32,29 +32,24 @@ def _pages(shape, seed, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("lead,n,bw", [((), 1, 64), ((), 13, 64),
                                        ((3,), 13, 1024), ((2, 2), 300, 1024)])
-def test_cuda_kernels_match_plain(card, lead, n, bw):
+@pytest.mark.parametrize("r", [2, 3, 4])
+def test_cuda_kernels_match_plain(card, lead, n, bw, r):
+    """Every entry point's kernel against its plain version (the calls of
+    chip_smoke.entry_calls), the syndrome sweeps at r; one launch each."""
+    import chip_smoke
     old, new = _pages((*lead, n, bw), 1, card), _pages((*lead, n, bw), 2, card)
     stored = port_fl.fletcher_pages_plain(old)
     stored[..., ::3, 0] ^= 1                   # a few corrupted stored rows
+    coeffs = chip_smoke.coeff_table(lead, r, card)
+    calls = chip_smoke.entry_calls(old, new, stored, coeffs, new)
+    assert set(calls) == set(ops.ENTRY_POINTS)
     _build.reset_launches()
-    got = [ops.fletcher_blocks(new), ops.fletcher_stream(new),
-           ops.fused_commit(old, new), ops.fused_verify_commit(old, new, stored),
-           ops.fused_commit_old_terms(old, new),
-           ops.fused_verify_commit_stream(old, new, stored)]
+    got = {name: kernel() for name, (kernel, _) in calls.items()}
     torch.cuda.synchronize()
-    zeros = torch.zeros_like(stored)
-    want = [(port_fl.fletcher_pages_plain(new),),
-            port_fl.fletcher_stream_plain(new),
-            port_cf.commit_pages_plain(old, new)[:2],
-            port_cf.commit_pages_plain(old, new, stored),
-            port_cf.commit_pages_plain(old, new, zeros)[:3],
-            port_cf.commit_pages_plain(old, new, stored, digest=True)]
-    for name, g, w in zip(ops.ENTRY_POINTS, got, want):
-        g = g if isinstance(g, tuple) else (g,)
-        w = [x if x is None or i != 2 or name not in (
-            "fused_verify_commit", "fused_verify_commit_stream")
-             else (x != 0).any(-1) for i, x in enumerate(w)]
-        for a, b in zip(g, w):
+    for name, (_, plain) in calls.items():
+        want = plain()
+        assert len(got[name]) == len(want), name
+        for a, b in zip(got[name], want):
             assert torch.equal(a, b), name
     assert _build.LAUNCHES == {k: 1 for k in ops.ENTRY_POINTS}
 
@@ -69,3 +64,12 @@ def test_cuda_wrappers_raise_on_what_they_cannot_launch(card):
     y = torch.zeros(4, 128, dtype=torch.int32, device=card)[:, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         ops.fused_commit(y, y)
+    z = torch.zeros(4, 64, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="coefficients"):
+        ops.fused_commit_s(z, z, torch.ones(4, 5, dtype=torch.int32,
+                                            device=card))      # r = 5
+    with pytest.raises(ValueError, match="coefficients"):
+        ops.syndrome_scale(z, torch.ones(3, 2, dtype=torch.int32,
+                                         device=card))
+    with pytest.raises(ValueError, match="m % 4"):
+        ops.gf_scale(torch.zeros(6, dtype=torch.int32, device=card), 3)

@@ -1,6 +1,7 @@
 """Guards on the port's boundary: the package and chip_smoke.py import
-neither JAX nor the reference; configurations this slice does not run are
-refused, never downgraded; and the pool's default device is the card."""
+neither JAX nor the reference; configurations the port does not run yet
+are refused, never downgraded; a multi-rank loss beyond the redundancy is
+refused; and the pool's default device is the card."""
 import ast
 import pathlib
 
@@ -12,7 +13,8 @@ from repro_torch.core.txn import Protector
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_warm_commits.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_warm_commits.py",
+    ROOT / "scripts" / "torch_sass_counts.py"]
 
 
 def _imports(path):
@@ -42,24 +44,43 @@ def _tiny():
     dict(pipeline_depth=2), dict(overlap_commit=True),
     dict(straggler_threshold=1.5)])
 def test_unported_configurations_raise(cfg):
+    """Each configuration the port does not run yet raises, naming its
+    slice; redundancy 2 (directly or as the mlpc2 alias) is ported and
+    opens a pool with a two-plane stack."""
     mesh, state, specs = _tiny()
+    config = ProtectConfig(**cfg)
+    if config.resolved_redundancy > 1:
+        pool = Pool.open(state, specs, mesh=mesh, config=config,
+                         device="cpu")
+        assert pool.redundancy == 2 and pool.prot.synd.shape[-2] == 2
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        Pool.open(state, specs, mesh=mesh, config=ProtectConfig(**cfg),
-                  device="cpu")
+        Pool.open(state, specs, mesh=mesh, config=config, device="cpu")
 
 
 def test_unported_entry_points_raise():
+    """commit_async and rescale raise naming their slices; a Protector at
+    r = 2 builds; two losses on an r = 1 pool are the budget refusal,
+    latched in the health surface and the metrics until `init` re-arms
+    the pool."""
+    from repro_torch import Fault
     mesh, state, specs = _tiny()
     pool = Pool.open(state, specs, mesh=mesh, device="cpu")
     with pytest.raises(NotImplementedError, match="S3"):
         pool.commit_async(state)
     with pytest.raises(NotImplementedError, match="S6"):
         pool.rescale(mesh)
-    with pytest.raises(NotImplementedError, match="S1"):
-        Protector(mesh, state, specs, mode="mlp", redundancy=2)
-    from repro_torch import Fault
-    with pytest.raises(NotImplementedError, match="S1"):
+    assert Protector(mesh, state, specs, mode="mlp",
+                     redundancy=2).redundancy == 2
+    with pytest.raises(RuntimeError, match="syndrome budget exhausted"):
         pool.recover(Fault.multi_loss(0, 1))
+    assert pool.stats()["budget_exhausted"]
+    assert pool.metrics.counter("pool_budget_exhausted_total").value == 1
+    assert pool.metrics.gauge("pool_budget_remaining").value == 0
+    assert pool.health().status == "critical"
+    pool.init(state)
+    assert not pool.stats()["budget_exhausted"]
+    assert pool.metrics.gauge("pool_budget_remaining").value == 1
 
 
 def test_default_device_is_the_card(monkeypatch):

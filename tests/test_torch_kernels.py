@@ -9,9 +9,10 @@ import pytest
 import torch
 
 from repro.kernels import commit_fused, fletcher, ref
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels import commit_fused as port_cf
 from repro_torch.kernels import fletcher as port_fl
+from repro_torch.kernels import gf_parity as port_gf
 from tests._torch_ref import as_words, rand_u32, words
 
 GEOMS = [(n, bw) for bw in (64, 1024) for n in (1, 3, 8, 13)]
@@ -78,6 +79,27 @@ def test_fused_commit_family_plain_vs_pallas_and_ref(n, bw):
         _eq(got, p, r)
 
 
+@pytest.mark.parametrize("n,bw", GEOMS)
+def test_streamed_commit_and_old_terms_plain_vs_pallas_and_ref(n, bw):
+    """`fused_commit_stream` and `fused_commit_old_terms_stream`, which no
+    engine path of the reference calls, held to its Pallas kernels too."""
+    old, new, _ = _inputs(n, bw, seed=11 * n + bw)
+    jo, jn = jnp.asarray(old), jnp.asarray(new)
+    to, tn = as_words(old), as_words(new)
+    for got, p, r in zip(
+            ops.fused_commit_stream(to, tn),
+            commit_fused.fused_commit_stream(jo, jn, chunk_blocks=4,
+                                             interpret=True),
+            ref.fused_commit_stream_ref(jo, jn), strict=True):
+        _eq(got, p, r)
+    for got, p, r in zip(
+            ops.fused_commit_old_terms_stream(to, tn),
+            commit_fused.fused_commit_old_terms_stream(
+                jo, jn, chunk_blocks=4, interpret=True),
+            ref.fused_commit_old_terms_stream_ref(jo, jn), strict=True):
+        _eq(got, p, r)
+
+
 def test_zone_stacked_call_equals_per_rank_calls():
     """(R, n, bw) pages in one call == R separate reference calls; each
     rank's digest covers its own pages only."""
@@ -131,3 +153,40 @@ def test_cuda_wrappers_refuse_what_they_cannot_launch():
     with pytest.raises(ValueError, match="no protection kernel"):
         ops.fletcher_blocks(torch.zeros(2, 64, dtype=torch.int32,
                                         device="meta"))
+
+
+def test_gf_cuda_wrappers_refuse_what_they_cannot_launch():
+    x = torch.zeros(2, 64, dtype=torch.int32)
+    co = torch.ones(2, 3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        port_gf.syndrome_pages_cuda(x, x, torch.ones(3, dtype=torch.int32),
+                                    digest=False, name="fused_commit_s")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        port_gf.sdelta_stack_cuda(x, co, name="sdelta_stack")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        port_gf.gf_scale_cuda(x, 3, name="gf_scale")
+    with pytest.raises(ValueError, match="no protection kernel"):
+        ops.gf_scale(torch.zeros(2, 64, dtype=torch.int32, device="meta"), 3)
+
+
+def test_library_path_hashes_every_included_header(tmp_path, monkeypatch):
+    """An edit to a shared header (gf.cuh, pages.cuh) changes the library
+    path of every source that includes it, and of no other."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in _build.CSRC.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build.library_path(n) for n in _build.SOURCES}
+    assert [f.name for f in _build.compiled_files("gf_parity")] == [
+        "gf_parity.cu", "pages.cuh", "gf.cuh"]
+    (csrc / "gf.cuh").write_bytes((csrc / "gf.cuh").read_bytes() + b"\n")
+    after = {n: _build.library_path(n) for n in _build.SOURCES}
+    assert after["gf_parity"] != before["gf_parity"]
+    assert after["commit_fused"] == before["commit_fused"]
+    (csrc / "pages.cuh").write_bytes(b"// edited\n" +
+                                     (csrc / "pages.cuh").read_bytes())
+    again = {n: _build.library_path(n) for n in _build.SOURCES}
+    assert again["gf_parity"] != after["gf_parity"]
+    assert again["commit_fused"] != after["commit_fused"]
+    assert again["fletcher"] == before["fletcher"]

@@ -6,79 +6,14 @@ digest, redo log, step — and the verdict are byte-equal to the
 reference's.  The streamed route (row >= stream_threshold_words) runs
 against the reference's streamed Protector with the same settings."""
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.core.txn import Mode as RefMode
-from repro.core.txn import Protector as RefProtector
 from repro.runtime import failure as ref_failure
-from repro_torch.core.txn import Mode, Protector
-from repro_torch.dist import sharding
 from repro_torch.runtime import failure
-from tests._torch_ref import (assert_prot_same, jax_mesh, jax_specs,
-                              port_specs, small_state_np, to_jax, to_torch,
-                              zone_mesh)
-
-
-def _state(seed, like):
-    """A fresh global state of `like`'s shapes from a seeded numpy rng
-    (bf16 rounded by JAX so both packages get the same bits)."""
-    rng = np.random.default_rng(seed)
-    return {
-        "w1": rng.standard_normal(like["w1"].shape).astype(np.float32),
-        "w2": np.asarray(jnp.asarray(rng.standard_normal(like["w2"].shape),
-                                     jnp.bfloat16)),
-        "scale": np.float32(rng.standard_normal()),
-    }
-
-
-class Pair:
-    """One reference and one port Protector driven in lockstep."""
-
-    def __init__(self, mesh_name, mode, **kw):
-        self.mesh, self.zmesh = jax_mesh(mesh_name), zone_mesh(mesh_name)
-        self.cur, self.specs = small_state_np()
-        ref_state = to_jax(self.cur, self.specs, self.mesh)
-        self.ref = RefProtector(self.mesh, jax.eval_shape(lambda: ref_state),
-                                jax_specs(self.specs), mode=RefMode(mode),
-                                block_words=64, **kw)
-        self.port = Protector(self.zmesh, to_torch(self.cur),
-                              port_specs(self.specs), mode=Mode(mode),
-                              block_words=64, **kw)
-        self.rp = self.ref.init(ref_state)
-        self.pp = self.port.init(self.zone(self.cur))
-        self.check()
-
-    def zone(self, state_np):
-        ps = port_specs(self.specs)
-        return {k: sharding.shard(v, ps[k], self.zmesh)
-                for k, v in to_torch(state_np).items()}
-
-    def check(self):
-        assert_prot_same(self.rp, self.mesh, self.pp)
-
-    def commit(self, new_np, *, seed=0, canary_ok=True, **kw):
-        key = jax.random.PRNGKey(seed)
-        words = [int(w) for w in np.asarray(jax.random.key_data(key))[:2]]
-        self.rp, rok = self.ref.commit(
-            self.rp, to_jax(new_np, self.specs, self.mesh), rng_key=key,
-            data_cursor=seed + 1, canary_ok=canary_ok, **kw)
-        self.pp, pok = self.port.commit(
-            self.pp, self.zone(new_np), rng_key=words, data_cursor=seed + 1,
-            canary_ok=canary_ok, **kw)
-        assert bool(pok) == bool(rok)
-        self.check()
-        if bool(rok):
-            self.cur = new_np
-        return bool(rok)
-
-
-def _patched(cur, **leaves):
-    out = dict(cur)
-    out.update(leaves)
-    return out
+from tests._torch_ref import Pair, assert_prot_same, patched, state_like, \
+    to_jax
 
 
 @pytest.mark.parametrize("mesh_name", ["mesh42", "mesh_pod"])
@@ -86,16 +21,16 @@ def _patched(cur, **leaves):
 def test_commit_paths_match_reference(mesh_name, mode):
     pr = Pair(mesh_name, mode)
     # layout at bw = 64: w1 fills page 0, w2 pages 1-2, scale page 3
-    assert pr.commit(_state(1, pr.cur), seed=1)                    # bulk
-    assert pr.commit(_state(2, pr.cur), seed=2, verify_old=True)   # bulk+v
-    w1 = _state(3, pr.cur)["w1"]
-    assert pr.commit(_patched(pr.cur, w1=w1), seed=3, dirty_pages=[0])
-    sc = _state(4, pr.cur)["scale"]
-    assert pr.commit(_patched(pr.cur, scale=sc), seed=4, dirty_pages=[3],
+    assert pr.commit(state_like(1, pr.cur), seed=1)                    # bulk
+    assert pr.commit(state_like(2, pr.cur), seed=2, verify_old=True)   # bulk+v
+    w1 = state_like(3, pr.cur)["w1"]
+    assert pr.commit(patched(pr.cur, w1=w1), seed=3, dirty_pages=[0])
+    sc = state_like(4, pr.cur)["scale"]
+    assert pr.commit(patched(pr.cur, scale=sc), seed=4, dirty_pages=[3],
                      verify_old=True)                              # patch+v
     assert pr.commit(dict(pr.cur), seed=5, dirty_pages=[])         # meta
-    assert not pr.commit(_state(6, pr.cur), seed=6, canary_ok=False)
-    assert not pr.commit(_state(7, pr.cur), seed=7, canary_ok=False,
+    assert not pr.commit(state_like(6, pr.cur), seed=6, canary_ok=False)
+    assert not pr.commit(state_like(7, pr.cur), seed=7, canary_ok=False,
                          verify_old=True)
 
 
@@ -110,8 +45,8 @@ def test_verify_abort_on_scribbled_state_matches_reference(dirty):
     pr.pp, _ = failure.inject_scribble(pr.port, pr.pp, rank=1,
                                        word_offsets=[5])
     pr.check()
-    w1 = _state(8, pr.cur)["w1"]
-    assert not pr.commit(_patched(pr.cur, w1=w1), seed=8, verify_old=True,
+    w1 = state_like(8, pr.cur)["w1"]
+    assert not pr.commit(patched(pr.cur, w1=w1), seed=8, verify_old=True,
                          dirty_pages=dirty)
 
 
@@ -127,10 +62,10 @@ def test_zone_agreement_spans_the_data_axis_only():
     pr.rp.cksums = jax.device_put(bad, pr.rp.cksums.sharding)
     pr.pp.cksums = pr.pp.cksums.clone()
     pr.pp.cksums[2, 1, 0, 0] ^= 1
-    assert pr.commit(_state(9, pr.cur), seed=9, verify_old=True,
+    assert pr.commit(state_like(9, pr.cur), seed=9, verify_old=True,
                      dirty_pages=[0, 1, 2, 3])
     row = pr.pp.row
-    w1_new = pr.zone(_state(9, pr.cur))["w1"]
+    w1_new = pr.zone(state_like(9, pr.cur))["w1"]
     assert torch.equal(pr.pp.state["w1"][:, 0], w1_new[:, 0])
     assert not torch.equal(pr.pp.state["w1"][:, 1], w1_new[:, 1])
     assert row.shape[:2] == (4, 2)
@@ -139,9 +74,9 @@ def test_zone_agreement_spans_the_data_axis_only():
 @pytest.mark.parametrize("mode", ["none", "ml", "replica"])
 def test_unprotected_modes_match_reference(mode):
     pr = Pair("mesh42", mode)
-    assert pr.commit(_state(1, pr.cur), seed=1)
-    assert not pr.commit(_state(2, pr.cur), seed=2, canary_ok=False)
-    assert pr.commit(_state(3, pr.cur), seed=3, dirty_pages=[0])
+    assert pr.commit(state_like(1, pr.cur), seed=1)
+    assert not pr.commit(state_like(2, pr.cur), seed=2, canary_ok=False)
+    assert pr.commit(state_like(3, pr.cur), seed=3, dirty_pages=[0])
 
 
 @pytest.mark.parametrize("mode", ["mlpc", "mlp"])
@@ -150,16 +85,16 @@ def test_streamed_route_matches_reference(mode):
     comes from the kernel, not from combine) — same bytes."""
     pr = Pair("mesh42", mode, stream_threshold_words=1, stream_chunk_words=128)
     assert pr.port.stream_chunk() == 2
-    assert pr.commit(_state(1, pr.cur), seed=1)
-    assert pr.commit(_state(2, pr.cur), seed=2, verify_old=True)
-    w1 = _state(3, pr.cur)["w1"]
-    assert pr.commit(_patched(pr.cur, w1=w1), seed=3, dirty_pages=[0],
+    assert pr.commit(state_like(1, pr.cur), seed=1)
+    assert pr.commit(state_like(2, pr.cur), seed=2, verify_old=True)
+    w1 = state_like(3, pr.cur)["w1"]
+    assert pr.commit(patched(pr.cur, w1=w1), seed=3, dirty_pages=[0],
                      verify_old=True)
 
 
 def test_recovery_and_scrub_match_reference():
     pr = Pair("mesh_pod", "mlpc")
-    pr.commit(_state(1, pr.cur), seed=1)
+    pr.commit(state_like(1, pr.cur), seed=1)
     for lost in (0, 1):
         rp, _ = ref_failure.inject_rank_loss(pr.ref, pr.rp, lost)
         pp, _ = failure.inject_rank_loss(pr.port, pr.pp, lost)
@@ -210,11 +145,11 @@ def test_state_carried_across_from_the_reference():
     from repro_torch import convert
     from tests._torch_ref import ref_fields
     pr = Pair("mesh_pod", "mlpc")
-    pr.rp, _ = pr.ref.commit(pr.rp, to_jax(_state(1, pr.cur), pr.specs,
+    pr.rp, _ = pr.ref.commit(pr.rp, to_jax(state_like(1, pr.cur), pr.specs,
                                            pr.mesh))
-    pr.cur = _state(1, pr.cur)
+    pr.cur = state_like(1, pr.cur)
     pr.pp = convert.to_port(ref_fields(pr.rp, pr.mesh), device="cpu")
     pr.check()
-    assert pr.commit(_state(2, pr.cur), seed=2, verify_old=True)
-    assert pr.commit(_patched(pr.cur, w1=_state(3, pr.cur)["w1"]), seed=3,
+    assert pr.commit(state_like(2, pr.cur), seed=2, verify_old=True)
+    assert pr.commit(patched(pr.cur, w1=state_like(3, pr.cur)["w1"]), seed=3,
                      dirty_pages=[0], verify_old=True)
