@@ -2,19 +2,23 @@
 
     python3 chip_smoke.py
 
-1. Card and build: the card's name and power limit; the three CUDA
+1. Card and build: the card's name and power limit; the four CUDA
    libraries built from src/repro_torch/kernels/csrc/ (one nvcc per
    source, in parallel), with the build time.
 2. Kernels against their plain PyTorch versions on the card, byte for
-   byte: each of the fifteen entry points at the main path's shape — 100
+   byte: each of the nineteen entry points at the main path's shape — 100
    ranks x 2600 pages of 1024 words, with `stored` corrupted on a few
    pages, the syndrome sweeps at r = 3 — at the 16-page patch shape, and at
    edge shapes (1 page, 13 pages, 64-word pages; the syndrome sweeps at
-   r = 2 and r = 4); then each timed at the main path's shape with CUDA
-   events (median of 12 runs after warm-up) beside its plain version, its
-   least time on the card (by bytes, and by the integer operations of the
-   byte-table GF multiply) and the integer-op time of the 32-step multiply
-   it runs.
+   r = 2 and r = 4); the XOR kernel also on 1-D runs whose length is not a
+   multiple of 4 and on slices that are not 16-byte aligned.  Then each
+   timed at the main path's shape with CUDA events (median of 12 runs
+   after warm-up) beside its plain version, the one PyTorch call that
+   computes the same function where there is one (`torch.bitwise_xor` for
+   the XOR kernel), its least time on the card (by bytes, and by the
+   integer operations of the byte-table GF multiply) and the integer-op
+   time of the 32-step multiply it runs; the XOR kernel also at the patch
+   flush's shape (100 ranks x 34 pages).
 3. The r = 1 main path at the pool size of Pangolin's headline figure: a
    zone of G = 100 data ranks holding about 1.065 GB of rows (2600 pages a
    rank), so the parity is about 1% of the pool.  Through `Pool`, with
@@ -27,17 +31,35 @@
    and without verify, the patch on an mlp r = 3 pool, the pre-check, the
    loss of ranks 5, 37 and 99 at once recovered by `Fault.multi_loss`
    (the rebuilt rows must equal a copy taken before the loss), a scrub.
-5. After each phase the invariants are recomputed apart from the engine:
+5. The deferred-epoch engine (window > 1) on the same zone:
+   w3 — the bulk engine, streamed, mlpc r = 3, window 4: open, three
+        in-window commits, the fourth (the boundary flush), a commit, a
+        canary abort mid-window, a commit, the loss of ranks 5, 37 and 99
+        recovered by `Fault.multi_loss` (the recovery flushes first), a
+        scrub;
+   w1f — the bulk engine on the flat kernel (stream threshold 1<<22),
+        mlpc r = 1, window 4: open, four commits;
+   wp — the patch engine, mlp r = 3, window 8, the w_tp leaf dirty: open,
+        eight commits of w_tp (one names its words), the eighth the
+        boundary flush.
+   Every boundary is compared byte for byte with a synchronous pool given
+   the same states (its commits run outside the clock and its launches
+   are not counted).
+6. After each phase the invariants are recomputed apart from the engine:
    every syndrome plane k = XOR over ranks i of g^(k·i)·row_i, built rank by
    rank with the plain GF multiply; cksums = Fletcher terms of the rows;
-   digest = combine(cksums); row = flatten(state).
-6. Each path's kernel launches (every count zeroed just before the path,
+   digest = combine(cksums); row = flatten(state).  Inside a window: the
+   checksums and digest are the live rows'; the stack is the epoch start's;
+   the bulk engine's accumulator is row_start ^ row_now, and the patch
+   engine's row is pinned at the epoch start.
+7. Each path's kernel launches (every count zeroed just before the path,
    read just after); every entry point of the path must have run.  Peak
    device memory of each path.
 
 Every phase raises on failure.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
+import dataclasses
 import functools
 import json
 import os
@@ -60,6 +82,8 @@ G, PAGES, BW = 100, 2600, 1024
 R = 3                          # the redundancy of the r >= 2 main path
 LOST, SCRIBBLED = 37, 5        # the ranks the r = 1 path damages
 MULTI_LOST = (5, 37, 99)       # the ranks the r = 3 path loses at once
+WP_PAGES = 33                  # w_tp's pages a rank, the wp path's dirty set
+FLUSH_SLOTS = WP_PAGES + 1     # pages its flush gathers (+ one fill slot)
 SEED = 0
 
 # Integer ops a word of each function, for its operation bound.  Fletcher
@@ -134,7 +158,21 @@ KERNELS = {   # entry point: (CUDA source, TPU kernel replaced, ops a word
     "fused_verify_commit_s_stream": (CUDA + "gf_parity.cu",
                                      "src/repro/kernels/gf_parity.py:311", 7,
                                      weighted),
+    # acc ^ old ^ new (2) + the Fletcher terms of old and of new (3 + 3)
+    "fused_accum_commit": (CUDA + "commit_fused.cu",
+                           "src/repro/kernels/commit_fused.py:185", 8,
+                           no_gf),
+    "fused_accum_commit_stream": (CUDA + "commit_fused.cu",
+                                  "src/repro/kernels/commit_fused.py:436", 8,
+                                  no_gf),
+    "xor_delta": (CUDA + "xor_parity.cu", "src/repro/kernels/xor_parity.py:41",
+                  1, no_gf),
+    "xor_accum": (CUDA + "xor_parity.cu", "src/repro/kernels/xor_parity.py:41",
+                  1, no_gf),
 }
+# the one PyTorch call that computes the same function, where there is one
+# (timed beside the kernel as its yardstick; the port never calls it)
+LIBRARY = {"xor_delta": torch.bitwise_xor, "xor_accum": torch.bitwise_xor}
 # the entry points each main path must launch
 PATH_R1 = ("fletcher_blocks", "fletcher_stream", "fused_commit",
            "fused_verify_commit", "fused_commit_old_terms",
@@ -142,6 +180,10 @@ PATH_R1 = ("fletcher_blocks", "fletcher_stream", "fused_commit",
 PATH_R3 = ("gf_scale", "sdelta_stack", "fused_commit_s",
            "fused_verify_commit_s", "fused_commit_old_terms_s",
            "fused_verify_commit_s_stream")
+PATH_W3 = ("fused_accum_commit_stream", "sdelta_stack", "fletcher_blocks",
+           "gf_scale")
+PATH_W1F = ("fused_accum_commit", "fletcher_blocks")
+PATH_WP = ("xor_delta", "sdelta_stack", "fletcher_blocks")
 # the entry points that take the syndrome coefficients (checked at each r)
 WITH_R = ("gf_scale", "sdelta_stack", "fused_commit_s",
           "fused_verify_commit_s", "fused_commit_old_terms_s",
@@ -162,12 +204,15 @@ def check(cond, what):
 def entry_calls(old, new, stored, coeffs, scale_x):
     """{name: (kernel call, plain call)}; each returns a tuple of tensors.
     Pages `(*lead, n, bw)`; `coeffs` the `(*lead, r)` table of the
-    syndrome entry points (r >= 2); `scale_x` the words gf_scale takes."""
+    syndrome entry points (r >= 2); `scale_x` the words gf_scale takes.
+    The accumulate sweeps take ~old as the epoch accumulator."""
     from repro_torch.kernels import commit_fused as cf
     from repro_torch.kernels import fletcher as fl
     from repro_torch.kernels import gf_parity as gfk
     from repro_torch.kernels import ops
+    from repro_torch.kernels import xor_parity as xp
     zeros = torch.zeros_like(stored)
+    acc = torch.bitwise_not(old)
     rows = new.reshape(*new.shape[:-2], -1)
     c_last = int(coeffs.reshape(-1)[-1]) & 0xFFFFFFFF
 
@@ -223,6 +268,19 @@ def entry_calls(old, new, stored, coeffs, scale_x):
             lambda: ops.fused_verify_commit_s_stream(old, new, stored,
                                                      coeffs),
             lambda: s_plain(stored, digest=True)),
+        # the reference's order: (acc', old terms, new terms[, digest])
+        "fused_accum_commit": (
+            lambda: ops.fused_accum_commit(acc, old, new),
+            lambda: (lambda a, t, m, _: (a, m, t))(
+                *cf.commit_pages_plain(old, new, acc=acc))),
+        "fused_accum_commit_stream": (
+            lambda: ops.fused_accum_commit_stream(acc, old, new),
+            lambda: (lambda a, t, m, g: (a, m, t, g))(
+                *cf.commit_pages_plain(old, new, digest=True, acc=acc))),
+        "xor_delta": (lambda: (ops.xor_delta(old, new),),
+                      lambda: (xp.xor_words_plain(old, new),)),
+        "xor_accum": (lambda: (ops.xor_accum(new, old),),
+                      lambda: (xp.xor_words_plain(new, old),)),
     }
 
 
@@ -233,6 +291,12 @@ def io_bytes(name, n_pages, ranks, r, scale_words):
     page = BW * 4
     if name == "gf_scale":
         return 2 * scale_words * 4
+    if name.startswith("xor"):
+        return 3 * n_pages * page                         # a, b, out
+    if "accum" in name:
+        # acc, old, new read; acc' written; old and new terms written
+        return (4 * n_pages * page + 2 * n_pages * 8
+                + (ranks * 8 if name.endswith("stream") else 0))
     if name == "sdelta_stack":
         return n_pages * page * (1 + r) + ranks * r * 4
     syndrome = name.endswith("_s") or name.endswith("_s_stream")
@@ -341,6 +405,7 @@ def kernels_vs_plain(dev):
                     algo_n = (base + clmul_ops(planes)) * words
                     bound_b = nbytes / HBM_BYTES_PER_S * 1e3
                     bound_o = ops_n / INT32_OPS_PER_S * 1e3
+                    library = LIBRARY.get(name)
                     timing[name] = dict(
                         shape=list(scale_x.shape if name == "gf_scale"
                                    else shape),
@@ -349,6 +414,8 @@ def kernels_vs_plain(dev):
                         clmul_ops_ms=algo_n / INT32_OPS_PER_S * 1e3,
                         kernel_ms=cuda_ms(kernel),
                         plain_ms=cuda_ms(plain, runs=5),
+                        library_ms=(None if library is None else
+                                    cuda_ms(lambda: library(old, new))),
                         bound_bytes_ms=bound_b, bound_ops_ms=bound_o,
                         bound_ms=max(bound_b, bound_o),
                         bound_by="bytes" if bound_b >= bound_o
@@ -358,7 +425,33 @@ def kernels_vs_plain(dev):
         torch.cuda.empty_cache()
         emit(phase="kernels_vs_plain", shape=list(shape), r=list(rs),
              equal=True)
+    xor_edges(pages)
     return timing
+
+
+def xor_edges(pages):
+    """The XOR kernel on what pages never give it: 1-D runs whose length is
+    not a multiple of 4 (its scalar tail), slices that start off a 16-byte
+    boundary (its scalar path); then timed at the wp path's flush shape,
+    (100, 1, 34, 1024), where launch cost rules."""
+    from repro_torch.kernels import ops
+    a, b = pages((8195,)), pages((8195,))
+    for x, y in ((a[:1001], b[:1001]), (a[:7], b[:7]), (a[1:4097], b[2:4098]),
+                 (a[3:8195], b[:8192]), (a[1:], b[:-1])):
+        for fn in (ops.xor_delta, ops.xor_accum):
+            got = fn(x, y)
+            torch.cuda.synchronize()
+            check(torch.equal(got, x ^ y), f"{fn.__name__} at {x.numel()} "
+                  f"words, offsets {x.storage_offset()}/{y.storage_offset()}"
+                  ": kernel != plain")
+    emit(phase="xor_edges", equal=True)
+    old, new = pages((G, 1, FLUSH_SLOTS, BW)), pages((G, 1, FLUSH_SLOTS, BW))
+    nbytes = 3 * old.numel() * 4
+    emit(phase="xor_delta_at_flush_shape", shape=list(old.shape),
+         bytes=nbytes, kernel_ms=cuda_ms(lambda: ops.xor_delta(old, new)),
+         plain_ms=cuda_ms(lambda: old ^ new, runs=5),
+         library_ms=cuda_ms(lambda: torch.bitwise_xor(old, new)),
+         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
 
 
 # -- 3.-5. the main paths ----------------------------------------------------
@@ -444,9 +537,10 @@ class PathRun:
         torch.cuda.reset_peak_memory_stats(dev)
         _build.reset_launches()
 
-    def phase(self, tag, fn, pool=None):
-        """Time `fn`, then check the invariants of `pool` — or of the pool
-        `fn` returns.  Returns (fn's result, the phase's launches)."""
+    def phase(self, tag, fn, pool=None, inv=None):
+        """Time `fn`, then check the invariants (`inv`, by default the
+        synchronous ones) of `pool` — or of the pool `fn` returns.  Returns
+        (fn's result, the phase's launches)."""
         before = dict(self.build.LAUNCHES)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -456,9 +550,19 @@ class PathRun:
         launched = {k: v - before.get(k, 0)
                     for k, v in self.build.LAUNCHES.items()
                     if v - before.get(k, 0)}
-        invariants(out if pool is None else pool, tag)
+        (inv or invariants)(out if pool is None else pool, tag)
         emit(path=self.tag, phase=tag, ms=ms, launches=launched)
         return out, launched
+
+    def aside(self, fn):
+        """Run `fn` (a comparison, not the path) with its launches
+        uncounted."""
+        saved = dict(self.build.LAUNCHES)
+        out = fn()
+        torch.cuda.synchronize()
+        self.build.LAUNCHES.clear()
+        self.build.LAUNCHES.update(saved)
+        return out
 
     def end(self, must_launch):
         counts = dict(self.build.LAUNCHES)
@@ -471,10 +575,10 @@ class PathRun:
         return counts
 
 
-def open_pool(cur, specs, mesh, dev, **cfg):
+def open_pool(cur, specs, mesh, dev, pool_kw=None, **cfg):
     from repro_torch import Pool, ProtectConfig
     return Pool.open(cur, specs, mesh=mesh, device=dev,
-                     config=ProtectConfig(**cfg))
+                     config=ProtectConfig(**cfg), **(pool_kw or {}))
 
 
 def main_path(dev):
@@ -673,6 +777,209 @@ def main_path_r3(dev):
     return run.end(PATH_R3)
 
 
+# -- 5. the deferred-epoch engine ---------------------------------------------
+
+def window_invariants(start_row, start_synd):
+    """The in-window invariants, apart from the engine: the checksums and
+    the digest are the live rows' (the Fletcher terms, plain); the stack is
+    the epoch start's; the bulk engine's row is the live rows and its
+    accumulator row_start ^ row_now; the patch engine's row is pinned at
+    the epoch start."""
+    def inv(pool, tag):
+        from repro_torch.core import checksum, layout
+        from repro_torch.kernels.fletcher import fletcher_pages_plain
+        prot, lo = pool.prot, pool.protector.layout
+        rows = layout.flatten_row(lo, prot.state)
+        terms = fletcher_pages_plain(rows.reshape(*rows.shape[:-1], -1, BW))
+        if pool.mode.has_cksums:
+            check(torch.equal(prot.cksums, terms), f"{tag}: cksums != terms")
+        check(torch.equal(prot.digest, checksum.combine(terms, BW)),
+              f"{tag}: digest != combine(terms)")
+        check(torch.equal(prot.synd, start_synd), f"{tag}: stack moved")
+        if pool.engine.patch:
+            check(torch.equal(prot.row, start_row), f"{tag}: row moved")
+        else:
+            check(torch.equal(prot.row, rows), f"{tag}: row != flatten")
+            check(torch.equal(pool._est.acc, start_row ^ rows),
+                  f"{tag}: acc != row_start ^ row_now")
+    return inv
+
+
+def same_as_sync(pool, sync, path, tag):
+    """A windowed pool at its epoch boundary holds exactly what the
+    synchronous pool does after the same commits."""
+    a, b = pool.prot, sync.prot
+    for field in ("synd", "cksums", "digest", "row", "step"):
+        x, y = getattr(a, field), getattr(b, field)
+        check((x is None and y is None) or torch.equal(x, y),
+              f"{tag}: {field} != the synchronous pool's")
+    for field in ("digest", "mark", "step"):
+        check(torch.equal(getattr(a.log, field), getattr(b.log, field)),
+              f"{tag}: log.{field} != the synchronous pool's")
+    emit(path=path, phase=tag, same_as_sync=True)
+
+
+class Lockstep:
+    """A windowed pool and a synchronous one fed the same states; the
+    synchronous commits run outside the clock, their launches uncounted."""
+
+    def __init__(self, run, pool, sync, cur, sync_kw=None):
+        self.run, self.pool, self.sync, self.cur = run, pool, sync, cur
+        self.sync_kw = sync_kw or {}
+        self.since_start()
+
+    def since_start(self):
+        self.start_row = self.pool.prot.row.clone()
+        self.start_synd = self.pool.prot.synd.clone()
+
+    def commit(self, tag, new, boundary=False, **kw):
+        def go():
+            check(bool(self.pool.commit(new, data_cursor=self.step, **kw)),
+                  f"{tag}: commit failed")
+        self.step = self.pool.step + 1
+        inv = None if boundary else window_invariants(self.start_row,
+                                                      self.start_synd)
+        _, launched = self.run.phase(tag, go, self.pool, inv)
+        self.run.aside(lambda: self.sync.commit(
+            new, data_cursor=self.step, **self.sync_kw))
+        self.cur = new
+        if boundary:
+            same_as_sync(self.pool, self.sync, self.run.tag, tag)
+            self.since_start()
+        return launched
+
+
+def window_path_w3(dev):
+    """The bulk engine, streamed, at r = 3 (phases W_a-W_i)."""
+    from repro_torch import Fault
+    from repro_torch.runtime import failure
+
+    mesh, specs, cur = zone_state(dev)
+    cfg = dict(mode="mlpc", redundancy=R)
+    run = PathRun(dev, "w3")
+    pool, l_a = run.phase("W_a_open_window_4", lambda: open_pool(
+        cur, specs, mesh, dev, window=4, **cfg))
+    check(pool.engine.window == 4 and not pool.engine.patch and
+          pool.protector.stream_chunk() is not None, "w3: engine")
+    check(l_a == {"fletcher_blocks": 1, "sdelta_stack": 1},
+          f"W_a launches {l_a}")
+    sync = run.aside(lambda: open_pool(cur, specs, mesh, dev, **cfg))
+    ls = Lockstep(run, pool, sync, cur)
+    for i in (1, 2, 3):
+        got = ls.commit(f"W_b_commit_{i}", bumped(ls.cur))
+        check(got == {"fused_accum_commit_stream": 1},
+              f"W_b commit {i} launches {got}")
+    got = ls.commit("W_c_commit_4_flush", bumped(ls.cur), boundary=True)
+    check(got == {"fused_accum_commit_stream": 1, "sdelta_stack": 1},
+          f"W_c launches {got}")
+    ls.commit("W_d_commit_5", bumped(ls.cur))
+
+    def canary_abort():
+        est = pool._est
+        fields = (est.prot.row, est.prot.synd, est.prot.cksums,
+                  est.prot.digest, est.prot.step, est.prot.log.mark,
+                  est.acc, est.pending)
+        zeros = {k: torch.zeros_like(v) for k, v in ls.cur.items()}
+        with pool.transaction() as tx:
+            tx.watch(failure.smashed_canary_buffer(4096, device=dev))
+            tx.stage(zeros)
+        check(tx.aborted and not tx.ok, "canary did not abort")
+        now = pool._est
+        for a, b in zip(fields, (now.prot.row, now.prot.synd,
+                                 now.prot.cksums, now.prot.digest,
+                                 now.prot.step, now.prot.log.mark, now.acc,
+                                 now.pending)):
+            check(torch.equal(a, b), "an abort changed the window")
+        check(pool.engine._since == 2, "an abort is an attempt")
+    _, l_e = run.phase("W_e_canary_abort_mid_window", canary_abort, pool,
+                       window_invariants(ls.start_row, ls.start_synd))
+    check(not l_e, f"W_e launches {l_e}")
+    ls.commit("W_f_commit_6", bumped(ls.cur))
+    del ls, sync
+    before_loss = pool.prot.row.clone()
+
+    def multi_loss():
+        # the loss lands inside the open window: the window's bookkeeping
+        # is kept, so the recovery's flush still sees the accumulator
+        prot, event = failure.inject_multi_rank_loss(pool.protector,
+                                                     pool.prot, MULTI_LOST)
+        pool._est = dataclasses.replace(pool._est, prot=prot)
+        rep = pool.recover(Fault.from_event(event))
+        check(rep.verified and rep.reverified and rep.synd_ok == [True] * R
+              and rep.window_bound == {"pending": 2, "dirty_pages": None,
+                                       "digest_verified": True},
+              f"recovery {rep}")
+        check(pool.engine.window == 1, "failure suspicion: window 1")
+    _, l_g = run.phase("W_g_multi_loss_recover", multi_loss, pool)
+    check(l_g.get("sdelta_stack", 0) >= 2 and l_g.get("gf_scale", 0) >= 1,
+          f"W_g launches {l_g}")
+    check(torch.equal(pool.prot.row, before_loss), "W_g: rows differ")
+    del before_loss
+
+    def scrub():
+        report = pool.scrub()
+        check(not report.suspect and report.synd_ok == [True] * R,
+              f"scrub {report}")
+        check(pool.engine.window == 2, "a clean scrub regrows the window")
+    run.phase("W_h_scrub", scrub, pool)
+    return run.end(PATH_W3)
+
+
+def window_path_w1f(dev):
+    """The bulk engine on the flat kernel at r = 1 (phases V_a-V_c)."""
+    mesh, specs, cur = zone_state(dev)
+    cfg = dict(mode="mlpc", stream_threshold_words=1 << 22)
+    run = PathRun(dev, "w1f")
+    pool, l_a = run.phase("V_a_open_window_4", lambda: open_pool(
+        cur, specs, mesh, dev, window=4, **cfg))
+    check(pool.protector.stream_chunk() is None, "w1f: flat route")
+    sync = run.aside(lambda: open_pool(cur, specs, mesh, dev, **cfg))
+    ls = Lockstep(run, pool, sync, cur)
+    for i in (1, 2, 3):
+        got = ls.commit(f"V_b_commit_{i}", bumped(ls.cur))
+        check(got == {"fused_accum_commit": 1}, f"V_b launches {got}")
+    got = ls.commit("V_c_commit_4_flush", bumped(ls.cur), boundary=True)
+    check(got == {"fused_accum_commit": 1}, f"V_c launches {got}")
+    return run.end(PATH_W1F)
+
+
+def window_path_wp(dev):
+    """The patch engine at r = 3, mode mlp, on the w_tp leaf (phases
+    P_a-P_c)."""
+    from repro_torch.core import layout
+
+    mesh, specs, cur = zone_state(dev)
+    cfg = dict(mode="mlp", redundancy=R)
+    run = PathRun(dev, "wp")
+    pool, l_a = run.phase("P_a_open_window_8", lambda: open_pool(
+        cur, specs, mesh, dev, window=8, pool_kw={"dirty_leaf_idx": [2]},
+        **cfg))
+    lo, eng = pool.protector.layout, pool.engine
+    pages = layout.leaf_pages(lo, 2).tolist()
+    check(lo.slots[2].shape == (64, BW) and len(pages) == WP_PAGES and
+          eng.flush_patch and eng.flush_capacity == FLUSH_SLOTS,
+          f"wp: engine {eng.flush_patch} {eng.flush_capacity}")
+    sync = run.aside(lambda: open_pool(cur, specs, mesh, dev, **cfg))
+    ls = Lockstep(run, pool, sync, cur, sync_kw={"dirty_pages": pages})
+    n_words = lo.slots[2].n_words
+
+    def w_tp(st, i):
+        w = st["w_tp"].clone()
+        w[4 * i:4 * i + 4] += 1.0          # 4 rows = 2048 words a rank
+        return {"w_fsdp": st["w_fsdp"], "w_tp": w, "scale": st["scale"]}
+    for i in range(1, 8):
+        kw = {}
+        if i == 3:                             # the changed words named,
+            words = torch.arange(4 * i * BW // 2, (4 * i + 4) * BW // 2)
+            kw["dirty_words"] = (torch.cat([words, torch.tensor(
+                [n_words, n_words + 5000])]),)  # + indices past the leaf
+        got = ls.commit(f"P_b_commit_{i}", w_tp(ls.cur, i), **kw)
+        check(not got, f"P_b commit {i} launches {got}")
+    got = ls.commit("P_c_commit_8_flush", w_tp(ls.cur, 8), boundary=True)
+    check(got == {"xor_delta": 1, "sdelta_stack": 1}, f"P_c launches {got}")
+    return run.end(PATH_WP)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -691,7 +998,9 @@ def main():
          sources=list(_build.SOURCES))
 
     timing = kernels_vs_plain(dev)
-    paths = {"r1": main_path(dev), "r3": main_path_r3(dev)}
+    paths = {"r1": main_path(dev), "r3": main_path_r3(dev),
+             "w3": window_path_w3(dev), "w1f": window_path_w1f(dev),
+             "wp": window_path_wp(dev)}
     rows = []
     for name in ops.ENTRY_POINTS:
         t = timing[name]
@@ -700,16 +1009,16 @@ def main():
              int_ops=t["int_ops"], kernel_ms=t["kernel_ms"],
              plain_ms=t["plain_ms"], bound_bytes_ms=t["bound_bytes_ms"],
              bound_ops_ms=t["bound_ops_ms"],
-             clmul_ops_ms=t["clmul_ops_ms"], library_ms=None,
+             clmul_ops_ms=t["clmul_ops_ms"], library_ms=t["library_ms"],
              launches_by_path=by_path)
-        # no PyTorch call computes these functions (Fletcher terms, the
-        # GF(2^32) product): library_ms is null
+        # no PyTorch call computes Fletcher terms or the GF(2^32) product:
+        # library_ms is null but for the XOR kernel
         rows.append(dict(
             name=name, route="cuda", source=KERNELS[name][0],
             replaces=KERNELS[name][1], launches=sum(by_path.values()),
             max_abs_err=t["max_abs_err"], ms=t["kernel_ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=None))
+            bound_by=t["bound_by"], library_ms=t["library_ms"]))
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

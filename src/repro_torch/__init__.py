@@ -3,7 +3,8 @@
 A second package beside the JAX reference `repro`, for one NVIDIA H100:
 the same protection engine computing the same bytes, with the reference's
 Pallas TPU kernels rewritten by hand for Hopper (kernels/csrc/*.cu).  It
-runs the synchronous engine behind the `Pool` facade, at redundancy
+runs the synchronous engine and the deferred-epoch engine
+(`ProtectConfig(window=W)`) behind the `Pool` facade, at redundancy
 r = 1..4 (XOR parity plus up to three GF(2^32) syndromes):
 
     from repro_torch import Pool, Fault, ProtectConfig, P, ZoneMesh
@@ -15,6 +16,7 @@ r = 1..4 (XOR parity plus up to three GF(2^32) syndromes):
         tx.stage(new_state)
     pool.recover(Fault.rank_loss(2))
     # with ProtectConfig(redundancy=3): pool.recover(Fault.multi_loss(1, 2, 3))
+    # with ProtectConfig(window=8): the stack refreshed every 8th commit
 
 `Protector` stays importable as the low-level engine layer.
 """

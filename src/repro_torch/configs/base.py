@@ -125,9 +125,6 @@ class ProtectConfig:
         """What this configuration asks for that the port does not run
         yet, each with the ROADMAP item that ports it."""
         out = []
-        if self.window > 1:
-            out.append(f"window={self.window} (ROADMAP queue A, slice S2: "
-                       "the deferred epoch engine)")
         if self.pipeline_depth > 1 or self.overlap_commit:
             out.append(f"pipeline_depth={self.pipeline_depth}, "
                        f"overlap_commit={self.overlap_commit} (ROADMAP "

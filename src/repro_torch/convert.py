@@ -16,6 +16,12 @@ reference package.  A protected state travels as a dict of fields:
 `to_port` builds the port's `ProtectedState` from such a dict;
 `from_port` gives the dict back, with words as uint32 and bf16 leaves as
 their uint16 bits, so two states compare with `tobytes()`.
+
+An open deferred window travels as {"prot": such a dict, "dirty": bool
+mask (*mesh_dims, n_blocks) or None, "pending": u32 scalar, "acc": u32
+(*mesh_dims, row_words) or None}: `to_port_epoch` / `from_port_epoch`.
+A window opened in the reference then continues in the port (hand the
+port's engine the state through `DeferredProtector.resume`).
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import torch
 
 from repro_torch import utils
 from repro_torch.core import redolog
+from repro_torch.core.epoch import EpochState
 from repro_torch.core.txn import ProtectedState
 
 _LOG_FIELDS = ("step", "data_cursor", "rng", "digest", "mark")
@@ -86,3 +93,22 @@ def from_port(prot: ProtectedState) -> dict:
                   {k: _np_words(getattr(prot.log, k)) for k in _LOG_FIELDS})
     out["step"] = _np_words(prot.step)
     return out
+
+
+def to_port_epoch(fields: dict, device=None) -> EpochState:
+    """A reference EpochState's fields (numpy) -> the port's EpochState."""
+    device = utils.resolve_device(device)
+    dirty = fields.get("dirty")
+    return EpochState(
+        prot=to_port(fields["prot"], device),
+        dirty=(None if dirty is None else
+               torch.from_numpy(np.array(dirty, dtype=bool)).to(device)),
+        pending=_words(fields["pending"], device).reshape(()),
+        acc=_words(fields.get("acc"), device))
+
+
+def from_port_epoch(est: EpochState) -> dict:
+    """The port's EpochState -> the field dict above (numpy)."""
+    return {"prot": from_port(est.prot),
+            "dirty": None if est.dirty is None else est.dirty.cpu().numpy(),
+            "pending": _np_words(est.pending), "acc": _np_words(est.acc)}

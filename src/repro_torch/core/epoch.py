@@ -1,0 +1,509 @@
+"""Deferred-epoch redundancy engine (the reference's core/epoch.py).
+
+Redundancy is refreshed once per *window* of commits instead of on every
+commit; the redo log still persists per commit and covers the unprotected
+interval.  Two flavours, computing the reference's bytes:
+
+  * Bulk engine (`dirty_leaf_idx=None`; every commit rewrites the row, as
+    in training).  Each in-window commit is one `fused_accum_commit` sweep
+    (`fused_accum_commit_stream` once the row reaches the streaming
+    threshold) over (accumulator, previous row, new row): it folds the
+    step's XOR delta into the epoch accumulator `acc` (deltas telescope,
+    so acc == row_start ^ row_now) and yields the new page terms, so the
+    checksum table and the row digest are current at every step.  The
+    flush weights `acc` into the r syndrome planes (`syndrome_scale`, one
+    read) and folds them into the stack (`apply_sdelta`); it never reads
+    the row again.
+  * Patch engine (`dirty_leaf_idx` = a static leaf list; commits touch
+    those leaves only, as in decode).  An in-window commit updates the row
+    digest from the modified words alone (`checksum.update_digest_words`)
+    and unions the dirty pages; the stack, the checksums and the cached
+    row stay at the epoch start (the pinned row is the accumulator).  The
+    flush splices the state into the row and either patches the dirty
+    pages (`fused_commit_s` with checksums, else `xor_delta` +
+    `syndrome_scale`) or, past the hybrid threshold, rebuilds the stack
+    and checksums from the spliced row.
+
+At every epoch boundary the stack, checksums, digest, row and redo log are
+byte-equal to the synchronous engine's after the same commits.
+
+The reference's programs are jitted shard_map bodies that donate their
+inputs; here the step and the flush are plain functions on zone-stacked
+tensors that build every successor functionally (nothing is written in
+place, so there is nothing to donate), and the per-device dirty masks,
+accumulators and digests carry the mesh dims in front.  Nothing in a
+commit or a flush waits for the device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import utils
+from repro_torch.core import checksum as ck
+from repro_torch.core import layout as layout_mod
+from repro_torch.core import parity as parity_mod
+from repro_torch.core import redolog
+from repro_torch.core.txn import ProtectedState, Protector, _check_like
+from repro_torch.dist import collectives as coll
+from repro_torch.kernels import ops as kops
+
+
+@dataclasses.dataclass
+class EpochState:
+    """A ProtectedState plus the open window's bookkeeping.
+
+    `dirty`: the unioned dirty-page mask, `(*mesh_dims, n_blocks)` bool
+    (patch engine; None for the bulk engine).  `pending`: successful
+    commits since the last flush, a 0-d int32 (u32 bits).  `acc`: the bulk
+    engine's XOR accumulator, `(*mesh_dims, row_words)` int32 (None for
+    the patch engine); after W steps it holds row_start ^ row_now.
+    Mid-window the patch engine's `prot.row` is the epoch-start row.
+    """
+    prot: ProtectedState
+    dirty: Optional[torch.Tensor]
+    pending: torch.Tensor
+    acc: Optional[torch.Tensor] = None
+
+
+class EngineHost:
+    """Engine-or-sync protected-state plumbing (the reference's runtimes
+    and `Pool` share it).  Hosts set `_engine` (a DeferredProtector, or
+    None for the synchronous cadence) and track their state through the
+    `prot` property.  The setter wraps the value into a fresh window,
+    which discards the open window's bookkeeping: legal only for a state
+    whose redundancy is current (after `Protector.init`, a flush or a
+    recovery)."""
+    _engine = None        # Optional[DeferredProtector]
+    _est = None           # Optional[EpochState]      (engine cadence)
+    _prot = None          # Optional[ProtectedState]  (sync cadence)
+
+    @property
+    def prot(self) -> Optional[ProtectedState]:
+        if self._engine is not None:
+            return self._est.prot if self._est is not None else None
+        return self._prot
+
+    @prot.setter
+    def prot(self, value):
+        if self._engine is not None:
+            self._est = (self._engine.wrap(value)
+                         if value is not None else None)
+        else:
+            self._prot = value
+
+    def flush(self) -> None:
+        """Bring deferred redundancy current (no-op when synchronous)."""
+        if self._engine is not None and self._est is not None:
+            self._est = self._engine.flush_if_pending(self._est)
+
+
+def _word_index(wi, n_words: int, device) -> tuple:
+    """A leaf's word-index array -> (indices as int64, in-range mask).
+    Entries at or past the leaf's word count read 0 from both sides (the
+    reference's gather `mode="fill"`).  Indices are non-negative, as
+    `layout.time_slice_words` gives them."""
+    wi = torch.as_tensor(wi, device=device).to(torch.int64).reshape(-1)
+    return wi, wi < n_words
+
+
+def dirty_slots(mask: torch.Tensor, kf: int) -> tuple:
+    """The first `kf` set entries of a 1-D bool mask in ascending order,
+    the rest of the `kf` slots filled with the sentinel len(mask) — the
+    reference's `jnp.nonzero(mask, size=kf, fill_value=nb)` — without a
+    host sync (a stable sort puts the set entries first).  Returns
+    (indices, valid)."""
+    order = torch.argsort((~mask).to(torch.uint8), stable=True)[:kf]
+    valid = mask[order]
+    return torch.where(valid, order, mask.shape[-1]), valid
+
+
+class DeferredProtector:
+    """Windowed protection over a Protector's zone layout.
+
+    `window` commits trigger an automatic flush.  Patch engines take
+    `dirty_words` at commit: a tuple aligned with `dirty_leaf_idx` of
+    per-leaf word-index arrays (or None = the whole leaf), e.g. from the
+    reference's `layout.time_slice_words`.  `dirty_capacity` bounds the
+    pages one step may touch, so the flush footprint is bounded by
+    window x capacity (past the hybrid threshold the flush goes bulk).
+    """
+
+    def __init__(self, protector: Protector, *, window: int = 16,
+                 dirty_capacity: Optional[int] = None,
+                 dirty_leaf_idx: Optional[Sequence[int]] = None,
+                 replicate_meta: bool = False):
+        mode = protector.mode
+        if not (mode.has_parity or mode.has_cksums):
+            raise ValueError(
+                "deferred epochs batch parity/checksum work; mode "
+                f"{mode.value} has neither — use Protector.commit directly")
+        if window < 1:
+            raise ValueError(f"window={window}: at least one commit")
+        self.p = protector
+        # `window` is the ceiling; the current window adapts (see
+        # report_pressure)
+        self.max_window = window
+        self.window = window
+        self.metrics = None           # the Pool assigns its registry here
+        self.replicate_meta = bool(replicate_meta)
+        self._meta: Optional[tuple] = None
+        lo = protector.layout
+        self.patch = dirty_leaf_idx is not None
+        self.dirty_leaf_idx = (tuple(int(i) for i in dirty_leaf_idx)
+                               if self.patch else None)
+        if self.patch:
+            # every dirty word lies in a dirty leaf (+1 page of word-overhang
+            # spill each), and W x a known per-step capacity bounds it too
+            leaf_bound = sum(len(layout_mod.leaf_pages(lo, i)) + 1
+                             for i in self.dirty_leaf_idx)
+            per_step = (int(dirty_capacity) + len(self.dirty_leaf_idx)
+                        if dirty_capacity is not None else leaf_bound)
+            self.dirty_capacity = min(lo.n_blocks, per_step)
+            self.flush_capacity = min(lo.n_blocks, leaf_bound,
+                                      per_step * window)
+        else:
+            if dirty_capacity is not None:
+                raise ValueError("dirty_capacity implies a patch engine: "
+                                 "pass dirty_leaf_idx")
+            self.dirty_capacity = None
+            self.flush_capacity = lo.n_blocks
+        self.flush_patch = (self.patch
+                            and self.flush_capacity / lo.n_blocks
+                            < protector.hybrid_threshold)
+        self._since = 0
+        self._step = self.make_step_commit()
+        self._flush = self.make_flush()
+        # fault-arrival point: fn(est, since, at_boundary) ->
+        # Optional[EpochState], called after each commit's bookkeeping and
+        # before a due boundary flush; a returned state replaces the window
+        self.arrival_hook = None
+
+    # -- lifecycle -------------------------------------------------------------
+
+    def wrap(self, prot: ProtectedState) -> EpochState:
+        """Wrap a state whose redundancy is current (after
+        `Protector.init`, a flush or a recovery) in an empty window."""
+        self._since = 0
+        lo, shape = self.p.layout, self.p.mesh.shape
+        dev = prot.step.device
+        return EpochState(
+            prot=prot,
+            dirty=(torch.zeros(*shape, lo.n_blocks, dtype=torch.bool,
+                               device=dev) if self.patch else None),
+            pending=torch.zeros((), dtype=utils.WORD, device=dev),
+            acc=(None if self.patch else
+                 torch.zeros(*shape, lo.row_words, dtype=utils.WORD,
+                             device=dev)))
+
+    def init(self, state) -> EpochState:
+        return self.wrap(self.p.init(state))
+
+    def resume(self, est: EpochState) -> EpochState:
+        """Adopt a window opened elsewhere (`convert.to_port_epoch`): the
+        host cadence continues from its pending count (one host read)."""
+        self._since = int(est.pending) & 0xFFFFFFFF
+        return est
+
+    @property
+    def needs_flush(self) -> bool:
+        return self._since > 0
+
+    # -- adaptive window ---------------------------------------------------------
+
+    def report_pressure(self, suspect: bool) -> int:
+        """Feed scrub pressure or failure suspicion back into the window:
+        any error collapses it to 1 (the synchronous cadence), every clean
+        signal doubles it back toward the ceiling.  Returns the new window;
+        it takes effect at the next commit."""
+        before = self.window
+        if suspect:
+            self.window = 1
+        else:
+            self.window = min(self.max_window, max(self.window * 2, 2))
+        if self.metrics is not None:
+            self.metrics.gauge("pool_window").set(self.window)
+            if self.window < before:
+                self.metrics.counter("pool_window_collapse_total").inc()
+            elif self.window > before:
+                self.metrics.counter("pool_window_grow_total").inc()
+        return self.window
+
+    # -- replicated window metadata ------------------------------------------------
+
+    @property
+    def window_meta(self) -> Optional[dict]:
+        """The last mirrored (digest, step, pending, dirty) snapshot on the
+        host, or None; read lazily, when a failure consults it."""
+        if self._meta is None:
+            return None
+        nb = self.p.layout.n_blocks
+        dig, step, pending, dirty = self._meta
+        meta = {"step": int(step) & 0xFFFFFFFF,
+                "pending": int(pending) & 0xFFFFFFFF,
+                "digest": dig.cpu().numpy().view(np.uint32).copy()}
+        if dirty is not None:
+            d = dirty.reshape(-1, nb).any(dim=0)
+            meta["dirty_pages"] = torch.nonzero(d).reshape(-1).tolist()
+        else:
+            meta["dirty_pages"] = None     # bulk engine: whole row in-window
+        return meta
+
+    def _mirror_meta(self, est: EpochState) -> None:
+        """Mirror the window's bookkeeping (a few hundred bytes a commit):
+        every rank's row digest, the step, the pending count and the dirty
+        mask, so the survivors of a mid-window loss can bound the window.
+        Detached copies, queued on the stream (`coll.make_meta_mirror`)."""
+        self._meta = coll.make_meta_mirror()(
+            (est.prot.digest, est.prot.step, est.pending, est.dirty))
+
+    def verify_window_bound(self, est: EpochState) -> Optional[bool]:
+        """After flush (+ recovery): do the live rows' digests equal the
+        mirrored ones?  True means the survivors' metadata bounds the pool
+        exactly, with no checkpoint + log replay."""
+        if self._meta is None:
+            return None
+        lo = self.p.layout
+        dig = ck.digest(layout_mod.flatten_row(lo, est.prot.state),
+                        lo.block_words)
+        return bool(torch.equal(dig, self._meta[0]))
+
+    # -- in-window commit ------------------------------------------------------
+
+    def make_step_commit(self):
+        """Build the in-window commit.  Patch engine: digest over the
+        modified words + dirty union + log.  Bulk engine: one accumulate
+        sweep (streamed past the protector's threshold) + log."""
+        p, lo = self.p, self.p.layout
+        mode, bw = p.mode, lo.block_words
+        nb, rw = lo.n_blocks, lo.row_words
+        patch = self.patch
+        dirty_leaves = self.dirty_leaf_idx
+        scb = None if patch else p.stream_chunk()
+        leaf_pages = ({li: layout_mod.leaf_pages(lo, li)
+                       for li in dirty_leaves} if patch else None)
+
+        def _patch_step(digest, dirty, state_old, state_new, widx):
+            old_leaves = utils.tree_leaves(state_old)
+            new_leaves = utils.tree_leaves(state_new)
+            dev = digest.device
+            # a scratch column at index nb takes the pages past the row
+            # end (the reference's scatter mode="drop")
+            mask = torch.nn.functional.pad(dirty, (0, 1))
+            for k, li in enumerate(dirty_leaves):
+                slot = lo.slots[li]
+                leaf_o, leaf_n = old_leaves[li], new_leaves[li]
+                batch = leaf_o.dim() - len(slot.shape)
+                ow = utils.to_words(leaf_o, batch_dims=batch)
+                nw = utils.to_words(leaf_n, batch_dims=batch)
+                wi = widx[k] if widx is not None else None
+                if wi is None:                  # the whole leaf is dirty
+                    off = slot.offset + torch.arange(slot.n_words,
+                                                     device=dev)
+                    o_g, n_g = ow, nw
+                    pg = torch.as_tensor(leaf_pages[li], device=dev)
+                else:
+                    wi, inb = _word_index(wi, slot.n_words, dev)
+                    at = wi.clamp(max=slot.n_words - 1)
+                    o_g = torch.where(inb, ow[..., at], 0)
+                    n_g = torch.where(inb, nw[..., at], 0)
+                    off = slot.offset + wi
+                    pg = (slot.offset + wi) // bw
+                digest = ck.update_digest_words(digest, o_g, n_g, off, rw)
+                mask[..., pg.clamp(max=nb)] = True
+            return digest, mask[..., :nb]
+
+        def _bulk_step(acc, row_cache, state_new):
+            # row_cache is last step's row, so the sweep's delta telescopes
+            # into acc; its new-page terms serve the table and the digest
+            row_new = layout_mod.flatten_row(lo, state_new)
+            old_v = parity_mod.page_view(row_cache, bw)
+            new_v = parity_mod.page_view(row_new, bw)
+            acc_v = parity_mod.page_view(acc, bw)
+            if scb is None:
+                acc_v, _, new_ck = kops.fused_accum_commit(acc_v, old_v,
+                                                           new_v)
+                digest = ck.combine(new_ck, bw)
+            else:
+                acc_v, _, new_ck, digest = kops.fused_accum_commit_stream(
+                    acc_v, old_v, new_v)
+            return acc_v.reshape(acc.shape), row_new, new_ck, digest
+
+        def commit(prot: ProtectedState, dirty, pending, acc, state_new,
+                   dirty_words, data_cursor, rng_key, canary_ok):
+            # canary_ok is host-known: an abort is a no-op that leaves the
+            # window, the log included, untouched
+            if not canary_ok:
+                return (prot, dirty, pending, acc,
+                        torch.zeros((), dtype=torch.bool,
+                                    device=prot.step.device))
+            _check_like(state_new, prot.state)
+            step = prot.step + 1
+            row, cksums = prot.row, prot.cksums
+            if patch:
+                digest, dirty = _patch_step(prot.digest, dirty, prot.state,
+                                            state_new, dirty_words)
+            else:
+                acc, row, new_ck, digest = _bulk_step(acc, prot.row,
+                                                      state_new)
+                if mode.has_cksums:
+                    cksums = new_ck
+            # the redo record persists per step with the post-step digest;
+            # only the parity/checksum refresh is deferred to the flush
+            log = prot.log
+            if mode.has_log:
+                log = redolog.append(
+                    log, step, data_cursor,
+                    (0, 0) if rng_key is None else rng_key,
+                    digest.reshape(-1, 2)[0])
+                log = redolog.commit_mark(log, step)
+            new_prot = ProtectedState(
+                state=state_new, synd=prot.synd, cksums=cksums,
+                digest=digest, replica=prot.replica, log=log, step=step,
+                row=row)
+            return (new_prot, dirty, pending + 1, acc,
+                    torch.ones((), dtype=torch.bool,
+                               device=prot.step.device))
+
+        return commit
+
+    def make_step_commit_staged(self):
+        raise NotImplementedError(
+            "make_step_commit_staged: the device-side canary verdict rides "
+            "the async commit ring, a later port slice (ROADMAP queue A, "
+            "slice S3)")
+
+    # -- epoch flush -----------------------------------------------------------
+
+    def make_flush(self):
+        """Build the once-per-epoch refresh.  Patch engine: splice the state
+        into the epoch-start row; patch the dirty pages' weighted deltas
+        into the stack (+ their fresh terms), or rebuild both from the
+        spliced row past the hybrid threshold.  Bulk engine: weight the
+        accumulator into the r planes and fold them into the stack."""
+        p, lo = self.p, self.p.layout
+        mode, bw, dd = p.mode, lo.block_words, p.data_dim
+        nb, kf = lo.n_blocks, self.flush_capacity
+        fpatch, patch = self.flush_patch, self.patch
+        dirty_leaves = self.dirty_leaf_idx
+        shape = p.mesh.shape
+
+        def _patch_pages(base, row, synd, cksums, dirty, coeffs):
+            """The window's dirty pages, at most kf (`dirty_slots`), the
+            fill slots at the sentinel nb.  Every device's mask is the same
+            (the word indices are replicated), so the union is each one's."""
+            sidx, valid = dirty_slots(dirty.reshape(-1, nb).any(dim=0), kf)
+            g = sidx.clamp(max=nb - 1)
+            old_p = parity_mod.gather_pages(base, g, bw)      # (*M, kf, bw)
+            new_p = parity_mod.gather_pages(row, g, bw)
+            if mode.has_cksums:
+                # every syndrome rides the window's telescoped delta
+                sdelta_p, fresh = kops.fused_commit_s(old_p, new_p, coeffs)
+                padded = torch.cat(
+                    [cksums, cksums.new_zeros(*shape, 1, 2)], dim=-2)
+                padded[..., sidx, :] = fresh
+                cksums = padded[..., :nb, :]
+            else:
+                delta_p = kops.xor_delta(old_p, new_p)
+                sdelta_p = kops.syndrome_scale(
+                    delta_p.reshape(*shape, kf * bw), coeffs).reshape(
+                        *shape, -1, kf, bw)
+            if mode.has_parity:
+                sdelta_p = torch.where(valid[:, None], sdelta_p, 0)
+                # fill slots go to the sentinel, not the clamped page: a
+                # clamped fill would collide with a dirty last page
+                synd = parity_mod.patch_syndrome_delta(synd, sdelta_p, sidx,
+                                                       lo, dd)
+            return synd, cksums
+
+        def flush(est: EpochState) -> EpochState:
+            prot = est.prot
+            base, synd, cksums, acc = prot.row, prot.synd, prot.cksums, \
+                est.acc
+            coeffs = p.coeffs(base.device) if mode.has_parity else None
+            row = (layout_mod.update_row(lo, base, prot.state, dirty_leaves)
+                   if patch else base)
+            if fpatch:
+                synd, cksums = _patch_pages(base, row, synd, cksums,
+                                            est.dirty, coeffs)
+            elif patch:
+                # past the hybrid threshold: rebuild from the spliced row,
+                # equal to the patched stack by XOR linearity
+                if mode.has_parity:
+                    synd = parity_mod.build_syndromes(row, dd, coeffs)
+                if mode.has_cksums:
+                    cksums = kops.fletcher_blocks(
+                        parity_mod.page_view(row, bw))
+            else:
+                # acc == row_start ^ row_now, so S_k ^ rs(g^(k·me)·acc) is
+                # the stack rebuilt from the current row; the checksums are
+                # already fresh from the accumulate steps
+                if mode.has_parity:
+                    synd = parity_mod.apply_sdelta(
+                        synd, kops.syndrome_scale(acc, coeffs), dd)
+                acc = torch.zeros_like(acc)
+            dirty = (torch.zeros_like(est.dirty) if est.dirty is not None
+                     else None)
+            return EpochState(
+                prot=dataclasses.replace(prot, synd=synd, cksums=cksums,
+                                         row=row),
+                dirty=dirty, pending=torch.zeros_like(est.pending), acc=acc)
+
+        return flush
+
+    # -- entry points ----------------------------------------------------------
+
+    def commit(self, est: EpochState, state_new, *, dirty_words=None,
+               data_cursor=0, rng_key=None, canary_ok: bool = True):
+        """One transactional update of zone-stacked `state_new`; flushes
+        automatically at the window boundary.  `dirty_words` (patch
+        engines): a tuple aligned with `dirty_leaf_idx` of per-leaf
+        word-index arrays, or None entries (or None for the whole tuple)
+        for wholly dirty leaves.  Returns (successor, ok) with `ok` a 0-d
+        bool tensor."""
+        if dirty_words is not None and (
+                not self.patch
+                or len(dirty_words) != len(self.dirty_leaf_idx)):
+            raise ValueError("dirty_words needs a patch engine, one entry "
+                             "per leaf of dirty_leaf_idx")
+        prot, dirty, pending, acc, ok = self._step(
+            est.prot, est.dirty, est.pending, est.acc, state_new,
+            dirty_words, data_cursor, rng_key, bool(canary_ok))
+        est = EpochState(prot=prot, dirty=dirty, pending=pending, acc=acc)
+        return self._after_step(est), ok
+
+    def commit_staged(self, *args, **kw):
+        raise NotImplementedError(
+            "commit_staged: the device-side canary verdict rides the async "
+            "commit ring, a later port slice (ROADMAP queue A, slice S3)")
+
+    def _after_step(self, est: EpochState) -> EpochState:
+        """Post-commit host cadence: the attempt count (aborts count too),
+        the fault-arrival hook, the boundary flush, the meta mirror."""
+        self._since += 1
+        if self.arrival_hook is not None:
+            replaced = self.arrival_hook(est, self._since,
+                                         self._since >= self.window)
+            if replaced is not None:
+                est = replaced
+        if self._since >= self.window:
+            est = self.flush(est)
+        if self.replicate_meta:
+            self._mirror_meta(est)
+        return est
+
+    def flush(self, est: EpochState) -> EpochState:
+        """Refresh the stack and checksums (and the row) from the window."""
+        pending = self._since
+        self._since = 0
+        if self.metrics is not None:
+            self.metrics.counter("pool_window_flush_total").inc()
+            self.metrics.histogram("pool_flush_pending").observe(pending)
+        return self._flush(est)
+
+    def flush_if_pending(self, est: EpochState) -> EpochState:
+        """Flush only when in-window work exists (pre-scrub / recovery)."""
+        return self.flush(est) if self.needs_flush else est

@@ -13,8 +13,13 @@ None at r = 1.
              deltas;
   * patch  — the dirty pages' weighted deltas, XOR-reduced across the zone
              and applied to the owners' segments (the paper's atomic XOR);
+  * hybrid — patch or build by dirty fraction (the paper's §3.5 crossover);
   * reconstruct — one lost row = XOR of survivors XOR parity (§3.6); e <= r
              lost rows through the e x e Vandermonde inverse.
+
+The single-parity forms (`patch_parity`, `patch_parity_delta`,
+`hybrid_update`, `verify_parity`) are the r = 1 views of the stack
+functions, kept as the reference keeps them.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import torch
 from repro_torch.core import gf
 from repro_torch.core.layout import ZoneLayout
 from repro_torch.dist import collectives as coll
+from repro_torch.kernels import ops as kops
 
 
 def page_view(row: torch.Tensor, block_words: int) -> torch.Tensor:
@@ -57,20 +63,65 @@ def patch_syndrome_delta(synd: torch.Tensor, sdelta_pages: torch.Tensor,
     """Incremental stack patch for the dirty pages' deltas.
 
     `synd`: `(*M, r, seg)`; `sdelta_pages`: `(*M, r, k, bw)`; `page_idx`:
-    `(k,)` unique page indices.  The deltas XOR-reduce across each zone;
-    page p lands in the segment of rank p // pages_per_seg.  Returns a new
-    stack; `synd` is not modified.
+    `(k,)` page indices, unique below `n_blocks`; an entry equal to
+    `n_blocks` is the out-of-range sentinel and is dropped (the reference's
+    scatter `mode="drop"`), however often it repeats.  The deltas
+    XOR-reduce across each zone; page p lands in the segment of rank
+    p // pages_per_seg.  Returns a new stack; `synd` is not modified.
     """
     bw = layout.block_words
     pps = layout.seg_words // bw
+    g = synd.shape[dim]
     patch = coll.xor_fold(sdelta_pages, dim).movedim(-2, 0)  # (k, *Mo, r, bw)
     owner = page_idx // pps
     local = page_idx % pps
-    pages = synd.reshape(*synd.shape[:-1], pps, bw).movedim(dim, 0).clone()
-    # (G, *Mo, r, pps, bw): pages[owner[j], ..., local[j], :] is page j's
-    # slot on its owner in every zone; indices are unique, so this is exact
+    seg_pages = synd.reshape(*synd.shape[:-1], pps, bw).movedim(dim, 0)
+    # (G + 1, *Mo, r, pps, bw): pages[owner[j], ..., local[j], :] is page
+    # j's slot on its owner in every zone; the sentinel's owner is G, a
+    # scratch slot cut off below.  Real indices are unique, so this is exact
+    pages = torch.cat([seg_pages, seg_pages[:1]])
     pages[owner, ..., local, :] = pages[owner, ..., local, :] ^ patch
-    return pages.movedim(0, dim).reshape(synd.shape)
+    return pages[:g].movedim(0, dim).reshape(synd.shape)
+
+
+def patch_parity_delta(parity_seg: torch.Tensor, delta_pages: torch.Tensor,
+                       page_idx: torch.Tensor, layout: ZoneLayout,
+                       dim: int) -> torch.Tensor:
+    """`patch_parity` for callers that already hold the delta: the r = 1
+    view of `patch_syndrome_delta`.  `parity_seg`: `(*M, seg)`;
+    `delta_pages`: `(*M, k, bw)`."""
+    return patch_syndrome_delta(parity_seg.unsqueeze(-2),
+                                delta_pages.unsqueeze(-3), page_idx, layout,
+                                dim)[..., 0, :]
+
+
+def patch_parity(parity_seg: torch.Tensor, old_pages: torch.Tensor,
+                 new_pages: torch.Tensor, page_idx: torch.Tensor,
+                 layout: ZoneLayout, dim: int) -> torch.Tensor:
+    """Incremental parity patch for the dirty pages: the delta old ^ new
+    (the `xor_delta` kernel), XOR-reduced across each zone and applied to
+    the owners' segments.  `old_pages`/`new_pages`: `(*M, k, bw)`."""
+    return patch_parity_delta(parity_seg, kops.xor_delta(old_pages, new_pages),
+                              page_idx, layout, dim)
+
+
+def hybrid_update(row_old: torch.Tensor, row_new: torch.Tensor,
+                  parity_seg: torch.Tensor, layout: ZoneLayout, dim: int,
+                  dirty_page_idx=None,
+                  threshold_fraction: float = 0.5) -> torch.Tensor:
+    """Patch or build by dirty fraction (a static decision): None means
+    everything changed, an empty list a metadata-only transaction (parity
+    unchanged); at or past `threshold_fraction` of the pages the parity is
+    rebuilt from `row_new`."""
+    if dirty_page_idx is not None and len(dirty_page_idx) == 0:
+        return parity_seg
+    if (dirty_page_idx is None
+            or len(dirty_page_idx) / layout.n_blocks >= threshold_fraction):
+        return coll.xor_reduce_scatter(row_new, dim)
+    idx = torch.as_tensor(dirty_page_idx, device=row_new.device)
+    bw = layout.block_words
+    return patch_parity(parity_seg, gather_pages(row_old, idx, bw),
+                        gather_pages(row_new, idx, bw), idx, layout, dim)
 
 
 def verify_syndromes(row: torch.Tensor, synd: torch.Tensor, dim: int,
@@ -80,6 +131,14 @@ def verify_syndromes(row: torch.Tensor, synd: torch.Tensor, dim: int,
     the rows."""
     fresh = coll.syndrome_reduce_scatter(row, dim, coeffs)
     return (fresh == synd).all(dim=-1).all(dim=dim)
+
+
+def verify_parity(row: torch.Tensor, parity_seg: torch.Tensor,
+                  dim: int) -> torch.Tensor:
+    """Zone invariant of the XOR parity: `(*M_other)` bool, True iff the XOR
+    of each zone's rows equals its stored parity segments."""
+    fresh = coll.xor_reduce_scatter(row, dim)
+    return (fresh == parity_seg).all(dim=-1).all(dim=dim)
 
 
 def reconstruct_row(row: torch.Tensor, parity_seg: torch.Tensor,

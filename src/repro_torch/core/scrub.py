@@ -2,8 +2,9 @@
 
 The scrubber walks the whole pool's checksums every `period` transactions
 and hands any mismatches to repair.  It freezes the pool while repair runs.
-The reference's adaptive-window feedback (a deferred engine's pressure
-loop) arrives with the deferred engine's port slice.
+With a deferred engine it also closes the adaptive-window loop: a suspect
+scrub or pre-check collapses the window to 1, a clean one regrows it, and
+`growth_commits` consecutive clean commits regrow it under load.
 """
 from __future__ import annotations
 
@@ -48,14 +49,24 @@ def _u32(step: torch.Tensor) -> int:
 
 
 class Scrubber:
-    """Transaction-count-based scrubbing with online repair."""
+    """Transaction-count-based scrubbing with online repair.
+
+    `engine` (a DeferredProtector, or None) receives the scrub pressure:
+    any error shrinks its window toward 1, a clean scrub or pre-check lets
+    it regrow.  `growth_commits` (> 0) also regrows a shrunken window every
+    N consecutive clean commits, at an epoch boundary.
+    """
 
     def __init__(self, protector: txn_mod.Protector, period: int = 0,
-                 auto_repair: bool = True):
+                 auto_repair: bool = True, engine=None,
+                 growth_commits: int = 0):
         self.protector = protector
         self.period = period          # 0 = disabled
         self.auto_repair = auto_repair
+        self.engine = engine          # Optional[epoch.DeferredProtector]
+        self.growth_commits = int(growth_commits)   # 0 = scrub-only growth
         self._since = 0
+        self._clean_streak = 0
         # telemetry (repro_torch.obs): the Pool assigns its registry here
         self.metrics = None
         # coverage accounting — prechecks and full scrubs both check every
@@ -114,9 +125,34 @@ class Scrubber:
             return False
         return self._since >= self.period
 
-    def on_commit(self):
-        """Count a commit toward the scrub cadence."""
+    def on_commit(self, clean: bool = True):
+        """Count a commit toward the scrub cadence.  `clean` is the
+        host-known verdict: a dirty commit resets the clean streak; a long
+        enough streak regrows the window — at an epoch boundary only, so an
+        open window never outgrows the cadence it opened under (the streak
+        persists across a skipped boundary)."""
         self._since += 1
+        if not clean:
+            self._clean_streak = 0
+            return
+        self._clean_streak += 1
+        eng = self.engine
+        if (eng is not None and self.growth_commits > 0
+                and self._clean_streak >= self.growth_commits
+                and eng.window < eng.max_window and not eng.needs_flush):
+            eng.report_pressure(False)        # sustained clean load
+            self._clean_streak = 0
+
+    def note_suspect(self):
+        """Reset the clean streak (a failure event was handled)."""
+        self._clean_streak = 0
+
+    def _feed_engine(self, report) -> None:
+        """Adaptive window: errors shrink it toward 1, clean regrows it."""
+        if self.engine is not None:
+            self.engine.report_pressure(report.suspect)
+            if report.suspect:
+                self._clean_streak = 0
 
     def mark_checked(self):
         """Restart the scrub cadence: a check stood in for a full scrub."""
@@ -159,6 +195,9 @@ class Scrubber:
         self.pages_checked += self.pool_pages
         self._publish("precheck", report,
                       (time.perf_counter() - t0) * 1e3)
+        # a clean pre-check standing in for a scrub regrows the window as a
+        # clean scrub would
+        self._feed_engine(report)
         return report
 
     def run(self, prot: txn_mod.ProtectedState,
@@ -194,4 +233,5 @@ class Scrubber:
         self._publish("full", report, wall_ms)
         if resume is not None:
             resume()
+        self._feed_engine(report)
         return prot, report

@@ -13,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import utils
 from repro_torch.kernels import ops as kops
 
 
@@ -69,3 +70,34 @@ def syndrome_apply_delta(synd: torch.Tensor, sdelta: torch.Tensor,
     """Bulk stack delta: `synd ^ reduce-scatter(sdelta)`, plane by plane.
     `synd`: `(*M, r, s)`; `sdelta`: `(*M, r, n)` pre-weighted delta rows."""
     return synd ^ xor_reduce_scatter(sdelta, dim)
+
+
+def meta_all_gather(x: torch.Tensor, dim: int, n_axes: int) -> torch.Tensor:
+    """Replicate small per-rank metadata across the zone: `(*M, *s)` ->
+    `(*M, G, *s)`, where every device of a zone holds the stacked table of
+    its zone's G values in rank order (out[..., i, ...] is rank i's).
+    `n_axes` is the number of leading mesh dims."""
+    return x.movedim(dim, n_axes - 1).unsqueeze(dim).expand(
+        *x.shape[:n_axes], x.shape[dim], *x.shape[n_axes:])
+
+
+def make_meta_mirror():
+    """The window-meta mirror: a function that takes a tuple of tensors
+    (None entries pass through) and returns detached copies.  The reference
+    reshards its tuple to every device so that a lost rank's copy survives
+    on the others; with the zone on one device a copy is that mirror — it
+    must be a copy, not a view, because the window's tensors are replaced
+    every commit.  The copies are queued on the device's stream: no host
+    sync."""
+    return lambda tree: utils.tree_map(
+        lambda t: t.detach().clone(), tree)
+
+
+def xor_tree_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The reference's recursive-doubling XOR all-reduce (power-of-two
+    zones only, as there): on one device it is the XOR fold over the data
+    dim, delivered to every rank (a broadcast view, as `xor_all_reduce`)."""
+    g = x.shape[dim]
+    if g & (g - 1):
+        raise ValueError(f"tree reduce needs a power-of-two zone, got {g}")
+    return xor_all_reduce(x, dim)

@@ -24,7 +24,7 @@ import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("fletcher", "commit_fused", "gf_parity")
+SOURCES = ("fletcher", "commit_fused", "gf_parity", "xor_parity")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 NVCC_TIMEOUT_S = 600

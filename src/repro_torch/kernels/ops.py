@@ -24,6 +24,9 @@ points) and the kernel behind each:
     fused_commit_stream            commit_pages<VERIFY=false, DIGEST=true>
     fused_commit_old_terms_stream  commit_pages<VERIFY=true,  DIGEST=true>,
                                    stored = 0
+    fused_accum_commit             commit_pages<ACC=true, DIGEST=false>
+    fused_accum_commit_stream      commit_pages<ACC=true, DIGEST=true>
+    xor_delta, xor_accum           xor_words
     gf_scale                       weight_words<1, RAW0=false>
     sdelta_stack                   weight_words<r, RAW0=true>
                                    (behind syndrome_scale)
@@ -43,6 +46,7 @@ import torch
 from repro_torch.kernels import commit_fused as _cf
 from repro_torch.kernels import fletcher as _fl
 from repro_torch.kernels import gf_parity as _gf
+from repro_torch.kernels import xor_parity as _xor
 
 ENTRY_POINTS = ("fletcher_blocks", "fletcher_stream", "fused_commit",
                 "fused_verify_commit", "fused_commit_old_terms",
@@ -50,7 +54,8 @@ ENTRY_POINTS = ("fletcher_blocks", "fletcher_stream", "fused_commit",
                 "fused_commit_old_terms_stream", "gf_scale", "sdelta_stack",
                 "fused_commit_s", "fused_verify_commit_s",
                 "fused_commit_old_terms_s", "fused_commit_s_stream",
-                "fused_verify_commit_s_stream")
+                "fused_verify_commit_s_stream", "fused_accum_commit",
+                "fused_accum_commit_stream", "xor_delta", "xor_accum")
 
 
 def _on_card(x: torch.Tensor) -> bool:
@@ -150,6 +155,50 @@ def fused_commit_old_terms_stream(old: torch.Tensor,
         return _cf.commit_pages_cuda(old, new, zeros, digest=True,
                                      name="fused_commit_old_terms_stream")
     return _cf.commit_pages_plain(old, new, zeros, digest=True)
+
+
+# -- the deferred-epoch engine (window > 1) ----------------------------------
+
+def _accum(acc, old, new, digest, name):
+    if _on_card(new):
+        return _cf.commit_pages_cuda(old, new, digest=digest, name=name,
+                                     acc=acc)
+    return _cf.commit_pages_plain(old, new, digest=digest, acc=acc)
+
+
+def fused_accum_commit(acc: torch.Tensor, old: torch.Tensor,
+                       new: torch.Tensor) -> tuple:
+    """(acc ^ old ^ new, old terms, new terms) — the reference's order: the
+    step's delta folded into the epoch accumulator (a fresh tensor; `acc`
+    is not written) and both pages' terms for the row digest."""
+    acc_out, terms, old_terms, _ = _accum(acc, old, new, False,
+                                          "fused_accum_commit")
+    return acc_out, old_terms, terms
+
+
+def fused_accum_commit_stream(acc: torch.Tensor, old: torch.Tensor,
+                              new: torch.Tensor) -> tuple:
+    """(acc ^ old ^ new, old terms, new terms, per-rank row digest of the
+    new pages)."""
+    acc_out, terms, old_terms, dig = _accum(acc, old, new, True,
+                                            "fused_accum_commit_stream")
+    return acc_out, old_terms, terms, dig
+
+
+def _xor2(a: torch.Tensor, b: torch.Tensor, name: str) -> torch.Tensor:
+    if _on_card(a):
+        return _xor.xor_words_cuda(a, b, name=name)
+    return _xor.xor_words_plain(a, b)
+
+
+def xor_delta(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """The parity patch old ^ new, a fresh tensor of their shape."""
+    return _xor2(old, new, "xor_delta")
+
+
+def xor_accum(parity: torch.Tensor, patch: torch.Tensor) -> torch.Tensor:
+    """A patch applied to parity: parity ^ patch, a fresh tensor."""
+    return _xor2(parity, patch, "xor_accum")
 
 
 # -- the GF(2^32) syndrome stack (r >= 2) ------------------------------------

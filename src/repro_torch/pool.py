@@ -28,9 +28,17 @@ the caller passes `device="cpu"`; with no GPU present, the default raises.
 The pool holds the tensors it is given: stage a new tensor, do not
 mutate a staged one in place.
 
+With `ProtectConfig(window=W > 1)` the pool runs the deferred-epoch
+engine (core/epoch.py): the bulk engine by default, the patch engine when
+`dirty_leaf_idx` names the leaves commits touch.  Redundancy is refreshed
+every W commits, and before every scrub, pre-check and recovery.
+Transactions that declare disjoint page footprints
+(`pool.transaction(pages=...)`) coalesce into one window; overlapping ones
+serialize behind a flush.
+
 Not in this port slice, and refused with `NotImplementedError` naming the
-ROADMAP slice that ports it: window > 1, pipeline_depth > 1,
-commit_async, rescale, tenancy and straggler mitigation.
+ROADMAP slice that ports it: pipeline_depth > 1, commit_async, rescale,
+tenancy and straggler mitigation.
 """
 from __future__ import annotations
 
@@ -44,6 +52,7 @@ from repro_torch import utils
 from repro_torch.configs.base import ProtectConfig
 from repro_torch.core import microbuffer
 from repro_torch.core import recovery as recovery_mod
+from repro_torch.core.epoch import DeferredProtector, EngineHost
 from repro_torch.core.scrub import ScrubReport, Scrubber
 from repro_torch.core.txn import Mode, ProtectedState, Protector
 from repro_torch.dist import sharding
@@ -116,10 +125,15 @@ class Transaction:
     state.  An exception inside the block also aborts and propagates.
     """
 
-    def __init__(self, pool: "Pool", *, data_cursor=0, rng_key=None):
+    def __init__(self, pool: "Pool", *, data_cursor=0, rng_key=None,
+                 pages: Optional[Sequence[int]] = None):
         self._pool = pool
         self._data_cursor = data_cursor
         self._rng_key = rng_key
+        # the page footprint declared at pool.transaction(pages=...), the
+        # merged-window conflict check's currency (None = whole state)
+        self.pages = (None if pages is None
+                      else tuple(int(p) for p in pages))
         self._staged: Optional[PyTree] = None
         self._commit_kw: dict = {}
         self._guarded: list = []          # (buffer, nd) pairs
@@ -127,10 +141,11 @@ class Transaction:
         self._ok: Optional[torch.Tensor] = None
 
     def stage(self, new_state: PyTree, *, dirty_pages=None,
-              verify_old: bool = False) -> None:
+              dirty_words=None, verify_old: bool = False) -> None:
         """Stage the transaction's result (the micro-buffer contents)."""
         self._staged = new_state
         self._commit_kw = {"dirty_pages": dirty_pages,
+                           "dirty_words": dirty_words,
                            "verify_old": verify_old}
 
     def watch(self, guarded: torch.Tensor, *, nd: bool = False
@@ -190,13 +205,26 @@ class Transaction:
         return False
 
 
-class Pool:
-    """The single public entry point over one protected state layout."""
+class Pool(EngineHost):
+    """The single public entry point over one protected state layout.
+
+    `config.window > 1` builds the deferred engine; `dirty_leaf_idx` (leaf
+    indices, or a callable of the zone layout) makes it a patch engine,
+    with `dirty_capacity` pages a commit at most.  `replicate_meta`
+    mirrors the window's metadata every commit (default: on for a bulk
+    engine, off for a patch engine, as in the reference).  `donate` is
+    accepted for the reference's signature and changes nothing: the port
+    builds every successor functionally.
+    """
 
     def __init__(self, mesh: sharding.ZoneMesh, abstract_state: PyTree,
                  state_specs: PyTree,
                  config: Optional[ProtectConfig] = None, *,
                  device=None,
+                 dirty_leaf_idx=None,
+                 dirty_capacity=None,
+                 donate: bool = True,
+                 replicate_meta: Optional[bool] = None,
                  on_freeze: Optional[Callable] = None,
                  on_resume: Optional[Callable] = None,
                  metrics: Optional[MetricsRegistry] = None,
@@ -223,18 +251,49 @@ class Pool:
             log_capacity=self.config.log_capacity,
             stream_threshold_words=self.config.stream_threshold_words,
             stream_chunk_words=self.config.stream_chunk_words)
-        self.scrubber = Scrubber(self.protector,
-                                 period=self.config.scrub_period)
+        if callable(dirty_leaf_idx):
+            dirty_leaf_idx = dirty_leaf_idx(self.protector.layout)
+        if callable(dirty_capacity):
+            dirty_capacity = dirty_capacity(self.protector.layout)
+        self._engine: Optional[DeferredProtector] = None
+        self._est = None
+        self._prot: Optional[ProtectedState] = None
+        if self.config.window > 1:
+            # ProtectConfig guarantees a parity or checksum mode here
+            if replicate_meta is None:
+                replicate_meta = dirty_leaf_idx is None
+            self._engine = DeferredProtector(
+                self.protector, window=self.config.window,
+                dirty_capacity=dirty_capacity,
+                dirty_leaf_idx=dirty_leaf_idx,
+                replicate_meta=replicate_meta)
+            self._engine.metrics = self.metrics
+        self.scrubber = Scrubber(
+            self.protector, period=self.config.scrub_period,
+            engine=self._engine,
+            growth_commits=self.config.window_growth_commits)
         self.scrubber.metrics = self.metrics
         self._due_scrubs = 0          # full_scrub_every cadence counter
-        self.prot: Optional[ProtectedState] = None
         r_armed = self.redundancy if self.mode.has_parity else 0
-        self.metrics.gauge("pool_window").set(1)
+        self.metrics.gauge("pool_window").set(
+            self._engine.window if self._engine is not None else 1)
         self.metrics.gauge("pool_redundancy").set(r_armed)
         self.metrics.gauge("pool_budget_remaining").set(r_armed)
         self._m_commits = self.metrics.counter("pool_commits_total")
         self._m_aborted = self.metrics.counter("pool_commit_aborted_total")
         self._m_commit_ms = self.metrics.histogram("pool_commit_dispatch_ms")
+        # merged-window bookkeeping: the page-footprint union of every
+        # transaction opened since the last flush; a conflicting footprint
+        # seals the group (flush) before the new transaction joins a fresh
+        # one, so conflicting transactions serialize and disjoint ones
+        # coalesce into one telescoped flush
+        self._merge_open = False
+        self._merge_all = False
+        self._merge_pages: set = set()
+        self._m_txn_serialized = self.metrics.counter(
+            "pool_txn_serialized_total")
+        self._m_txn_coalesced = self.metrics.counter(
+            "pool_txn_coalesced_total")
         # health bookkeeping (host flags; pool.health() folds these)
         self._n_recoveries = 0
         self._n_followups = 0
@@ -293,6 +352,11 @@ class Pool:
         return self.protector.redundancy
 
     @property
+    def engine(self) -> Optional[DeferredProtector]:
+        """The deferred-epoch engine, or None on the synchronous cadence."""
+        return self._engine
+
+    @property
     def state(self) -> Optional[PyTree]:
         """The live protected state as global tensors (along replicated
         axes, the copy at mesh coordinate 0)."""
@@ -310,16 +374,19 @@ class Pool:
 
     def overhead_report(self) -> dict:
         rep = self.protector.overhead_report()
-        rep["window"] = 1
+        rep["window"] = (self._engine.window if self._engine is not None
+                         else 1)
         return rep
 
     def stats(self) -> dict:
         """One host-side snapshot of the pool's telemetry (no device sync)."""
+        eng = self._engine
         return {
             "mode": self.mode.value,
             "redundancy": self.redundancy,
-            "engine": "sync",
-            "window": 1,
+            "engine": "deferred" if eng is not None else "sync",
+            "window": eng.window if eng is not None else 1,
+            "max_window": eng.max_window if eng is not None else 1,
             "commits": int(self._m_commits.value),
             "aborted_commits": int(self._m_aborted.value),
             "commit_dispatch_ms": self._m_commit_ms.summary(),
@@ -333,8 +400,11 @@ class Pool:
 
     def health(self) -> obs_health.HealthReport:
         """Green / degraded / critical with named reasons (host state)."""
+        eng = self._engine
         return obs_health.assess(
-            window=1, max_window=1, dropped_replicas=(),
+            window=eng.window if eng is not None else 1,
+            max_window=eng.max_window if eng is not None else 1,
+            dropped_replicas=(),
             suspect=self._suspect,
             redundancy=self.redundancy if self.mode.has_parity else 0,
             budget_exhausted=self._budget_exhausted,
@@ -351,28 +421,87 @@ class Pool:
 
     # -- commit -----------------------------------------------------------------
 
-    def commit(self, state_new: PyTree, *, dirty_pages=None, data_cursor=0,
-               rng_key=None, canary_ok: bool = True,
+    def commit(self, state_new: PyTree, *, dirty_pages=None,
+               dirty_words=None, data_cursor=0, rng_key=None,
+               canary_ok: bool = True,
                verify_old: bool = False) -> torch.Tensor:
         """One transactional update of global `state_new`; returns the
-        verdict as a 0-d bool tensor (read it to sync)."""
+        verdict as a 0-d bool tensor (read it to sync).
+
+        The deferred engine takes `dirty_words` (per-leaf word indices of
+        its `dirty_leaf_idx` leaves) and ignores `dirty_pages`; the
+        synchronous engine takes `dirty_pages` and ignores `dirty_words`.
+        `verify_old` is a synchronous-engine feature."""
         if self.prot is None:
             raise RuntimeError("Pool.commit before init()")
         t0 = time.perf_counter()
-        self.prot, ok = self.commit_program(
-            dirty_pages=dirty_pages, verify_old=verify_old)(
-                self.prot, self.to_zone(state_new), data_cursor=data_cursor,
-                rng_key=rng_key, canary_ok=canary_ok)
-        self.scrubber.on_commit()
+        if self._engine is not None:
+            if verify_old:
+                raise ValueError("verify_old is a synchronous-engine "
+                                 "feature (window=1)")
+            self._est, ok = self._engine.commit(
+                self._est, self.to_zone(state_new), dirty_words=dirty_words,
+                data_cursor=data_cursor, rng_key=rng_key,
+                canary_ok=canary_ok)
+        else:
+            self._prot, ok = self.commit_program(
+                dirty_pages=dirty_pages, verify_old=verify_old)(
+                    self._prot, self.to_zone(state_new),
+                    data_cursor=data_cursor, rng_key=rng_key,
+                    canary_ok=canary_ok)
+        # the scrub cadence and the clean-streak window growth ride on the
+        # host-known canary verdict
+        self.scrubber.on_commit(clean=bool(canary_ok))
         self._m_commits.inc()
         if not canary_ok:
             self._m_aborted.inc()
         self._m_commit_ms.observe((time.perf_counter() - t0) * 1e3)
         return ok
 
-    def transaction(self, *, data_cursor=0, rng_key=None) -> Transaction:
-        """`pgl_tx_begin`: returns the staging context manager."""
-        return Transaction(self, data_cursor=data_cursor, rng_key=rng_key)
+    def flush(self) -> None:
+        """Bring deferred redundancy current (no-op when synchronous) and
+        close any open transaction merge group: a flush is the boundary
+        every coalesced window telescopes into."""
+        super().flush()
+        self._merge_open = False
+        self._merge_all = False
+        self._merge_pages = set()
+
+    def _enter_footprint(self, pages) -> bool:
+        """The page-granular conflict check at `transaction()` entry: a
+        footprint disjoint from the open merge group joins it (its commits
+        coalesce into the same window); a conflicting one (overlap, or
+        either side whole-state) seals the group with a flush first, so
+        conflicting transactions serialize across windows.  Returns True
+        when this entry serialized."""
+        whole = pages is None
+        fp = set() if whole else set(int(p) for p in pages)
+        if not self._merge_open:
+            self._merge_open = True
+            self._merge_all = whole
+            self._merge_pages = fp
+            return False
+        if self._merge_all or whole or self._merge_pages & fp:
+            self._m_txn_serialized.inc()
+            self.flush()
+            self._merge_open = True
+            self._merge_all = whole
+            self._merge_pages = fp
+            return True
+        self._m_txn_coalesced.inc()
+        self._merge_pages |= fp
+        return False
+
+    def transaction(self, *, data_cursor=0, rng_key=None,
+                    pages: Optional[Sequence[int]] = None) -> Transaction:
+        """`pgl_tx_begin`: returns the staging context manager.  `pages`
+        declares the transaction's page footprint: transactions with
+        disjoint footprints coalesce into one deferred window; overlapping
+        ones, or any that declares none (the whole state), serialize
+        behind a flush."""
+        self._enter_footprint(pages)
+        return Transaction(self, data_cursor=data_cursor, rng_key=rng_key,
+                           pages=pages)
 
     def commit_async(self, *args, **kw):
         raise NotImplementedError(
@@ -387,9 +516,12 @@ class Pool:
     # -- scrub ------------------------------------------------------------------
 
     def scrub(self) -> ScrubReport:
-        """Force one global scrub; repairs detected scribbles in place."""
+        """Force one global scrub (flushing any open window first);
+        repairs detected scribbles in place and feeds the adaptive
+        window."""
         if self.prot is None:
             raise RuntimeError("Pool.scrub before init()")
+        self.flush()                 # scrub must see current redundancy
         with self.tracer.span("scrub", scope="full") as span:
             self.prot, report = self.scrubber.run(
                 self.prot, freeze=self._freeze, resume=self._resume)
@@ -409,6 +541,7 @@ class Pool:
         row-cache coherence and the folded-syndrome compare."""
         if self.prot is None:
             raise RuntimeError("Pool.precheck before init()")
+        self.flush()
         with self.tracer.span("scrub", scope="precheck") as span:
             report = self.scrubber.precheck(self.prot)
             span.annotate(suspect=bool(report.suspect))
@@ -496,6 +629,11 @@ class Pool:
                         "pool_budget_exhausted_total").inc()
                     self.metrics.gauge("pool_budget_remaining").set(0)
                     raise
+            # the survivors' copy of the window metadata, captured before
+            # the flush changes the window
+            meta = (self._engine.window_meta
+                    if self._engine is not None else None)
+            self.flush()
             if fault.kind == "rank_loss":
                 prot, rep = recovery_mod.recover_from_rank_loss(
                     self.protector, self.prot, fault.rank,
@@ -516,6 +654,17 @@ class Pool:
                 t_rv = time.perf_counter()
                 self._reverify(rep)
                 rep.reverify_ms = (time.perf_counter() - t_rv) * 1e3
+            if self._engine is not None:
+                # failure suspicion collapses the window toward 1
+                self._engine.report_pressure(True)
+                self.scrubber.note_suspect()
+                if meta is not None:
+                    rep.window_bound = {
+                        "pending": meta["pending"],
+                        "dirty_pages": meta["dirty_pages"],
+                        "digest_verified":
+                            self._engine.verify_window_bound(self._est),
+                    }
             rep.queue_wait_ms = queue_wait_ms
             rep.total_ms = (time.perf_counter() - t_total) * 1e3
             self._publish_recovery(rep)

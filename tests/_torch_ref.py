@@ -14,10 +14,12 @@ import torch
 from jax.sharding import AxisType, NamedSharding, PartitionSpec
 
 from repro.core import gf as ref_gf
+from repro.core.epoch import DeferredProtector as RefDeferred
 from repro.core.txn import Mode as RefMode
 from repro.core.txn import Protector as RefProtector
 from repro.kernels import ref
 from repro_torch import convert, utils
+from repro_torch.core.epoch import DeferredProtector
 from repro_torch.core.txn import Mode, Protector
 from repro_torch.dist import sharding
 from repro_torch.dist.sharding import P, ZoneMesh
@@ -160,14 +162,20 @@ def patched(cur, **leaves):
     return out
 
 
+def key_words(seed):
+    """(the reference's PRNGKey(seed), the port's two key words)."""
+    key = jax.random.PRNGKey(seed)
+    return key, [int(w) for w in np.asarray(jax.random.key_data(key))[:2]]
+
+
 class Pair:
     """One reference and one port Protector driven in lockstep on
-    `small_state_np` at block_words = 64 (w1 fills page 0, w2 pages 1-2,
-    scale page 3)."""
+    `small_state_np` (or `state` = (numpy leaves, specs)) at
+    block_words = 64."""
 
-    def __init__(self, mesh_name, mode, **kw):
+    def __init__(self, mesh_name, mode, *, state=None, **kw):
         self.mesh, self.zmesh = jax_mesh(mesh_name), zone_mesh(mesh_name)
-        self.cur, self.specs = small_state_np()
+        self.cur, self.specs = small_state_np() if state is None else state
         ref_state = to_jax(self.cur, self.specs, self.mesh)
         self.ref = RefProtector(self.mesh, jax.eval_shape(lambda: ref_state),
                                 jax_specs(self.specs), mode=RefMode(mode),
@@ -188,8 +196,7 @@ class Pair:
         assert_prot_same(self.rp, self.mesh, self.pp)
 
     def commit(self, new_np, *, seed=0, canary_ok=True, **kw):
-        key = jax.random.PRNGKey(seed)
-        words = [int(w) for w in np.asarray(jax.random.key_data(key))[:2]]
+        key, words = key_words(seed)
         self.rp, rok = self.ref.commit(
             self.rp, to_jax(new_np, self.specs, self.mesh), rng_key=key,
             data_cursor=seed + 1, canary_ok=canary_ok, **kw)
@@ -201,6 +208,67 @@ class Pair:
         if bool(rok):
             self.cur = new_np
         return bool(rok)
+
+
+def epoch_fields(est, mesh) -> dict:
+    """The reference's EpochState as convert's epoch field dict (numpy)."""
+    def arr(x):
+        return None if x is None else np.asarray(x)
+    return {"prot": ref_fields(est.prot, mesh), "dirty": arr(est.dirty),
+            "pending": arr(est.pending), "acc": arr(est.acc)}
+
+
+class EpochPair:
+    """A reference and a port DeferredProtector over a `Pair`'s two
+    Protectors (`window`, `dirty_leaf_idx`, `replicate_meta` for both,
+    the rest for the Protectors), driven in lockstep; after every commit
+    and flush the whole window — every protected field, the redo log, the
+    accumulator, the dirty mask and the pending count — is byte-equal."""
+
+    def __init__(self, mesh_name, mode, *, window, dirty_leaf_idx=None,
+                 replicate_meta=False, **kw):
+        self.pair = Pair(mesh_name, mode, **kw)
+        eng = dict(window=window, dirty_leaf_idx=dirty_leaf_idx,
+                   replicate_meta=replicate_meta)
+        self.ref = RefDeferred(self.pair.ref, donate=False, **eng)
+        self.port = DeferredProtector(self.pair.port, **eng)
+        self.rest = self.ref.wrap(self.pair.rp)
+        self.pest = self.port.wrap(self.pair.pp)
+        self.check()
+
+    @property
+    def cur(self):
+        return self.pair.cur
+
+    def check(self):
+        want = epoch_fields(self.rest, self.pair.mesh)
+        got = convert.from_port_epoch(self.pest)
+        assert_same(want["prot"], got["prot"])
+        for k in ("dirty", "pending", "acc"):
+            _same(want[k], got[k], k)
+        assert self.ref._since == self.port._since
+        assert self.ref.window == self.port.window
+
+    def commit(self, new_np, *, seed=0, canary_ok=True, dirty_words=None):
+        key, words = key_words(seed)
+        pr = self.pair
+        self.rest, rok = self.ref.commit(
+            self.rest, to_jax(new_np, pr.specs, pr.mesh),
+            dirty_words=dirty_words, data_cursor=seed + 1, rng_key=key,
+            canary_ok=canary_ok)
+        self.pest, pok = self.port.commit(
+            self.pest, pr.zone(new_np), dirty_words=dirty_words,
+            data_cursor=seed + 1, rng_key=words, canary_ok=canary_ok)
+        assert bool(pok) == bool(rok)
+        self.check()
+        if bool(rok):
+            pr.cur = new_np
+        return bool(rok)
+
+    def flush(self):
+        self.rest = self.ref.flush(self.rest)
+        self.pest = self.port.flush(self.pest)
+        self.check()
 
 
 # -- inputs and byte checks of the GF sweep tests -----------------------------

@@ -34,8 +34,9 @@ def _pages(shape, seed, device):
                                        ((3,), 13, 1024), ((2, 2), 300, 1024)])
 @pytest.mark.parametrize("r", [2, 3, 4])
 def test_cuda_kernels_match_plain(card, lead, n, bw, r):
-    """Every entry point's kernel against its plain version (the calls of
-    chip_smoke.entry_calls), the syndrome sweeps at r; one launch each."""
+    """Every entry point's kernel (all 19) against its plain version (the
+    calls of chip_smoke.entry_calls), the syndrome sweeps at r; one launch
+    each."""
     import chip_smoke
     old, new = _pages((*lead, n, bw), 1, card), _pages((*lead, n, bw), 2, card)
     stored = port_fl.fletcher_pages_plain(old)
@@ -73,3 +74,27 @@ def test_cuda_wrappers_raise_on_what_they_cannot_launch(card):
                                          device=card))
     with pytest.raises(ValueError, match="m % 4"):
         ops.gf_scale(torch.zeros(6, dtype=torch.int32, device=card), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.fused_accum_commit(y, y, y)
+    with pytest.raises(ValueError, match="must match"):
+        ops.fused_accum_commit_stream(torch.zeros(3, 64, dtype=torch.int32,
+                                                  device=card), z, z)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.xor_delta(y, y)
+    with pytest.raises(ValueError, match="one shape"):
+        ops.xor_accum(z, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,off_a,off_b", [(1001, 0, 0), (7, 0, 0),
+                                           (4096, 1, 2), (8194, 1, 0),
+                                           (0, 0, 0)])
+def test_cuda_xor_takes_any_length_and_alignment(card, n, off_a, off_b):
+    """The XOR kernel on 1-D runs whose length is not a multiple of 4 (its
+    scalar tail) and slices off a 16-byte boundary (its scalar path)."""
+    a = _pages((n + 3,), 3, card)[off_a:off_a + n]
+    b = _pages((n + 3,), 4, card)[off_b:off_b + n]
+    for fn in (ops.xor_delta, ops.xor_accum):
+        got = fn(a, b)
+        torch.cuda.synchronize()
+        assert torch.equal(got, a ^ b)

@@ -1,6 +1,7 @@
 """Guards on the port's boundary: the package and chip_smoke.py import
 neither JAX nor the reference; configurations the port does not run yet
-are refused, never downgraded; a multi-rank loss beyond the redundancy is
+(pipeline_depth > 1, overlap_commit, straggler mitigation) are refused,
+never downgraded; a multi-rank loss beyond the redundancy is
 refused; and the pool's default device is the card."""
 import ast
 import pathlib
@@ -46,9 +47,16 @@ def _tiny():
 def test_unported_configurations_raise(cfg):
     """Each configuration the port does not run yet raises, naming its
     slice; redundancy 2 (directly or as the mlpc2 alias) is ported and
-    opens a pool with a two-plane stack."""
+    opens a pool with a two-plane stack, and window 4 opens a pool on the
+    deferred engine."""
     mesh, state, specs = _tiny()
     config = ProtectConfig(**cfg)
+    if config.window > 1:
+        pool = Pool.open(state, specs, mesh=mesh, config=config,
+                         device="cpu")
+        assert pool.engine.window == 4 and pool.stats()["engine"] == \
+            "deferred"
+        return
     if config.resolved_redundancy > 1:
         pool = Pool.open(state, specs, mesh=mesh, config=config,
                          device="cpu")

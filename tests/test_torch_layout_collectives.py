@@ -132,6 +132,81 @@ def test_parity_build_patch_reconstruct_match_reference(name):
         s for i, s in enumerate(zmesh.shape) if i != dd) + (1,)
 
 
+@pytest.mark.parametrize("name", MESH_NAMES)
+def test_legacy_parity_and_meta_collectives_match_reference(name):
+    """The single-parity forms (patch_parity through the xor_delta kernel,
+    hybrid_update on each branch, verify_parity), a stack patch whose
+    index list carries repeated out-of-range sentinels, and the window
+    metadata collectives (meta_all_gather, xor_tree_reduce)."""
+    from repro.dist import collectives as ref_coll
+    mesh, zmesh = jax_mesh(name), zone_mesh(name)
+    dd, g, n_axes = zmesh.data_dim, zmesh.group_size, len(zmesh.shape)
+    state_np, specs = small_state_np()
+    lo = layout.build_layout(to_torch(state_np), g, port_specs(specs), zmesh,
+                             block_words=64)
+    ref_lo = Protector(mesh, jax.eval_shape(
+        lambda: to_jax(state_np, specs, mesh)), jax_specs(specs),
+        block_words=64).layout
+    z = NamedSharding(mesh, PartitionSpec(*mesh.axis_names))
+    rows = rand_u32(zmesh.shape + (lo.row_words,), seed=11)
+    new_rows = rand_u32(zmesh.shape + (lo.row_words,), seed=12)
+    jrows, jnew = jax.device_put(rows, z), jax.device_put(new_rows, z)
+    par = coll.xor_reduce_scatter(as_words(rows), dd)
+    jpar = jax.device_put(words(par), z)
+    nb = lo.n_blocks
+
+    idx = np.array([0, nb - 1], np.int32)
+    old_p = parity.gather_pages(as_words(rows), torch.from_numpy(idx), 64)
+    new_p = parity.gather_pages(as_words(new_rows), torch.from_numpy(idx), 64)
+    got = parity.patch_parity(par, old_p, new_p, torch.from_numpy(idx), lo,
+                              dd)
+    want = _zone_fn(mesh, lambda s, o, n, i: ref_parity.patch_parity(
+        s, o, n, i, ref_lo, "data"), 3, (PartitionSpec(),))(
+        jpar, jax.device_put(words(old_p), z),
+        jax.device_put(words(new_p), z), jnp.asarray(idx))
+    np.testing.assert_array_equal(words(got), np.asarray(want))
+
+    sidx = np.array([nb - 1, nb, 1, nb], np.int32)     # two sentinels
+    sdelta = rand_u32(zmesh.shape + (2, 4, 64), seed=13)
+    stack = torch.stack([par, par ^ 5], dim=-2)
+    got = parity.patch_syndrome_delta(stack, as_words(sdelta),
+                                      torch.from_numpy(sidx), lo, dd)
+    want = _zone_fn(mesh, lambda s, d, i: ref_parity.patch_syndrome_delta(
+        s, d, i, ref_lo, "data"), 2, (PartitionSpec(),))(
+        jax.device_put(words(stack), z), jax.device_put(sdelta, z),
+        jnp.asarray(sidx))
+    np.testing.assert_array_equal(words(got), np.asarray(want))
+
+    for dirty in (None, [], [1], list(range(nb))):
+        got = parity.hybrid_update(as_words(rows), as_words(new_rows), par,
+                                   lo, dd, dirty)
+        want = _zone_fn(mesh, lambda r, n, s: ref_parity.hybrid_update(
+            r, n, s, ref_lo, "data", dirty), 3)(jrows, jnew, jpar)
+        np.testing.assert_array_equal(words(got), np.asarray(want))
+
+    for seg, truth in ((par, True), (par ^ 1, False)):
+        got = parity.verify_parity(as_words(rows), seg, dd)
+        want = _zone_fn(mesh, lambda r, s: ref_parity.verify_parity(
+            r, s, "data"), 2)(jrows, jax.device_put(words(seg), z))
+        assert got.shape == tuple(s for i, s in enumerate(zmesh.shape)
+                                  if i != dd)
+        assert bool(got.all()) == truth == bool(np.asarray(want).all())
+
+    meta = rand_u32(zmesh.shape + (3,), seed=14)
+    got = coll.meta_all_gather(as_words(meta), dd, n_axes)
+    want = _zone_fn(mesh, lambda x: ref_coll.meta_all_gather(x, "data"), 1)(
+        jax.device_put(meta, z))
+    np.testing.assert_array_equal(words(got), np.asarray(want))
+    got = coll.xor_tree_reduce(as_words(meta), dd)
+    want = _zone_fn(mesh, lambda x: ref_coll.xor_tree_reduce(x, "data"), 1)(
+        jax.device_put(meta, z))
+    np.testing.assert_array_equal(words(got), np.asarray(want))
+    live = as_words(meta)
+    mirror = coll.make_meta_mirror()((live, None))
+    assert mirror[1] is None and torch.equal(mirror[0], live)
+    assert mirror[0].data_ptr() != live.data_ptr()     # a copy, not a view
+
+
 def test_collectives_fold_over_the_data_dim():
     x = rand_u32((3, 5, 2, 12), seed=9)          # data dim 1 of size 5
     t = as_words(x)
