@@ -11,14 +11,23 @@
    pages, the syndrome sweeps at r = 3 — at the 16-page patch shape, and at
    edge shapes (1 page, 13 pages, 64-word pages; the syndrome sweeps at
    r = 2 and r = 4); the XOR kernel also on 1-D runs whose length is not a
-   multiple of 4 and on slices that are not 16-byte aligned.  Then each
-   timed at the main path's shape with CUDA events (median of 12 runs
-   after warm-up) beside its plain version, the one PyTorch call that
-   computes the same function where there is one (`torch.bitwise_xor` for
-   the XOR kernel), its least time on the card (by bytes, and by the
-   integer operations of the byte-table GF multiply) and the integer-op
-   time of the 32-step multiply it runs; the XOR kernel also at the patch
-   flush's shape (100 ranks x 34 pages).
+   multiple of 4 and on slices that are not 16-byte aligned; the
+   weight_words kernel (gf_scale, sdelta_stack) at r = 1..4 on leads 1, 3
+   and 100, rows from 4 words to a block's share ± 4 words, and
+   coefficients 0 and 1.  Then each timed at the main path's shape with
+   CUDA events: one launch with its enqueue (`kernel_ms`, median of 12
+   runs after warm-up) and the device time of 20 back-to-back launches
+   enqueued behind a spin kernel (`device_ms`; operands under 100 MB cycle
+   through a ring of input sets larger than twice the L2; a kernel and its
+   library call in turns, k, lib, lib, k), beside its
+   plain version, the one PyTorch call that computes the same function
+   where there is one (`torch.bitwise_xor` for the XOR kernel), its least
+   time on the card (by bytes, and by the integer operations of the
+   byte-table GF multiply), the integer-op time of the 32-step multiply
+   and, for the table multiply, the time of its shared-memory lookups.  A
+   device time under 95% of its bound fails the run.  `xor_delta` and
+   `sdelta_stack` also at the patch flush's shape (100 ranks x 34 pages),
+   with the host µs a call of `xor_delta` and `torch.bitwise_xor`.
 3. The r = 1 main path at the pool size of Pangolin's headline figure: a
    zone of G = 100 data ranks holding about 1.065 GB of rows (2600 pages a
    rank), so the parity is about 1% of the pool.  Through `Pool`, with
@@ -59,6 +68,7 @@
 Every phase raises on failure.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
+import collections
 import dataclasses
 import functools
 import json
@@ -78,6 +88,12 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 # 132 SMs * 64 * 1.98 GHz.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# shared-memory lookups: 32 lanes an SM a clock (128 B a clock, 4 B a lane)
+LDS_LANES_PER_S = 132 * 32 * 1.98e9
+L2_BYTES = 50e6
+DEVICE_LAUNCHES = 20           # back-to-back launches a device_ms reading
+SPIN_CYCLES = 4_000_000        # ~2 ms at 1.98 GHz: the host's head start
+HOST_CALLS = 1000              # enqueues a host_us reading
 G, PAGES, BW = 100, 2600, 1024
 R = 3                          # the redundancy of the r >= 2 main path
 LOST, SCRIBBLED = 37, 5        # the ranks the r = 1 path damages
@@ -98,14 +114,22 @@ SEED = 0
 GF_TABLE_OPS = 7
 
 
-# The cost of this implementation's multiply, reported beside the bound and
-# not a bound: 32 steps of acc ^= cur & bit mask; cur = (cur << 1) ^ (sign
-# mask & POLY).  The compiled sweeps form the doubling chain cur = x·g^i
-# once a word for every plane (2 ALU instructions a step: SHF for the sign
-# mask, LOP3 for the xor; the shift left issues on the FMA pipe) and add one
-# LOP3 a step for each weighted plane (scripts/torch_sass_counts.py).
+# The cost of the 32-step multiply, reported beside the bound and not a
+# bound: 32 steps of acc ^= cur & bit mask; cur = (cur << 1) ^ (sign mask &
+# POLY).  The compiled sweeps form the doubling chain cur = x·g^i once a
+# word for every plane (2 ALU instructions a step: SHF for the sign mask,
+# LOP3 for the xor; the shift left issues on the FMA pipe) and add one LOP3
+# a step for each weighted plane (scripts/torch_sass_counts.py).
+# syndrome_pages runs it; for weight_words (gf_scale, sdelta_stack), which
+# ran it until it took the table multiply, it is the floor the table
+# design has to beat.
 def clmul_ops(planes):
     return 32 * (2 + planes) if planes else 0
+
+
+# The table multiply's shared-memory lookups a word a weighted plane (one
+# per 4-bit chunk, gf.cuh), for the entry points whose kernel runs it.
+TABLE_LOOKUPS = {"gf_scale": 8, "sdelta_stack": 8}
 
 
 def no_gf(r):
@@ -347,6 +371,65 @@ def cuda_ms(fn, runs=12, warm=2):
     return statistics.median(times)
 
 
+def ring_size(input_bytes, call_bytes):
+    """Distinct input sets a timed run cycles through so that it reads from
+    HBM and not from the 50 MB L2: one where a call's operands exceed twice
+    the L2, else enough that the inputs alone do."""
+    if call_bytes >= 2 * L2_BYTES:
+        return 1
+    return int(2 * L2_BYTES // input_bytes) + 2
+
+
+def device_ms(fns, launches=DEVICE_LAUNCHES, warm=2):
+    """Device ms of one call: CUDA events around `launches` back-to-back
+    calls, cycling through `fns` (one per input set), over the count, after
+    warm-up.  The calls are enqueued behind a spin kernel, so the events
+    bracket the device's work and not the host's enqueue; the last
+    len(fns) results are held, so the outputs cycle through distinct
+    buffers as the inputs do."""
+    held = collections.deque(maxlen=len(fns))
+    for i in range(warm * len(fns)):
+        held.append(fns[i % len(fns)]())
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for i in range(launches):
+        held.append(fns[i % len(fns)]())
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def turns(fns, lib_fns):
+    """device_ms of a kernel's calls and of the library's, timed in turns
+    (kernel, library, library, kernel), each the mean of its two."""
+    k0, l0, l1, k1 = (device_ms(fns), device_ms(lib_fns), device_ms(lib_fns),
+                      device_ms(fns))
+    return (k0 + k1) / 2, (l0 + l1) / 2
+
+
+def host_us(fn, calls=HOST_CALLS):
+    """Host µs a call: `calls` enqueues and one synchronize, after warm-up.
+    Given a shape whose kernel takes less than its enqueue, the host's
+    path is what this times."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def check_device_ms(what, ms, bound_ms):
+    """A device time under 95% of the bound would be over 105% of the
+    card's peak: the byte count or the cache set-up is wrong."""
+    check(ms >= 0.95 * bound_ms, f"{what}: device {ms:.4f} ms under 95% of "
+          f"its bound {bound_ms:.4f} ms")
+
+
 def coeff_table(lead, r, dev):
     """Each leading index's syndrome coefficients: ranks of a G = 100 zone
     (the main path's own table for (G, 1) leads, else its last ranks)."""
@@ -363,6 +446,7 @@ def coeff_table(lead, r, dev):
 
 
 def kernels_vs_plain(dev):
+    from repro_torch.kernels import ops
     from repro_torch.kernels.fletcher import fletcher_pages_plain
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -405,19 +489,40 @@ def kernels_vs_plain(dev):
                     algo_n = (base + clmul_ops(planes)) * words
                     bound_b = nbytes / HBM_BYTES_PER_S * 1e3
                     bound_o = ops_n / INT32_OPS_PER_S * 1e3
+                    bound = max(bound_b, bound_o)
+                    fns = [kernel]
+                    if name == "gf_scale":      # 21 MB a call: a ring
+                        c = int(coeffs.reshape(-1)[-1]) & 0xFFFFFFFF
+                        sets = ring_size(scale_x.numel() * 4, nbytes)
+                        fns = [functools.partial(ops.gf_scale, x, c) for x in
+                               [scale_x] + [pages(scale_x.shape)
+                                            for _ in range(sets - 1)]]
                     library = LIBRARY.get(name)
+                    lib_dev_ms = None
+                    if library is None:
+                        dev_ms = device_ms(fns)
+                    else:                       # in turns: k, lib, lib, k
+                        dev_ms, lib_dev_ms = turns(fns, [
+                            functools.partial(library, old, new)])
+                        check_device_ms(f"{name} library", lib_dev_ms, bound)
+                    del fns
+                    check_device_ms(name, dev_ms, bound)
+                    lookups = TABLE_LOOKUPS.get(name, 0) * planes * words
                     timing[name] = dict(
                         shape=list(scale_x.shape if name == "gf_scale"
                                    else shape),
                         r=r if name in WITH_R else None, bytes=nbytes,
                         int_ops=ops_n, max_abs_err=err,
                         clmul_ops_ms=algo_n / INT32_OPS_PER_S * 1e3,
-                        kernel_ms=cuda_ms(kernel),
+                        table_lds_ms=(lookups / LDS_LANES_PER_S * 1e3
+                                      if lookups else None),
+                        kernel_ms=cuda_ms(kernel), device_ms=dev_ms,
                         plain_ms=cuda_ms(plain, runs=5),
                         library_ms=(None if library is None else
                                     cuda_ms(lambda: library(old, new))),
+                        library_device_ms=lib_dev_ms,
                         bound_bytes_ms=bound_b, bound_ops_ms=bound_o,
-                        bound_ms=max(bound_b, bound_o),
+                        bound_ms=bound,
                         bound_by="bytes" if bound_b >= bound_o
                         else "operations")
             del calls, coeffs
@@ -426,14 +531,15 @@ def kernels_vs_plain(dev):
         emit(phase="kernels_vs_plain", shape=list(shape), r=list(rs),
              equal=True)
     xor_edges(pages)
+    weight_edges(pages, dev)
+    at_flush_shape(pages, dev)
     return timing
 
 
 def xor_edges(pages):
     """The XOR kernel on what pages never give it: 1-D runs whose length is
     not a multiple of 4 (its scalar tail), slices that start off a 16-byte
-    boundary (its scalar path); then timed at the wp path's flush shape,
-    (100, 1, 34, 1024), where launch cost rules."""
+    boundary (its scalar path)."""
     from repro_torch.kernels import ops
     a, b = pages((8195,)), pages((8195,))
     for x, y in ((a[:1001], b[:1001]), (a[:7], b[:7]), (a[1:4097], b[2:4098]),
@@ -445,13 +551,101 @@ def xor_edges(pages):
                   f"words, offsets {x.storage_offset()}/{y.storage_offset()}"
                   ": kernel != plain")
     emit(phase="xor_edges", equal=True)
-    old, new = pages((G, 1, FLUSH_SLOTS, BW)), pages((G, 1, FLUSH_SLOTS, BW))
-    nbytes = 3 * old.numel() * 4
-    emit(phase="xor_delta_at_flush_shape", shape=list(old.shape),
-         bytes=nbytes, kernel_ms=cuda_ms(lambda: ops.xor_delta(old, new)),
-         plain_ms=cuda_ms(lambda: old ^ new, runs=5),
-         library_ms=cuda_ms(lambda: torch.bitwise_xor(old, new)),
-         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+
+
+def weight_edge_cases():
+    """(r, lead, m) of the weight_words edge checks: r = 1 (gf_scale) to 4
+    (sdelta_stack); leads 1, 3 and G; m from one uint4 to a block's least
+    share of words ± 4; and one main-path row (2600 pages) at lead 1."""
+    from repro_torch.kernels.gf_parity import SHARE_WORDS
+    ms = (4, 1020, SHARE_WORDS - 4, SHARE_WORDS, SHARE_WORDS + 4)
+    return ([(r, lead, m) for r in (1, 2, 3, 4) for lead in (1, 3, G)
+             for m in ms] + [(r, 1, PAGES * BW) for r in (1, 2, 3, 4)])
+
+
+def weight_case(pages, dev, r, lead, m):
+    """One edge case's [(kernel call, plain call)]: at r >= 2 sdelta_stack
+    with a coefficient table holding 0 (rank 0, plane 1) and 1 (the last
+    rank's last plane); at r = 1 gf_scale by 0, 1 and a rank coefficient."""
+    from repro_torch.kernels import gf_parity as gfk
+    from repro_torch.kernels import ops
+    x = pages((lead, m))
+    if r == 1:
+        c_big = int(coeff_table((1,), 4, "cpu")[0, -1]) & 0xFFFFFFFF
+        return [(functools.partial(ops.gf_scale, x, c),
+                 functools.partial(gfk.gf_scale_plain, x, c))
+                for c in (0, 1, c_big)]
+    coeffs = coeff_table((lead,), r, dev).clone()
+    coeffs[0, 1] = 0
+    coeffs[-1, -1] = 1
+    return [(functools.partial(ops.syndrome_scale, x, coeffs),
+             functools.partial(gfk.sdelta_stack_plain, x, coeffs))]
+
+
+def weight_edges(pages, dev):
+    """weight_words at every edge case, byte-equal to its plain version."""
+    cases = weight_edge_cases()
+    for r, lead, m in cases:
+        for kernel, plain in weight_case(pages, dev, r, lead, m):
+            got = kernel()
+            torch.cuda.synchronize()
+            check(torch.equal(got, plain()), f"weight_words at r = {r}, "
+                  f"lead {lead}, m {m}: kernel != plain")
+    emit(phase="weight_edges", cases=len(cases), equal=True)
+
+
+def at_flush_shape(pages, dev):
+    """xor_delta and sdelta_stack (r = 3) at the wp path's flush shape —
+    G ranks x 34 pages, 41.8 MB for the XOR — where a call's work is tens of
+    µs and the host's enqueue is of the same order: one launch timed with
+    its enqueue (kernel_ms), the device time of back-to-back launches over
+    a ring of input sets (device_ms), and the host µs a call of the entry
+    point and of torch.bitwise_xor at one page."""
+    from repro_torch.kernels import gf_parity as gfk
+    from repro_torch.kernels import ops
+    shape = (G, 1, FLUSH_SLOTS, BW)
+    words = G * FLUSH_SLOTS * BW
+    nbytes = 3 * words * 4
+    sets = [(pages(shape), pages(shape))
+            for _ in range(ring_size(2 * words * 4, nbytes))]
+    old, new = sets[0]
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    one = pages((1, BW)), pages((1, BW))
+    dev_ms, lib_dev_ms = turns(
+        [functools.partial(ops.xor_delta, a, b) for a, b in sets],
+        [functools.partial(torch.bitwise_xor, a, b) for a, b in sets])
+    row = dict(
+        phase="xor_delta_at_flush_shape", shape=list(shape), bytes=nbytes,
+        ring=len(sets), kernel_ms=cuda_ms(lambda: ops.xor_delta(old, new)),
+        device_ms=dev_ms, plain_ms=cuda_ms(lambda: old ^ new, runs=5),
+        library_ms=cuda_ms(lambda: torch.bitwise_xor(old, new)),
+        library_device_ms=lib_dev_ms,
+        host_us=host_us(lambda: ops.xor_delta(*one)),
+        library_host_us=host_us(lambda: torch.bitwise_xor(*one)),
+        bound_ms=bound, bound_by="bytes")
+    emit(**row)
+    check_device_ms("xor_delta at the flush shape", row["device_ms"], bound)
+    check_device_ms("torch.bitwise_xor at the flush shape",
+                    row["library_device_ms"], bound)
+    del sets, old, new
+
+    xs = [pages((G, 1, FLUSH_SLOTS * BW))]
+    coeffs = coeff_table((G, 1), R, dev)
+    nbytes = words * 4 * (1 + R) + G * R * 4
+    xs += [pages(xs[0].shape)
+           for _ in range(ring_size(words * 4, nbytes) - 1)]
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    row = dict(
+        phase="sdelta_stack_at_flush_shape", shape=list(xs[0].shape), r=R,
+        bytes=nbytes, ring=len(xs),
+        kernel_ms=cuda_ms(lambda: ops.syndrome_scale(xs[0], coeffs)),
+        device_ms=device_ms([functools.partial(ops.syndrome_scale, x, coeffs)
+                             for x in xs]),
+        plain_ms=cuda_ms(lambda: gfk.sdelta_stack_plain(xs[0], coeffs),
+                         runs=5),
+        library_ms=None, bound_ms=bound, bound_by="bytes")
+    emit(**row)
+    check_device_ms("sdelta_stack at the flush shape", row["device_ms"], bound)
 
 
 # -- 3.-5. the main paths ----------------------------------------------------
@@ -1007,9 +1201,12 @@ def main():
         by_path = {p: c.get(name, 0) for p, c in paths.items()}
         emit(name=name, shape=t["shape"], r=t["r"], bytes=t["bytes"],
              int_ops=t["int_ops"], kernel_ms=t["kernel_ms"],
-             plain_ms=t["plain_ms"], bound_bytes_ms=t["bound_bytes_ms"],
+             device_ms=t["device_ms"], plain_ms=t["plain_ms"],
+             bound_bytes_ms=t["bound_bytes_ms"],
              bound_ops_ms=t["bound_ops_ms"],
-             clmul_ops_ms=t["clmul_ops_ms"], library_ms=t["library_ms"],
+             clmul_ops_ms=t["clmul_ops_ms"], table_lds_ms=t["table_lds_ms"],
+             library_ms=t["library_ms"],
+             library_device_ms=t["library_device_ms"],
              launches_by_path=by_path)
         # no PyTorch call computes Fletcher terms or the GF(2^32) product:
         # library_ms is null but for the XOR kernel
@@ -1017,8 +1214,10 @@ def main():
             name=name, route="cuda", source=KERNELS[name][0],
             replaces=KERNELS[name][1], launches=sum(by_path.values()),
             max_abs_err=t["max_abs_err"], ms=t["kernel_ms"],
-            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=t["library_ms"]))
+            device_ms=t["device_ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"],
+            library_device_ms=t["library_device_ms"]))
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,13 +3,17 @@
     python3 scripts/torch_sass_counts.py [source ...]
 
 Needs the CUDA toolkit (nvcc, cuobjdump, cu++filt), not a card.  Compiles
-each `src/repro_torch/kernels/csrc/<source>.cu` (default: gf_parity) for
-sm_90a into a cubin in a temporary directory, disassembles it with
-`cuobjdump -sass`, and prints one JSON line per kernel instantiation: its
-demangled name, its instruction count and the counts of the opcodes that
-carry the integer work (LOP3, SHF, IMAD, IADD3).  The syndrome sweeps'
-counts show how many instructions the GF(2^32) multiply costs a word a
-step once compiled, which chip_smoke.py's operation bound relies on.
+each `src/repro_torch/kernels/csrc/<source>.cu` (default: gf_parity and
+xor_parity) for sm_90a into a cubin in a temporary directory with
+`-Xptxas -v`, disassembles it with `cuobjdump -sass`, and prints one JSON
+line per kernel instantiation: its demangled name, ptxas's registers,
+static shared memory and spill bytes, its instruction count and the counts
+of the opcodes that carry the integer work (LOP3, SHF, IMAD, IADD3), the
+shared-memory loads (LDS) and the local-memory traffic (LDL, STL).  The
+syndrome sweeps' counts show how many instructions the 32-step GF(2^32)
+multiply costs a word a step; weight_words' LDS count shows its table
+multiply's lookups coming from shared memory, and LDL / STL = 0 that no
+register array spilled to local memory.
 """
 import collections
 import json
@@ -22,19 +26,45 @@ import tempfile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc")
 CUDA_BIN = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin")
-KEEP = ("LOP3", "SHF", "IMAD", "IADD3")
+KEEP = ("LOP3", "SHF", "IMAD", "IADD3", "LDS", "LDL", "STL")
 
 
 def tool(name):
     return os.path.join(CUDA_BIN, name)
 
 
+def ptxas_info(log):
+    """{mangled kernel: {registers, smem_bytes, spill_stores, spill_loads}}
+    from nvcc -Xptxas -v."""
+    info, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            info[fn] = {}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            info[fn]["spill_stores"] = int(m.group(1))
+            info[fn]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            info[fn]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            info[fn]["smem_bytes"] = int(m.group(1)) if m else 0
+    return info
+
+
 def sass_counts(source, tmp):
     cubin = os.path.join(tmp, f"{source}.cubin")
-    subprocess.run([tool("nvcc"), "-gencode", "arch=compute_90a,code=sm_90a",
-                    "-std=c++17", "-O3", "-cubin", "-o", cubin,
-                    os.path.join(CSRC, f"{source}.cu")], check=True,
-                   timeout=600)
+    log = subprocess.run(
+        [tool("nvcc"), "-gencode", "arch=compute_90a,code=sm_90a",
+         "-std=c++17", "-O3", "-Xptxas", "-v", "-cubin", "-o", cubin,
+         os.path.join(CSRC, f"{source}.cu")], check=True, timeout=600,
+        capture_output=True, text=True)
     sass = subprocess.run([tool("cuobjdump"), "-sass", cubin], check=True,
                           capture_output=True, text=True, timeout=300).stdout
     counts, fn = {}, None
@@ -48,7 +78,7 @@ def sass_counts(source, tmp):
                      line)
         if fn is not None and m:
             counts[fn][m.group(1)] += 1
-    return counts
+    return counts, ptxas_info(log.stdout + log.stderr)
 
 
 def demangle(names):
@@ -59,15 +89,15 @@ def demangle(names):
 
 
 def main():
-    sources = sys.argv[1:] or ["gf_parity"]
+    sources = sys.argv[1:] or ["gf_parity", "xor_parity"]
     with tempfile.TemporaryDirectory() as tmp:
         for source in sources:
-            counts = sass_counts(source, tmp)
+            counts, info = sass_counts(source, tmp)
             names = demangle(list(counts))
             for fn, c in counts.items():
                 print(json.dumps({
                     "source": f"{source}.cu", "kernel": names[fn],
-                    "instructions": sum(c.values()),
+                    **info.get(fn, {}), "instructions": sum(c.values()),
                     **{op: c.get(op, 0) for op in KEEP}}), flush=True)
 
 

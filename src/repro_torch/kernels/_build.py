@@ -6,10 +6,11 @@ hash covers the source, every `csrc/` header it includes, and the flags,
 so an edited source or header never loads a stale library).  `build()` starts one nvcc per missing library, all at
 once, and waits for them; the first kernel call builds everything.
 
-Every launcher returns the `cudaError_t` of its launch, and `check`
-raises on a non-zero one.  `LAUNCHES` counts each entry point's kernel
-launches: a wrapper adds one right after its launch, and nowhere else,
-so a run can show which kernels its path went through.
+Every launcher takes the raw handle of PyTorch's current stream
+(`stream_handle`) and returns the `cudaError_t` of its launch, and
+`check` raises on a non-zero one.  `LAUNCHES` counts each entry point's
+kernel launches: a wrapper adds one right after its launch, and nowhere
+else, so a run can show which kernels its path went through.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ import re
 import shutil
 import subprocess
 import threading
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -107,6 +110,14 @@ def library(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+def stream_handle(device: torch.device) -> int:
+    """The raw `cudaStream_t` of PyTorch's current stream on a CUDA device,
+    as an int for ctypes: what `torch.cuda.current_stream(device)
+    .cuda_stream` gives, without building a `torch.cuda.Stream` object on
+    every launch.  `device` is a tensor's, so its index is set."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def check(err: int, what: str) -> None:
     if err:
         raise RuntimeError(f"{what}: kernel launch failed with cudaError_t "
@@ -125,7 +136,6 @@ def check_pages(x, name: str, pages: bool = True) -> None:
     """Raise unless `x` is what the kernels take: a contiguous, 16-byte
     aligned CUDA int32 tensor of `(..., n, bw)` pages with bw % 4 == 0 (or,
     with `pages=False`, of `(..., m)` words with m % 4 == 0)."""
-    import torch
     if x.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {x.device}")
     if x.dtype != torch.int32:

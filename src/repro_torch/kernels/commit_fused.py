@@ -100,7 +100,7 @@ def commit_pages_cuda(old: torch.Tensor, new: torch.Tensor,
                  terms.data_ptr(), None if mism is None else mism.data_ptr(),
                  dig.data_ptr() if digest else None, new.numel() // bw, bw, n,
                  int(verify), int(accum), int(digest),
-                 torch.cuda.current_stream(dev).cuda_stream)
+                 _build.stream_handle(dev))
     _build.check(err, name)
     _build.count_launch(name)
     return delta, terms, mism, dig

@@ -27,19 +27,33 @@
 //   out[l, k] = c[l, k] · x[l]         (plane 0 raw when RAW0: sdelta_stack)
 //   out[0, 0] = c · x                  (one scalar, R = 1: gf_scale)
 //
-// Bound: the function is bound by its bytes (5 words of traffic a word for
-// the r = 3 fused sweep); this kernel is bound by the integer ALU work of
-// its 32-step multiply, which shares the doubling chain x·g^i across planes
-// and issues about 2 + (weighted planes) ALU instructions a word a step
-// (scripts/torch_sass_counts.py; the bounds and times are in PERF.md §6).
-// Design: the simple form of commit_pages (commit_fused.cu) — one CTA of
-// 256 threads per page, one uint4 of old and of new per thread, each
-// weighted plane formed in registers from the one delta and stored as it
-// is formed (old and new are read once whatever R), Fletcher sums reduced
-// with warp shuffles, the digest as exact integer atomics.  Each thread
-// reads its rank's R coefficients once.  weight_words is a grid-stride uint4
-// loop, one grid row per leading index.  The faster multiply (per-rank byte
-// tables in shared memory) is later work.
+// Bound: both functions are bound by their bytes (5 words of traffic a
+// word for the r = 3 fused sweep, 1 + R for weight_words).  Each kernel, by
+// its multiply (gf.cuh):
+//   * syndrome_pages runs the 32-step gf_mul, which shares the
+//     doubling chain x·g^i across planes and issues about 2 + (weighted
+//     planes) ALU instructions a word a step: bound by the integer ALU
+//     (scripts/torch_sass_counts.py; times in PERF.md §6).  Design: the
+//     simple form of commit_pages (commit_fused.cu) — one CTA of 256
+//     threads per page, one uint4 of old and of new per thread, each
+//     weighted plane formed in registers from the one delta and stored as
+//     it is formed (old and new are read once whatever R), Fletcher sums
+//     reduced with warp shuffles, the digest as exact integer atomics.
+//     Each thread reads its rank's R coefficients once.
+//   * weight_words runs the table multiply: 8 conflict-free shared-memory
+//     lookups a word a weighted plane.  At r = 3 over 266,240,000 words
+//     that is 4.26e9 lookups, 0.51 ms at 32 lanes an SM a clock (132 SMs,
+//     1.98 GHz), under the bytes' 1.272 ms: bound by its bytes.  Design:
+//     one pass of exact-sized blocks, each a contiguous share of 4096
+//     words of the (rank, uint4) range; a block builds its rank's tables
+//     (W x 512 B, 128 entries each by gf_mul) and rebuilds them only where
+//     its share crosses into the next rank; 2 uint4 a thread a trip, the
+//     next trip's loads issued before this trip's lookups, plane 0 stored
+//     raw.  Timed against one wave of long-lived blocks (a third slower:
+//     at any moment they stream from as many places as there are blocks),
+//     other unrolls and shares, and a probe with the lookups taken out, the
+//     same traffic's ceiling, which it comes within 1% of
+//     (scripts/torch_kernel_variants.py; PERF.md §6).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -105,26 +119,68 @@ syndrome_pages(const uint32_t* __restrict__ old_w,
                       static_cast<uint32_t>(bw), s[0], s[1]);
 }
 
-// coeffs: (lead, R) table, or nullptr for `scalar` on every plane.
+constexpr int kWordUnroll = 2;                        // uint4 a thread a trip
+constexpr int64_t kWordSpan4 = kThreads * kWordUnroll;  // uint4 a block a trip
+constexpr int64_t kShare4 = 2 * kWordSpan4;  // uint4 a block: 4096 words
+
+// x[l]'s uint4 at v + u * kThreads (u < kWordUnroll), those below stop.
+__device__ __forceinline__ void load_trip(const uint4* px, int64_t v,
+                                          int64_t stop,
+                                          uint4 (&w)[kWordUnroll]) {
+#pragma unroll
+  for (int u = 0; u < kWordUnroll; ++u)
+    if (v + u * kThreads < stop) w[u] = px[v + u * kThreads];
+}
+
+// out[l, k] = c[l, k]·x[l] from one read of x.  The lead * m4 uint4 of x
+// are cut into gridDim.x equal contiguous shares, one a block.  A block
+// builds the tables of the W weighted coefficients of the rank its share
+// starts in (shared memory, 512 B each), walks its part of that rank's
+// uint4s, kWordUnroll a thread a trip with the next trip's loads issued
+// before this trip's lookups, and rebuilds the tables where its share
+// crosses into the next rank.  coeffs: (lead, R) table, or nullptr for
+// `scalar` on every plane.
 template <int R, bool RAW0>
 __global__ void __launch_bounds__(kThreads)
 weight_words(const uint32_t* __restrict__ x,
              const uint32_t* __restrict__ coeffs, uint32_t scalar,
              uint32_t* __restrict__ out, int64_t lead, int64_t m4) {
-  for (int64_t l = blockIdx.y; l < lead; l += gridDim.y) {
-    uint32_t c[R];
+  constexpr int K0 = RAW0 ? 1 : 0;         // the first weighted plane
+  constexpr int W = R - K0;                // weighted planes
+  __shared__ uint32_t tab[W][gf::kTableWords];
+  const int64_t total = lead * m4;
+  const int64_t share = (total + gridDim.x - 1) / gridDim.x;
+  const int64_t last = (blockIdx.x + 1) * share;
+  const int64_t end = last < total ? last : total;
+  for (int64_t pos = blockIdx.x * share; pos < end;) {
+    const int64_t l = pos / m4;            // the same in every thread
+    const int64_t stop = ((l + 1) * m4 < end ? (l + 1) * m4 : end) - l * m4;
 #pragma unroll
-    for (int k = RAW0 ? 1 : 0; k < R; ++k)
-      c[k] = coeffs != nullptr ? coeffs[l * R + k] : scalar;
+    for (int k = 0; k < W; ++k)
+      gf::build_table(coeffs != nullptr ? coeffs[l * R + K0 + k] : scalar,
+                      tab[k]);
+    __syncthreads();
     const uint4* px = reinterpret_cast<const uint4*>(x) + l * m4;
     uint4* po = reinterpret_cast<uint4*>(out) + l * R * m4;
-    for (int64_t j = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-         j < m4; j += static_cast<int64_t>(gridDim.x) * kThreads) {
-      const uint4 w = px[j];
-      if constexpr (RAW0) po[j] = w;
+    uint4 w[kWordUnroll], next[kWordUnroll];
+    int64_t v = pos - l * m4 + threadIdx.x;
+    load_trip(px, v, stop, w);
+    for (; v < stop; v += kWordSpan4) {
+      load_trip(px, v + kWordSpan4, stop, next);
 #pragma unroll
-      for (int k = RAW0 ? 1 : 0; k < R; ++k) po[k * m4 + j] = gf_mul4(w, c[k]);
+      for (int u = 0; u < kWordUnroll; ++u) {
+        const int64_t j = v + u * kThreads;
+        if (j >= stop) continue;
+        if constexpr (RAW0) po[j] = w[u];
+#pragma unroll
+        for (int k = 0; k < W; ++k)
+          po[(K0 + k) * m4 + j] = gf::table_mul4(w[u], tab[k]);
+      }
+#pragma unroll
+      for (int u = 0; u < kWordUnroll; ++u) w[u] = next[u];
     }
+    __syncthreads();                       // before the next rank's tables
+    pos = l * m4 + stop;
   }
 }
 
@@ -158,11 +214,14 @@ void launch_pages_r(dim3 grid, cudaStream_t st, const PageArgs& a, int verify,
     launch_pages<R, false, false>(grid, st, a);
 }
 
+// One pass of exact-sized blocks, a share of kShare4 uint4 each (the last
+// shorter), as PyTorch sizes its element-wise grids: the blocks at work at
+// any moment cover one contiguous window of x and of each plane.
 template <int R, bool RAW0>
-void launch_words(dim3 grid, cudaStream_t st, const void* x,
-                  const void* coeffs, uint32_t scalar, void* out,
-                  int64_t lead, int64_t m4) {
-  weight_words<R, RAW0><<<grid, kThreads, 0, st>>>(
+void launch_words(cudaStream_t st, const void* x, const void* coeffs,
+                  uint32_t scalar, void* out, int64_t lead, int64_t m4) {
+  const int64_t blocks = (lead * m4 + kShare4 - 1) / kShare4;
+  weight_words<R, RAW0><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
       static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(coeffs),
       scalar, static_cast<uint32_t*>(out), lead, m4);
 }
@@ -205,19 +264,15 @@ extern "C" int weight_words_launch(const void* x, const void* coeffs,
                                    int raw0, void* stream) {
   if (lead == 0 || m == 0) return 0;
   const int64_t m4 = m / 4;
-  const unsigned bx = static_cast<unsigned>(
-      (m4 + kThreads - 1) / kThreads < 65535 ? (m4 + kThreads - 1) / kThreads
-                                             : 65535);
-  const dim3 grid(bx, static_cast<unsigned>(lead < 65535 ? lead : 65535));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!raw0 && r == 1)
-    launch_words<1, false>(grid, s, x, nullptr, scalar, out, lead, m4);
+    launch_words<1, false>(s, x, nullptr, scalar, out, lead, m4);
   else if (raw0 && r == 2)
-    launch_words<2, true>(grid, s, x, coeffs, 0u, out, lead, m4);
+    launch_words<2, true>(s, x, coeffs, 0u, out, lead, m4);
   else if (raw0 && r == 3)
-    launch_words<3, true>(grid, s, x, coeffs, 0u, out, lead, m4);
+    launch_words<3, true>(s, x, coeffs, 0u, out, lead, m4);
   else if (raw0 && r == 4)
-    launch_words<4, true>(grid, s, x, coeffs, 0u, out, lead, m4);
+    launch_words<4, true>(s, x, coeffs, 0u, out, lead, m4);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -1,7 +1,9 @@
-// Shared pieces of the per-page sweeps (commit_fused.cu, gf_parity.cu):
-// one CTA of kThreads threads per page, Fletcher sums accumulated in
-// uint32 with natural wrap and reduced across the CTA with warp shuffles,
-// and the per-rank row digest as exact integer atomics.
+// Shared pieces of the kernels (commit_fused.cu, gf_parity.cu,
+// xor_parity.cu): blocks of kThreads threads; for the per-page sweeps one
+// CTA per page, Fletcher sums accumulated in uint32 with natural wrap and
+// reduced across the CTA with warp shuffles, and the per-rank row digest as
+// exact integer atomics; for the flat word kernels, the size of a one-wave
+// grid.
 #pragma once
 
 #include <cstdint>
@@ -53,6 +55,16 @@ __device__ __forceinline__ void digest_add(uint32_t* digest, int64_t rank,
   const uint32_t after = (n - 1u - local) * bw;
   atomicAdd(&digest[2 * rank], a);
   atomicAdd(&digest[2 * rank + 1], b + after * a);
+}
+
+// Blocks of `kernel` (kThreads threads, no dynamic shared memory) that
+// the current device holds at once: the grid of one full wave.
+inline int resident_blocks(const void* kernel) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  return sms * (per_sm > 0 ? per_sm : 1);
 }
 
 }  // namespace pages

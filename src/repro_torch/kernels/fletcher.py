@@ -62,8 +62,7 @@ def fletcher_pages_cuda(blocks: torch.Tensor, *, digest: bool,
            if digest else None)
     err = _lib()(blocks.data_ptr(), terms.data_ptr(),
                  dig.data_ptr() if digest else None, blocks.numel() // bw, bw, n,
-                 int(digest), torch.cuda.current_stream(
-                     blocks.device).cuda_stream)
+                 int(digest), _build.stream_handle(blocks.device))
     _build.check(err, name)
     _build.count_launch(name)
     return terms, dig

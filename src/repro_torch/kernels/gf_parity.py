@@ -13,8 +13,13 @@ src/repro/kernels/gf_parity.py:
   * `weight_words<R, RAW0>` — `sdelta_stack` (:224) and `gf_scale` (:83):
     element-wise weighting of words into planes.
 
-The functions are bound by their bytes; these kernels, by the integer
-ALU work of their 32-step multiply (see the source and PERF.md §6).  Pages come as `(*lead, n, bw)` int32 words and words as
+Both functions are bound by their bytes.  `syndrome_pages` runs the
+32-step multiply and is bound by its integer ALU work; `weight_words`
+runs the table multiply (eight 16-entry tables a coefficient in shared
+memory, eight lookups a word) and is bound by its bytes (see the source
+and PERF.md §6).  `table_build_plain` / `table_mul_plain` are that
+multiply in plain PyTorch, on the same chunking, for the tests only.
+Pages come as `(*lead, n, bw)` int32 words and words as
 `(*lead, m)`; every leading index is one rank, whose coefficients are the
 matching row of a `(*lead, r)` int32 table (`gf.rank_syndrome_coeffs`).
 The weighted planes come back as `(*lead, r, n, bw)` / `(*lead, r, m)`,
@@ -33,6 +38,38 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.commit_fused import commit_pages_plain
 
 MAX_R = 4
+# a weight_words block's share of words: where a launch goes from one block
+# to two (csrc/gf_parity.cu, kShare4 uint4)
+SHARE_WORDS = 4096
+CHUNKS = 8                                  # 4-bit chunks of a word
+
+
+def table_build_plain(coeff) -> torch.Tensor:
+    """The table multiply's tables of a coefficient, as gf.cuh's
+    `build_table` fills them: `(*c.shape, 8, 16)` int32, entry [j, v] =
+    coeff·(v << 4j), each by the 32-step multiply.  `coeff` is a host u32
+    or an int32 tensor of coefficients."""
+    tensor = isinstance(coeff, torch.Tensor)
+    dev = coeff.device if tensor else None
+    v = torch.arange(16, dtype=torch.int32, device=dev)
+    shifts = 4 * torch.arange(CHUNKS, dtype=torch.int32, device=dev)
+    chunks = v << shifts[:, None]                        # (8, 16)
+    if not tensor:
+        return gf.mul_const(chunks, coeff)
+    return gf.mul_const(chunks.expand(*coeff.shape, CHUNKS, 16),
+                        coeff[..., None, None])
+
+
+def table_mul_plain(x: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """c·x = XOR_j T_j[(x >> 4j) & 15], gf.cuh's `table_mul`: `tables`
+    `(8, 16)` for one coefficient over every word of x, or `(*lead, 8, 16)`
+    for x `(*lead, m)`, each leading index its own coefficient."""
+    acc = torch.zeros_like(x)
+    for j in range(CHUNKS):
+        idx = ((x >> (4 * j)) & 15).long()
+        t = tables[..., j, :]
+        acc ^= t[idx] if t.dim() == 1 else torch.gather(t, -1, idx)
+    return acc
 
 
 def gf_scale_plain(x: torch.Tensor, coeff: int) -> torch.Tensor:
@@ -111,8 +148,7 @@ def syndrome_pages_cuda(old: torch.Tensor, new: torch.Tensor,
              stored.data_ptr() if verify else None, sdelta.data_ptr(),
              terms.data_ptr(), mism.data_ptr() if verify else None,
              dig.data_ptr() if digest else None, new.numel() // bw, bw, n, r,
-             int(verify), int(digest),
-             torch.cuda.current_stream(dev).cuda_stream)
+             int(verify), int(digest), _build.stream_handle(dev))
     _build.check(err, name)
     _build.count_launch(name)
     return sdelta, terms, mism, dig
@@ -125,7 +161,7 @@ def _weight_words(x, coeffs, scalar, lead, m, r, raw0, out, name):
         ctypes.c_void_p])
     err = fn(x.data_ptr(), None if coeffs is None else coeffs.data_ptr(),
              scalar, out.data_ptr(), lead, m, r, int(raw0),
-             torch.cuda.current_stream(x.device).cuda_stream)
+             _build.stream_handle(x.device))
     _build.check(err, name)
     _build.count_launch(name)
     return out

@@ -53,11 +53,12 @@ def xor_words_cuda(a: torch.Tensor, b: torch.Tensor, *,
     check_operands(a, b, name)
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError(f"{name}: words must be contiguous")
-    if a.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got {a.device}")
-    out = torch.empty_like(a, memory_format=torch.contiguous_format)
+    dev = a.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {dev}")
+    out = torch.empty_like(a)
     err = _lib()(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(),
-                 torch.cuda.current_stream(a.device).cuda_stream)
+                 _build.stream_handle(dev))
     _build.check(err, name)
     _build.count_launch(name)
     return out

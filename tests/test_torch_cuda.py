@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import fletcher as port_fl
 
@@ -37,7 +38,6 @@ def test_cuda_kernels_match_plain(card, lead, n, bw, r):
     """Every entry point's kernel (all 19) against its plain version (the
     calls of chip_smoke.entry_calls), the syndrome sweeps at r; one launch
     each."""
-    import chip_smoke
     old, new = _pages((*lead, n, bw), 1, card), _pages((*lead, n, bw), 2, card)
     stored = port_fl.fletcher_pages_plain(old)
     stored[..., ::3, 0] ^= 1                   # a few corrupted stored rows
@@ -98,3 +98,26 @@ def test_cuda_xor_takes_any_length_and_alignment(card, n, off_a, off_b):
         got = fn(a, b)
         torch.cuda.synchronize()
         assert torch.equal(got, a ^ b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,lead,m", chip_smoke.weight_edge_cases())
+def test_cuda_weight_words_edges(card, r, lead, m):
+    """weight_words (gf_scale at r = 1, sdelta_stack at r = 2..4) against
+    its plain version: leads 1, 3 and 100; rows of one uint4, of 1020
+    words, of a block's share ± 4 words and of a main-path rank; a
+    coefficient table holding 0 and 1 (gf_scale: by 0, 1 and a rank
+    coefficient)."""
+    gen = np.random.default_rng(r * 1000 + lead + m)
+
+    def pages(shape):
+        bits = gen.integers(0, 2**32, size=shape, dtype=np.uint32)
+        return torch.from_numpy(bits.view(np.int32)).to(card)
+    _build.reset_launches()
+    cases = chip_smoke.weight_case(pages, card, r, lead, m)
+    for kernel, plain in cases:
+        got = kernel()
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain())
+    name = "gf_scale" if r == 1 else "sdelta_stack"
+    assert _build.LAUNCHES == {name: len(cases)}
