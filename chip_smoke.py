@@ -14,20 +14,26 @@
    multiple of 4 and on slices that are not 16-byte aligned; the
    weight_words kernel (gf_scale, sdelta_stack) at r = 1..4 on leads 1, 3
    and 100, rows from 4 words to a block's share ± 4 words, and
-   coefficients 0 and 1.  Then each timed at the main path's shape with
-   CUDA events: one launch with its enqueue (`kernel_ms`, median of 12
-   runs after warm-up) and the device time of 20 back-to-back launches
-   enqueued behind a spin kernel (`device_ms`; operands under 100 MB cycle
-   through a ring of input sets larger than twice the L2; a kernel and its
-   library call in turns, k, lib, lib, k), beside its
-   plain version, the one PyTorch call that computes the same function
-   where there is one (`torch.bitwise_xor` for the XOR kernel), its least
-   time on the card (by bytes, and by the integer operations of the
-   byte-table GF multiply), the integer-op time of the 32-step multiply
-   and, for the table multiply, the time of its shared-memory lookups.  A
-   device time under 95% of its bound fails the run.  `xor_delta` and
-   `sdelta_stack` also at the patch flush's shape (100 ranks x 34 pages),
-   with the host µs a call of `xor_delta` and `torch.bitwise_xor`.
+   coefficients 0 and 1; the page-run sweeps (`syndrome_edges`: the five
+   syndrome_pages entry points at r = 2..4; `fletcher_edges`: both
+   fletcher_pages entry points) on leads 1, 3 and 100 of 1, K - 1, K,
+   K + 1, 16 and 2600 pages (K the pages a CTA takes) of 4 and 1024
+   words, the coefficient tables holding 0 and 1.  Then each timed at the
+   main path's shape with CUDA events: one launch with its enqueue
+   (`kernel_ms`, median of 12 runs after warm-up) and the device time of
+   20 back-to-back launches enqueued behind a spin kernel (`device_ms`;
+   operands under 100 MB cycle through a ring of input sets larger than
+   twice the L2; a kernel and its library call in turns, k, lib, lib, k),
+   beside its plain version, the one PyTorch call that computes the same
+   function where there is one (`torch.bitwise_xor` for the XOR kernel),
+   its least time on the card (by bytes, and by the integer operations of
+   the byte-table GF multiply), the integer-op time of the 32-step
+   multiply and, for the table multiply that every GF kernel runs, the
+   time of its shared-memory lookups.  A device time under 95% of its
+   bound fails the run.  `xor_delta` and `sdelta_stack` also at the patch
+   flush's shape (100 ranks x 34 pages), with the host µs a call of
+   `xor_delta` and `torch.bitwise_xor`; the three row-10 syndrome sweeps
+   at the 16-page patch's shape (100 ranks x 16 pages, r = 3), L2-cold.
 3. The r = 1 main path at the pool size of Pangolin's headline figure: a
    zone of G = 100 data ranks holding about 1.065 GB of rows (2600 pages a
    rank), so the parity is about 1% of the pool.  Through `Pool`, with
@@ -116,20 +122,16 @@ GF_TABLE_OPS = 7
 
 # The cost of the 32-step multiply, reported beside the bound and not a
 # bound: 32 steps of acc ^= cur & bit mask; cur = (cur << 1) ^ (sign mask &
-# POLY).  The compiled sweeps form the doubling chain cur = x·g^i once a
-# word for every plane (2 ALU instructions a step: SHF for the sign mask,
-# LOP3 for the xor; the shift left issues on the FMA pipe) and add one LOP3
-# a step for each weighted plane (scripts/torch_sass_counts.py).
-# syndrome_pages runs it; for weight_words (gf_scale, sdelta_stack), which
-# ran it until it took the table multiply, it is the floor the table
-# design has to beat.
+# POLY).  Compiled into a sweep it forms the doubling chain cur = x·g^i
+# once a word for every plane (2 ALU instructions a step: SHF for the sign
+# mask, LOP3 for the xor; the shift left issues on the FMA pipe) and adds
+# one LOP3 a step for each weighted plane (scripts/torch_sass_counts.py).
+# No kernel runs it on the words any more: weight_words (gf_scale,
+# sdelta_stack) and syndrome_pages ran it until they took the table
+# multiply, and it is the floor the table design has to beat.
 def clmul_ops(planes):
     return 32 * (2 + planes) if planes else 0
 
-
-# The table multiply's shared-memory lookups a word a weighted plane (one
-# per 4-bit chunk, gf.cuh), for the entry points whose kernel runs it.
-TABLE_LOOKUPS = {"gf_scale": 8, "sdelta_stack": 8}
 
 
 def no_gf(r):
@@ -208,10 +210,16 @@ PATH_W3 = ("fused_accum_commit_stream", "sdelta_stack", "fletcher_blocks",
            "gf_scale")
 PATH_W1F = ("fused_accum_commit", "fletcher_blocks")
 PATH_WP = ("xor_delta", "sdelta_stack", "fletcher_blocks")
+# the entry points of the page-run sweeps: syndrome_pages, fletcher_pages
+SYNDROME = ("fused_commit_s", "fused_verify_commit_s",
+            "fused_commit_old_terms_s", "fused_commit_s_stream",
+            "fused_verify_commit_s_stream")
+FLETCHER = ("fletcher_blocks", "fletcher_stream")
 # the entry points that take the syndrome coefficients (checked at each r)
-WITH_R = ("gf_scale", "sdelta_stack", "fused_commit_s",
-          "fused_verify_commit_s", "fused_commit_old_terms_s",
-          "fused_commit_s_stream", "fused_verify_commit_s_stream")
+WITH_R = ("gf_scale", "sdelta_stack") + SYNDROME
+# The table multiply's shared-memory lookups a word a weighted plane (one
+# per 4-bit chunk, gf.cuh): every GF entry point's kernel runs it.
+TABLE_LOOKUPS = {name: 8 for name in WITH_R}
 
 
 def emit(**kw):
@@ -532,7 +540,9 @@ def kernels_vs_plain(dev):
              equal=True)
     xor_edges(pages)
     weight_edges(pages, dev)
+    run_edges(pages, dev)
     at_flush_shape(pages, dev)
+    at_patch_shape(pages, dev)
     return timing
 
 
@@ -594,6 +604,55 @@ def weight_edges(pages, dev):
     emit(phase="weight_edges", cases=len(cases), equal=True)
 
 
+def run_edge_cases():
+    """(r, lead, n, bw) of the page-run edge checks: r = 2..4 (the
+    syndrome sweeps; fletcher_pages takes none, so checked at r = 2 only);
+    leads 1, 3 and G; n pages a rank around the K a CTA takes (1, K - 1,
+    K, K + 1), the patch's 16 and a main-path rank's 2600; pages of one
+    uint4 and of 1024 words."""
+    from repro_torch.kernels.fletcher import RUN_PAGES as K
+    ns = sorted({1, K - 1, K, K + 1, 16, PAGES})
+    return [(r, lead, n, bw) for r in (2, 3, 4) for lead in (1, 3, G)
+            for n in ns for bw in (4, BW)]
+
+
+def run_case(pages, dev, r, lead, n, bw):
+    """One edge case's [(entry point, kernel call, plain call)]: the five
+    syndrome_pages entry points at r, with a coefficient table holding 0
+    (rank 0, plane 1) and 1 (the last rank's last plane), and `stored`
+    corrupted on every third page; at r = 2 also both fletcher_pages
+    entry points."""
+    from repro_torch.kernels.fletcher import fletcher_pages_plain
+    old, new = pages((lead, n, bw)), pages((lead, n, bw))
+    stored = fletcher_pages_plain(old)
+    stored[:, ::3, 0] ^= 1
+    coeffs = coeff_table((lead,), r, dev).clone()
+    coeffs[0, 1] = 0
+    coeffs[-1, -1] = 1
+    calls = entry_calls(old, new, stored, coeffs, new)
+    names = SYNDROME + (FLETCHER if r == 2 else ())
+    return [(name, *calls[name]) for name in names]
+
+
+def run_edges(pages, dev):
+    """syndrome_pages (`syndrome_edges`) and fletcher_pages
+    (`fletcher_edges`) at every page-run edge case, byte-equal to their
+    plain versions."""
+    cases = run_edge_cases()
+    checked = collections.Counter()
+    for r, lead, n, bw in cases:
+        for name, kernel, plain in run_case(pages, dev, r, lead, n, bw):
+            got = kernel()
+            torch.cuda.synchronize()
+            err = max_abs_err(got, plain())
+            check(err == 0, f"{name} at r = {r}, lead {lead}, n {n}, bw "
+                  f"{bw}: kernel != plain (err {err})")
+            checked[name in FLETCHER] += 1
+        torch.cuda.empty_cache()
+    emit(phase="syndrome_edges", cases=checked[False], equal=True)
+    emit(phase="fletcher_edges", cases=checked[True], equal=True)
+
+
 def at_flush_shape(pages, dev):
     """xor_delta and sdelta_stack (r = 3) at the wp path's flush shape —
     G ranks x 34 pages, 41.8 MB for the XOR — where a call's work is tens of
@@ -646,6 +705,50 @@ def at_flush_shape(pages, dev):
         library_ms=None, bound_ms=bound, bound_by="bytes")
     emit(**row)
     check_device_ms("sdelta_stack at the flush shape", row["device_ms"], bound)
+
+
+def at_patch_shape(pages, dev):
+    """The row-10 syndrome sweeps (fused_commit_s, fused_verify_commit_s,
+    fused_commit_old_terms_s) at the 16-page patch's shape, G ranks x 16
+    pages at r = 3, as the r3 path's phases D and E run them: one launch
+    with its enqueue (kernel_ms) and the device time of back-to-back
+    launches over an L2-cold ring of input sets (device_ms)."""
+    from repro_torch.kernels import gf_parity as gfk
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fletcher import fletcher_pages_plain
+    shape = (G, 1, 16, BW)
+    n_pages = G * 16
+    coeffs = coeff_table((G, 1), R, dev)
+    sets = []
+    page_bytes = n_pages * BW * 4
+    for _ in range(ring_size(2 * page_bytes, 5 * page_bytes)):
+        old, new = pages(shape), pages(shape)
+        sets.append((old, new, fletcher_pages_plain(old)))
+    calls = {
+        "fused_commit_s": (lambda o, n, s: ops.fused_commit_s(o, n, coeffs),
+                           lambda o, n, s: gfk.syndrome_pages_plain(
+                               o, n, coeffs)),
+        "fused_verify_commit_s": (
+            lambda o, n, s: ops.fused_verify_commit_s(o, n, s, coeffs),
+            lambda o, n, s: gfk.syndrome_pages_plain(o, n, coeffs, s)),
+        "fused_commit_old_terms_s": (
+            lambda o, n, s: ops.fused_commit_old_terms_s(o, n, coeffs),
+            lambda o, n, s: gfk.syndrome_pages_plain(
+                o, n, coeffs, torch.zeros_like(s)))}
+    for name, (kernel, plain) in calls.items():
+        nbytes = io_bytes(name, n_pages, G, R, 0)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        row = dict(
+            phase="syndrome_at_patch_shape", name=name, shape=list(shape),
+            r=R, bytes=nbytes, ring=len(sets),
+            kernel_ms=cuda_ms(functools.partial(kernel, *sets[0])),
+            device_ms=device_ms([functools.partial(kernel, *st)
+                                 for st in sets]),
+            plain_ms=cuda_ms(functools.partial(plain, *sets[0]), runs=5),
+            library_ms=None, bound_ms=bound, bound_by="bytes")
+        emit(**row)
+        check_device_ms(f"{name} at the patch shape", row["device_ms"], bound)
+    del sets
 
 
 # -- 3.-5. the main paths ----------------------------------------------------

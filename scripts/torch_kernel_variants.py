@@ -1,6 +1,7 @@
-"""Time variants of the `xor_words` and `weight_words` kernels.
+"""Time variants of the port's redesigned kernels.
 
     python3 scripts/torch_kernel_variants.py [--control NAME=DIR ...]
+        [--only syndrome,fletcher,weight,xor]
 
 Needs one CUDA card and nvcc.  Each variant is a copy of a source in
 `src/repro_torch/kernels/csrc/` with one setting changed, built in a
@@ -30,6 +31,22 @@ first variant of each list is the source as it stands.
   `x.unsqueeze(-2).expand(...).contiguous()`, PyTorch's copy with the same
   traffic (one read, R plane-major writes).  Timed first to last, then
   last to first, at (100, 1, 2,662,400) and the wp flush's (100, 1, 34,816).
+* `syndrome_pages` (gf_parity.cu) at r = 3 as its five entry points
+  (VERIFY x DIGEST: fused_commit_s, fused_verify_commit_s and, with
+  stored = 0, fused_commit_old_terms_s, fused_commit_s_stream,
+  fused_verify_commit_s_stream), and `fletcher_pages` (fletcher.cu) with
+  DIGEST (fletcher_stream) and without (fletcher_blocks, the ceiling of
+  the DIGEST instance): pages a CTA (`kRunPages`, K), threads a CTA
+  (`kRunThreads`), uint4 a lane a trip (`kLaneUnroll`) and the order of
+  the CTAs (`rank`: rank-major, as pages.cuh has it; `spread`: the CTAs at
+  work spread over the ranks).  Each syndrome variant also as a probe
+  whose table multiply returns the word (the traffic's ceiling without
+  the lookups, not checked); each `--control NAME=DIR` as it is (a
+  `git archive` of the parent: its one CTA a page on the 32-step
+  multiply, its atomic pair a page).  Timed first to last, then last to
+  first, at the main path's (100, 1, 2600, 1024) and the 16-page patch's
+  (100, 1, 16, 1024) over a ring of input sets.  `--quick` times only
+  the source as it stands (and its probe) beside the controls.
 """
 import argparse
 import ctypes
@@ -70,6 +87,24 @@ WEIGHT_VARIANTS = [(2, 2, None, None), (1, 2, None, None),
 PROBE = ("  const char* t = reinterpret_cast<const char*>(table);\n",
          "  return x;\n"
          "  const char* t = reinterpret_cast<const char*>(table);\n")
+# (pages a CTA, threads a CTA, uint4 a lane a trip, CTA order) of the
+# page-run sweeps; the first is the source as it stands
+RUN_VARIANTS = [(8, 256, 8, "rank"), (16, 256, 8, "rank"),
+                (4, 128, 8, "rank"), (2, 64, 8, "rank"),
+                (4, 256, 8, "rank"), (16, 512, 8, "rank"),
+                (8, 256, 4, "rank"), (8, 256, 8, "spread")]
+# pages.cuh's page_run with the CTAs at work spread over the ranks
+SPREAD = ("""  const int64_t rank = blockIdx.x / runs;
+  const int first = static_cast<int>(blockIdx.x - rank * runs) * kRunPages;""",
+          """  const int64_t ranks = gridDim.x / runs;
+  const int64_t rank = blockIdx.x % ranks;
+  const int first = static_cast<int>(blockIdx.x / ranks) * kRunPages;""")
+# (VERIFY, DIGEST, stored = 0) of the syndrome entry points timed
+SYNDROME_INSTANCES = {"fused_commit_s": (0, 0, False),
+                      "fused_verify_commit_s": (1, 0, False),
+                      "fused_commit_old_terms_s": (1, 0, True),
+                      "fused_commit_s_stream": (0, 1, False),
+                      "fused_verify_commit_s_stream": (1, 1, False)}
 
 
 def sub(text, old, new):
@@ -118,6 +153,170 @@ def weight_source(text, unroll, trips, waves, min_blocks):
                    f"__launch_bounds__(kThreads, {min_blocks})\n"
                    "weight_words(")
     return text
+
+
+def run_header(text, pages, threads, unroll, order):
+    """pages.cuh with the page runs' sizes and CTA order set."""
+    if order == "spread":
+        text = sub(text, *SPREAD)
+    text = resub(r"constexpr int kRunPages = \d+;",
+                 f"constexpr int kRunPages = {pages};", text)
+    text = resub(r"constexpr int kRunThreads = \d+;",
+                 f"constexpr int kRunThreads = {threads};", text)
+    return resub(r"constexpr int kLaneUnroll = \d+;",
+                 f"constexpr int kLaneUnroll = {unroll};", text)
+
+
+def run_variants(source, probes, quick):
+    """({name: (source text, include dir)}, {name: {header: text}}) of the
+    page-run variants of csrc/<source>.cu (and of their probes); only the
+    first, the source as it stands, when `quick`."""
+    text = open(os.path.join(CSRC, f"{source}.cu")).read()
+    pages = open(os.path.join(CSRC, "pages.cuh")).read()
+    probe = sub(open(os.path.join(CSRC, "gf.cuh")).read(), *PROBE)
+    sources, headers = {}, {}
+    for v in RUN_VARIANTS[:1] if quick else RUN_VARIANTS:
+        name = "k%d_t%d_u%d_%s" % v
+        for kind in ("", "probe_") if probes else ("",):
+            sources[kind + name] = (text, CSRC)
+            headers[kind + name] = {"pages.cuh": run_header(pages, *v),
+                                    **({"gf.cuh": probe} if kind else {})}
+    return sources, headers
+
+
+def controls(args, source):
+    out = {}
+    for control in args:
+        name, root = control.split("=", 1)
+        cdir = os.path.join(root, "src", "repro_torch", "kernels", "csrc")
+        out[name] = (open(os.path.join(cdir, f"{source}.cu")).read(), cdir)
+    return out
+
+
+def timed(calls):
+    """{name: [device ms first to last, then last to first]}."""
+    ms = {name: [] for name in calls}
+    for name in list(calls) + list(reversed(list(calls))):
+        ms[name].append(cs.device_ms(calls[name]))
+    return ms
+
+
+def run_shapes():
+    """The main path's (G, 1, 2600, 1024) and the 16-page patch's."""
+    return ((cs.G, 1, cs.PAGES, cs.BW), (cs.G, 1, 16, cs.BW))
+
+
+def syndrome_runs(tmp, pages, stream, dev, ctl, quick):
+    sources, headers = run_variants("gf_parity", True, quick)
+    sources.update(controls(ctl, "gf_parity"))
+    fns = build(tmp, sources, "syndrome_pages_launch",
+                [ctypes.c_void_p] * 8 + [
+                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p], headers)
+    from repro_torch.kernels import gf_parity as gfk
+    from repro_torch.kernels.fletcher import fletcher_pages_plain
+    r = cs.R
+    coeffs = cs.coeff_table((cs.G, 1), r, dev)
+    for shape in run_shapes():
+        *lead, n, bw = shape
+        n_pages = cs.G * n
+        call = n_pages * bw * 4
+        sets = []
+        for _ in range(cs.ring_size(2 * call, call * (2 + r))):
+            old, new = pages(shape), pages(shape)
+            stored = fletcher_pages_plain(old)
+            stored[..., ::997, 1] ^= 1
+            sets.append(dict(
+                old=old, new=new, stored=stored,
+                sdelta=torch.empty(*lead, r, n, bw, dtype=torch.int32,
+                                   device=dev),
+                terms=torch.empty(*lead, n, 2, dtype=torch.int32, device=dev),
+                mism=torch.empty(*lead, n, 2, dtype=torch.int32, device=dev),
+                zeros=torch.zeros(*lead, n, 2, dtype=torch.int32, device=dev),
+                digest=torch.zeros(*lead, 2, dtype=torch.int32, device=dev)))
+
+        def launch(fn, st, verify, digest, zero):
+            return fn(st["old"].data_ptr(), st["new"].data_ptr(),
+                      coeffs.data_ptr(),
+                      st["zeros" if zero else "stored"].data_ptr(),
+                      st["sdelta"].data_ptr(), st["terms"].data_ptr(),
+                      st["mism"].data_ptr(), st["digest"].data_ptr(),
+                      n_pages, bw, n, r, verify, digest, stream)
+        st = sets[0]
+        for entry, (verify, digest, zero) in SYNDROME_INSTANCES.items():
+            sdelta, terms, mism, dig = gfk.syndrome_pages_plain(
+                st["old"], st["new"], coeffs,
+                st["zeros" if zero else "stored"] if verify else None,
+                bool(digest))
+            for name, fn in fns.items():
+                st["digest"].zero_()
+                cs.check(launch(fn, st, verify, digest, zero) == 0,
+                         f"{name}: launch failed")
+                torch.cuda.synchronize()
+                cs.check(name.startswith("probe") or (
+                    torch.equal(st["sdelta"], sdelta)
+                    and torch.equal(st["terms"], terms)
+                    and (not verify or torch.equal(st["mism"], mism))
+                    and (not digest or torch.equal(st["digest"], dig))),
+                    f"{name} {entry} != plain")
+            del sdelta, terms, mism, dig
+            ms = timed({name: [functools.partial(launch, fn, x, verify,
+                                                 digest, zero)
+                               for x in sets] for name, fn in fns.items()})
+            print(json.dumps({
+                "kernel": "syndrome_pages", "entry": entry, "r": r,
+                "shape": list(shape), "ring": len(sets),
+                "bound_ms": cs.io_bytes(entry, n_pages, cs.G, r, 0)
+                / cs.HBM_BYTES_PER_S * 1e3,
+                "variants": [{"variant": k, "ms": v}
+                             for k, v in ms.items()]}), flush=True)
+        del sets, st
+        torch.cuda.empty_cache()
+
+
+def fletcher_runs(tmp, pages, stream, dev, ctl, quick):
+    sources, headers = run_variants("fletcher", False, quick)
+    sources.update(controls(ctl, "fletcher"))
+    fns = build(tmp, sources, "fletcher_pages_launch",
+                [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                         ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_void_p], headers)
+    from repro_torch.kernels.fletcher import fletcher_stream_plain
+    for shape in run_shapes():
+        *lead, n, bw = shape
+        n_pages = cs.G * n
+        call = n_pages * bw * 4
+        sets = [(pages(shape),
+                 torch.empty(*lead, n, 2, dtype=torch.int32, device=dev),
+                 torch.zeros(*lead, 2, dtype=torch.int32, device=dev))
+                for _ in range(cs.ring_size(call, call))]
+        x, terms, dig = sets[0]
+        want_terms, want_dig = fletcher_stream_plain(x)
+        for name, fn in fns.items():
+            for digest in (1, 0):
+                dig.zero_()
+                cs.check(fn(x.data_ptr(), terms.data_ptr(), dig.data_ptr(),
+                            n_pages, bw, n, digest, stream) == 0,
+                         f"{name}: launch failed")
+                torch.cuda.synchronize()
+                cs.check(torch.equal(terms, want_terms) and (
+                    not digest or torch.equal(dig, want_dig)),
+                    f"{name} digest={digest} != plain")
+        for entry, digest in (("fletcher_stream", 1), ("fletcher_blocks", 0)):
+            ms = timed({name: [functools.partial(
+                fn, a.data_ptr(), t.data_ptr(), d.data_ptr(), n_pages, bw, n,
+                digest, stream) for a, t, d in sets]
+                for name, fn in fns.items()})
+            print(json.dumps({
+                "kernel": "fletcher_pages", "entry": entry,
+                "shape": list(shape), "ring": len(sets),
+                "bound_ms": cs.io_bytes(entry, n_pages, cs.G, 1, 0)
+                / cs.HBM_BYTES_PER_S * 1e3,
+                "variants": [{"variant": k, "ms": v}
+                             for k, v in ms.items()]}), flush=True)
+        del sets, x, terms, dig
+        torch.cuda.empty_cache()
 
 
 def build(tmp, sources, symbol, argtypes, headers=None):
@@ -251,9 +450,15 @@ def weight_runs(tmp, pages, stream, dev, controls):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--control", action="append", default=[],
-                    help="NAME=DIR: a checkout whose weight_words is timed "
-                    "as it is")
+                    help="NAME=DIR: a checkout whose kernels are timed as "
+                    "they are")
+    ap.add_argument("--only", default="syndrome,fletcher,weight,xor",
+                    help="comma-separated kernels to time")
+    ap.add_argument("--quick", action="store_true",
+                    help="syndrome, fletcher: the sources as they stand "
+                    "and the controls only")
     args = ap.parse_args()
+    only = set(args.only.split(","))
     if not torch.cuda.is_available():
         sys.exit("torch_kernel_variants: no CUDA device")
     dev = torch.device("cuda", 0)
@@ -267,8 +472,17 @@ def main():
                              device=dev, generator=gen)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with tempfile.TemporaryDirectory() as tmp:
-        weight_runs(tmp, pages, stream, dev, args.control)
-        xor_runs(tmp, pages, stream)
+        if "syndrome" in only:
+            syndrome_runs(os.path.join(tmp, "s"), pages, stream, dev,
+                          args.control, args.quick)
+        if "fletcher" in only:
+            fletcher_runs(os.path.join(tmp, "f"), pages, stream, dev,
+                          args.control, args.quick)
+        if "weight" in only:
+            weight_runs(os.path.join(tmp, "w"), pages, stream, dev,
+                        args.control)
+        if "xor" in only:
+            xor_runs(os.path.join(tmp, "x"), pages, stream)
 
 
 if __name__ == "__main__":

@@ -3,17 +3,19 @@
     python3 scripts/torch_sass_counts.py [source ...]
 
 Needs the CUDA toolkit (nvcc, cuobjdump, cu++filt), not a card.  Compiles
-each `src/repro_torch/kernels/csrc/<source>.cu` (default: gf_parity and
-xor_parity) for sm_90a into a cubin in a temporary directory with
+each `src/repro_torch/kernels/csrc/<source>.cu` (default: fletcher,
+gf_parity and xor_parity) for sm_90a into a cubin in a temporary directory
+with
 `-Xptxas -v`, disassembles it with `cuobjdump -sass`, and prints one JSON
 line per kernel instantiation: its demangled name, ptxas's registers,
 static shared memory and spill bytes, its instruction count and the counts
 of the opcodes that carry the integer work (LOP3, SHF, IMAD, IADD3), the
-shared-memory loads (LDS) and the local-memory traffic (LDL, STL).  The
-syndrome sweeps' counts show how many instructions the 32-step GF(2^32)
-multiply costs a word a step; weight_words' LDS count shows its table
-multiply's lookups coming from shared memory, and LDL / STL = 0 that no
-register array spilled to local memory.
+shared-memory loads (LDS) and the local-memory traffic (LDL, STL): one
+line per instance, so each `syndrome_pages<R, VERIFY, DIGEST>` and
+`fletcher_pages<DIGEST>` has its own.  The LDS counts of weight_words and
+syndrome_pages show their table multiply's lookups coming from shared
+memory, and LDL / STL = 0 that no register array spilled to local memory.
+Exits 1 if any kernel spills or touches local memory.
 """
 import collections
 import json
@@ -89,16 +91,22 @@ def demangle(names):
 
 
 def main():
-    sources = sys.argv[1:] or ["gf_parity", "xor_parity"]
+    sources = sys.argv[1:] or ["fletcher", "gf_parity", "xor_parity"]
+    local = []
     with tempfile.TemporaryDirectory() as tmp:
         for source in sources:
             counts, info = sass_counts(source, tmp)
             names = demangle(list(counts))
             for fn, c in counts.items():
-                print(json.dumps({
-                    "source": f"{source}.cu", "kernel": names[fn],
-                    **info.get(fn, {}), "instructions": sum(c.values()),
-                    **{op: c.get(op, 0) for op in KEEP}}), flush=True)
+                row = {"source": f"{source}.cu", "kernel": names[fn],
+                       **info.get(fn, {}), "instructions": sum(c.values()),
+                       **{op: c.get(op, 0) for op in KEEP}}
+                print(json.dumps(row), flush=True)
+                if (row.get("spill_stores") or row.get("spill_loads")
+                        or row["LDL"] or row["STL"]):
+                    local.append(row["kernel"])
+    if local:
+        sys.exit(f"torch_sass_counts: local memory in {local}")
 
 
 if __name__ == "__main__":

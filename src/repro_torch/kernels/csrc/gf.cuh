@@ -3,9 +3,10 @@
 //
 // Two forms of y = c·x:
 //   * gf_mul, 32 branch-free steps of shift-and-conditional-XOR: about
-//     2 + (planes) ALU instructions a word a step once compiled
-//     (scripts/torch_sass_counts.py), so a sweep that runs it is bound by
-//     the integer ALU, not by its bytes.  syndrome_pages runs it.
+//     2 + (planes) ALU instructions a word a step once compiled, so a
+//     sweep that ran it on every word was bound by the integer ALU, not by
+//     its bytes (syndrome_pages until it took the table multiply: PERF.md
+//     §6).  Only build_table runs it now, 128 times a coefficient a CTA.
 //   * the table multiply.  c·x is linear in x over GF(2), so with x cut
 //     into eight 4-bit chunks x_j (x = XOR_j x_j << 4j),
 //         c·x = XOR_j T_j[x_j],   T_j[v] = c·(v << 4j),
@@ -14,7 +15,8 @@
 //     coefficient, its 8 chunk offsets shared by every coefficient.  T_j
 //     starts at a multiple of 16 words, so a warp's 32 lookups into one T_j
 //     touch at most 16 words in 16 distinct banks (equal chunks broadcast):
-//     one shared-memory wavefront whatever the data.  weight_words runs it.
+//     one shared-memory wavefront whatever the data.  weight_words and
+//     syndrome_pages run it.
 //     (Byte tables — four of 256 entries, 4 KB a coefficient — halve the
 //     lookups, but a warp's 32 random indices into 256 words meet 3-4 to
 //     a bank: some 14 wavefronts a word against 8, and 8x the table to
@@ -41,13 +43,6 @@ __device__ __forceinline__ uint32_t gf_mul(uint32_t x, uint32_t c) {
     cur = (cur << 1) ^ ((cur >> 31) * kPoly);
   }
   return acc;
-}
-
-// gf_mul of four words by one coefficient (after unrolling, the compiler
-// forms each step's bit mask of c once for the four lanes).
-__device__ __forceinline__ uint4 gf_mul4(uint4 x, uint32_t c) {
-  return make_uint4(gf_mul(x.x, c), gf_mul(x.y, c), gf_mul(x.z, c),
-                    gf_mul(x.w, c));
 }
 
 // Fill `table` (kTableWords words of shared memory) with c's tables,

@@ -28,32 +28,32 @@
 //   out[0, 0] = c · x                  (one scalar, R = 1: gf_scale)
 //
 // Bound: both functions are bound by their bytes (5 words of traffic a
-// word for the r = 3 fused sweep, 1 + R for weight_words).  Each kernel, by
-// its multiply (gf.cuh):
-//   * syndrome_pages runs the 32-step gf_mul, which shares the
-//     doubling chain x·g^i across planes and issues about 2 + (weighted
-//     planes) ALU instructions a word a step: bound by the integer ALU
-//     (scripts/torch_sass_counts.py; times in PERF.md §6).  Design: the
-//     simple form of commit_pages (commit_fused.cu) — one CTA of 256
-//     threads per page, one uint4 of old and of new per thread, each
-//     weighted plane formed in registers from the one delta and stored as
-//     it is formed (old and new are read once whatever R), Fletcher sums
-//     reduced with warp shuffles, the digest as exact integer atomics.
-//     Each thread reads its rank's R coefficients once.
-//   * weight_words runs the table multiply: 8 conflict-free shared-memory
-//     lookups a word a weighted plane.  At r = 3 over 266,240,000 words
-//     that is 4.26e9 lookups, 0.51 ms at 32 lanes an SM a clock (132 SMs,
-//     1.98 GHz), under the bytes' 1.272 ms: bound by its bytes.  Design:
-//     one pass of exact-sized blocks, each a contiguous share of 4096
-//     words of the (rank, uint4) range; a block builds its rank's tables
-//     (W x 512 B, 128 entries each by gf_mul) and rebuilds them only where
-//     its share crosses into the next rank; 2 uint4 a thread a trip, the
-//     next trip's loads issued before this trip's lookups, plane 0 stored
-//     raw.  Timed against one wave of long-lived blocks (a third slower:
-//     at any moment they stream from as many places as there are blocks),
-//     other unrolls and shares, and a probe with the lookups taken out, the
-//     same traffic's ceiling, which it comes within 1% of
-//     (scripts/torch_kernel_variants.py; PERF.md §6).
+// word for the r = 3 fused sweep, 1 + R for weight_words).  Both run the
+// table multiply (gf.cuh): 8 conflict-free shared-memory lookups a word a
+// weighted plane.  At r = 3 over 266,240,000 words that is 4.26e9 lookups,
+// 0.51 ms at 32 lanes an SM a clock (132 SMs, 1.98 GHz), under the bytes'
+// 1.27-1.59 ms.  A CTA builds its rank's tables (W x 512 B, 128 entries
+// each by gf_mul) before its first lookup.
+//   * syndrome_pages: page runs (pages.cuh) — a CTA of kRunThreads
+//     threads takes kRunPages consecutive pages of one rank, so it builds
+//     the tables once for them, a warp a page; each lane loads kLaneUnroll
+//     uint4 of old and of new at once, forms the delta and each weighted
+//     plane in registers and stores each as it is formed (old and new are
+//     read once whatever R, the planes written plane-major), the Fletcher
+//     sums reduced in the warp with REDUX.  The digest partials of the
+//     CTA's pages are summed in the CTA and added as one atomic pair a CTA
+//     (an atomic pair a page serialises: the CTAs at work share a rank).
+//     It replaced one CTA a page on the 32-step gf_mul, bound by the
+//     integer ALU at 2.2-4.1x the bytes (PERF.md §6).
+//   * weight_words: one pass of exact-sized blocks, each a contiguous share
+//     of 4096 words of the (rank, uint4) range; a block builds its rank's
+//     tables and rebuilds them only where its share crosses into the next
+//     rank; 2 uint4 a thread a trip, the next trip's loads issued before
+//     this trip's lookups, plane 0 stored raw.  Timed against one wave of
+//     long-lived blocks (a third slower: at any moment they stream from as
+//     many places as there are blocks), other unrolls and shares, and a
+//     probe with the lookups taken out, the same traffic's ceiling, which
+//     it comes within 1% of (scripts/torch_kernel_variants.py; PERF.md §6).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -62,61 +62,88 @@
 
 namespace {
 
-using gf::gf_mul4;
-using pages::block_sum;
 using pages::fletcher_add;
+using pages::kLaneUnroll;
+using pages::kRunThreads;
+using pages::kRunWarps;
 using pages::kThreads;
 
 __device__ __forceinline__ uint4 xor4(uint4 a, uint4 b) {
   return make_uint4(a.x ^ b.x, a.y ^ b.y, a.z ^ b.z, a.w ^ b.w);
 }
 
+// The rank's syndrome delta planes, new terms [, old terms ^ stored]
+// [, digest] of a run of its pages.  coeffs: (ranks, R); plane k of page
+// `local` starts at word (rank * R + k) * n * bw + local * bw.
 template <int R, bool VERIFY, bool DIGEST>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kRunThreads)
 syndrome_pages(const uint32_t* __restrict__ old_w,
                const uint32_t* __restrict__ new_w,
                const uint32_t* __restrict__ coeffs,
                const uint32_t* __restrict__ stored,
                uint32_t* __restrict__ sdelta, uint32_t* __restrict__ terms,
                uint32_t* __restrict__ mism, uint32_t* __restrict__ digest,
-               int bw, int pages_per_rank) {
-  const int64_t page = blockIdx.x;
-  const int64_t rank = page / pages_per_rank;
-  const int64_t local = page - rank * pages_per_rank;
-  uint32_t c[R];
+               int bw, int n, int runs) {
+  constexpr int W = R - 1;                 // weighted planes (c_0 = 1)
+  __shared__ uint32_t tab[W][gf::kTableWords];
+  const pages::PageRun run = pages::page_run(n, runs);
 #pragma unroll
-  for (int k = 1; k < R; ++k) c[k] = coeffs[rank * R + k];
-  const uint4* po = reinterpret_cast<const uint4*>(old_w + page * bw);
-  const uint4* pn = reinterpret_cast<const uint4*>(new_w + page * bw);
-  // plane k of this page: (rank * R + k) * n * bw + local * bw words
-  const int64_t plane4 = static_cast<int64_t>(pages_per_rank) * bw / 4;
-  uint4* pd = reinterpret_cast<uint4*>(sdelta) + rank * R * plane4 +
-              local * bw / 4;
-  // s[0], s[1]: new page's (A, B); s[2], s[3]: old page's (VERIFY)
-  uint32_t s[VERIFY ? 4 : 2] = {};
-  for (int v = threadIdx.x; v < bw / 4; v += kThreads) {
-    const uint4 o = po[v];
-    const uint4 n = pn[v];
-    const uint4 d = xor4(o, n);
-    pd[v] = d;
+  for (int k = 0; k < W; ++k)
+    gf::build_table(coeffs[run.rank * R + 1 + k], tab[k]);
+  __syncthreads();
+  const int lane = threadIdx.x & 31, q = bw / 4;   // q: uint4 a page
+  const int64_t plane4 = static_cast<int64_t>(n) * q;
+  uint32_t da = 0, db = 0;                         // this warp's digest part
+  for (int local = run.first + (threadIdx.x >> 5); local < run.last;
+       local += kRunWarps) {
+    const int64_t page = run.rank * n + local;
+    const uint4* po = reinterpret_cast<const uint4*>(old_w) + page * q;
+    const uint4* pn = reinterpret_cast<const uint4*>(new_w) + page * q;
+    uint4* pd = reinterpret_cast<uint4*>(sdelta) + run.rank * R * plane4 +
+                static_cast<int64_t>(local) * q;
+    // s[0], s[1]: new page's (A, B); s[2], s[3]: old page's (VERIFY)
+    uint32_t s[VERIFY ? 4 : 2] = {};
+    for (int v0 = lane; v0 < q; v0 += 32 * kLaneUnroll) {
+      uint4 o[kLaneUnroll], w[kLaneUnroll];
 #pragma unroll
-    for (int k = 1; k < R; ++k) pd[k * plane4 + v] = gf_mul4(d, c[k]);
-    const uint32_t wt = static_cast<uint32_t>(bw - 4 * v);
-    fletcher_add(n, wt, s[0], s[1]);
-    if constexpr (VERIFY) fletcher_add(o, wt, s[2], s[3]);
-  }
-  block_sum(s);
-  if (threadIdx.x != 0) return;
-  terms[2 * page] = s[0];
-  terms[2 * page + 1] = s[1];
-  if constexpr (VERIFY) {
-    mism[2 * page] = s[2] ^ stored[2 * page];
-    mism[2 * page + 1] = s[3] ^ stored[2 * page + 1];
+      for (int u = 0; u < kLaneUnroll; ++u) {
+        if (v0 + 32 * u >= q) continue;
+        o[u] = po[v0 + 32 * u];
+        w[u] = pn[v0 + 32 * u];
+      }
+#pragma unroll
+      for (int u = 0; u < kLaneUnroll; ++u) {
+        const int v = v0 + 32 * u;
+        if (v >= q) continue;
+        const uint4 d = xor4(o[u], w[u]);
+        pd[v] = d;
+#pragma unroll
+        for (int k = 0; k < W; ++k)
+          pd[(k + 1) * plane4 + v] = gf::table_mul4(d, tab[k]);
+        const uint32_t wt = static_cast<uint32_t>(bw - 4 * v);
+        fletcher_add(w[u], wt, s[0], s[1]);
+        if constexpr (VERIFY) fletcher_add(o[u], wt, s[2], s[3]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < (VERIFY ? 4 : 2); ++i)
+      s[i] = __reduce_add_sync(0xffffffffu, s[i]);
+    if (lane != 0) continue;
+    terms[2 * page] = s[0];
+    terms[2 * page + 1] = s[1];
+    if constexpr (VERIFY) {
+      mism[2 * page] = s[2] ^ stored[2 * page];
+      mism[2 * page + 1] = s[3] ^ stored[2 * page + 1];
+    }
+    if constexpr (DIGEST) {
+      da += s[0];
+      db += pages::digest_b(static_cast<uint32_t>(local),
+                            static_cast<uint32_t>(n),
+                            static_cast<uint32_t>(bw), s[0], s[1]);
+    }
   }
   if constexpr (DIGEST)
-    pages::digest_add(digest, rank, static_cast<uint32_t>(local),
-                      static_cast<uint32_t>(pages_per_rank),
-                      static_cast<uint32_t>(bw), s[0], s[1]);
+    pages::run_digest_add(digest, run.rank, da, db);
 }
 
 constexpr int kWordUnroll = 2;                        // uint4 a thread a trip
@@ -187,18 +214,18 @@ weight_words(const uint32_t* __restrict__ x,
 struct PageArgs {
   const void *old_w, *new_w, *coeffs, *stored;
   void *sdelta, *terms, *mism, *digest;
-  int bw, ppr;
+  int bw, ppr, runs;
 };
 
 template <int R, bool VERIFY, bool DIGEST>
 void launch_pages(dim3 grid, cudaStream_t st, const PageArgs& a) {
-  syndrome_pages<R, VERIFY, DIGEST><<<grid, kThreads, 0, st>>>(
+  syndrome_pages<R, VERIFY, DIGEST><<<grid, kRunThreads, 0, st>>>(
       static_cast<const uint32_t*>(a.old_w),
       static_cast<const uint32_t*>(a.new_w),
       static_cast<const uint32_t*>(a.coeffs),
       static_cast<const uint32_t*>(a.stored), static_cast<uint32_t*>(a.sdelta),
       static_cast<uint32_t*>(a.terms), static_cast<uint32_t*>(a.mism),
-      static_cast<uint32_t*>(a.digest), a.bw, a.ppr);
+      static_cast<uint32_t*>(a.digest), a.bw, a.ppr, a.runs);
 }
 
 template <int R>
@@ -241,10 +268,11 @@ extern "C" int syndrome_pages_launch(const void* old_w, const void* new_w,
                                      int pages_per_rank, int r, int verify,
                                      int with_digest, void* stream) {
   if (n_pages == 0) return 0;
-  const dim3 grid(static_cast<unsigned>(n_pages));
+  const int runs = pages::runs_per_rank(pages_per_rank);
+  const dim3 grid(static_cast<unsigned>(n_pages / pages_per_rank * runs));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const PageArgs a{old_w, new_w, coeffs, stored, sdelta,
-                   terms, mism,  digest, bw,     pages_per_rank};
+  const PageArgs a{old_w, new_w, coeffs, stored, sdelta, terms,
+                   mism,  digest, bw,    pages_per_rank,  runs};
   switch (r) {
     case 2: launch_pages_r<2>(grid, s, a, verify, with_digest); break;
     case 3: launch_pages_r<3>(grid, s, a, verify, with_digest); break;

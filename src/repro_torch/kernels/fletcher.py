@@ -3,12 +3,15 @@
 The CUDA kernel `fletcher_pages<DIGEST>` (csrc/fletcher.cu) replaces the
 Pallas kernels `fletcher_blocks` (src/repro/kernels/fletcher.py:38) and
 `fletcher_stream` (:82).  It is bound by memory bytes: one read of every
-word, with the term table 1/512 of that at bw = 1024.  See the source for
-the design.
+word, with the term table 1/512 of that at bw = 1024.  A CTA takes a run
+of `RUN_PAGES` pages of one rank and adds their digest partials into the
+rank's digest once; see the source for the design.
 
 Pages come as `(*lead, n, bw)` int32 words; every leading index is one
 rank, whose `n` pages get their own digest.  `fletcher_pages_plain` is the
 plain PyTorch version: the CPU path, and what the kernel is held against.
+`run_digest_plain` is the kernel's digest in plain PyTorch, run by run,
+for the tests only.
 """
 from __future__ import annotations
 
@@ -18,7 +21,11 @@ import torch
 
 from repro_torch.core.checksum import combine
 from repro_torch.kernels import _build
-from repro_torch.utils import as_u64, sum32, wrap32
+from repro_torch.utils import as_u64, mul32, sum32, wrap32
+
+# pages a CTA of the page-run sweeps (fletcher_pages, syndrome_pages), all
+# of one rank: csrc/pages.cuh's kRunPages
+RUN_PAGES = 8
 
 
 def fletcher_pages_plain(blocks: torch.Tensor) -> torch.Tensor:
@@ -35,6 +42,24 @@ def fletcher_stream_plain(blocks: torch.Tensor) -> tuple:
     """Terms plus each rank's `(*lead, 2)` row digest."""
     terms = fletcher_pages_plain(blocks)
     return terms, combine(terms, blocks.shape[-1])
+
+
+def run_digest_plain(terms: torch.Tensor, bw: int,
+                     run_pages: int = RUN_PAGES) -> torch.Tensor:
+    """Each rank's `(*lead, 2)` digest from its `(*lead, n, 2)` page terms
+    as the page-run kernels form it: the rank's n pages cut into runs of
+    `run_pages` (the last shorter), each page's share (A, B + (n - 1 -
+    local) * bw * A) summed over its run, the runs' sums summed, all mod
+    2^32.  Equal to `checksum.combine(terms, bw)` for every run length."""
+    n = terms.shape[-2]
+    a = as_u64(terms[..., 0])
+    after = ((n - 1 - torch.arange(n, device=terms.device)) * bw) & 0xFFFFFFFF
+    b = wrap32(as_u64(terms[..., 1]) + mul32(after, a))
+    runs = [wrap32(torch.stack([sum32(a[..., i:i + run_pages], -1),
+                                sum32(as_u64(b[..., i:i + run_pages]), -1)],
+                               dim=-1))
+            for i in range(0, n, run_pages)]
+    return wrap32(sum32(as_u64(torch.stack(runs, dim=-2)), -2))
 
 
 def _lib():

@@ -13,12 +13,14 @@ src/repro/kernels/gf_parity.py:
   * `weight_words<R, RAW0>` — `sdelta_stack` (:224) and `gf_scale` (:83):
     element-wise weighting of words into planes.
 
-Both functions are bound by their bytes.  `syndrome_pages` runs the
-32-step multiply and is bound by its integer ALU work; `weight_words`
-runs the table multiply (eight 16-entry tables a coefficient in shared
-memory, eight lookups a word) and is bound by its bytes (see the source
-and PERF.md §6).  `table_build_plain` / `table_mul_plain` are that
-multiply in plain PyTorch, on the same chunking, for the tests only.
+Both functions are bound by their bytes, and both run the table multiply
+(eight 16-entry tables a coefficient in shared memory, eight lookups a
+word; see the source and PERF.md §6).  `syndrome_pages` takes runs of
+`fletcher.RUN_PAGES` pages of one rank a CTA, so it builds a rank's
+tables once a run and adds the run's digest partials once.
+`table_build_plain` / `table_mul_plain` are that multiply in plain
+PyTorch, on the same chunking, and `syndrome_runs_plain` the whole sweep
+as the kernel forms it, for the tests only.
 Pages come as `(*lead, n, bw)` int32 words and words as
 `(*lead, m)`; every leading index is one rank, whose coefficients are the
 matching row of a `(*lead, r)` int32 table (`gf.rank_syndrome_coeffs`).
@@ -36,6 +38,8 @@ import torch
 from repro_torch.core import gf
 from repro_torch.kernels import _build
 from repro_torch.kernels.commit_fused import commit_pages_plain
+from repro_torch.kernels.fletcher import (RUN_PAGES, fletcher_pages_plain,
+                                          run_digest_plain)
 
 MAX_R = 4
 # a weight_words block's share of words: where a launch goes from one block
@@ -95,6 +99,27 @@ def syndrome_pages_plain(old: torch.Tensor, new: torch.Tensor,
     *lead, n, bw = delta.shape
     sdelta = sdelta_stack_plain(delta.reshape(*lead, n * bw), coeffs)
     return sdelta.reshape(*lead, -1, n, bw), terms, mism, dig
+
+
+def syndrome_runs_plain(old: torch.Tensor, new: torch.Tensor,
+                        coeffs: torch.Tensor,
+                        stored: Optional[torch.Tensor] = None,
+                        digest: bool = False,
+                        run_pages: int = RUN_PAGES) -> tuple:
+    """`syndrome_pages` as the kernel forms it, in plain PyTorch: plane 0
+    the raw delta, plane k the table multiply of the delta by each rank's
+    coeffs[..., k], the digest from runs of `run_pages` pages
+    (`run_digest_plain`).  Same returns as `syndrome_pages_plain`."""
+    delta = old ^ new
+    *lead, n, bw = delta.shape
+    flat = delta.reshape(*lead, n * bw)
+    planes = [flat] + [table_mul_plain(flat, table_build_plain(
+        coeffs[..., k])) for k in range(1, coeffs.shape[-1])]
+    sdelta = torch.stack(planes, dim=-2).reshape(*lead, -1, n, bw)
+    terms = fletcher_pages_plain(new)
+    mism = None if stored is None else fletcher_pages_plain(old) ^ stored
+    dig = run_digest_plain(terms, bw, run_pages) if digest else None
+    return sdelta, terms, mism, dig
 
 
 def _fn(symbol: str, argtypes: list):

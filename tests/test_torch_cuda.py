@@ -121,3 +121,28 @@ def test_cuda_weight_words_edges(card, r, lead, m):
         assert torch.equal(got, plain())
     name = "gf_scale" if r == 1 else "sdelta_stack"
     assert _build.LAUNCHES == {name: len(cases)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,lead,n,bw", chip_smoke.run_edge_cases())
+def test_cuda_page_run_edges(card, r, lead, n, bw):
+    """The page-run sweeps against their plain versions: the five
+    syndrome_pages entry points at r = 2..4 (a coefficient table holding 0
+    and 1) and, at r = 2, both fletcher_pages entry points; leads 1, 3 and
+    100 of n pages around the K pages a CTA takes (1, K - 1, K, K + 1), 16
+    and 2600; pages of 4 and 1024 words."""
+    gen = np.random.default_rng(r * 1_000_003 + lead * 10_007 + n * 11 + bw)
+
+    def pages(shape):
+        bits = gen.integers(0, 2**32, size=shape, dtype=np.uint32)
+        return torch.from_numpy(bits.view(np.int32)).to(card)
+    _build.reset_launches()
+    cases = chip_smoke.run_case(pages, card, r, lead, n, bw)
+    for name, kernel, plain in cases:
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        assert len(got) == len(want), name
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), name
+    assert _build.LAUNCHES == {name: 1 for name, *_ in cases}

@@ -171,7 +171,8 @@ def test_gf_cuda_wrappers_refuse_what_they_cannot_launch():
 
 def test_library_path_hashes_every_included_header(tmp_path, monkeypatch):
     """An edit to a shared header (gf.cuh, pages.cuh) changes the library
-    path of every source that includes it, and of no other."""
+    path of every source that includes it, and of no other.  Every source
+    includes pages.cuh; only gf_parity.cu includes gf.cuh."""
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     for f in _build.CSRC.iterdir():
@@ -180,13 +181,15 @@ def test_library_path_hashes_every_included_header(tmp_path, monkeypatch):
     before = {n: _build.library_path(n) for n in _build.SOURCES}
     assert [f.name for f in _build.compiled_files("gf_parity")] == [
         "gf_parity.cu", "pages.cuh", "gf.cuh"]
+    assert [f.name for f in _build.compiled_files("fletcher")] == [
+        "fletcher.cu", "pages.cuh"]
     (csrc / "gf.cuh").write_bytes((csrc / "gf.cuh").read_bytes() + b"\n")
     after = {n: _build.library_path(n) for n in _build.SOURCES}
     assert after["gf_parity"] != before["gf_parity"]
-    assert after["commit_fused"] == before["commit_fused"]
+    for name in ("commit_fused", "fletcher", "xor_parity"):
+        assert after[name] == before[name]
     (csrc / "pages.cuh").write_bytes(b"// edited\n" +
                                      (csrc / "pages.cuh").read_bytes())
     again = {n: _build.library_path(n) for n in _build.SOURCES}
-    assert again["gf_parity"] != after["gf_parity"]
-    assert again["commit_fused"] != after["commit_fused"]
-    assert again["fletcher"] == before["fletcher"]
+    for name in _build.SOURCES:
+        assert again[name] != after[name]
