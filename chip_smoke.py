@@ -33,7 +33,9 @@
    bound fails the run.  `xor_delta` and `sdelta_stack` also at the patch
    flush's shape (100 ranks x 34 pages), with the host µs a call of
    `xor_delta` and `torch.bitwise_xor`; the three row-10 syndrome sweeps
-   at the 16-page patch's shape (100 ranks x 16 pages, r = 3), L2-cold.
+   and the rows 3-4 sweeps (fused_commit, fused_verify_commit,
+   fused_commit_old_terms) at the 16-page patch's shape (100 ranks x 16
+   pages, r = 3 for the syndrome sweeps), L2-cold.
 3. The r = 1 main path at the pool size of Pangolin's headline figure: a
    zone of G = 100 data ranks holding about 1.065 GB of rows (2600 pages a
    rank), so the parity is about 1% of the pool.  Through `Pool`, with
@@ -60,16 +62,39 @@
    Every boundary is compared byte for byte with a synchronous pool given
    the same states (its commits run outside the clock and its launches
    are not counted).
-6. After each phase the invariants are recomputed apart from the engine:
+6. The async commit ring and tenancy on the same zone:
+   q3 — the synchronous engine, mlpc r = 3, pipeline_depth 4: a warm-up
+        (a verified, a staged-abort and a patch commit), eight bulk
+        commit_async (the third with verify_old, the fifth with a staged
+        canary from a smashed guard buffer, `tx.canary_device()`), poll
+        and drain, sixteen 16-page patches, the loss of ranks 5, 37 and
+        99 with three tickets in flight (the recovery drains first);
+   qw — the w3 engine at depth 4: eight commit_async, the third a staged
+        abort mid-window;
+   tg — a PoolGroup of four tenants of the main path's state in one
+        cohort (mlpc r = 3, sync engine): admission, a bulk wave, a
+        verify_old wave, a wave where t2's canary fails, the same bulk
+        wave looped (`batched=False`), two waves through commit_async at
+        depth 2, a scrub_tick under a two-pool page budget, and t1's
+        recovery from the loss of ranks 5, 37 and 99 beside a wave of the
+        other three;
+   tw — the same group at window 4: four waves, the fourth the flush.
+   q3 and qw are compared at every drained boundary with a pool that
+   resolves each commit before the next (its walls reported beside,
+   its launches not counted), every tg / tw wave with four solo pools
+   replayed on the same states outside the clock.  Every dispatch into a
+   ring that is not full runs under torch.cuda.set_sync_debug_mode(
+   "error"); each batched wave must launch each of its kernels once.
+7. After each phase the invariants are recomputed apart from the engine:
    every syndrome plane k = XOR over ranks i of g^(k·i)·row_i, built rank by
    rank with the plain GF multiply; cksums = Fletcher terms of the rows;
    digest = combine(cksums); row = flatten(state).  Inside a window: the
    checksums and digest are the live rows'; the stack is the epoch start's;
    the bulk engine's accumulator is row_start ^ row_now, and the patch
    engine's row is pinned at the epoch start.
-7. Each path's kernel launches (every count zeroed just before the path,
+8. Each path's kernel launches (every count zeroed just before the path,
    read just after); every entry point of the path must have run.  Peak
-   device memory of each path.
+   device memory of each path; the host ms of each async dispatch.
 
 Every phase raises on failure.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -210,6 +235,13 @@ PATH_W3 = ("fused_accum_commit_stream", "sdelta_stack", "fletcher_blocks",
            "gf_scale")
 PATH_W1F = ("fused_accum_commit", "fletcher_blocks")
 PATH_WP = ("xor_delta", "sdelta_stack", "fletcher_blocks")
+PATH_Q3 = ("fletcher_stream", "sdelta_stack", "fused_verify_commit_s_stream",
+           "fused_commit_s", "fletcher_blocks", "gf_scale")
+PATH_QW = ("fused_accum_commit_stream", "sdelta_stack")
+PATH_TG = ("fletcher_blocks", "sdelta_stack", "fused_verify_commit_s",
+           "fletcher_stream", "gf_scale")
+PATH_TW = ("fused_accum_commit", "sdelta_stack")
+TENANTS = 4                    # the tenancy paths' cohort
 # the entry points of the page-run sweeps: syndrome_pages, fletcher_pages
 SYNDROME = ("fused_commit_s", "fused_verify_commit_s",
             "fused_commit_old_terms_s", "fused_commit_s_stream",
@@ -710,9 +742,13 @@ def at_flush_shape(pages, dev):
 def at_patch_shape(pages, dev):
     """The row-10 syndrome sweeps (fused_commit_s, fused_verify_commit_s,
     fused_commit_old_terms_s) at the 16-page patch's shape, G ranks x 16
-    pages at r = 3, as the r3 path's phases D and E run them: one launch
-    with its enqueue (kernel_ms) and the device time of back-to-back
-    launches over an L2-cold ring of input sets (device_ms)."""
+    pages at r = 3, as the r3 path's phases D and E run them, and the
+    rows 3-4 sweeps (fused_commit, fused_verify_commit,
+    fused_commit_old_terms) at the same shape, as the r1 path's phases d
+    and e run them: one launch with its enqueue (kernel_ms) and the device
+    time of back-to-back launches over an L2-cold ring of input sets
+    (device_ms)."""
+    from repro_torch.kernels import commit_fused as cf
     from repro_torch.kernels import gf_parity as gfk
     from repro_torch.kernels import ops
     from repro_torch.kernels.fletcher import fletcher_pages_plain
@@ -734,13 +770,24 @@ def at_patch_shape(pages, dev):
         "fused_commit_old_terms_s": (
             lambda o, n, s: ops.fused_commit_old_terms_s(o, n, coeffs),
             lambda o, n, s: gfk.syndrome_pages_plain(
-                o, n, coeffs, torch.zeros_like(s)))}
+                o, n, coeffs, torch.zeros_like(s))),
+        "fused_commit": (lambda o, n, s: ops.fused_commit(o, n),
+                         lambda o, n, s: cf.commit_pages_plain(o, n)),
+        "fused_verify_commit": (
+            lambda o, n, s: ops.fused_verify_commit(o, n, s),
+            lambda o, n, s: cf.commit_pages_plain(o, n, s)),
+        "fused_commit_old_terms": (
+            lambda o, n, s: ops.fused_commit_old_terms(o, n),
+            lambda o, n, s: cf.commit_pages_plain(o, n,
+                                                  torch.zeros_like(s)))}
     for name, (kernel, plain) in calls.items():
         nbytes = io_bytes(name, n_pages, G, R, 0)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
+        syndrome = name.endswith("_s")
         row = dict(
-            phase="syndrome_at_patch_shape", name=name, shape=list(shape),
-            r=R, bytes=nbytes, ring=len(sets),
+            phase=("syndrome" if syndrome else "commit") + "_at_patch_shape",
+            name=name, shape=list(shape), r=R if syndrome else 1,
+            bytes=nbytes, ring=len(sets),
             kernel_ms=cuda_ms(functools.partial(kernel, *sets[0])),
             device_ms=device_ms([functools.partial(kernel, *st)
                                  for st in sets]),
@@ -859,6 +906,16 @@ class PathRun:
         torch.cuda.synchronize()
         self.build.LAUNCHES.clear()
         self.build.LAUNCHES.update(saved)
+        return out
+
+    def timed_aside(self, tag, fn):
+        """`aside`, timed as a phase is (host ms ending in a synchronize):
+        a comparison run whose wall is reported beside the path's."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.aside(fn)
+        emit(path=self.tag, phase=tag, ms=(time.perf_counter() - t0) * 1e3,
+             launches="not counted (a comparison)")
         return out
 
     def end(self, must_launch):
@@ -1277,6 +1334,396 @@ def window_path_wp(dev):
     return run.end(PATH_WP)
 
 
+# -- 6. the async commit ring and tenancy ------------------------------------
+
+def same_prot(a, b, tag):
+    """Two protected states byte for byte: every protection field, the redo
+    log and the state leaves."""
+    for field in ("synd", "cksums", "digest", "row", "step"):
+        x, y = getattr(a, field), getattr(b, field)
+        check((x is None and y is None) or torch.equal(x, y),
+              f"{tag}: {field} differs")
+    for field in ("step", "data_cursor", "rng", "digest", "mark"):
+        check(torch.equal(getattr(a.log, field), getattr(b.log, field)),
+              f"{tag}: log.{field} differs")
+    for k in a.state:
+        check(torch.equal(a.state[k], b.state[k]), f"{tag}: state.{k} differs")
+
+
+def same_pool(pool, other, tag):
+    """A pool against its comparison pool: the protected state and, with a
+    window open, the accumulator and the pending count."""
+    same_prot(pool.prot, other.prot, tag)
+    if pool.engine is not None:
+        check(torch.equal(pool._est.acc, other._est.acc) and
+              torch.equal(pool._est.pending, other._est.pending) and
+              pool.engine._since == other.engine._since,
+              f"{tag}: open window differs")
+
+
+# the caching allocator's counters that a dispatch must leave alone: a
+# retry frees cached segments (a cudaFree, which syncs the device) and
+# allocates again; a device alloc is a cudaMalloc of a new segment
+ALLOC_COUNTS = ("num_alloc_retries", "num_device_free", "num_device_alloc")
+
+
+def alloc_counts():
+    stats = torch.cuda.memory_stats()
+    return {k: stats.get(k, 0) for k in ALLOC_COUNTS}
+
+
+class Dispatches:
+    """Host ms of each commit_async (or wave) dispatch, and the allocator
+    counters it moved (`alloc`, only the ones that moved).  Every dispatch
+    into a ring that is not full runs under torch.cuda.set_sync_debug_mode(
+    "error"): a host sync there raises and fails the run, and so does an
+    allocator retry or cudaFree, which the debug mode does not see (a full
+    ring resolves its oldest ticket, a sync by design)."""
+
+    def __init__(self):
+        self.ms, self.alloc, self.strict = [], [], 0
+
+    def __call__(self, ring, fn):
+        strict = len(ring) < ring.depth
+        before = alloc_counts()
+        if strict:
+            torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            return fn()
+        finally:
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            if strict:
+                torch.cuda.set_sync_debug_mode("default")
+                self.strict += 1
+            moved = {k: v - before[k] for k, v in alloc_counts().items()
+                     if v != before[k]}
+            self.alloc.append(moved)
+            check(not strict or not (moved.get("num_alloc_retries")
+                                     or moved.get("num_device_free")),
+                  f"dispatch {len(self.ms)} into a ring not full: "
+                  f"allocator {moved}")
+
+
+def feed(pool, commits):
+    """A comparison pool's commit_async of each (state, keywords), each
+    verdict read before the next dispatch: synchronous resolution."""
+    for state, kw in commits:
+        pool.commit_async(state, **kw).result()
+    pool.drain()
+
+
+def nothing(pool, tag):
+    """No invariants for a phase (its pool is compared byte for byte)."""
+
+
+def async_path_q3(dev):
+    """The async ring on the synchronous engine at r = 3, depth 4 (phases
+    Q_a-Q_h), against a depth-1 pool fed the same states and verdicts."""
+    from repro_torch import Fault
+    from repro_torch.runtime import failure
+
+    mesh, specs, cur = zone_state(dev)
+    cfg = dict(mode="mlpc", redundancy=R)
+    run = PathRun(dev, "q3")
+    pool, _ = run.phase("Q_a_open_depth_4", lambda: open_pool(
+        cur, specs, mesh, dev, pipeline_depth=4, **cfg))
+    ring = pool._ring
+    ref = run.aside(lambda: open_pool(cur, specs, mesh, dev,
+                                      pipeline_depth=1, **cfg))
+    tx = pool.transaction()
+    tx.watch(failure.smashed_canary_buffer(4096, device=dev))
+    canary = tx.canary_device()            # staged: read on the device
+    patch, dirty = patch_pages(pool.protector.layout)
+    states = [cur, bumped(cur)]
+    states.append(bumped(states[-1], words=patch))
+    warm = [(states[1], dict(data_cursor=1, verify_old=True)),
+            (states[1], dict(data_cursor=2, canary_ok=canary)),
+            (states[2], dict(data_cursor=3, dirty_pages=dirty))]
+
+    def warm_up():
+        feed(pool, warm)
+    run.phase("Q_a_warm_up_first_use", warm_up, pool)
+    run.timed_aside("Q_a_warm_up_depth_1", lambda: feed(ref, warm))
+    same_pool(pool, ref, "Q_a")
+    states = states[2:]
+    for _ in range(8):
+        states.append(bumped(states[-1]))
+    kws = [dict(verify_old=True) if i == 2 else
+           dict(canary_ok=canary) if i == 4 else {} for i in range(8)]
+    disp = Dispatches()
+    aborted = pool.stats()["aborted_commits"]
+
+    def bulk():
+        return [disp(ring, lambda i=i: pool.commit_async(
+            states[i + 1], data_cursor=i + 1, **kws[i])) for i in range(8)]
+    tickets, l_b = run.phase("Q_b_8_bulk_commit_async", bulk, inv=nothing)
+    del warm
+    emit(path="q3", phase="Q_b_dispatch_ms", ms=disp.ms[:8],
+         alloc=disp.alloc[:8])
+    check(l_b.get("fused_verify_commit_s_stream") == 1 and
+          l_b.get("fletcher_stream") == 7, f"Q_b launches {l_b}")
+
+    def poll_drain():
+        polled = pool.poll()
+        return len(polled), len(pool.drain())
+    (polled, drained), _ = run.phase("Q_c_poll_drain", poll_drain,
+                                     inv=nothing)
+    verdicts = [t.result() for t in tickets]
+    check(verdicts == [i != 4 for i in range(8)], f"Q_c verdicts {verdicts}")
+    check(pool.stats()["aborted_commits"] == aborted + 1,
+          "Q_c: the staged abort")
+    emit(path="q3", phase="Q_c_polled_drained", polled=polled,
+         drained=drained)
+    run.timed_aside("Q_d_8_bulk_depth_1", lambda: feed(ref, [
+        (states[i + 1], dict(data_cursor=i + 1, **kws[i]))
+        for i in range(8)]))
+    same_pool(pool, ref, "Q_d")
+    invariants(pool, "Q_d")
+    emit(path="q3", phase="Q_d_drained_same_as_depth_1", equal=True)
+    cur = states[-1]
+    del states, tickets
+    patches = [cur]
+    for _ in range(16):
+        patches.append(bumped(patches[-1], words=patch))
+
+    def patch_16():
+        out = [disp(ring, lambda i=i: pool.commit_async(
+            patches[i + 1], data_cursor=9 + i, dirty_pages=dirty))
+            for i in range(16)]
+        pool.drain()
+        return out
+    tickets, l_e = run.phase("Q_e_16_patch_depth_4", patch_16, inv=nothing)
+    emit(path="q3", phase="Q_e_dispatch_ms", ms=disp.ms[8:],
+         alloc=disp.alloc[8:])
+    check(all(t.result() for t in tickets), "Q_e: a patch failed")
+    check(l_e.get("fused_commit_s") == 16, f"Q_e launches {l_e}")
+    run.timed_aside("Q_f_16_patch_depth_1", lambda: feed(ref, [
+        (patches[i + 1], dict(data_cursor=9 + i, dirty_pages=dirty))
+        for i in range(16)]))
+    same_pool(pool, ref, "Q_f")
+    emit(path="q3", phase="Q_f_drained_same_as_depth_1", equal=True)
+    cur = patches[-1]
+    del patches, tickets
+    before = [cur]
+    for _ in range(3):
+        before.append(bumped(before[-1]))
+
+    def loss_in_flight():
+        burst = [disp(ring, lambda i=i: pool.commit_async(
+            before[i + 1], data_cursor=25 + i)) for i in range(3)]
+        check(pool.in_flight == 3, f"in flight {pool.in_flight}")
+        pool.prot, event = failure.inject_multi_rank_loss(
+            pool.protector, pool.prot, MULTI_LOST)
+        rep = pool.recover(Fault.from_event(event))
+        check(rep.verified and rep.reverified and rep.synd_ok == [True] * R
+              and pool.in_flight == 0 and all(t.result() for t in burst),
+              f"recovery {rep}")
+    _, l_g = run.phase("Q_g_loss_with_3_in_flight", loss_in_flight,
+                       inv=nothing)
+    check(l_g.get("gf_scale", 0) >= 1, f"Q_g launches {l_g}")
+    run.aside(lambda: feed(ref, [(before[i + 1], dict(data_cursor=25 + i))
+                                 for i in range(3)]))
+    same_pool(pool, ref, "Q_h")
+    invariants(pool, "Q_h")
+    emit(path="q3", phase="Q_h_recovered_same_as_depth_1", equal=True,
+         strict_dispatches=disp.strict)
+    check(disp.strict >= 4 + 4, f"strict dispatches {disp.strict}")
+    return run.end(PATH_Q3)
+
+
+def async_path_qw(dev):
+    """The w3 configuration (bulk engine, streamed, r = 3, window 4) at
+    depth 4 (phases X_a-X_e): eight commit_async, the third a staged abort
+    mid-window, each boundary against the synchronous engine."""
+    from repro_torch.kernels import ops
+
+    mesh, specs, cur = zone_state(dev)
+    cfg = dict(mode="mlpc", redundancy=R)
+    run = PathRun(dev, "qw")
+    pool, _ = run.phase("X_a_open_window_4_depth_4", lambda: open_pool(
+        cur, specs, mesh, dev, window=4, pipeline_depth=4, **cfg))
+    sync = run.aside(lambda: open_pool(cur, specs, mesh, dev, **cfg))
+    abort = run.aside(lambda: ops.stage_verdict(
+        [torch.zeros((), dtype=torch.bool, device=dev)]))
+    disp, ring = Dispatches(), pool._ring
+    for w, tag in ((0, "X_b"), (1, "X_d")):
+        states = [cur]
+        for _ in range(4):
+            states.append(bumped(states[-1]))
+        kws = [dict(canary_ok=abort) if (w, i) == (0, 2) else {}
+               for i in range(4)]
+
+        def window(states=states, kws=kws):
+            out = [disp(ring, lambda i=i: pool.commit_async(
+                states[i + 1], data_cursor=4 * w + i + 1, **kws[i]))
+                for i in range(4)]
+            pool.drain()
+            return out
+        tickets, launched = run.phase(f"{tag}_4_commit_async_drain", window,
+                                      inv=nothing)
+        # the staged abort runs the all-clear step too, then selects
+        want = {"fused_accum_commit_stream": 4, "sdelta_stack": 1}
+        check(launched == want, f"{tag} launches {launched}")
+        check([t.result() for t in tickets] == [(w, i) != (0, 2)
+                                                for i in range(4)],
+              f"{tag} verdicts")
+        check(pool.engine._since == 0, f"{tag}: not at a boundary")
+        run.aside(lambda states=states, kws=kws: feed(sync, [
+            (states[i + 1], dict(data_cursor=4 * w + i + 1, **kws[i]))
+            for i in range(4)]))
+        same_as_sync(pool, sync, "qw", f"{tag}_boundary")
+        cur = states[-1]
+        del states, tickets
+    emit(path="qw", phase="X_dispatch_ms", ms=disp.ms, alloc=disp.alloc,
+         strict_dispatches=disp.strict)
+    check(disp.strict == 8, f"strict dispatches {disp.strict}")
+    invariants(pool, "X_e")
+    return run.end(PATH_QW)
+
+
+def tenant_states(cur, n):
+    """n tenants' distinct states of the main path's shapes."""
+    return [{"w_fsdp": cur["w_fsdp"] + t,
+             "w_tp": (cur["w_tp"] * (t + 1)).to(torch.bfloat16),
+             "scale": cur["scale"] + t} for t in range(n)]
+
+
+def tenancy_path(dev, tag, window):
+    """A PoolGroup of T tenants of the main path's state in one cohort
+    (mlpc, r = 3; `window` 1: the sync engine, 4: the bulk deferred
+    engine), every wave against solo pools replayed on the same states
+    outside the clock.  Returns the path's launch counts."""
+    from repro_torch import Fault
+    from repro_torch.runtime import failure
+    from repro_torch.tenancy import PoolGroup
+
+    mesh, specs, base = zone_state(dev)
+    cfg = dict(mode="mlpc", redundancy=R, window=window)
+    run = PathRun(dev, tag)
+    tids = [f"t{t}" for t in range(TENANTS)]
+    cur = dict(zip(tids, tenant_states(base, TENANTS)))
+    del base
+
+    def admit():
+        from repro_torch import ProtectConfig
+        group = PoolGroup(mesh, device=dev, pipeline_depth=2,
+                          scrub_page_budget=2 * G * PAGES)
+        for tid in tids:
+            group.admit(tid, cur[tid], specs, config=ProtectConfig(**cfg))
+        return group
+    group, l_a = run.phase(f"{tag}_a_admit_{TENANTS}", admit, inv=nothing)
+    check(len(group.cohorts) == 1, f"{tag}: cohorts {group.stats()}")
+    solos = run.aside(lambda: {tid: open_pool(cur[tid], specs, mesh, dev,
+                                              **cfg) for tid in tids})
+    waves = []
+
+    def wave(name, want=None, tenants=None, **kw):
+        """One wave of bumped states: timed, its launches checked, then
+        replayed on the solo pools and compared."""
+        tenants = tenants or tids
+        ups = {tid: bumped(cur[tid]) for tid in tenants}
+        can = kw.get("canary_ok", True)
+        oks, launched = run.phase(name, lambda: group.commit(ups, **kw),
+                                  inv=nothing)
+        check(want is None or launched == want,
+              f"{name} launches {launched}, want {want}")
+        waves.append((name, launched))
+
+        def replay():
+            for tid in tenants:
+                c = can.get(tid, True) if isinstance(can, dict) else can
+                solos[tid].commit(ups[tid], canary_ok=c,
+                                  verify_old=kw.get("verify_old", False))
+                check(bool(oks[tid]) == c, f"{name}: {tid} verdict")
+        run.aside(replay)
+        for tid in tenants:
+            same_pool(group[tid].pool, solos[tid], f"{name} {tid}")
+            if bool(oks[tid]):
+                cur[tid] = ups[tid]
+        return oks
+
+    if window == 1:
+        bulk = {"fletcher_blocks": 1, "sdelta_stack": 1}
+        wave(f"{tag}_b_bulk_wave", bulk)
+        wave(f"{tag}_c_verify_wave", {"fused_verify_commit_s": 1},
+             verify_old=True)
+        wave(f"{tag}_d_canary_fails_t2", bulk,
+             canary_ok={tid: tid != "t2" for tid in tids})
+        wave(f"{tag}_e_looped_wave", {"fletcher_stream": TENANTS,
+                                      "sdelta_stack": TENANTS},
+             batched=False)
+        disp = Dispatches()
+        ring = group._ring
+
+        def async_waves():
+            ups = [{tid: bumped(cur[tid]) for tid in tids}]
+            ups.append({tid: bumped(ups[0][tid]) for tid in tids})
+            tickets = [disp(ring, lambda u=u: group.commit_async(u))
+                       for u in ups]
+            group.drain()
+            return ups, tickets
+        (ups, tickets), l_f = run.phase(f"{tag}_f_2_waves_async_drain",
+                                        async_waves, inv=nothing)
+        check(l_f == {k: 2 for k in bulk} and
+              all(t.result() for t in tickets), f"{tag}_f launches {l_f}")
+        emit(path=tag, phase=f"{tag}_f_dispatch_ms", ms=disp.ms,
+             alloc=disp.alloc, strict_dispatches=disp.strict)
+        check(disp.strict == 2, f"strict dispatches {disp.strict}")
+        run.aside(lambda: [solos[tid].commit(u[tid]) for u in ups
+                           for tid in tids])
+        for tid in tids:
+            cur[tid] = ups[-1][tid]
+            same_pool(group[tid].pool, solos[tid], f"{tag}_f {tid}")
+        del ups, tickets
+
+        def scrub_tick():
+            served = group.scrub_tick()
+            check(len(served) == 2 and not any(rep.suspect for *_, rep
+                                               in served),
+                  f"scrub_tick {served}")
+            return [(tid, kind) for tid, kind, _ in served]
+        served, _ = run.phase(f"{tag}_g_scrub_tick_2_pools", scrub_tick,
+                              inv=nothing)
+        emit(path=tag, phase=f"{tag}_g_served", served=served)
+
+        def recover_beside_a_wave():
+            victim = group["t1"].pool
+            victim.prot, event = failure.inject_multi_rank_loss(
+                victim.protector, victim.prot, MULTI_LOST)
+            others = [tid for tid in tids if tid != "t1"]
+            ups = {tid: bumped(cur[tid]) for tid in others}
+            ticket = group.commit_async(ups)
+            rep = group.recover("t1", Fault.from_event(event))
+            check(rep.verified and rep.reverified and
+                  group.quarantined == (), f"recovery {rep}")
+            group.drain()
+            check(ticket.result(), "the wave beside the recovery failed")
+            return ups
+        ups, l_h = run.phase(f"{tag}_h_recover_t1_beside_a_wave",
+                             recover_beside_a_wave, inv=nothing)
+        check(l_h.get("fletcher_blocks", 0) >= 1 and
+              l_h.get("gf_scale", 0) >= 1, f"{tag}_h launches {l_h}")
+        run.aside(lambda: [solos[tid].commit(ups[tid]) for tid in ups])
+        for tid in tids:
+            cur[tid] = ups.get(tid, cur[tid])
+            same_pool(group[tid].pool, solos[tid], f"{tag}_h {tid}")
+        # t1, left out of the wave, holds its own bytes, not the 4-stacks
+        row = group["t1"].pool.prot.row
+        check(row.untyped_storage().nbytes() == row.nbytes,
+              f"{tag}_h: t1's row holds {row.untyped_storage().nbytes()} B")
+    else:
+        step = {"fused_accum_commit": 1}
+        for i in range(1, 4):
+            wave(f"{tag}_b_wave_{i}", step)
+        wave(f"{tag}_c_wave_4_flush", dict(step, sdelta_stack=1))
+    for tid in tids:
+        invariants(group[tid].pool, f"{tag} {tid}")
+    emit(path=tag, phase=f"{tag}_same_as_solo_pools", equal=True,
+         tenants=TENANTS, waves=[w for w, _ in waves])
+    return run.end(PATH_TG if window == 1 else PATH_TW)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1297,7 +1744,9 @@ def main():
     timing = kernels_vs_plain(dev)
     paths = {"r1": main_path(dev), "r3": main_path_r3(dev),
              "w3": window_path_w3(dev), "w1f": window_path_w1f(dev),
-             "wp": window_path_wp(dev)}
+             "wp": window_path_wp(dev), "q3": async_path_q3(dev),
+             "qw": async_path_qw(dev), "tg": tenancy_path(dev, "tg", 1),
+             "tw": tenancy_path(dev, "tw", 4)}
     rows = []
     for name in ops.ENTRY_POINTS:
         t = timing[name]

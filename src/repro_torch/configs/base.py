@@ -125,10 +125,6 @@ class ProtectConfig:
         """What this configuration asks for that the port does not run
         yet, each with the ROADMAP item that ports it."""
         out = []
-        if self.pipeline_depth > 1 or self.overlap_commit:
-            out.append(f"pipeline_depth={self.pipeline_depth}, "
-                       f"overlap_commit={self.overlap_commit} (ROADMAP "
-                       "queue A, slice S3: the async commit ring)")
         if self.straggler_threshold > 0:
             out.append(f"straggler_threshold={self.straggler_threshold} "
                        "(ROADMAP queue A, slice S6: dist/straggler.py)")

@@ -47,7 +47,8 @@ from repro_torch.core import checksum as ck
 from repro_torch.core import layout as layout_mod
 from repro_torch.core import parity as parity_mod
 from repro_torch.core import redolog
-from repro_torch.core.txn import ProtectedState, Protector, _check_like
+from repro_torch.core.txn import (ProtectedState, Protector, _check_like,
+                                  device_bool, tree_select)
 from repro_torch.dist import collectives as coll
 from repro_torch.kernels import ops as kops
 
@@ -106,7 +107,7 @@ def _word_index(wi, n_words: int, device) -> tuple:
     Entries at or past the leaf's word count read 0 from both sides (the
     reference's gather `mode="fill"`).  Indices are non-negative, as
     `layout.time_slice_words` gives them."""
-    wi = torch.as_tensor(wi, device=device).to(torch.int64).reshape(-1)
+    wi = utils.to_device(wi, device).to(torch.int64).reshape(-1)
     return wi, wi < n_words
 
 
@@ -176,6 +177,7 @@ class DeferredProtector:
                             < protector.hybrid_threshold)
         self._since = 0
         self._step = self.make_step_commit()
+        self._step_staged = self.make_step_commit_staged()
         self._flush = self.make_flush()
         # fault-arrival point: fn(est, since, at_boundary) ->
         # Optional[EpochState], called after each commit's bookkeeping and
@@ -304,7 +306,7 @@ class DeferredProtector:
                     off = slot.offset + torch.arange(slot.n_words,
                                                      device=dev)
                     o_g, n_g = ow, nw
-                    pg = torch.as_tensor(leaf_pages[li], device=dev)
+                    pg = utils.to_device(leaf_pages[li], dev)
                 else:
                     wi, inb = _word_index(wi, slot.n_words, dev)
                     at = wi.clamp(max=slot.n_words - 1)
@@ -371,10 +373,22 @@ class DeferredProtector:
         return commit
 
     def make_step_commit_staged(self):
-        raise NotImplementedError(
-            "make_step_commit_staged: the device-side canary verdict rides "
-            "the async commit ring, a later port slice (ROADMAP queue A, "
-            "slice S3)")
+        """The in-window commit with the canary verdict on the device (a 0-d
+        bool the host has not read, e.g. `ops.stage_verdict` over guarded
+        staging buffers).  The all-clear step runs unconditionally; then
+        every output is selected against the previous (prot, dirty,
+        pending, acc) on the canary, so a False canary leaves the window,
+        the redo log included, exactly as the host-known abort does."""
+        inner = self._step
+
+        def commit(prot: ProtectedState, dirty, pending, acc, state_new,
+                   dirty_words, data_cursor, rng_key, canary):
+            new = inner(prot, dirty, pending, acc, state_new, dirty_words,
+                        data_cursor, rng_key, True)[:4]
+            v = device_bool(canary, prot.step.device)
+            return (*tree_select(v, new, (prot, dirty, pending, acc)), v)
+
+        return commit
 
     # -- epoch flush -----------------------------------------------------------
 
@@ -475,33 +489,61 @@ class DeferredProtector:
         est = EpochState(prot=prot, dirty=dirty, pending=pending, acc=acc)
         return self._after_step(est), ok
 
-    def commit_staged(self, *args, **kw):
-        raise NotImplementedError(
-            "commit_staged: the device-side canary verdict rides the async "
-            "commit ring, a later port slice (ROADMAP queue A, slice S3)")
+    def commit_staged(self, est: EpochState, state_new, *, canary,
+                      dirty_words=None, data_cursor=0, rng_key=None):
+        """`commit` with the canary verdict on the device (`canary`, a 0-d
+        bool tensor; see `make_step_commit_staged`).  Nothing waits for it:
+        the returned `ok` is the canary itself, still unread.  The host
+        cadence (`_since`, the boundary flush) counts the attempt exactly
+        as the host-known path does, so a drained pipeline holds what
+        resolving each commit at once would."""
+        if dirty_words is not None and (
+                not self.patch
+                or len(dirty_words) != len(self.dirty_leaf_idx)):
+            raise ValueError("dirty_words needs a patch engine, one entry "
+                             "per leaf of dirty_leaf_idx")
+        prot, dirty, pending, acc, ok = self._step_staged(
+            est.prot, est.dirty, est.pending, est.acc, state_new,
+            dirty_words, data_cursor, rng_key, canary)
+        est = EpochState(prot=prot, dirty=dirty, pending=pending, acc=acc)
+        return self._after_step(est), ok
 
     def _after_step(self, est: EpochState) -> EpochState:
         """Post-commit host cadence: the attempt count (aborts count too),
         the fault-arrival hook, the boundary flush, the meta mirror."""
-        self._since += 1
+        due = self.count_attempt()
         if self.arrival_hook is not None:
-            replaced = self.arrival_hook(est, self._since,
-                                         self._since >= self.window)
+            replaced = self.arrival_hook(est, self._since, due)
             if replaced is not None:
                 est = replaced
-        if self._since >= self.window:
+        if due:
             est = self.flush(est)
-        if self.replicate_meta:
-            self._mirror_meta(est)
+        self.mirror(est)
         return est
 
-    def flush(self, est: EpochState) -> EpochState:
-        """Refresh the stack and checksums (and the row) from the window."""
+    def count_attempt(self) -> bool:
+        """Count one commit attempt (an abort counts too); True when the
+        window has come due and the caller must flush."""
+        self._since += 1
+        return self._since >= self.window
+
+    def note_flush(self) -> None:
+        """A flush's host bookkeeping: the window's cadence restarts and
+        the metrics record the commits it closes."""
         pending = self._since
         self._since = 0
         if self.metrics is not None:
             self.metrics.counter("pool_window_flush_total").inc()
             self.metrics.histogram("pool_flush_pending").observe(pending)
+
+    def mirror(self, est: EpochState) -> None:
+        """The end of a step: mirror the window meta when replicated."""
+        if self.replicate_meta:
+            self._mirror_meta(est)
+
+    def flush(self, est: EpochState) -> EpochState:
+        """Refresh the stack and checksums (and the row) from the window."""
+        self.note_flush()
         return self._flush(est)
 
     def flush_if_pending(self, est: EpochState) -> EpochState:

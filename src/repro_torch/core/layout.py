@@ -91,19 +91,25 @@ def build_layout(state: PyTree, group_size: int, specs: PyTree = None,
                       block_words=block_words)
 
 
-def flatten_row(layout: ZoneLayout, local_state: PyTree) -> torch.Tensor:
+def flatten_row(layout: ZoneLayout, local_state: PyTree,
+                out: torch.Tensor = None) -> torch.Tensor:
     """Word view + concatenation of zone-stacked shards into the padded row:
-    leaves `(*mesh_dims, *local)` -> `(*mesh_dims, row_words)`."""
+    leaves `(*mesh_dims, *local)` -> `(*mesh_dims, row_words)`, each slot
+    written once into `out` (an int32 `(*mesh_dims, row_words)` tensor, e.g.
+    one tenant's slice of a stacked wave; a new one by default)."""
     leaves = utils.tree_leaves(local_state)
     if len(leaves) != len(layout.slots):
         raise ValueError(f"{len(leaves)} leaves for {len(layout.slots)} slots")
-    parts = []
-    for leaf, slot in zip(leaves, layout.slots):
+    for i, (leaf, slot) in enumerate(zip(leaves, layout.slots)):
         w = utils.to_words(leaf, batch_dims=leaf.dim() - len(slot.shape))
         if w.shape[-1] != slot.n_words:
             raise ValueError(f"leaf of {w.shape[-1]} words for {slot}")
-        parts.append(w)
-    return utils.pad_to(torch.cat(parts, dim=-1), layout.row_words)
+        if out is None:
+            out = torch.empty(*w.shape[:-1], layout.row_words,
+                              dtype=utils.WORD, device=w.device)
+        out[..., slot.offset:slot.offset + slot.n_words] = w
+    out[..., layout.payload_words:] = 0
+    return out
 
 
 def unflatten_row(layout: ZoneLayout, row: torch.Tensor) -> PyTree:

@@ -40,13 +40,24 @@ def make(capacity: int = 64, device=None) -> RedoLog:
 
 
 def _slot(log: RedoLog, step: torch.Tensor) -> torch.Tensor:
-    return as_u64(step) % log.capacity
+    """The record slot of `step` as a `(K,)` bool mask.  A mask and not an
+    index: indexing with a 0-d device tensor reads it on the host, and a
+    commit must not wait for the device."""
+    return (torch.arange(log.capacity, device=step.device)
+            == as_u64(step) % log.capacity)
 
 
-def _set(x: torch.Tensor, slot: torch.Tensor, value) -> torch.Tensor:
-    out = x.clone()
-    out[slot] = torch.as_tensor(value, dtype=WORD, device=x.device)
-    return out
+def _set(x: torch.Tensor, at: torch.Tensor, value) -> torch.Tensor:
+    """A copy of `x` with the record at mask `at` set to `value`: a tensor
+    on x's device, or host words (one, or one a column).  Selected on the
+    device: host words become fill constants, never a blocking copy."""
+    if isinstance(value, torch.Tensor):
+        at = at.reshape(-1, *([1] * (x.dim() - 1)))
+        return torch.where(at, value.to(x.dtype), x)
+    if x.dim() == 1:
+        return torch.where(at, value, x)
+    return torch.stack([torch.where(at, v, x[:, j])
+                        for j, v in enumerate(value)], dim=1)
 
 
 def append(log: RedoLog, step: torch.Tensor, data_cursor: int,
@@ -56,13 +67,13 @@ def append(log: RedoLog, step: torch.Tensor, data_cursor: int,
     `step` is the 0-d step tensor; `rng_words` the two u32 words of the
     step's RNG key (the reference stores `key_data(rng_key)[:2]`).
     """
-    slot = _slot(log, step)
+    at = _slot(log, step)
     return RedoLog(
-        step=_set(log.step, slot, step),
-        data_cursor=_set(log.data_cursor, slot, word(data_cursor)),
-        rng=_set(log.rng, slot, [word(v) for v in rng_words]),
-        digest=_set(log.digest, slot, digest),
-        mark=_set(log.mark, slot, 0))
+        step=_set(log.step, at, step),
+        data_cursor=_set(log.data_cursor, at, word(data_cursor)),
+        rng=_set(log.rng, at, [word(v) for v in rng_words]),
+        digest=_set(log.digest, at, digest),
+        mark=_set(log.mark, at, 0))
 
 
 def commit_mark(log: RedoLog, step: torch.Tensor) -> RedoLog:

@@ -78,6 +78,11 @@ class Scrubber:
         self.n_full_scrubs = 0
         self.pages_checked = 0            # checksum-verified (all kinds)
         self.pages_syndrome_verified = 0  # full-row syndrome coverage
+        self.last_suspect: Optional[bool] = None
+        # the shared scrub scheduler's hooks (repro_torch.tenancy): commit
+        # ages since any verification pass and since a full scrub
+        self.commits_since_check = 0
+        self.commits_since_full = 0
 
     def coverage(self) -> dict:
         """Exact verification-coverage record."""
@@ -97,6 +102,7 @@ class Scrubber:
 
     def _publish(self, kind: str, report, wall_ms: float) -> None:
         """Fold one scrub pass into the registry (no-op when unwired)."""
+        self.last_suspect = report.suspect
         if self.metrics is None:
             return
         reg = self.metrics
@@ -132,6 +138,8 @@ class Scrubber:
         open window never outgrows the cadence it opened under (the streak
         persists across a skipped boundary)."""
         self._since += 1
+        self.commits_since_check += 1
+        self.commits_since_full += 1
         if not clean:
             self._clean_streak = 0
             return
@@ -193,6 +201,7 @@ class Scrubber:
             prot, self.protector.local_scrub(prot), local=True)
         self.n_prechecks += 1
         self.pages_checked += self.pool_pages
+        self.commits_since_check = 0
         self._publish("precheck", report,
                       (time.perf_counter() - t0) * 1e3)
         # a clean pre-check standing in for a scrub regrows the window as a
@@ -228,6 +237,8 @@ class Scrubber:
         wall_ms = (time.perf_counter() - t0) * 1e3
         self.n_full_scrubs += 1
         self.pages_checked += self.pool_pages
+        self.commits_since_check = 0
+        self.commits_since_full = 0
         if mode.has_parity:
             self.pages_syndrome_verified += self.pool_pages
         self._publish("full", report, wall_ms)

@@ -121,6 +121,31 @@ class ProtectedState:
         return None if self.synd is None else self.synd[..., 0, :]
 
 
+def tree_select(pred: torch.Tensor, on_true, on_false):
+    """Select whole values on a 0-d device bool, as the reference's
+    `tree_select`: tensors, pytrees of them and dataclasses (ProtectedState,
+    RedoLog, EpochState) field by field; None stays None."""
+    if on_true is None:
+        return None
+    if dataclasses.is_dataclass(on_true):
+        return dataclasses.replace(on_true, **{
+            f.name: tree_select(pred, getattr(on_true, f.name),
+                                getattr(on_false, f.name))
+            for f in dataclasses.fields(on_true)})
+    if isinstance(on_true, torch.Tensor):
+        return torch.where(pred, on_true, on_false)
+    return utils.tree_map(lambda t, f: tree_select(pred, t, f), on_true,
+                          on_false)
+
+
+def device_bool(v, device) -> torch.Tensor:
+    """A verdict as a 0-d bool tensor on `device`: a host bool is filled
+    in there (no copy), a tensor only reshaped."""
+    if isinstance(v, torch.Tensor):
+        return v.reshape(()).to(torch.bool)
+    return torch.full((), bool(v), dtype=torch.bool, device=device)
+
+
 def select(ok: torch.Tensor, new: torch.Tensor,
            old: torch.Tensor) -> torch.Tensor:
     """Per-device select: `ok` is `(*mesh_dims)` (or 0-d); `new`/`old` are
@@ -266,6 +291,14 @@ class Protector:
         dirty_idx = [int(p) for p in dirty_pages] if patch else None
         scb = self.stream_chunk()
         protected = mode.has_parity or mode.has_cksums
+        idx_by_device: dict = {}
+
+        def page_index(device):
+            """The dirty page list on `device`, copied there once."""
+            if str(device) not in idx_by_device:
+                idx_by_device[str(device)] = utils.to_device(dirty_idx,
+                                                             device)
+            return idx_by_device[str(device)]
 
         def _protect(prot: ProtectedState, state_new, row_old):
             """New (row, synd, cksums, digest) and the per-device verdict."""
@@ -281,7 +314,7 @@ class Protector:
             if meta_only:
                 pass          # the paper's "free" metadata-only transaction
             elif patch:
-                idx = torch.tensor(dirty_idx, device=row_new.device)
+                idx = page_index(row_new.device)
                 old_pages = parity_mod.gather_pages(row_old, idx, bw)
                 new_pages = parity_mod.gather_pages(row_new, idx, bw)
                 if mode.has_cksums:

@@ -43,6 +43,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import utils
 from repro_torch.kernels import commit_fused as _cf
 from repro_torch.kernels import fletcher as _fl
 from repro_torch.kernels import gf_parity as _gf
@@ -287,6 +288,80 @@ def fused_verify_commit_s_stream(old: torch.Tensor, new: torch.Tensor,
     sdelta, ck, mism, dig = _s_sweep(old, new, coeffs, stored, True,
                                      "fused_verify_commit_s_stream")
     return sdelta, ck, _bad(mism), dig
+
+
+# -- the async commit ring ----------------------------------------------------
+
+def stage_verdict(checks, device=None) -> torch.Tensor:
+    """Fold per-buffer canary verdicts into one 0-d device bool with
+    `torch.all` (an empty list is True), so that a staged commit carries
+    them without a host read.  `checks` may mix device bools with host
+    bools (a quarantined tenant's `False`); the host ones are put on the
+    verdicts' device first, or on `device` (default: the card) when no
+    verdict is a tensor.  There is nothing to tile: it is not a kernel."""
+    dev = next((c.device for c in checks if isinstance(c, torch.Tensor)),
+               None)
+    if dev is None:
+        dev = utils.resolve_device(device)
+    flat = [c.reshape(-1).to(torch.bool) if isinstance(c, torch.Tensor)
+            else torch.full((1,), bool(c), dtype=torch.bool, device=dev)
+            for c in checks]
+    if not flat:
+        return torch.ones((), dtype=torch.bool, device=dev)
+    return torch.cat(flat).all()
+
+
+# -- tenant-batched entry points (repro_torch.tenancy cohorts) ---------------
+# A cohort of T same-shape tenants commits through one launch: the tenant
+# dim goes in front of the zone-stacked lead, `(T, *mesh_dims, n, bw)`, and
+# every kernel is per page (only the digest is per rank, and these flat
+# kernels carry none), so one launch over T x G ranks is byte-equal to T
+# launches.  Each rank's coefficients are the same in every tenant: the
+# `(*mesh_dims, r)` table is tiled over T.  Launches count under the
+# underlying entry point's name.
+
+def _tile(coeffs: Optional[torch.Tensor], t: int) -> Optional[torch.Tensor]:
+    return (None if coeffs is None
+            else coeffs.expand(t, *coeffs.shape).contiguous())
+
+
+def _rows(sdelta: torch.Tensor) -> torch.Tensor:
+    """`(*lead, r, n, bw)` planes -> `(*lead, r, n * bw)` delta rows."""
+    return sdelta.reshape(*sdelta.shape[:-2], -1)
+
+
+def fletcher_blocks_tb(blocks: torch.Tensor) -> torch.Tensor:
+    """`(T, *M, n, bw)` -> `(T, *M, n, 2)` terms, one launch."""
+    return fletcher_blocks(blocks)
+
+
+def fused_commit_s_tb(old: torch.Tensor, new: torch.Tensor,
+                      coeffs: Optional[torch.Tensor] = None) -> tuple:
+    """(sdelta rows `(T, *M, r, n * bw)`, new terms `(T, *M, n, 2)`);
+    `coeffs` the cohort's `(*M, r)` table (None at r = 1)."""
+    sdelta, ck = fused_commit_s(old, new, _tile(coeffs, new.shape[0]))
+    return _rows(sdelta), ck
+
+
+def fused_verify_commit_s_tb(old: torch.Tensor, new: torch.Tensor,
+                             stored: torch.Tensor,
+                             coeffs: Optional[torch.Tensor] = None) -> tuple:
+    """(sdelta rows, new terms, bad `(T, *M, n)`)."""
+    sdelta, ck, bad = fused_verify_commit_s(
+        old, new, stored, _tile(coeffs, new.shape[0]))
+    return _rows(sdelta), ck, bad
+
+
+def fused_accum_commit_tb(acc: torch.Tensor, old: torch.Tensor,
+                          new: torch.Tensor) -> tuple:
+    """(acc ^ old ^ new, old terms, new terms), each per tenant."""
+    return fused_accum_commit(acc, old, new)
+
+
+def syndrome_scale_tb(delta: torch.Tensor,
+                      coeffs: Optional[torch.Tensor]) -> torch.Tensor:
+    """`(T, *M, m)` per-tenant words -> `(T, *M, r, m)` weighted stacks."""
+    return syndrome_scale(delta, _tile(coeffs, delta.shape[0]))
 
 
 def stream_chunk_blocks(n_blocks: int, block_words: int, *,

@@ -36,9 +36,16 @@ Transactions that declare disjoint page footprints
 (`pool.transaction(pages=...)`) coalesce into one window; overlapping ones
 serialize behind a flush.
 
+`pool.commit_async(...)` enqueues a commit and returns a `CommitTicket`
+(core/pipeline.py) without waiting for the device; up to
+`ProtectConfig.pipeline_depth` tickets stay in flight, and `poll`, `drain`
+or `ticket.result()` resolve them.  A canary checked on the device
+(`tx.canary_device()`) rides into the commit as a staged verdict.  Flush,
+scrub, pre-check and recovery drain the ring first.  Many same-shape pools
+batch their commits through `repro_torch.tenancy.PoolGroup`.
+
 Not in this port slice, and refused with `NotImplementedError` naming the
-ROADMAP slice that ports it: pipeline_depth > 1, commit_async, rescale,
-tenancy and straggler mitigation.
+ROADMAP slice that ports it: rescale and straggler mitigation.
 """
 from __future__ import annotations
 
@@ -53,9 +60,12 @@ from repro_torch.configs.base import ProtectConfig
 from repro_torch.core import microbuffer
 from repro_torch.core import recovery as recovery_mod
 from repro_torch.core.epoch import DeferredProtector, EngineHost
+from repro_torch.core.pipeline import CommitRing, CommitTicket
 from repro_torch.core.scrub import ScrubReport, Scrubber
-from repro_torch.core.txn import Mode, ProtectedState, Protector
+from repro_torch.core.txn import (Mode, ProtectedState, Protector,
+                                  device_bool, tree_select)
 from repro_torch.dist import sharding
+from repro_torch.kernels import ops as kops
 from repro_torch.obs import health as obs_health
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import Tracer
@@ -166,8 +176,19 @@ class Transaction:
     @property
     def canary_ok(self) -> bool:
         """Host verdict over every watched guard page (True if none)."""
-        return all(bool(microbuffer.check_nd(b) if nd else
-                        microbuffer.check(b)) for b, nd in self._guarded)
+        return all(bool(c) for c in self._checks())
+
+    def _checks(self) -> list:
+        return [microbuffer.check_nd(b) if nd else microbuffer.check(b)
+                for b, nd in self._guarded]
+
+    def canary_device(self) -> torch.Tensor:
+        """The verdict over every watched guard page as one unread 0-d
+        device bool (`ops.stage_verdict`): the staged canary of
+        `pool.commit_async(canary_ok=tx.canary_device())`, whose abort
+        select rides in the commit, so the dispatch never reads it the way
+        `canary_ok` does."""
+        return kops.stage_verdict(self._checks(), device=self._pool.device)
 
     @property
     def aborted(self) -> bool:
@@ -214,7 +235,9 @@ class Pool(EngineHost):
     mirrors the window's metadata every commit (default: on for a bulk
     engine, off for a patch engine, as in the reference).  `donate` is
     accepted for the reference's signature and changes nothing: the port
-    builds every successor functionally.
+    builds every successor functionally.  `protector` hands in a Protector
+    built for this mesh, mode and redundancy, to share with other pools of
+    the same shape (a tenancy cohort).
     """
 
     def __init__(self, mesh: sharding.ZoneMesh, abstract_state: PyTree,
@@ -228,7 +251,8 @@ class Pool(EngineHost):
                  on_freeze: Optional[Callable] = None,
                  on_resume: Optional[Callable] = None,
                  metrics: Optional[MetricsRegistry] = None,
-                 tracer: Optional[Tracer] = None):
+                 tracer: Optional[Tracer] = None,
+                 protector: Optional[Protector] = None):
         self.config = config if config is not None else ProtectConfig()
         gaps = self.config.unported()
         if gaps:
@@ -242,15 +266,16 @@ class Pool(EngineHost):
         self.on_resume = on_resume
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.tracer = tracer if tracer is not None else Tracer()
-        self.protector = Protector(
-            mesh, abstract_state, state_specs,
-            mode=self.config.resolved_mode,
-            redundancy=self.config.resolved_redundancy,
-            block_words=self.config.block_words,
-            hybrid_threshold=self.config.hybrid_threshold,
-            log_capacity=self.config.log_capacity,
-            stream_threshold_words=self.config.stream_threshold_words,
-            stream_chunk_words=self.config.stream_chunk_words)
+        if protector is None:
+            protector = protector_for(mesh, abstract_state, state_specs,
+                                      self.config)
+        elif (protector.mesh is not mesh
+              or protector.mode is not self.config.resolved_mode
+              or protector.redundancy != self.config.resolved_redundancy):
+            raise ValueError("a shared protector must be built on this "
+                             "pool's mesh, with its config's mode and "
+                             "redundancy")
+        self.protector = protector
         if callable(dirty_leaf_idx):
             dirty_leaf_idx = dirty_leaf_idx(self.protector.layout)
         if callable(dirty_capacity):
@@ -282,6 +307,13 @@ class Pool(EngineHost):
         self._m_commits = self.metrics.counter("pool_commits_total")
         self._m_aborted = self.metrics.counter("pool_commit_aborted_total")
         self._m_commit_ms = self.metrics.histogram("pool_commit_dispatch_ms")
+        # the async commit ring behind commit_async; a resolve latency
+        # carries its dispatch span id as the histogram exemplar
+        self._m_resolve_ms = self.metrics.histogram("pool_commit_resolve_ms")
+        self._m_inflight = self.metrics.gauge("pool_inflight_depth")
+        self._ring = CommitRing(self.config.pipeline_depth,
+                                on_depth=self._m_inflight.set)
+        self._ticket_seq = 0
         # merged-window bookkeeping: the page-footprint union of every
         # transaction opened since the last flush; a conflicting footprint
         # seals the group (flush) before the new transaction joins a fresh
@@ -305,6 +337,9 @@ class Pool(EngineHost):
         # resume callbacks) queue here and drain after it
         self._recovering = False
         self._pending_faults: list = []
+        # the commit loop's fault-arrival hook (set_arrival_hook, ROADMAP
+        # queue A slice S5); a tenancy cohort batches only pools without one
+        self._arrival_fn: Optional[Callable] = None
 
     # -- open -------------------------------------------------------------------
 
@@ -320,7 +355,10 @@ class Pool(EngineHost):
     def init(self, state: PyTree) -> "Pool":
         """Build parity/checksums/row for `state` (fresh protection).  Also
         the re-arm point after a budget-exhausted storm: it clears the
-        health flags and restores the full syndrome budget."""
+        health flags and restores the full syndrome budget.  Commits still
+        in flight are superseded: their tickets are voided (verdict False,
+        the device not consulted)."""
+        self._ring.void_all()
         self.prot = self.protector.init(self.to_zone(state))
         self._budget_exhausted = False
         self._unrepaired_pages = 0
@@ -390,6 +428,9 @@ class Pool(EngineHost):
             "commits": int(self._m_commits.value),
             "aborted_commits": int(self._m_aborted.value),
             "commit_dispatch_ms": self._m_commit_ms.summary(),
+            "pipeline_depth": self.config.pipeline_depth,
+            "in_flight": len(self._ring),
+            "commit_resolve_ms": self._m_resolve_ms.summary(),
             "scrub": self.scrubber.coverage(),
             "recoveries": self._n_recoveries,
             "recovery_followups": self._n_followups,
@@ -432,36 +473,130 @@ class Pool(EngineHost):
         its `dirty_leaf_idx` leaves) and ignores `dirty_pages`; the
         synchronous engine takes `dirty_pages` and ignores `dirty_words`.
         `verify_old` is a synchronous-engine feature."""
+        t0 = time.perf_counter()
+        canary_ok = bool(canary_ok)
+        ok = self._enqueue(state_new, dirty_pages, dirty_words, data_cursor,
+                           rng_key, canary_ok, verify_old)
+        self._note_commit(canary_ok, (time.perf_counter() - t0) * 1e3)
+        return ok
+
+    def _note_commit(self, canary_ok: Optional[bool], ms: float) -> None:
+        """A commit's host bookkeeping: the count, the dispatch ms and, when
+        the canary verdict is known on the host (None: a staged canary, not
+        read yet), the verdict's."""
+        if canary_ok is not None:
+            self._note_verdict(canary_ok)
+        self._m_commits.inc()
+        self._m_commit_ms.observe(ms)
+
+    def _note_verdict(self, clean: bool) -> None:
+        """The scrub cadence and the clean-streak window growth ride on the
+        canary verdict; an abort is counted."""
+        self.scrubber.on_commit(clean=clean)
+        if not clean:
+            self._m_aborted.inc()
+
+    def _enqueue(self, state_new, dirty_pages, dirty_words, data_cursor,
+                 rng_key, canary_ok, verify_old) -> torch.Tensor:
+        """Enqueue one commit on the engine; returns its device verdict.
+        `canary_ok` is a host bool, or a 0-d device bool (staged)."""
         if self.prot is None:
             raise RuntimeError("Pool.commit before init()")
-        t0 = time.perf_counter()
+        zone = self.to_zone(state_new)
+        staged = isinstance(canary_ok, torch.Tensor)
         if self._engine is not None:
             if verify_old:
                 raise ValueError("verify_old is a synchronous-engine "
                                  "feature (window=1)")
-            self._est, ok = self._engine.commit(
-                self._est, self.to_zone(state_new), dirty_words=dirty_words,
-                data_cursor=data_cursor, rng_key=rng_key,
-                canary_ok=canary_ok)
-        else:
-            self._prot, ok = self.commit_program(
-                dirty_pages=dirty_pages, verify_old=verify_old)(
-                    self._prot, self.to_zone(state_new),
+            if staged:
+                self._est, ok = self._engine.commit_staged(
+                    self._est, zone, canary=canary_ok,
+                    dirty_words=dirty_words, data_cursor=data_cursor,
+                    rng_key=rng_key)
+            else:
+                self._est, ok = self._engine.commit(
+                    self._est, zone, dirty_words=dirty_words,
                     data_cursor=data_cursor, rng_key=rng_key,
                     canary_ok=canary_ok)
-        # the scrub cadence and the clean-streak window growth ride on the
-        # host-known canary verdict
-        self.scrubber.on_commit(clean=bool(canary_ok))
-        self._m_commits.inc()
-        if not canary_ok:
-            self._m_aborted.inc()
-        self._m_commit_ms.observe((time.perf_counter() - t0) * 1e3)
-        return ok
+            return ok
+        program = self.commit_program(dirty_pages=dirty_pages,
+                                      verify_old=verify_old)
+        if not staged:
+            self._prot, ok = program(self._prot, zone,
+                                     data_cursor=data_cursor,
+                                     rng_key=rng_key, canary_ok=canary_ok)
+            return ok
+        # the all-clear commit, then the whole protected state selected on
+        # the canary: a False canary leaves the old state, the redo log
+        # included.  (A host-known abort appends its record unmarked; the
+        # reference's staged abort does not, and the port keeps both.)
+        prot_new, ok_c = program(self._prot, zone, data_cursor=data_cursor,
+                                 rng_key=rng_key, canary_ok=True)
+        v = device_bool(canary_ok, ok_c.device)
+        self._prot = tree_select(v, prot_new, self._prot)
+        return v & ok_c
+
+    # -- async commit ring ------------------------------------------------------
+
+    def commit_async(self, state_new: PyTree, *, dirty_pages=None,
+                     dirty_words=None, data_cursor=0, rng_key=None,
+                     canary_ok=True, verify_old: bool = False,
+                     extras: Optional[dict] = None) -> CommitTicket:
+        """One transactional update as a future: enqueues the commit and
+        returns a `CommitTicket` over its unread device verdict.  Up to
+        `pipeline_depth` tickets stay in flight (past that the oldest is
+        resolved first); they resolve through `ticket.result()`,
+        `pool.poll()` (out of dispatch order) or `pool.drain()`.
+
+        `canary_ok` is a host bool, as `commit` takes, or an unread 0-d
+        device bool (`tx.canary_device()`, `ops.stage_verdict`): the
+        staged form, whose abort select rides in the commit and whose
+        abort bookkeeping (abort counter, scrub clean streak) waits for
+        resolution.  Routing matches `commit`."""
+        t0 = time.perf_counter()
+        staged = isinstance(canary_ok, torch.Tensor)
+        if not staged:
+            canary_ok = bool(canary_ok)
+        ok = self._enqueue(state_new, dirty_pages, dirty_words, data_cursor,
+                           rng_key, canary_ok, verify_old)
+        seq = self._ticket_seq
+        self._ticket_seq += 1
+        span_id = self.tracer.emit("commit_dispatch", seq=seq, staged=staged)
+        self._note_commit(None if staged else canary_ok,
+                          (time.perf_counter() - t0) * 1e3)
+        return self._ring.submit(CommitTicket(
+            seq, ok, dispatched_at=t0, span_id=span_id, extras=extras,
+            staged=staged, on_resolve=self._on_ticket_resolved))
+
+    def _on_ticket_resolved(self, ticket: CommitTicket) -> None:
+        """Fires once a ticket: the resolve latency (with its span id as
+        the exemplar); a staged canary settles its abort bookkeeping now
+        that the verdict is known on the host."""
+        self._m_resolve_ms.observe(ticket.resolve_latency_ms,
+                                   exemplar=ticket.span_id)
+        if ticket.staged:
+            self._note_verdict(bool(ticket.result()))
+
+    def poll(self) -> list:
+        """Resolve the in-flight tickets whose verdicts already landed (out
+        of dispatch order); returns them."""
+        return self._ring.poll()
+
+    def drain(self) -> list:
+        """Resolve every in-flight ticket, in dispatch order: the boundary
+        that flush, scrub, pre-check and recovery take first."""
+        return self._ring.drain()
+
+    @property
+    def in_flight(self) -> int:
+        """Unresolved commit tickets in the ring."""
+        return len(self._ring)
 
     def flush(self) -> None:
-        """Bring deferred redundancy current (no-op when synchronous) and
-        close any open transaction merge group: a flush is the boundary
-        every coalesced window telescopes into."""
+        """Resolve the commit ring, bring deferred redundancy current (no-op
+        when synchronous) and close any open transaction merge group: a
+        flush is the boundary every coalesced window telescopes into."""
+        self.drain()
         super().flush()
         self._merge_open = False
         self._merge_all = False
@@ -503,10 +638,10 @@ class Pool(EngineHost):
         return Transaction(self, data_cursor=data_cursor, rng_key=rng_key,
                            pages=pages)
 
-    def commit_async(self, *args, **kw):
-        raise NotImplementedError(
-            "commit_async: the async commit ring is a later port slice "
-            "(ROADMAP queue A, slice S3)")
+    def set_tracer(self, tracer: Tracer) -> None:
+        """Swap the trace sink (e.g. for a file-backed tracer after the
+        pool was built)."""
+        self.tracer = tracer
 
     def rescale(self, *args, **kw):
         raise NotImplementedError(
@@ -720,3 +855,17 @@ class Pool(EngineHost):
     def _resume(self):
         if self.on_resume is not None:
             self.on_resume()
+
+
+def protector_for(mesh: sharding.ZoneMesh, abstract_state: PyTree,
+                  state_specs: PyTree, config: ProtectConfig) -> Protector:
+    """The Protector of a pool of this shape and config."""
+    return Protector(
+        mesh, abstract_state, state_specs,
+        mode=config.resolved_mode,
+        redundancy=config.resolved_redundancy,
+        block_words=config.block_words,
+        hybrid_threshold=config.hybrid_threshold,
+        log_capacity=config.log_capacity,
+        stream_threshold_words=config.stream_threshold_words,
+        stream_chunk_words=config.stream_chunk_words)

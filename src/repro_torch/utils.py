@@ -161,6 +161,14 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def to_device(values, device) -> torch.Tensor:
+    """Host values (a list, a numpy array) as a tensor on `device`.  On the
+    card the copy is enqueued without blocking: a blocking copy would
+    synchronise the stream, and a commit must not wait for the device."""
+    t = torch.as_tensor(values)
+    return t.to(device, non_blocking=True)
+
+
 def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 

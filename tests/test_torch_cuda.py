@@ -146,3 +146,110 @@ def test_cuda_page_run_edges(card, r, lead, n, bw):
         for a, b in zip(got, want):
             assert torch.equal(a, b), name
     assert _build.LAUNCHES == {name: 1 for name, *_ in cases}
+
+
+# -- the async commit ring and tenancy waves on the card ------------------------
+
+def _small_pool_state(card, seed=0):
+    from repro_torch import P, ZoneMesh
+    gen = torch.Generator().manual_seed(seed)
+    mesh = ZoneMesh((4, 2), ("data", "model"))
+    state = {"w": torch.randn(16, 64, generator=gen).to(card),
+             "v": torch.randn(8, 32, generator=gen).to(torch.bfloat16)
+             .to(card)}
+    return mesh, state, {"w": P("data", "model"), "v": P(None, "model")}
+
+
+def _bumped(state, k):
+    return {"w": state["w"] + k, "v": (state["v"] * 2).to(torch.bfloat16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [1, 4])
+def test_cuda_commit_async_dispatch_never_syncs(card, window):
+    """Warm every path once, then enqueue bulk, patch (sync engine) and
+    staged-canary commits through a ring that is not full under
+    `torch.cuda.set_sync_debug_mode("error")`: any host sync raises.  The
+    drain reads the verdicts after it."""
+    from repro_torch import Pool, ProtectConfig
+    mesh, state, specs = _small_pool_state(card)
+    pool = Pool.open(state, specs, mesh=mesh, config=ProtectConfig(
+        mode="mlpc", redundancy=3, window=window, block_words=64,
+        pipeline_depth=8))
+    patch = {} if window > 1 else {"dirty_pages": [0, 1]}
+    staged = ops.stage_verdict([torch.ones((), dtype=torch.bool,
+                                           device=card)])
+
+    def dispatch(k):
+        return [pool.commit_async(_bumped(state, k), data_cursor=k),
+                pool.commit_async(_bumped(state, k + 1), data_cursor=k + 1,
+                                  **patch),
+                pool.commit_async(_bumped(state, k + 2), data_cursor=k + 2,
+                                  canary_ok=staged)]
+    dispatch(1)
+    pool.drain()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tickets = dispatch(4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert pool.in_flight == 3 and all(t.event is not None for t in tickets)
+    pool.drain()
+    assert all(t.result() for t in tickets)
+
+
+@pytest.mark.cuda
+def test_cuda_ticket_ready_queries_its_event(card):
+    """A ticket over a verdict still queued behind a spin kernel is not
+    ready; after the device catches up it is: the ring asks the event."""
+    from repro_torch import Pool, ProtectConfig
+    mesh, state, specs = _small_pool_state(card)
+    pool = Pool.open(state, specs, mesh=mesh, config=ProtectConfig(
+        block_words=64, pipeline_depth=4))
+    pool.commit_async(_bumped(state, 1))
+    pool.drain()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)                 # ~0.1 s of spinning
+    t = pool.commit_async(_bumped(state, 2))
+    assert t.event is not None and not t.ready() and pool.poll() == []
+    torch.cuda.synchronize()
+    assert t.ready() and pool.poll() == [t] and t.result() is True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [1, 4])
+def test_cuda_batched_wave_launches_each_kernel_once(card, window):
+    """Three tenants of one cohort: each batched wave launches each of its
+    kernels once, not three times, and matches solo pools byte for byte."""
+    from repro_torch import Pool, ProtectConfig
+    from repro_torch.tenancy import PoolGroup
+    mesh, state, specs = _small_pool_state(card)
+    cfg = ProtectConfig(mode="mlpc", redundancy=3, window=window,
+                        block_words=64)
+    group = PoolGroup(mesh)
+    solos = []
+    for t in range(3):
+        st = _bumped(state, 10 * t)
+        group.admit(f"t{t}", st, specs, config=cfg)
+        solos.append(Pool.open(st, specs, mesh=mesh, config=cfg))
+    waves = [({"fletcher_blocks": 1, "sdelta_stack": 1}, {}),
+             ({"fused_verify_commit_s": 1}, {"verify_old": True})]
+    if window > 1:
+        waves = [({"fused_accum_commit": 1}, {})] * 3 + [
+            ({"fused_accum_commit": 1, "sdelta_stack": 1}, {})]
+    for k, (want, kw) in enumerate(waves, 1):
+        ups = {f"t{t}": _bumped(state, 10 * t + k) for t in range(3)}
+        _build.reset_launches()
+        oks = group.commit(ups, **kw)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES == want, k
+        for t in range(3):
+            solos[t].commit(ups[f"t{t}"], **kw)
+            assert bool(oks[f"t{t}"])
+    for t in range(3):
+        a, b = group[f"t{t}"].pool.prot, solos[t].prot
+        for f in ("synd", "cksums", "digest", "row", "step"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+        for f in ("step", "data_cursor", "rng", "digest", "mark"):
+            assert torch.equal(getattr(a.log, f), getattr(b.log, f)), f

@@ -1,8 +1,8 @@
 """Guards on the port's boundary: the package and chip_smoke.py import
 neither JAX nor the reference; configurations the port does not run yet
-(pipeline_depth > 1, overlap_commit, straggler mitigation) are refused,
-never downgraded; a multi-rank loss beyond the redundancy is
-refused; and the pool's default device is the card."""
+(straggler mitigation) are refused, never downgraded; a multi-rank loss
+beyond the redundancy is refused; and the pool's default device is the
+card."""
 import ast
 import pathlib
 
@@ -15,7 +15,8 @@ from repro_torch.core.txn import Protector
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_warm_commits.py",
-    ROOT / "scripts" / "torch_sass_counts.py"]
+    ROOT / "scripts" / "torch_sass_counts.py",
+    ROOT / "scripts" / "torch_dispatch_profile.py"]
 
 
 def _imports(path):
@@ -47,10 +48,17 @@ def _tiny():
 def test_unported_configurations_raise(cfg):
     """Each configuration the port does not run yet raises, naming its
     slice; redundancy 2 (directly or as the mlpc2 alias) is ported and
-    opens a pool with a two-plane stack, and window 4 opens a pool on the
-    deferred engine."""
+    opens a pool with a two-plane stack, window 4 opens a pool on the
+    deferred engine, and pipeline_depth 2 / overlap_commit open a pool
+    with the async commit ring."""
     mesh, state, specs = _tiny()
     config = ProtectConfig(**cfg)
+    if config.pipeline_depth > 1 or config.overlap_commit:
+        pool = Pool.open(state, specs, mesh=mesh, config=config,
+                         device="cpu")
+        assert pool.stats()["pipeline_depth"] == config.pipeline_depth
+        assert pool.commit_async(state).result() is True
+        return
     if config.window > 1:
         pool = Pool.open(state, specs, mesh=mesh, config=config,
                          device="cpu")
@@ -67,17 +75,19 @@ def test_unported_configurations_raise(cfg):
 
 
 def test_unported_entry_points_raise():
-    """commit_async and rescale raise naming their slices; a Protector at
-    r = 2 builds; two losses on an r = 1 pool are the budget refusal,
-    latched in the health surface and the metrics until `init` re-arms
-    the pool."""
+    """Pool.rescale and PoolGroup.rescale raise naming their slice (S6);
+    commit_async runs; a Protector at r = 2 builds; two losses on an r = 1
+    pool are the budget refusal, latched in the health surface and the
+    metrics until `init` re-arms the pool."""
     from repro_torch import Fault
+    from repro_torch.tenancy import PoolGroup
     mesh, state, specs = _tiny()
     pool = Pool.open(state, specs, mesh=mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="S3"):
-        pool.commit_async(state)
+    assert pool.commit_async(state).result() is True
     with pytest.raises(NotImplementedError, match="S6"):
         pool.rescale(mesh)
+    with pytest.raises(NotImplementedError, match="S6"):
+        PoolGroup(mesh, device="cpu").rescale(mesh)
     assert Protector(mesh, state, specs, mode="mlp",
                      redundancy=2).redundancy == 2
     with pytest.raises(RuntimeError, match="syndrome budget exhausted"):
@@ -98,6 +108,9 @@ def test_default_device_is_the_card(monkeypatch):
     mesh, state, specs = _tiny()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Pool.open(state, specs, mesh=mesh)
+    from repro_torch.tenancy import PoolGroup
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PoolGroup(mesh)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         failure.smashed_canary_buffer(64)
     fields = {"state": {"w": state["w"].numpy()}, "step": 0}
