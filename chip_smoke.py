@@ -18,7 +18,9 @@
    syndrome_pages entry points at r = 2..4; `fletcher_edges`: both
    fletcher_pages entry points) on leads 1, 3 and 100 of 1, K - 1, K,
    K + 1, 16 and 2600 pages (K the pages a CTA takes) of 4 and 1024
-   words, the coefficient tables holding 0 and 1.  Then each timed at the
+   words, the coefficient tables holding 0 and 1; commit_pages
+   (`commit_edges`: its nine entry points, fused_accum_commit_tb the
+   ninth) on the same shapes.  Then each timed at the
    main path's shape with CUDA events: one launch with its enqueue
    (`kernel_ms`, median of 12 runs after warm-up) and the device time of
    20 back-to-back launches enqueued behind a spin kernel (`device_ms`;
@@ -247,6 +249,12 @@ SYNDROME = ("fused_commit_s", "fused_verify_commit_s",
             "fused_commit_old_terms_s", "fused_commit_s_stream",
             "fused_verify_commit_s_stream")
 FLETCHER = ("fletcher_blocks", "fletcher_stream")
+# the entry points of commit_pages (the commit_edges phase adds the
+# tenant-batched fused_accum_commit_tb, a ninth way into the kernel)
+COMMIT = ("fused_commit", "fused_verify_commit", "fused_commit_old_terms",
+          "fused_verify_commit_stream", "fused_commit_stream",
+          "fused_commit_old_terms_stream", "fused_accum_commit",
+          "fused_accum_commit_stream")
 # the entry points that take the syndrome coefficients (checked at each r)
 WITH_R = ("gf_scale", "sdelta_stack") + SYNDROME
 # The table multiply's shared-memory lookups a word a weighted plane (one
@@ -297,22 +305,21 @@ def entry_calls(old, new, stored, coeffs, scale_x):
                          lambda: cf.commit_pages_plain(old, new)[:2]),
         "fused_verify_commit": (
             lambda: ops.fused_verify_commit(old, new, stored),
-            lambda: (lambda d, t, m, _: (d, t, bad(m)))(
-                *cf.commit_pages_plain(old, new, stored))),
+            lambda: cf.commit_pages_plain(old, new, stored)[:3]),
         "fused_commit_old_terms": (
             lambda: ops.fused_commit_old_terms(old, new),
-            lambda: cf.commit_pages_plain(old, new, zeros)[:3]),
+            lambda: cf.commit_pages_plain(old, new, old_terms=True)[:3]),
         "fused_verify_commit_stream": (
             lambda: ops.fused_verify_commit_stream(old, new, stored),
-            lambda: (lambda d, t, m, g: (d, t, bad(m), g))(
-                *cf.commit_pages_plain(old, new, stored, digest=True))),
+            lambda: cf.commit_pages_plain(old, new, stored, digest=True)),
         "fused_commit_stream": (
             lambda: ops.fused_commit_stream(old, new),
             lambda: (lambda d, t, _, g: (d, t, g))(
                 *cf.commit_pages_plain(old, new, digest=True))),
         "fused_commit_old_terms_stream": (
             lambda: ops.fused_commit_old_terms_stream(old, new),
-            lambda: cf.commit_pages_plain(old, new, zeros, digest=True)),
+            lambda: cf.commit_pages_plain(old, new, old_terms=True,
+                                          digest=True)),
         "gf_scale": (lambda: (ops.gf_scale(scale_x, c_last),),
                      lambda: (gfk.gf_scale_plain(scale_x, c_last),)),
         "sdelta_stack": (lambda: (ops.syndrome_scale(rows, coeffs),),
@@ -573,6 +580,7 @@ def kernels_vs_plain(dev):
     xor_edges(pages)
     weight_edges(pages, dev)
     run_edges(pages, dev)
+    commit_edges(pages, dev)
     at_flush_shape(pages, dev)
     at_patch_shape(pages, dev)
     return timing
@@ -685,6 +693,53 @@ def run_edges(pages, dev):
     emit(phase="fletcher_edges", cases=checked[True], equal=True)
 
 
+def commit_edge_cases():
+    """(lead, n, bw) of the commit_pages edge checks: the page-run edge
+    cases' leads (1, 3, G), pages around the K a CTA takes (1, K - 1, K,
+    K + 1), 16 and 2600, and widths (4, 1024)."""
+    return sorted({(lead, n, bw) for _, lead, n, bw in run_edge_cases()})
+
+
+def commit_case(pages, dev, lead, n, bw):
+    """One edge case's [(entry point, kernel call, plain call)]: the eight
+    commit_pages entry points, `stored` corrupted on every third page, and
+    fused_accum_commit_tb with the ranks cut into TENANTS tenants where
+    they divide (else one)."""
+    from repro_torch.kernels import commit_fused as cf
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fletcher import fletcher_pages_plain
+    old, new = pages((lead, n, bw)), pages((lead, n, bw))
+    stored = fletcher_pages_plain(old)
+    stored[:, ::3, 0] ^= 1
+    # the commit entry points take no coefficients
+    ones = torch.ones(lead, 2, dtype=torch.int32, device=dev)
+    calls = entry_calls(old, new, stored, ones, new)
+    t = TENANTS if lead % TENANTS == 0 else 1
+    acc, o, nw = (x.reshape(t, lead // t, n, bw)
+                  for x in (torch.bitwise_not(old), old, new))
+    return [(name, *calls[name]) for name in COMMIT] + [(
+        "fused_accum_commit_tb",
+        functools.partial(ops.fused_accum_commit_tb, acc, o, nw),
+        lambda: (lambda a, tm, om, _: (a, om, tm))(
+            *cf.commit_pages_plain(o, nw, acc=acc)))]
+
+
+def commit_edges(pages, dev):
+    """commit_pages' nine entry points at every commit edge case,
+    byte-equal to their plain versions."""
+    cases = commit_edge_cases()
+    for lead, n, bw in cases:
+        for name, kernel, plain in commit_case(pages, dev, lead, n, bw):
+            got = kernel()
+            torch.cuda.synchronize()
+            err = max_abs_err(got, plain())
+            check(err == 0, f"{name} at lead {lead}, n {n}, bw {bw}: kernel "
+                  f"!= plain (err {err})")
+        torch.cuda.empty_cache()
+    emit(phase="commit_edges", cases=len(cases), entry_points=len(COMMIT) + 1,
+         equal=True)
+
+
 def at_flush_shape(pages, dev):
     """xor_delta and sdelta_stack (r = 3) at the wp path's flush shape —
     G ranks x 34 pages, 41.8 MB for the XOR — where a call's work is tens of
@@ -778,8 +833,7 @@ def at_patch_shape(pages, dev):
             lambda o, n, s: cf.commit_pages_plain(o, n, s)),
         "fused_commit_old_terms": (
             lambda o, n, s: ops.fused_commit_old_terms(o, n),
-            lambda o, n, s: cf.commit_pages_plain(o, n,
-                                                  torch.zeros_like(s)))}
+            lambda o, n, s: cf.commit_pages_plain(o, n, old_terms=True))}
     for name, (kernel, plain) in calls.items():
         nbytes = io_bytes(name, n_pages, G, R, 0)
         bound = nbytes / HBM_BYTES_PER_S * 1e3

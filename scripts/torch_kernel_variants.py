@@ -1,7 +1,7 @@
 """Time variants of the port's redesigned kernels.
 
     python3 scripts/torch_kernel_variants.py [--control NAME=DIR ...]
-        [--only syndrome,fletcher,weight,xor]
+        [--only commit,syndrome,fletcher,weight,xor]
 
 Needs one CUDA card and nvcc.  Each variant is a copy of a source in
 `src/repro_torch/kernels/csrc/` with one setting changed, built in a
@@ -47,6 +47,19 @@ first variant of each list is the source as it stands.
   first, at the main path's (100, 1, 2600, 1024) and the 16-page patch's
   (100, 1, 16, 1024) over a ring of input sets.  `--quick` times only
   the source as it stands (and its probe) beside the controls.
+* `commit_pages` (commit_fused.cu) as its eight instances (kCommit,
+  kVerify, kOldTerms, kAccum, each with and without DIGEST): pages a CTA
+  (`kRunPages`), threads a CTA (`kRunThreads`), uint4 a lane a trip
+  (`kLaneUnroll`), a register cap (least CTAs an SM through
+  `__launch_bounds__`) and the delta's stores (`st` as the source has
+  them, `cs` the evict-first `__stcs`).  Each `--control NAME=DIR` is
+  taken for a checkout before the page runs (its launcher's verify and
+  accum flags, one CTA a page): its verify instance writes old terms ^
+  stored (the verdict is left to the wrapper) and its old-terms instance
+  reads a zero stored table, as that checkout's wrappers had it.  Timed
+  first to last, then last to first, at the main path's (100, 1, 2600,
+  1024) and the 16-page patch's (100, 1, 16, 1024) over a ring of input
+  sets; each checked against the plain version first.
 """
 import argparse
 import ctypes
@@ -99,6 +112,24 @@ SPREAD = ("""  const int64_t rank = blockIdx.x / runs;
           """  const int64_t ranks = gridDim.x / runs;
   const int64_t rank = blockIdx.x % ranks;
   const int first = static_cast<int>(blockIdx.x / ranks) * kRunPages;""")
+# (pages a CTA, threads a CTA, uint4 a lane a trip, least CTAs an SM or
+# None, the delta's stores) of commit_pages; the first is the source as
+# it stands (pages.cuh's run), then runs of 4, 2 and 1 pages on as many
+# warps, 16 pages on 8 warps (2 a warp) and on 16, two unrolls, a
+# register cap for 3 CTAs an SM and evict-first stores
+COMMIT_VARIANTS = [(8, 256, 8, None, "st"), (4, 128, 8, None, "st"),
+                   (2, 64, 8, None, "st"), (1, 32, 8, None, "st"),
+                   (16, 256, 8, None, "st"), (16, 512, 8, None, "st"),
+                   (8, 256, 4, None, "st"), (8, 256, 2, None, "st"),
+                   (8, 256, 8, 3, "st"), (8, 256, 8, None, "cs")]
+# (mode, DIGEST) of each commit_pages entry point
+COMMIT_INSTANCES = {"fused_commit": (0, 0), "fused_commit_stream": (0, 1),
+                    "fused_verify_commit": (1, 0),
+                    "fused_verify_commit_stream": (1, 1),
+                    "fused_commit_old_terms": (2, 0),
+                    "fused_commit_old_terms_stream": (2, 1),
+                    "fused_accum_commit": (3, 0),
+                    "fused_accum_commit_stream": (3, 1)}
 # (VERIFY, DIGEST, stored = 0) of the syndrome entry points timed
 SYNDROME_INSTANCES = {"fused_commit_s": (0, 0, False),
                       "fused_verify_commit_s": (1, 0, False),
@@ -182,6 +213,113 @@ def run_variants(source, probes, quick):
             headers[kind + name] = {"pages.cuh": run_header(pages, *v),
                                     **({"gf.cuh": probe} if kind else {})}
     return sources, headers
+
+
+def commit_source(text, min_blocks, store):
+    if min_blocks:
+        text = sub(text, "__launch_bounds__(kRunThreads)\ncommit_pages(",
+                   f"__launch_bounds__(kRunThreads, {min_blocks})\n"
+                   "commit_pages(")
+    if store == "cs":
+        text = sub(text, "pd[v] = d;", "__stcs(pd + v, d);")
+    return text
+
+
+def commit_runs(tmp, pages, stream, dev, ctl, quick):
+    text = open(os.path.join(CSRC, "commit_fused.cu")).read()
+    header = open(os.path.join(CSRC, "pages.cuh")).read()
+    sources, headers = {}, {}
+    for k, threads, unroll, min_blocks, store in (
+            COMMIT_VARIANTS[:1] if quick else COMMIT_VARIANTS):
+        name = "k%d_t%d_u%d_min%s_%s" % (k, threads, unroll, min_blocks,
+                                          store)
+        sources[name] = (commit_source(text, min_blocks, store), CSRC)
+        headers[name] = {"pages.cuh": run_header(header, k, threads, unroll,
+                                                 "rank")}
+    fns = build(tmp, sources, "commit_pages_launch",
+                [ctypes.c_void_p] * 8 + [
+                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p], headers)
+    legacy = build(os.path.join(tmp, "controls"),
+                   controls(ctl, "commit_fused"), "commit_pages_launch",
+                   [ctypes.c_void_p] * 8 + [
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p])
+    fns.update(legacy)
+    from repro_torch.kernels import commit_fused as cf
+    from repro_torch.kernels.fletcher import fletcher_pages_plain
+    for shape in run_shapes():
+        *lead, n, bw = shape
+        n_pages = cs.G * n
+        call = n_pages * bw * 4
+        sets = []
+        for _ in range(cs.ring_size(3 * call, 4 * call)):
+            old, new = pages(shape), pages(shape)
+            stored = fletcher_pages_plain(old)
+            stored[..., ::997, 1] ^= 1
+            sets.append(dict(
+                old=old, new=new, acc=pages(shape), stored=stored,
+                delta=torch.empty_like(new),
+                terms=torch.empty(*lead, n, 2, dtype=torch.int32, device=dev),
+                bad=torch.empty(*lead, n, dtype=torch.bool, device=dev),
+                olds=torch.empty(*lead, n, 2, dtype=torch.int32, device=dev),
+                zeros=torch.zeros(*lead, n, 2, dtype=torch.int32, device=dev),
+                digest=torch.zeros(*lead, 2, dtype=torch.int32, device=dev)))
+
+        def launch(name, st, mode, digest):
+            fn, old_api = fns[name], name in legacy
+            head = (st["old"].data_ptr(), st["new"].data_ptr(),
+                    st["zeros" if old_api and mode == cf.OLD_TERMS
+                       else "stored"].data_ptr(),
+                    st["acc"].data_ptr(), st["delta"].data_ptr(),
+                    st["terms"].data_ptr())
+            if old_api:                       # verify, accum, digest flags
+                return fn(*head, st["olds"].data_ptr(),
+                          st["digest"].data_ptr(), n_pages, bw, n,
+                          int(mode in (cf.VERIFY, cf.OLD_TERMS)),
+                          int(mode == cf.ACCUM), digest, stream)
+            return fn(*head,
+                      st["bad" if mode == cf.VERIFY else "olds"].data_ptr(),
+                      st["digest"].data_ptr(), n_pages, bw, n, mode, digest,
+                      stream)
+        st = sets[0]
+        for entry, (mode, digest) in COMMIT_INSTANCES.items():
+            want = cf.commit_pages_plain(
+                st["old"], st["new"],
+                st["stored"] if mode == cf.VERIFY else None,
+                old_terms=mode == cf.OLD_TERMS, digest=bool(digest),
+                acc=st["acc"] if mode == cf.ACCUM else None)
+            side = (None if mode == cf.COMMIT else
+                    "bad" if mode == cf.VERIFY else "olds")
+            for name in fns:
+                st["digest"].zero_()
+                cs.check(launch(name, st, mode, digest) == 0,
+                         f"{name}: launch failed")
+                torch.cuda.synchronize()
+                # a control's verify side is old terms ^ stored, not bad
+                checked = (side if name not in legacy or side == "olds"
+                           else None)
+                cs.check(torch.equal(st["delta"], want[0])
+                         and torch.equal(st["terms"], want[1])
+                         and (checked is None
+                              or torch.equal(st[checked], want[2]))
+                         and (not digest or torch.equal(st["digest"],
+                                                        want[3])),
+                         f"{name} {entry} != plain")
+            del want
+            ms = timed({name: [functools.partial(launch, name, x, mode,
+                                                 digest) for x in sets]
+                        for name in fns})
+            print(json.dumps({
+                "kernel": "commit_pages", "entry": entry,
+                "shape": list(shape), "ring": len(sets),
+                "bound_ms": cs.io_bytes(entry, n_pages, cs.G, 1, 0)
+                / cs.HBM_BYTES_PER_S * 1e3,
+                "variants": [{"variant": k, "ms": v}
+                             for k, v in ms.items()]}), flush=True)
+        del sets, st
+        torch.cuda.empty_cache()
 
 
 def controls(args, source):
@@ -452,11 +590,11 @@ def main():
     ap.add_argument("--control", action="append", default=[],
                     help="NAME=DIR: a checkout whose kernels are timed as "
                     "they are")
-    ap.add_argument("--only", default="syndrome,fletcher,weight,xor",
+    ap.add_argument("--only", default="commit,syndrome,fletcher,weight,xor",
                     help="comma-separated kernels to time")
     ap.add_argument("--quick", action="store_true",
-                    help="syndrome, fletcher: the sources as they stand "
-                    "and the controls only")
+                    help="commit, syndrome, fletcher: the sources as they "
+                    "stand and the controls only")
     args = ap.parse_args()
     only = set(args.only.split(","))
     if not torch.cuda.is_available():
@@ -472,6 +610,9 @@ def main():
                              device=dev, generator=gen)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with tempfile.TemporaryDirectory() as tmp:
+        if "commit" in only:
+            commit_runs(os.path.join(tmp, "c"), pages, stream, dev,
+                        args.control, args.quick)
         if "syndrome" in only:
             syndrome_runs(os.path.join(tmp, "s"), pages, stream, dev,
                           args.control, args.quick)

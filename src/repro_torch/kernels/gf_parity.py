@@ -95,7 +95,9 @@ def syndrome_pages_plain(old: torch.Tensor, new: torch.Tensor,
                          digest: bool = False) -> tuple:
     """(sdelta `(*lead, r, n, bw)`, new terms, old terms ^ stored or None,
     digest or None)."""
-    delta, terms, mism, dig = commit_pages_plain(old, new, stored, digest)
+    delta, terms, old_terms, dig = commit_pages_plain(
+        old, new, old_terms=stored is not None, digest=digest)
+    mism = None if stored is None else old_terms ^ stored
     *lead, n, bw = delta.shape
     sdelta = sdelta_stack_plain(delta.reshape(*lead, n * bw), coeffs)
     return sdelta.reshape(*lead, -1, n, bw), terms, mism, dig

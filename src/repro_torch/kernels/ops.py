@@ -11,21 +11,22 @@ kernel is per-page independent; only the digest is per rank).  The
 syndrome sweeps take each rank's coefficients as a `(*lead, r)` table
 (`gf.rank_syndrome_coeffs`), or None at r = 1, which routes to the
 single-parity kernels as the reference does (ops.py:113-150) and adds the
-plane dim.  The launch counters (named after the reference's entry
-points) and the kernel behind each:
+plane dim.  The r = 1 verify sweeps form the verdict `bad` in the
+kernel, and the r = 1 old-terms sweeps read no stored table; the r >= 2
+routes still form `bad` from the old terms ^ stored (`_bad`) and give
+the old-terms sweep a zero stored table.  The launch counters (named
+after the reference's entry points) and the kernel behind each:
 
     fletcher_blocks                fletcher_pages<DIGEST=false>
     fletcher_stream                fletcher_pages<DIGEST=true>
-    fused_commit                   commit_pages<VERIFY=false, DIGEST=false>
-    fused_verify_commit            commit_pages<VERIFY=true,  DIGEST=false>
-    fused_commit_old_terms         commit_pages<VERIFY=true,  DIGEST=false>,
-                                   stored = 0
-    fused_verify_commit_stream     commit_pages<VERIFY=true,  DIGEST=true>
-    fused_commit_stream            commit_pages<VERIFY=false, DIGEST=true>
-    fused_commit_old_terms_stream  commit_pages<VERIFY=true,  DIGEST=true>,
-                                   stored = 0
-    fused_accum_commit             commit_pages<ACC=true, DIGEST=false>
-    fused_accum_commit_stream      commit_pages<ACC=true, DIGEST=true>
+    fused_commit                   commit_pages<kCommit,   DIGEST=false>
+    fused_verify_commit            commit_pages<kVerify,   DIGEST=false>
+    fused_commit_old_terms         commit_pages<kOldTerms, DIGEST=false>
+    fused_verify_commit_stream     commit_pages<kVerify,   DIGEST=true>
+    fused_commit_stream            commit_pages<kCommit,   DIGEST=true>
+    fused_commit_old_terms_stream  commit_pages<kOldTerms, DIGEST=true>
+    fused_accum_commit             commit_pages<kAccum,    DIGEST=false>
+    fused_accum_commit_stream      commit_pages<kAccum,    DIGEST=true>
     xor_delta, xor_accum           xor_words
     gf_scale                       weight_words<1, RAW0=false>
     sdelta_stack                   weight_words<r, RAW0=true>
@@ -89,91 +90,66 @@ def fletcher_stream(blocks: torch.Tensor, *, chunk_blocks: int = 8) -> tuple:
     return _fl.fletcher_stream_plain(blocks)
 
 
+def _sweep(name, old, new, stored=None, *, old_terms=False, digest=False,
+           acc=None) -> tuple:
+    """One commit_pages sweep: (delta, new terms, bad | old terms | None,
+    digest | None), in the mode `stored`, `old_terms` or `acc` names."""
+    kw = dict(old_terms=old_terms, digest=digest, acc=acc)
+    if _on_card(new):
+        return _cf.commit_pages_cuda(old, new, stored, name=name, **kw)
+    return _cf.commit_pages_plain(old, new, stored, **kw)
+
+
 def fused_commit(old: torch.Tensor, new: torch.Tensor) -> tuple:
     """(delta, new terms)."""
-    if _on_card(new):
-        out = _cf.commit_pages_cuda(old, new, digest=False,
-                                    name="fused_commit")
-    else:
-        out = _cf.commit_pages_plain(old, new)
-    return out[0], out[1]
+    return _sweep("fused_commit", old, new)[:2]
 
 
 def fused_verify_commit(old: torch.Tensor, new: torch.Tensor,
                         stored: torch.Tensor) -> tuple:
     """(delta, new terms, bad) — bad `(*lead, n)` marks old pages whose
-    terms no longer match `stored` (verify-at-micro-buffer-open)."""
-    if _on_card(new):
-        delta, ck, mism, _ = _cf.commit_pages_cuda(
-            old, new, stored, digest=False, name="fused_verify_commit")
-    else:
-        delta, ck, mism, _ = _cf.commit_pages_plain(old, new, stored)
-    return delta, ck, _bad(mism)
+    terms no longer match `stored` (verify-at-micro-buffer-open), formed
+    in the sweep."""
+    return _sweep("fused_verify_commit", old, new, stored)[:3]
 
 
 def fused_commit_old_terms(old: torch.Tensor, new: torch.Tensor) -> tuple:
-    """(delta, new terms, old terms): the verify sweep with stored = 0."""
-    zeros = torch.zeros(*new.shape[:-1], 2, dtype=torch.int32,
-                        device=new.device)
-    if _on_card(new):
-        out = _cf.commit_pages_cuda(old, new, zeros, digest=False,
-                                    name="fused_commit_old_terms")
-    else:
-        out = _cf.commit_pages_plain(old, new, zeros)
-    return out[0], out[1], out[2]
+    """(delta, new terms, old terms): the reference's verify sweep with
+    stored = 0, which here reads no stored table."""
+    return _sweep("fused_commit_old_terms", old, new, old_terms=True)[:3]
 
 
 def fused_verify_commit_stream(old: torch.Tensor, new: torch.Tensor,
                                stored: torch.Tensor, *,
                                chunk_blocks: int = 8) -> tuple:
     """(delta, new terms, bad, per-rank row digest of the new pages)."""
-    if _on_card(new):
-        delta, ck, mism, dig = _cf.commit_pages_cuda(
-            old, new, stored, digest=True, name="fused_verify_commit_stream")
-    else:
-        delta, ck, mism, dig = _cf.commit_pages_plain(old, new, stored,
-                                                      digest=True)
-    return delta, ck, _bad(mism), dig
+    return _sweep("fused_verify_commit_stream", old, new, stored,
+                  digest=True)
 
 
 def fused_commit_stream(old: torch.Tensor, new: torch.Tensor) -> tuple:
     """(delta, new terms, per-rank row digest of the new pages)."""
-    if _on_card(new):
-        delta, ck, _, dig = _cf.commit_pages_cuda(
-            old, new, digest=True, name="fused_commit_stream")
-    else:
-        delta, ck, _, dig = _cf.commit_pages_plain(old, new, digest=True)
+    delta, ck, _, dig = _sweep("fused_commit_stream", old, new, digest=True)
     return delta, ck, dig
 
 
 def fused_commit_old_terms_stream(old: torch.Tensor,
                                   new: torch.Tensor) -> tuple:
-    """(delta, new terms, old terms, digest): the streamed verify sweep
-    with stored = 0."""
-    zeros = torch.zeros(*new.shape[:-1], 2, dtype=torch.int32,
-                        device=new.device)
-    if _on_card(new):
-        return _cf.commit_pages_cuda(old, new, zeros, digest=True,
-                                     name="fused_commit_old_terms_stream")
-    return _cf.commit_pages_plain(old, new, zeros, digest=True)
+    """(delta, new terms, old terms, digest): the streamed old-terms
+    sweep."""
+    return _sweep("fused_commit_old_terms_stream", old, new, old_terms=True,
+                  digest=True)
 
 
 # -- the deferred-epoch engine (window > 1) ----------------------------------
-
-def _accum(acc, old, new, digest, name):
-    if _on_card(new):
-        return _cf.commit_pages_cuda(old, new, digest=digest, name=name,
-                                     acc=acc)
-    return _cf.commit_pages_plain(old, new, digest=digest, acc=acc)
-
 
 def fused_accum_commit(acc: torch.Tensor, old: torch.Tensor,
                        new: torch.Tensor) -> tuple:
     """(acc ^ old ^ new, old terms, new terms) — the reference's order: the
     step's delta folded into the epoch accumulator (a fresh tensor; `acc`
     is not written) and both pages' terms for the row digest."""
-    acc_out, terms, old_terms, _ = _accum(acc, old, new, False,
-                                          "fused_accum_commit")
+    acc_out, terms, old_terms, _ = _sweep("fused_accum_commit", old, new,
+                                          acc=acc)
     return acc_out, old_terms, terms
 
 
@@ -181,8 +157,8 @@ def fused_accum_commit_stream(acc: torch.Tensor, old: torch.Tensor,
                               new: torch.Tensor) -> tuple:
     """(acc ^ old ^ new, old terms, new terms, per-rank row digest of the
     new pages)."""
-    acc_out, terms, old_terms, dig = _accum(acc, old, new, True,
-                                            "fused_accum_commit_stream")
+    acc_out, terms, old_terms, dig = _sweep("fused_accum_commit_stream", old,
+                                            new, digest=True, acc=acc)
     return acc_out, old_terms, terms, dig
 
 

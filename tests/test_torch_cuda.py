@@ -13,6 +13,7 @@ import torch
 
 import chip_smoke
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels import commit_fused as port_cf
 from repro_torch.kernels import fletcher as port_fl
 
 
@@ -79,6 +80,11 @@ def test_cuda_wrappers_raise_on_what_they_cannot_launch(card):
     with pytest.raises(ValueError, match="must match"):
         ops.fused_accum_commit_stream(torch.zeros(3, 64, dtype=torch.int32,
                                                   device=card), z, z)
+    with pytest.raises(ValueError, match="one of"):
+        port_cf.commit_pages_cuda(z, z, torch.zeros(4, 2, dtype=torch.int32,
+                                                    device=card),
+                                  old_terms=True, digest=False,
+                                  name="fused_commit_old_terms")
     with pytest.raises(ValueError, match="contiguous"):
         ops.xor_delta(y, y)
     with pytest.raises(ValueError, match="one shape"):
@@ -253,3 +259,28 @@ def test_cuda_batched_wave_launches_each_kernel_once(card, window):
             assert torch.equal(getattr(a, f), getattr(b, f)), f
         for f in ("step", "data_cursor", "rng", "digest", "mark"):
             assert torch.equal(getattr(a.log, f), getattr(b.log, f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,n,bw", chip_smoke.commit_edge_cases())
+def test_cuda_commit_edges(card, lead, n, bw):
+    """commit_pages' nine entry points (the eight of rows 3-8 and
+    fused_accum_commit_tb) against their plain versions: leads 1, 3 and
+    100 of 1, K - 1, K, K + 1, 16 and 2600 pages (K the pages a CTA
+    takes) of 4 and 1024 words."""
+    gen = np.random.default_rng(lead * 10_007 + n * 11 + bw)
+
+    def pages(shape):
+        bits = gen.integers(0, 2**32, size=shape, dtype=np.uint32)
+        return torch.from_numpy(bits.view(np.int32)).to(card)
+    _build.reset_launches()
+    cases = chip_smoke.commit_case(pages, card, lead, n, bw)
+    for name, kernel, plain in cases:
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        assert len(got) == len(want), name
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), name
+    assert _build.LAUNCHES == {**{name: 1 for name in chip_smoke.COMMIT},
+                               "fused_accum_commit": 2}

@@ -150,6 +150,9 @@ def test_cuda_wrappers_refuse_what_they_cannot_launch():
         port_fl.fletcher_pages_cuda(x, digest=False, name="fletcher_blocks")
     with pytest.raises(ValueError, match="CUDA tensor"):
         port_cf.commit_pages_cuda(x, x, digest=False, name="fused_commit")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        port_cf.commit_pages_cuda(x, x, old_terms=True, digest=False,
+                                  name="fused_commit_old_terms")
     with pytest.raises(ValueError, match="no protection kernel"):
         ops.fletcher_blocks(torch.zeros(2, 64, dtype=torch.int32,
                                         device="meta"))
