@@ -87,14 +87,36 @@
    replayed on the same states outside the clock.  Every dispatch into a
    ring that is not full runs under torch.cuda.set_sync_debug_mode(
    "error"); each batched wave must launch each of its kernels once.
-7. After each phase the invariants are recomputed apart from the engine:
+7. Elastic rescale, straggler mitigation and the chaos campaign:
+   el — on the same zone, a synchronous mlpc r = 3 pool: commit, rescale
+        to a 50 x 2 mesh, commit, rescale to 100 x 1, commit; the same on
+        a w3-style pool (window 4, streamed) with a commit pending in the
+        window at each rescale (the flush is on the clock).  After each
+        rescale the invariants at the new G, the same bytes as a pool
+        freshly opened on the new mesh, the step carried.  A window-8
+        pool (straggler_threshold 2.0, window_growth_commits 4) fed commit
+        times with rank 37 at 6x: rank 37 dropped, the window at 1, the
+        health degraded; healed, the window regrows.  A PoolGroup of two
+        tenants rescaled 100 x 1 -> 50 x 2, each tenant against a solo
+        pool rescaled the same way;
+   ch — the chaos workload's initial state and traffic step on the card
+        against the host form and the CPU (a sample); then every scenario
+        of the quick campaign and its first two storm cells, (1, 1) and
+        (2, 16), at full width: 1,064,960,000 bytes a workload (a quarter
+        of that for each of multi_tenant_interference's eight live
+        tenants) on the reference's meshes scaled up, (4, 2) -> 50 x 2 and
+        (8, 1) -> 100 x 1, traced in memory.  Each must end golden-exact
+        with no trace violation; each prints its commit p50 / p99 clean
+        and during a disturbance, its recovery and rescale ms, the window
+        trace, its peak memory and its launches.
+8. After each phase the invariants are recomputed apart from the engine:
    every syndrome plane k = XOR over ranks i of g^(k·i)·row_i, built rank by
    rank with the plain GF multiply; cksums = Fletcher terms of the rows;
    digest = combine(cksums); row = flatten(state).  Inside a window: the
    checksums and digest are the live rows'; the stack is the epoch start's;
    the bulk engine's accumulator is row_start ^ row_now, and the patch
    engine's row is pinned at the epoch start.
-8. Each path's kernel launches (every count zeroed just before the path,
+9. Each path's kernel launches (every count zeroed just before the path,
    read just after); every entry point of the path must have run.  Peak
    device memory of each path; the host ms of each async dispatch.
 
@@ -243,6 +265,10 @@ PATH_QW = ("fused_accum_commit_stream", "sdelta_stack")
 PATH_TG = ("fletcher_blocks", "sdelta_stack", "fused_verify_commit_s",
            "fletcher_stream", "gf_scale")
 PATH_TW = ("fused_accum_commit", "sdelta_stack")
+PATH_EL = ("fletcher_blocks", "fletcher_stream", "sdelta_stack",
+           "fused_accum_commit_stream")
+PATH_CH = ("fletcher_blocks", "fletcher_stream", "sdelta_stack",
+           "fused_accum_commit_stream", "gf_scale")
 TENANTS = 4                    # the tenancy paths' cohort
 # the entry points of the page-run sweeps: syndrome_pages, fletcher_pages
 SYNDROME = ("fused_commit_s", "fused_verify_commit_s",
@@ -870,7 +896,8 @@ def invariants(pool, tag):
             fold = functools.reduce(torch.bitwise_xor, (
                 gf.mul_const(row_i, gf.pow_g_int(k * i)) if k else row_i
                 for i, row_i in enumerate(rows.unbind(dd))))
-            segs = fold.reshape(*fold.shape[:-1], G, -1).movedim(-2, dd)
+            segs = fold.reshape(*fold.shape[:-1], pool.protector.group_size,
+                                -1).movedim(-2, dd)
             check(torch.equal(prot.synd[..., k, :], segs),
                   f"{tag}: syndrome plane {k} != weighted fold of rows")
     terms = fletcher_pages_plain(rows.reshape(*rows.shape[:-1], -1, BW))
@@ -972,12 +999,15 @@ class PathRun:
              launches="not counted (a comparison)")
         return out
 
-    def end(self, must_launch):
+    def end(self, must_launch, peak=None):
+        """Check the path's launches; print them and its peak memory (or
+        `peak`, for a path that reset the peak between its phases)."""
         counts = dict(self.build.LAUNCHES)
         missing = [k for k in must_launch if not counts.get(k)]
         check(not missing, f"{self.tag}: entry points never launched on "
               f"the path: {missing}")
-        peak = torch.cuda.max_memory_allocated(self.dev)
+        if peak is None:
+            peak = torch.cuda.max_memory_allocated(self.dev)
         emit(path=self.tag, phase="memory", max_memory_allocated=peak,
              launches=counts)
         return counts
@@ -1778,6 +1808,238 @@ def tenancy_path(dev, tag, window):
     return run.end(PATH_TG if window == 1 else PATH_TW)
 
 
+# -- 7. elastic rescale, straggler mitigation and the chaos campaign ---------
+
+EL_SHAPES = ((G // 2, 2), (G, 1))   # the rescales' meshes, 50 x 2 and 100 x 1
+STRAGGLER = 37                      # the rank the straggler phase slows
+CH_BYTES = G * PAGES * BW * 4       # the chaos workload: the main zone's rows
+CH_TENANT_BYTES = CH_BYTES // 4     # each of multi_tenant_interference's
+                                    # 8 live tenants (two groups of four)
+
+
+def zone_mesh(shape):
+    from repro_torch import ZoneMesh
+    return ZoneMesh(shape, ("data", "model"))
+
+
+def same_as_fresh(run, pool, cur, specs, cfg, tag):
+    """A rescaled pool holds what a pool freshly opened on its mesh from the
+    same global state holds, but for the step, which the rescale carries."""
+    fresh = run.aside(lambda: open_pool(cur, specs, pool.mesh, run.dev,
+                                        **cfg))
+    for field in ("synd", "cksums", "digest", "row"):
+        check(torch.equal(getattr(pool.prot, field),
+                          getattr(fresh.prot, field)),
+              f"{tag}: {field} != a fresh pool's")
+    for k in pool.prot.state:
+        check(torch.equal(pool.prot.state[k], fresh.prot.state[k]),
+              f"{tag}: state.{k} != a fresh pool's")
+    emit(path=run.tag, phase=tag, same_as_fresh_pool=True,
+         ranks=pool.protector.group_size)
+
+
+def rescale_walk(run, specs, cur, tag, cfg, want_rescale):
+    """Open a pool of `cfg` on the main zone, then commit, rescale to 50 x 2,
+    commit, rescale to 100 x 1, commit; a windowed pool holds each commit
+    in its window, so each rescale flushes it first.  After each rescale:
+    the invariants at the new G, the same bytes as a fresh pool, the step
+    carried."""
+    pool, _ = run.phase(f"L_{tag}_a_open", lambda: open_pool(
+        cur, specs, zone_mesh(EL_SHAPES[1]), run.dev, **cfg))
+    for i, shape in enumerate((*EL_SHAPES, None), start=1):
+        new = bumped(cur)
+        inv = None
+        if pool.engine is not None:
+            inv = window_invariants(pool.prot.row.clone(),
+                                    pool.prot.synd.clone())
+
+        def go():
+            check(bool(pool.commit(new, data_cursor=i)), "commit failed")
+        run.phase(f"L_{tag}_commit_{i}", go, pool, inv)
+        cur = new
+        if pool.engine is not None:
+            check(pool.engine.needs_flush, f"{tag}: no commit pending")
+        if shape is None:
+            break
+        target = zone_mesh(shape)
+        moved, launched = run.phase(f"L_{tag}_rescale_{shape[0]}x{shape[1]}",
+                                    lambda: pool.rescale(target))
+        check(launched == want_rescale, f"{tag} rescale launches {launched}")
+        check(moved.protector.group_size == shape[0] and moved.step == i,
+              f"{tag}: G {moved.protector.group_size}, step {moved.step}")
+        if moved.engine is not None:
+            check(not moved.engine.needs_flush, f"{tag}: window not empty")
+            window_invariants(moved.prot.row, moved.prot.synd)(
+                moved, f"{tag} rescaled")
+        same_as_fresh(run, moved, cur, specs, cfg, f"L_{tag}_{i}_fresh")
+        pool = moved
+
+
+def elastic_path(dev):
+    """Rescale and straggler mitigation on the main zone (phases L_*)."""
+    import numpy as np
+    from repro_torch import ProtectConfig
+    from repro_torch.tenancy import PoolGroup
+
+    _, specs, cur = zone_state(dev)
+    run = PathRun(dev, "el")
+    init = {"fletcher_blocks": 1, "sdelta_stack": 1}
+    rescale_walk(run, specs, cur, "sync", dict(mode="mlpc", redundancy=R),
+                 init)
+    rescale_walk(run, specs, cur, "w3",
+                 dict(mode="mlpc", redundancy=R, window=4),
+                 dict(init, sdelta_stack=2))       # + the flush's
+
+    # a window-8 pool whose rank 37 runs 6x slow: dropped, the window held
+    # at 1 and the pool degraded; then healed, and the window regrows
+    cfg = dict(mode="mlpc", redundancy=R, window=8, straggler_threshold=2.0,
+               window_growth_commits=4)
+    mesh = zone_mesh(EL_SHAPES[1])
+    pool, _ = run.phase("L_s_a_open_window_8", lambda: open_pool(
+        cur, specs, mesh, dev, **cfg))
+    check(pool.straggler.n_replicas == G and pool.engine.window == 8,
+          "straggler pool")
+    healthy = np.full(G, 0.01)
+    slow = healthy.copy()
+    slow[STRAGGLER] *= 6
+
+    def commit():
+        nonlocal cur
+        cur = bumped(cur)
+        check(bool(pool.commit(cur)), "commit failed")
+
+    def drop():
+        for _ in range(2):
+            commit()
+            pool.observe_commit_times(slow)
+        check(pool.dropped_replicas == [STRAGGLER] and
+              pool.engine.window == 1 and
+              pool.health().status == "degraded",
+              f"straggler: dropped {pool.dropped_replicas}, window "
+              f"{pool.engine.window}, {pool.health().reasons}")
+    run.phase("L_s_b_rank_37_slow", drop, pool)
+
+    def heal():
+        for n in range(1, 13):
+            pool.observe_commit_times(healthy)
+            if not pool.dropped_replicas:
+                break
+        check(not pool.dropped_replicas, "straggler never healed")
+        for k in range(1, 9):
+            commit()
+            if pool.engine.window > 1:
+                return {"observations": n, "commits_to_regrow": k}
+        raise AssertionError("the window did not regrow")
+    healed, _ = run.phase("L_s_c_heal_regrow", heal, pool)
+    emit(path="el", phase="L_s_window", window=pool.engine.window,
+         counters={k: pool.metrics.counter(k).value for k in (
+             "pool_straggler_drop_total", "pool_straggler_heal_total")},
+         **healed)
+    del pool
+
+    # PoolGroup.rescale of two full-width tenants, 100 x 1 -> 50 x 2, each
+    # against a solo pool rescaled the same way
+    tids = ("t0", "t1")
+    states = dict(zip(tids, tenant_states(cur, 2)))
+    gcfg = dict(mode="mlpc", redundancy=R)
+
+    def admit():
+        group = PoolGroup(mesh, device=dev)
+        for tid in tids:
+            group.admit(tid, states[tid], specs,
+                        config=ProtectConfig(**gcfg))
+        return group
+    group, _ = run.phase("L_g_a_admit_2", admit, inv=nothing)
+    target = zone_mesh(EL_SHAPES[0])
+    moved, launched = run.phase("L_g_b_group_rescale",
+                                lambda: group.rescale(target), inv=nothing)
+    check(launched == {k: 2 for k in init}, f"L_g_b launches {launched}")
+    del group
+    for tid in tids:
+        pool = moved[tid].pool
+        check(pool.protector.group_size == EL_SHAPES[0][0], "group G")
+        invariants(pool, f"L_g {tid}")
+        solo = run.aside(lambda: open_pool(states[tid], specs, mesh, dev,
+                                           **gcfg).rescale(target))
+        same_prot(pool.prot, solo.prot, f"L_g {tid}")
+        del solo
+    emit(path="el", phase="L_g_same_as_solo_pools", equal=True,
+         tenants=len(tids))
+    return run.end(PATH_EL)
+
+
+def traffic_sample(dev):
+    """The chaos workload's initial state and three traffic steps made on
+    the card, a sample held against the reference's host form (uint64
+    numpy) and the steps on the CPU."""
+    import numpy as np
+    from repro_torch.chaos import workload
+    n = CH_BYTES // 4
+    w = workload.initial_state(n, SEED, dev)
+    idx = torch.cat([torch.arange(0, n, 4099), torch.arange(n - 4096, n)])
+    u = idx.numpy().astype(np.uint64)
+    host = ((u * np.uint64(2654435761) + np.uint64(SEED * 97 + 1))
+            % np.uint64(1000003)).astype(np.float32) / np.float32(1000.0)
+    on_card = idx.to(dev)
+    check(np.array_equal(w[on_card].cpu().numpy(), host),
+          "initial state != the host form")
+    sample = torch.from_numpy(host)
+    fma_ms = []
+    for t in range(3):
+        c = np.float32(t % workload.PERIOD) * workload.STEP_BIAS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w = workload.fma(w, workload.GAIN, c)
+        torch.cuda.synchronize()
+        fma_ms.append((time.perf_counter() - t0) * 1e3)
+        sample = workload.fma(sample, workload.GAIN, c)
+        check(torch.equal(w[on_card].cpu(), sample),
+              f"traffic step {t} on the card != the CPU's")
+    return {"words": n, "sampled": int(idx.numel()), "fma_ms": fma_ms}
+
+
+def chaos_path(dev):
+    """Every scenario of the quick campaign and its first two storm cells
+    at full width (phases C_*), each golden-exact with a valid trace."""
+    from repro_torch.chaos import scenarios
+    run = PathRun(dev, "ch")
+    sampled, _ = run.phase("C_traffic_step_sample",
+                           lambda: traffic_sample(dev), inv=nothing)
+    emit(path="ch", phase="C_traffic_step_equal", **sampled)
+    size = dict(quick=True, seed=SEED, meshes=EL_SHAPES, device=dev)
+    jobs = [(name, functools.partial(
+        scenarios.run_scenario, name, n_bytes=(
+            CH_TENANT_BYTES if name == "multi_tenant_interference"
+            else CH_BYTES), **size))
+        for name in (*scenarios.SCENARIOS, *scenarios.GROUP_SCENARIOS)]
+    jobs += [(f"storm_r{r}_w{w}", functools.partial(
+        scenarios.run_storm_cell, r, w, n_bytes=CH_BYTES, **size))
+        for r, w in scenarios.STORM_CELLS[:2]]
+    results, peaks = [], []
+    for name, job in jobs:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        out, launched = run.phase(f"C_{name}", job, inv=nothing)
+        peaks.append(torch.cuda.max_memory_allocated(dev))
+        results.append(out)
+        emit(path="ch", phase=f"C_{name}_result",
+             golden_exact=out["golden_exact"],
+             trace_events=out["trace"]["events"],
+             trace_violations=out["trace"]["violations"],
+             commit_ms=out["commit_ms"], recovery_ms=out["recovery_ms"],
+             rescale_ms=[r["ms"] for r in out["recoveries"]
+                         if r["kind"] == "rescale"],
+             recoveries=[{k: r[k] for k in ("kind", "ms", "verified")
+                          if k in r} for r in out["recoveries"]],
+             window_trace=out.get("window_trace"),
+             health=out["health"]["status"],
+             max_memory_allocated=peaks[-1], launches=launched)
+        del out
+    scenarios.check_results(results)
+    return run.end(PATH_CH, peak=max(peaks))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1800,7 +2062,8 @@ def main():
              "w3": window_path_w3(dev), "w1f": window_path_w1f(dev),
              "wp": window_path_wp(dev), "q3": async_path_q3(dev),
              "qw": async_path_qw(dev), "tg": tenancy_path(dev, "tg", 1),
-             "tw": tenancy_path(dev, "tw", 4)}
+             "tw": tenancy_path(dev, "tw", 4), "el": elastic_path(dev),
+             "ch": chaos_path(dev)}
     rows = []
     for name in ops.ENTRY_POINTS:
         t = timing[name]

@@ -1,7 +1,5 @@
 """`ProtectConfig`: the single protection knob, validated as the reference
-validates it (configs/base.py).  Configurations this port slice does not
-run yet raise `NotImplementedError` naming the ROADMAP item that ports
-them — at `Pool` construction, never by a silent downgrade."""
+validates it (configs/base.py)."""
 from __future__ import annotations
 
 import dataclasses
@@ -120,12 +118,3 @@ class ProtectConfig:
                 f"ProtectConfig.straggler_threshold="
                 f"{self.straggler_threshold} — a positive ratio, or 0 to "
                 "disable straggler mitigation")
-
-    def unported(self) -> list:
-        """What this configuration asks for that the port does not run
-        yet, each with the ROADMAP item that ports it."""
-        out = []
-        if self.straggler_threshold > 0:
-            out.append(f"straggler_threshold={self.straggler_threshold} "
-                       "(ROADMAP queue A, slice S6: dist/straggler.py)")
-        return out

@@ -19,6 +19,7 @@ never touch that plumbing directly.
                       e <= r simultaneous rank losses, rebuilt online
                       from the GF(2^32) syndrome stack
                       (ProtectConfig(redundancy=r))
+    pool resize       pool.rescale(new_mesh)
     ================  =============================================
 
 Callers hand the pool *global* tensors with their partition specs; the
@@ -44,8 +45,17 @@ or `ticket.result()` resolve them.  A canary checked on the device
 scrub, pre-check and recovery drain the ring first.  Many same-shape pools
 batch their commits through `repro_torch.tenancy.PoolGroup`.
 
-Not in this port slice, and refused with `NotImplementedError` naming the
-ROADMAP slice that ports it: rescale and straggler mitigation.
+`pool.rescale(new_mesh)` moves the pool to another zone geometry (flush,
+bit-exact reshard, protection rebuilt at the new G).  With
+`ProtectConfig(straggler_threshold > 0)` (or a `straggler_policy=`),
+`observe_commit_times` feeds per-rank durations to the straggler policy;
+while a rank is dropped the deferred window stays collapsed at 1.  The
+chaos harness (repro_torch/chaos) corrupts a live pool through `inject`
+or an arrival hook (`set_arrival_hook`); every fault it notes is linked
+in the trace to the recovery or repairing scrub that resolves it.
+
+A state given as `device="meta"` tensors (`utils.abstract`) opens a *cold*
+pool: the layout exists, `pool.init(state)` attaches real state.
 """
 from __future__ import annotations
 
@@ -53,6 +63,7 @@ import dataclasses
 import time
 from typing import Any, Callable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import utils
@@ -64,7 +75,8 @@ from repro_torch.core.pipeline import CommitRing, CommitTicket
 from repro_torch.core.scrub import ScrubReport, Scrubber
 from repro_torch.core.txn import (Mode, ProtectedState, Protector,
                                   device_bool, tree_select)
-from repro_torch.dist import sharding
+from repro_torch.dist import elastic, sharding
+from repro_torch.dist.straggler import StragglerPolicy
 from repro_torch.kernels import ops as kops
 from repro_torch.obs import health as obs_health
 from repro_torch.obs.metrics import MetricsRegistry
@@ -237,7 +249,8 @@ class Pool(EngineHost):
     accepted for the reference's signature and changes nothing: the port
     builds every successor functionally.  `protector` hands in a Protector
     built for this mesh, mode and redundancy, to share with other pools of
-    the same shape (a tenancy cohort).
+    the same shape (a tenancy cohort).  `straggler_policy` replaces the
+    policy that `config.straggler_threshold > 0` builds.
     """
 
     def __init__(self, mesh: sharding.ZoneMesh, abstract_state: PyTree,
@@ -250,22 +263,31 @@ class Pool(EngineHost):
                  replicate_meta: Optional[bool] = None,
                  on_freeze: Optional[Callable] = None,
                  on_resume: Optional[Callable] = None,
+                 straggler_policy: Optional[StragglerPolicy] = None,
                  metrics: Optional[MetricsRegistry] = None,
                  tracer: Optional[Tracer] = None,
                  protector: Optional[Protector] = None):
         self.config = config if config is not None else ProtectConfig()
-        gaps = self.config.unported()
-        if gaps:
-            raise NotImplementedError(
-                "not in this port slice: " + "; ".join(gaps))
         self.device = utils.resolve_device(device)
         self.mesh = mesh
+        # the global shapes and dtypes, all that a rescale rebuilds from
+        self.abstract_state = utils.abstract(abstract_state)
         self.state_specs = state_specs
         self._spec_leaves = utils.tree_leaves(state_specs)
         self.on_freeze = on_freeze
         self.on_resume = on_resume
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.tracer = tracer if tracer is not None else Tracer()
+        # what a rescale opens the new pool with: the metrics and the tracer
+        # carry over (one campaign, one namespace and one trace), and the
+        # footprint arguments stay unresolved, so that a callable is
+        # resolved again against the new mesh's layout
+        self._open_kw = dict(device=self.device,
+                             dirty_leaf_idx=dirty_leaf_idx,
+                             dirty_capacity=dirty_capacity, donate=donate,
+                             replicate_meta=replicate_meta,
+                             straggler_policy=straggler_policy,
+                             metrics=self.metrics, tracer=self.tracer)
         if protector is None:
             protector = protector_for(mesh, abstract_state, state_specs,
                                       self.config)
@@ -333,12 +355,24 @@ class Pool(EngineHost):
         self._budget_exhausted = False
         self._last_reverify_ok: Optional[bool] = None
         self._unrepaired_pages = 0
+        # fault ids noted (note_fault / inject) and not yet consumed by the
+        # recovery or repairing scrub span that resolves them: the trace
+        # linkage that obs.validate_events checks
+        self._open_fault_ids: list = []
+        # straggler mitigation: while any replica is dropped the pool runs
+        # degraded, its deferred window held at 1
+        self.straggler: Optional[StragglerPolicy] = straggler_policy
+        if self.straggler is None and self.config.straggler_threshold > 0:
+            self.straggler = StragglerPolicy(
+                self.protector.group_size,
+                threshold=self.config.straggler_threshold)
+        self._dropped: set = set()
         # faults arriving while a recovery is in flight (from freeze /
-        # resume callbacks) queue here and drain after it
+        # resume callbacks, chaos hooks) queue here and drain after it
         self._recovering = False
         self._pending_faults: list = []
-        # the commit loop's fault-arrival hook (set_arrival_hook, ROADMAP
-        # queue A slice S5); a tenancy cohort batches only pools without one
+        # the commit loop's fault-arrival hook (set_arrival_hook); a tenancy
+        # cohort batches only pools without one
         self._arrival_fn: Optional[Callable] = None
 
     # -- open -------------------------------------------------------------------
@@ -347,10 +381,12 @@ class Pool(EngineHost):
     def open(cls, state: PyTree, specs: PyTree, *, mesh: sharding.ZoneMesh,
              config: Optional[ProtectConfig] = None, **kw) -> "Pool":
         """The `pgl_open` analogue: protect `state` (global tensors or
-        numpy arrays, one spec each) and return the pool."""
+        numpy arrays, one spec each) and return the pool.  A state of
+        `device="meta"` tensors opens a cold pool: call `pool.init(state)`
+        to attach real state."""
         state = utils.tree_map(torch.as_tensor, state)
         pool = cls(mesh, state, specs, config, **kw)
-        return pool.init(state)
+        return pool if utils.is_abstract(state) else pool.init(state)
 
     def init(self, state: PyTree) -> "Pool":
         """Build parity/checksums/row for `state` (fresh protection).  Also
@@ -434,6 +470,7 @@ class Pool(EngineHost):
             "scrub": self.scrubber.coverage(),
             "recoveries": self._n_recoveries,
             "recovery_followups": self._n_followups,
+            "dropped_replicas": self.dropped_replicas,
             "suspect": self._suspect,
             "budget_exhausted": self._budget_exhausted,
             "metrics": self.metrics.snapshot(),
@@ -445,7 +482,7 @@ class Pool(EngineHost):
         return obs_health.assess(
             window=eng.window if eng is not None else 1,
             max_window=eng.max_window if eng is not None else 1,
-            dropped_replicas=(),
+            dropped_replicas=self._dropped,
             suspect=self._suspect,
             redundancy=self.redundancy if self.mode.has_parity else 0,
             budget_exhausted=self._budget_exhausted,
@@ -525,16 +562,25 @@ class Pool(EngineHost):
             self._prot, ok = program(self._prot, zone,
                                      data_cursor=data_cursor,
                                      rng_key=rng_key, canary_ok=canary_ok)
-            return ok
-        # the all-clear commit, then the whole protected state selected on
-        # the canary: a False canary leaves the old state, the redo log
-        # included.  (A host-known abort appends its record unmarked; the
-        # reference's staged abort does not, and the port keeps both.)
-        prot_new, ok_c = program(self._prot, zone, data_cursor=data_cursor,
-                                 rng_key=rng_key, canary_ok=True)
-        v = device_bool(canary_ok, ok_c.device)
-        self._prot = tree_select(v, prot_new, self._prot)
-        return v & ok_c
+        else:
+            # the all-clear commit, then the whole protected state selected
+            # on the canary: a False canary leaves the old state, the redo
+            # log included.  (A host-known abort appends its record
+            # unmarked; the reference's staged abort does not, and the port
+            # keeps both.)
+            prot_new, ok_c = program(self._prot, zone,
+                                     data_cursor=data_cursor,
+                                     rng_key=rng_key, canary_ok=True)
+            v = device_bool(canary_ok, ok_c.device)
+            self._prot = tree_select(v, prot_new, self._prot)
+            ok = v & ok_c
+        if self._arrival_fn is not None:
+            # synchronous cadence: every commit is its own window boundary,
+            # so the arrival point is right after it
+            new = self._arrival_fn(self._prot, 1, True)
+            if new is not None:
+                self._prot = new
+        return ok
 
     # -- async commit ring ------------------------------------------------------
 
@@ -638,15 +684,112 @@ class Pool(EngineHost):
         return Transaction(self, data_cursor=data_cursor, rng_key=rng_key,
                            pages=pages)
 
+    # -- fault arrival (chaos harness) -------------------------------------------
+
+    def set_arrival_hook(self, fn: Optional[Callable]) -> None:
+        """Register `fn(prot, since, at_boundary) -> Optional[ProtectedState]`
+        at the commit loop's fault-arrival point.
+
+        Deferred engine: the hook fires inside `commit`, after the
+        in-window commit and before any boundary flush (the engine's
+        `arrival_hook` point); a returned ProtectedState replaces the
+        window's, modelling corruption landing concurrent with traffic.
+        Synchronous engine: the hook fires right after each commit.  None
+        clears it."""
+        self._arrival_fn = fn
+        if self._engine is not None:
+            if fn is None:
+                self._engine.arrival_hook = None
+            else:
+                def hook(est, since, at_boundary):
+                    new = fn(est.prot, since, at_boundary)
+                    return (None if new is None
+                            else dataclasses.replace(est, prot=new))
+                self._engine.arrival_hook = hook
+
+    def note_fault(self, kind: str, **fields) -> int:
+        """Record a fault's arrival in the telemetry plane; returns its
+        trace id.  The id stays open until the next recovery (or repairing
+        scrub) span consumes it into its `faults` list, the linkage
+        `validate_events` checks.  `inject` notes its faults itself; a
+        harness that corrupts state by other means (an arrival hook) calls
+        this (or `note_event`)."""
+        self.metrics.counter("pool_faults_total", kind=str(kind)).inc()
+        fid = self.tracer.emit("fault", fault_kind=str(kind), **fields)
+        self._open_fault_ids.append(fid)
+        return fid
+
+    def note_event(self, event) -> int:
+        """`note_fault` from a FailureEvent (duck-typed)."""
+        fields = {}
+        if getattr(event, "lost_rank", None) is not None:
+            fields["lost_rank"] = int(event.lost_rank)
+        if getattr(event, "lost_ranks", None):
+            fields["lost_ranks"] = [int(r) for r in event.lost_ranks]
+        if getattr(event, "locations", None):
+            fields["pages"] = [[int(r), int(p)] for r, p in event.locations]
+        return self.note_fault(getattr(event, "kind", "inject"), **fields)
+
     def set_tracer(self, tracer: Tracer) -> None:
         """Swap the trace sink (e.g. for a file-backed tracer after the
-        pool was built)."""
+        pool was built); a pool that `rescale` builds emits into it too."""
         self.tracer = tracer
+        self._open_kw["tracer"] = tracer
 
-    def rescale(self, *args, **kw):
-        raise NotImplementedError(
-            "rescale: elastic resize is a later port slice (ROADMAP "
-            "queue A, slice S6)")
+    def inject(self, fn: Callable):
+        """Apply a failure injector `fn(protector, prot) -> (prot, event)`
+        to the live protected state in place, keeping an open window's
+        bookkeeping (the `prot` setter would open a fresh window and drop
+        the accumulator a later flush needs).  Returns the injector's
+        FailureEvent, noted as a fault in the trace."""
+        if self.prot is None:
+            raise RuntimeError("Pool.inject before init()")
+        new_prot, event = fn(self.protector, self.prot)
+        if self._engine is not None:
+            self._est = dataclasses.replace(self._est, prot=new_prot)
+        else:
+            self._prot = new_prot
+        self.note_event(event)
+        return event
+
+    # -- straggler degradation ----------------------------------------------------
+
+    @property
+    def dropped_replicas(self) -> list:
+        """Data ranks the straggler policy currently drops."""
+        return sorted(self._dropped)
+
+    def observe_commit_times(self, durations) -> np.ndarray:
+        """Feed per-replica commit-loop durations (seconds, one a data
+        rank) to the straggler policy; returns its participation mask.
+
+        While any replica is dropped the deferred window is held at 1
+        (every observation collapses it again, so clean-commit growth
+        cannot outpace a live straggler) and the scrub clean streak
+        resets; once the fleet is healthy the window regrows through the
+        usual clean-scrub and clean-commit signals."""
+        if self.straggler is None:
+            raise RuntimeError(
+                "no straggler policy on this pool: set "
+                "ProtectConfig.straggler_threshold > 0 (or pass "
+                "straggler_policy=) to enable mitigation")
+        for rank, dur in enumerate(durations):
+            self.straggler.observe(rank, float(dur))
+        mask = self.straggler.replica_mask()
+        before = self._dropped
+        self._dropped = set(int(r) for r in np.flatnonzero(~mask))
+        if self._dropped:
+            if self._engine is not None:
+                self._engine.report_pressure(True)
+            self.scrubber.note_suspect()
+        newly, healed = self._dropped - before, before - self._dropped
+        if newly:
+            self.metrics.counter("pool_straggler_drop_total").inc(len(newly))
+            self.tracer.emit("straggler_drop", replicas=sorted(newly))
+        if healed:
+            self.metrics.counter("pool_straggler_heal_total").inc(len(healed))
+        self.metrics.gauge("pool_dropped_replicas").set(len(self._dropped))
+        return mask
 
     # -- scrub ------------------------------------------------------------------
 
@@ -663,6 +806,11 @@ class Pool(EngineHost):
             span.annotate(suspect=bool(report.suspect),
                           bad_pages=len(report.bad_locations),
                           repaired=bool(report.repaired))
+            # a scrub whose repair fixed pages resolves the open fault ids,
+            # linked here as a recovery span links them
+            if report.repaired and self._open_fault_ids:
+                fault_ids, self._open_fault_ids = self._open_fault_ids, []
+                span.annotate(faults=fault_ids)
         self._fold_scrub_health(report)
         repaired_ok = report.repaired and bool(report.repair_ok)
         if report.bad_locations and not repaired_ok:
@@ -752,7 +900,12 @@ class Pool(EngineHost):
                      queue_wait_ms: Optional[float] = None
                      ) -> recovery_mod.RecoveryReport:
         t_total = time.perf_counter()
-        with self.tracer.span("recovery", fault_kind=fault.kind) as span:
+        # this recovery resolves every fault id noted since the last
+        # resolving span (a drained follow-up takes the ids noted while the
+        # outer recovery ran)
+        fault_ids, self._open_fault_ids = self._open_fault_ids, []
+        with self.tracer.span("recovery", fault_kind=fault.kind,
+                              faults=fault_ids) as span:
             if fault.kind == "multi_loss":
                 # refuse an over-budget solve up front, before anything is
                 # touched
@@ -842,6 +995,33 @@ class Pool(EngineHost):
             ok = ok and bool(out["row_cache_ok"])
         rep.reverified = ok
         rep.verified = bool(rep.verified) and ok
+
+    # -- rescale ------------------------------------------------------------------
+
+    def rescale(self, new_mesh: sharding.ZoneMesh, *,
+                into: Optional["Pool"] = None) -> "Pool":
+        """Move the pool to `new_mesh` (elastic resize); returns the new
+        pool.  The open window lands first (flush-before-rescale); then the
+        state reshards bit-exactly and protection is rebuilt for the new
+        zone geometry (G changes the row padding, the page owners and every
+        syndrome's coefficients g^(k·i), so no plane moves with the state).
+        `into` is a cold pool already built for `new_mesh`; by default one
+        is opened with this pool's config and open arguments, on its
+        device, publishing into its metrics and tracer."""
+        if self.prot is None:
+            raise RuntimeError("Pool.rescale before init()")
+        self.flush()
+        with self.tracer.span("rescale") as span:
+            if into is None:
+                into = Pool(new_mesh, self.abstract_state, self.state_specs,
+                            self.config, **self._open_kw)
+            _, into.prot = elastic.rescale(
+                self.protector, self.prot, lambda _m: into.protector,
+                new_mesh)
+            span.annotate(groups=(self.protector.group_size,
+                                  into.protector.group_size))
+        self.metrics.counter("pool_rescales_total").inc()
+        return into
 
     # -- freeze/resume hooks ----------------------------------------------------
 

@@ -431,8 +431,8 @@ class Cohort:
 
 class PoolGroup:
     """The multi-tenant front door: admit / commit / scrub_tick / recover /
-    evict over a fleet of cohort-sharing pools on one device (`device`,
-    the card unless the caller asks for the CPU)."""
+    evict / rescale over a fleet of cohort-sharing pools on one device
+    (`device`, the card unless the caller asks for the CPU)."""
 
     def __init__(self, mesh, *, capacity: int = 0,
                  evict_on_full: bool = True, scrub_page_budget: int = 0,
@@ -494,11 +494,13 @@ class PoolGroup:
               qos: Optional[QoSClass] = None,
               weight: Optional[int] = None, **pool_kw) -> TenantHandle:
         """Admit a tenant (the multi-tenant `pgl_open`) and protect its
-        global `state`.  The config comes from `config`, else the QoS
-        class, else the defaults; the QoS weight feeds the scrub
-        scheduler.  At capacity the least recently committed tenant is
-        evicted (flush-before-evict) when `evict_on_full`, else admission
-        raises."""
+        global `state`.  A state of `device="meta"` tensors
+        (`utils.abstract`) admits a cold tenant: its pool is built and not
+        initialised (call `handle.pool.init(state)` later).  The config
+        comes from `config`, else the QoS class, else the defaults; the QoS
+        weight feeds the scrub scheduler.  At capacity the least recently
+        committed tenant is evicted (flush-before-evict) when
+        `evict_on_full`, else admission raises."""
         if tid in self._tenants:
             raise ValueError(f"tenant {tid!r} already admitted")
         if self.capacity and len(self._tenants) >= self.capacity:
@@ -528,7 +530,8 @@ class PoolGroup:
                     metrics=self.metrics.labeled(tenant=str(tid)),
                     tracer=self.tracer, protector=cohort.protector,
                     **pool_kw)
-        pool.init(state)
+        if not utils.is_abstract(state):
+            pool.init(state)
         cohort.members[tid] = pool
         w = int(weight if weight is not None
                 else (qos.weight if qos is not None else 1))
@@ -684,9 +687,26 @@ class PoolGroup:
         self.scheduler.set_quarantined(tid, False)
 
     def rescale(self, new_mesh) -> "PoolGroup":
-        raise NotImplementedError(
-            "PoolGroup.rescale: elastic resize is a later port slice "
-            "(ROADMAP queue A, slice S6)")
+        """Move every tenant to `new_mesh`; returns the new group.  Tenants
+        are admitted cold into fresh cohorts built for the new zone
+        geometry, and each pool moves through `Pool.rescale` (flush,
+        bit-exact reshard, protection rebuilt).  The metrics and the trace
+        are shared, so tenant labels survive the move."""
+        self.drain()                   # waves never survive a rescale
+        new = PoolGroup(
+            new_mesh, capacity=self.capacity,
+            evict_on_full=self.evict_on_full,
+            scrub_page_budget=self.scheduler.page_budget,
+            full_scrub_every=self.scheduler.full_every,
+            pipeline_depth=self.pipeline_depth, device=self.device,
+            metrics=self.metrics, tracer=self.tracer)
+        for tid, handle in self._tenants.items():
+            cold = new.admit(tid, handle.pool.abstract_state,
+                             handle.pool.state_specs,
+                             config=handle.pool.config, qos=handle.qos,
+                             weight=handle.weight)
+            handle.pool.rescale(new_mesh, into=cold.pool)
+        return new
 
     # -- telemetry ----------------------------------------------------------
 

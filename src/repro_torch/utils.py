@@ -250,3 +250,20 @@ def tree_map(fn, tree: PyTree, *rest: PyTree) -> PyTree:
     leaves, treedef = tree_flatten(tree)
     others = [tree_flatten(t)[0] for t in rest]
     return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])
+
+
+def abstract(tree: PyTree) -> PyTree:
+    """The shapes and dtypes of a pytree of tensors (or arrays), as
+    `device="meta"` tensors: what a layout is built from, holding no
+    bytes (the reference's `ShapeDtypeStruct` pytree)."""
+    def meta(x):
+        x = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+        return torch.empty(tuple(x.shape), dtype=x.dtype, device="meta")
+    return tree_map(meta, tree)
+
+
+def is_abstract(tree: PyTree) -> bool:
+    """True for a pytree of `device="meta"` tensors only (a cold state)."""
+    leaves = tree_leaves(tree)
+    return bool(leaves) and all(
+        isinstance(x, torch.Tensor) and x.is_meta for x in leaves)

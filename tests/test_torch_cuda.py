@@ -284,3 +284,51 @@ def test_cuda_commit_edges(card, lead, n, bw):
             assert torch.equal(a, b), name
     assert _build.LAUNCHES == {**{name: 1 for name in chip_smoke.COMMIT},
                                "fused_accum_commit": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [1, 4])
+def test_cuda_rescale_matches_the_cpu(card, window):
+    """(4, 2) -> (8, 1) -> (4, 2) at r = 3 with a commit pending in the
+    window: every protected field on the card equals the same pool's on
+    the CPU, and the rescale launches the init's kernels (plus the
+    flush's)."""
+    from repro_torch import Pool, ProtectConfig, ZoneMesh
+    mesh, state, specs = _small_pool_state(card)
+    cfg = ProtectConfig(mode="mlpc", redundancy=3, window=window,
+                        block_words=64)
+    cpu = {k: v.cpu() for k, v in state.items()}
+    gpu_pool = Pool.open(state, specs, mesh=mesh, config=cfg, device=card)
+    cpu_pool = Pool.open(cpu, specs, mesh=mesh, config=cfg, device="cpu")
+    for k, shape in enumerate(((8, 1), (4, 2)), 1):
+        target = ZoneMesh(shape, ("data", "model"))
+        gpu_pool.commit(_bumped(state, k))
+        cpu_pool.commit(_bumped(cpu, k))
+        _build.reset_launches()
+        gpu_pool = gpu_pool.rescale(target)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES == {"fletcher_blocks": 1,
+                                   "sdelta_stack": 2 if window > 1 else 1}
+        cpu_pool = cpu_pool.rescale(target)
+        a, b = gpu_pool.prot, cpu_pool.prot
+        for f in ("synd", "cksums", "digest", "row", "step"):
+            assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+        for leaf in a.state:
+            assert torch.equal(a.state[leaf].cpu(), b.state[leaf]), leaf
+        assert gpu_pool.protector.group_size == shape[0]
+
+
+@pytest.mark.cuda
+def test_cuda_traffic_step_matches_the_cpu(card):
+    """The chaos workload's initial state and ten traffic steps (the exact
+    fused multiply-add) on the card equal the CPU's, bit for bit."""
+    from repro_torch.chaos import workload
+    n = (1 << 22) + 5
+    w, c = workload.initial_state(n, 7, card), workload.initial_state(n, 7,
+                                                                      "cpu")
+    assert torch.equal(w.cpu(), c)
+    for t in range(10):
+        b = np.float32(t % workload.PERIOD) * workload.STEP_BIAS
+        w = workload.fma(w, workload.GAIN, b)
+        c = workload.fma(c, workload.GAIN, b)
+        assert torch.equal(w.cpu(), c), t

@@ -1,8 +1,8 @@
 """Guards on the port's boundary: the package and chip_smoke.py import
-neither JAX nor the reference; configurations the port does not run yet
-(straggler mitigation) are refused, never downgraded; a multi-rank loss
-beyond the redundancy is refused; and the pool's default device is the
-card."""
+neither JAX nor the reference; every configuration the reference accepts
+opens a pool (none is refused or downgraded), and rescale runs; a
+multi-rank loss beyond the redundancy is refused; and the pool's default
+device is the card."""
 import ast
 import pathlib
 
@@ -46,11 +46,12 @@ def _tiny():
     dict(pipeline_depth=2), dict(overlap_commit=True),
     dict(straggler_threshold=1.5)])
 def test_unported_configurations_raise(cfg):
-    """Each configuration the port does not run yet raises, naming its
-    slice; redundancy 2 (directly or as the mlpc2 alias) is ported and
-    opens a pool with a two-plane stack, window 4 opens a pool on the
-    deferred engine, and pipeline_depth 2 / overlap_commit open a pool
-    with the async commit ring."""
+    """Each configuration that once raised (naming the slice that ports
+    it) now opens a pool: redundancy 2 (directly or as the mlpc2 alias)
+    with a two-plane stack, window 4 on the deferred engine,
+    pipeline_depth 2 / overlap_commit with the async commit ring, and
+    straggler_threshold 1.5 with a straggler policy over the zone's
+    ranks."""
     mesh, state, specs = _tiny()
     config = ProtectConfig(**cfg)
     if config.pipeline_depth > 1 or config.overlap_commit:
@@ -70,24 +71,32 @@ def test_unported_configurations_raise(cfg):
                          device="cpu")
         assert pool.redundancy == 2 and pool.prot.synd.shape[-2] == 2
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        Pool.open(state, specs, mesh=mesh, config=config, device="cpu")
+    pool = Pool.open(state, specs, mesh=mesh, config=config, device="cpu")
+    assert pool.straggler.threshold == 1.5
+    assert pool.straggler.n_replicas == 4
+    assert pool.observe_commit_times([0.01] * 4).all()
 
 
 def test_unported_entry_points_raise():
-    """Pool.rescale and PoolGroup.rescale raise naming their slice (S6);
-    commit_async runs; a Protector at r = 2 builds; two losses on an r = 1
-    pool are the budget refusal, latched in the health surface and the
-    metrics until `init` re-arms the pool."""
+    """Pool.rescale and PoolGroup.rescale, which raised until their slice
+    (S6) was ported, return rescaled pools; commit_async runs; a Protector
+    at r = 2 builds; two losses on an r = 1 pool are the budget refusal,
+    latched in the health surface and the metrics until `init` re-arms
+    the pool."""
     from repro_torch import Fault
     from repro_torch.tenancy import PoolGroup
     mesh, state, specs = _tiny()
     pool = Pool.open(state, specs, mesh=mesh, device="cpu")
     assert pool.commit_async(state).result() is True
-    with pytest.raises(NotImplementedError, match="S6"):
-        pool.rescale(mesh)
-    with pytest.raises(NotImplementedError, match="S6"):
-        PoolGroup(mesh, device="cpu").rescale(mesh)
+    wide = ZoneMesh((8, 1), ("data", "model"))
+    rescaled = pool.rescale(wide)
+    assert rescaled.protector.group_size == 8 and rescaled.step == 1
+    assert torch.equal(rescaled.state["w"], state["w"])
+    group = PoolGroup(mesh, device="cpu")
+    group.admit("t0", state, specs)
+    moved = group.rescale(wide)
+    assert moved["t0"].pool.protector.group_size == 8
+    assert torch.equal(moved["t0"].pool.state["w"], state["w"])
     assert Protector(mesh, state, specs, mode="mlp",
                      redundancy=2).redundancy == 2
     with pytest.raises(RuntimeError, match="syndrome budget exhausted"):
