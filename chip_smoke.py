@@ -109,14 +109,44 @@
         with no trace violation; each prints its commit p50 / p99 clean
         and during a disturbance, its recovery and rescale ms, the window
         trace, its peak memory and its launches.
-8. After each phase the invariants are recomputed apart from the engine:
+8. The serving plane (sv): qwen3-0.6b at its published width (28 layers,
+   d_model 1024, GQA 16 / 8 heads of 128, vocab 151,936; 596,049,920
+   parameters, random from SEED, bf16 compute) served by
+   `repro_torch.runtime.Server` at batch 16 and max_len 2048 on the (4, 2)
+   zone mesh, block_words 256, its KV cache (3,758,325,760 B) in a Pool:
+   a — start: the pool opens over the empty cache;
+   b — prefill a 32-token prompt and generate 32 tokens at mlpc r = 1,
+        window 1, depth 1 (scrub every 16 commits), each decode step a
+        252-page patch commit; the ms a step split into the decode, the
+        zone copies (`pool.state`, `Pool.to_zone`), the commit and the
+        scrub ticks, and tokens/s;
+   c — the same unprotected (`protect_cache=False`): the same tokens;
+   d — after prefill, a word of each cache leaf scribbled in rank 0's
+        shard, scrubbed and repaired: the rows equal b's at that point;
+   e — rank 1 lost 16 tokens later and recovered (rows equal b's), then
+        on to the end: b's tokens;
+   f — redundancy 3, window 4, pipeline_depth 4 (the deferred patch
+        engine on dirty_words, the commit ring) through the loss of ranks
+        0, 1 and 3: b's tokens;
+   g — after b and after f (flushed), row, syndromes, checksums and
+        digest equal a pool freshly opened over the final cache;
+   h — (after c) the decode checked apart from the port: b's prompt and
+        tokens teacher-forced through `Model.decode_step` over an empty
+        2048-slot cache, its logits finite, its argmax b's tokens, within
+        2^-4 of the largest |logit| of an f32 forward of the whole
+        sequence on the same weights (no cache; causal attention by
+        `scaled_dot_product_attention`, its own GQA grouping and rope).
+   Each kernel the path launched is then held against its plain version
+   on the card at the very inputs its first launch on the path had
+   (recorded by `CallProbe` in d-f).
+9. After each phase the invariants are recomputed apart from the engine:
    every syndrome plane k = XOR over ranks i of g^(k·i)·row_i, built rank by
    rank with the plain GF multiply; cksums = Fletcher terms of the rows;
    digest = combine(cksums); row = flatten(state).  Inside a window: the
    checksums and digest are the live rows'; the stack is the epoch start's;
    the bulk engine's accumulator is row_start ^ row_now, and the patch
    engine's row is pinned at the epoch start.
-9. Each path's kernel launches (every count zeroed just before the path,
+10. Each path's kernel launches (every count zeroed just before the path,
    read just after); every entry point of the path must have run.  Peak
    device memory of each path; the host ms of each async dispatch.
 
@@ -900,10 +930,13 @@ def invariants(pool, tag):
                                 -1).movedim(-2, dd)
             check(torch.equal(prot.synd[..., k, :], segs),
                   f"{tag}: syndrome plane {k} != weighted fold of rows")
-    terms = fletcher_pages_plain(rows.reshape(*rows.shape[:-1], -1, BW))
+    bw = lo.block_words
+    # rank by rank: the plain sweep's int64 temporaries are 4x its input
+    terms = torch.stack([fletcher_pages_plain(r) for r in rows.reshape(
+        *rows.shape[:-1], -1, bw).unbind(0)])
     if mode.has_cksums:
         check(torch.equal(prot.cksums, terms), f"{tag}: cksums != terms")
-    check(torch.equal(prot.digest, checksum.combine(terms, BW)),
+    check(torch.equal(prot.digest, checksum.combine(terms, bw)),
           f"{tag}: digest != combine(terms)")
 
 
@@ -951,12 +984,13 @@ def patch_pages(lo):
 
 class PathRun:
     """One main path's run: its launch counts from zero, its phase lines
-    (host ms around the phase, synchronized, then the invariants), and
-    its peak device memory."""
+    (host ms around the phase, synchronized, then the invariants, and the
+    phase's peak device memory), and the path's peak."""
 
     def __init__(self, dev, tag):
         from repro_torch.kernels import _build
         self.build, self.dev, self.tag = _build, dev, tag
+        self.peak = 0
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -968,15 +1002,19 @@ class PathRun:
         (fn's result, the phase's launches)."""
         before = dict(self.build.LAUNCHES)
         torch.cuda.synchronize()
+        self.peak = max(self.peak, torch.cuda.max_memory_allocated(self.dev))
+        torch.cuda.reset_peak_memory_stats(self.dev)
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(self.dev)
         launched = {k: v - before.get(k, 0)
                     for k, v in self.build.LAUNCHES.items()
                     if v - before.get(k, 0)}
         (inv or invariants)(out if pool is None else pool, tag)
-        emit(path=self.tag, phase=tag, ms=ms, launches=launched)
+        emit(path=self.tag, phase=tag, ms=ms, launches=launched,
+             max_memory_allocated=peak)
         return out, launched
 
     def aside(self, fn):
@@ -999,15 +1037,13 @@ class PathRun:
              launches="not counted (a comparison)")
         return out
 
-    def end(self, must_launch, peak=None):
-        """Check the path's launches; print them and its peak memory (or
-        `peak`, for a path that reset the peak between its phases)."""
+    def end(self, must_launch):
+        """Check the path's launches; print them and its peak memory."""
         counts = dict(self.build.LAUNCHES)
         missing = [k for k in must_launch if not counts.get(k)]
         check(not missing, f"{self.tag}: entry points never launched on "
               f"the path: {missing}")
-        if peak is None:
-            peak = torch.cuda.max_memory_allocated(self.dev)
+        peak = max(self.peak, torch.cuda.max_memory_allocated(self.dev))
         emit(path=self.tag, phase="memory", max_memory_allocated=peak,
              launches=counts)
         return counts
@@ -2015,13 +2051,11 @@ def chaos_path(dev):
     jobs += [(f"storm_r{r}_w{w}", functools.partial(
         scenarios.run_storm_cell, r, w, n_bytes=CH_BYTES, **size))
         for r, w in scenarios.STORM_CELLS[:2]]
-    results, peaks = [], []
+    results = []
     for name, job in jobs:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        out, launched = run.phase(f"C_{name}", job, inv=nothing)
-        peaks.append(torch.cuda.max_memory_allocated(dev))
+        out, _ = run.phase(f"C_{name}", job, inv=nothing)
         results.append(out)
         emit(path="ch", phase=f"C_{name}_result",
              golden_exact=out["golden_exact"],
@@ -2033,11 +2067,463 @@ def chaos_path(dev):
              recoveries=[{k: r[k] for k in ("kind", "ms", "verified")
                           if k in r} for r in out["recoveries"]],
              window_trace=out.get("window_trace"),
-             health=out["health"]["status"],
-             max_memory_allocated=peaks[-1], launches=launched)
+             health=out["health"]["status"])
         del out
     scenarios.check_results(results)
-    return run.end(PATH_CH, peak=max(peaks))
+    return run.end(PATH_CH)
+
+
+
+# -- 8. the serving plane -----------------------------------------------------
+
+SV_ARCH = "qwen3-0.6b"           # served at its published width
+SV_REDUCED = False               # True: the config's reduced() (a CPU rehearsal)
+SV_MESH = (4, 2)                 # the reference launcher's default mesh
+SV_BATCH, SV_MAX_LEN = 16, 2048  # max_len equals no other cache dim
+SV_PROMPT, SV_NEW = 32, 32
+SV_BW = 256                      # block_words, as launch/serve.py sets it
+SV_SCRUB = 16                    # scrub_period, the launcher's default
+SV_LOST = 1                      # the rank sv e loses
+SV_MULTI_LOST = (0, 1, 3)        # the ranks sv f loses at once
+SV_EVENT = 16                    # generated tokens before sv e / f's loss
+# sv h: the bf16 decode's logits against an f32 forward of the same
+# weights, as a share of the largest |logit|
+SV_LOGIT_RTOL = 2 ** -4
+PATH_SV = ("fletcher_blocks", "fused_commit", "fused_commit_s",
+           "sdelta_stack", "gf_scale")
+# the ops functions whose kernels a path may launch (sdelta_stack's is
+# syndrome_scale)
+PROBED = tuple(n for n in (
+    "fletcher_blocks", "fletcher_stream", "fused_commit",
+    "fused_verify_commit", "fused_commit_old_terms",
+    "fused_verify_commit_stream", "fused_commit_stream",
+    "fused_commit_old_terms_stream", "fused_accum_commit",
+    "fused_accum_commit_stream", "xor_delta", "xor_accum", "gf_scale",
+    "syndrome_scale", "fused_commit_s", "fused_verify_commit_s",
+    "fused_commit_old_terms_s", "fused_commit_s_stream",
+    "fused_verify_commit_s_stream"))
+
+
+class CallProbe:
+    """While entered, keeps a copy of the inputs of the first call that
+    launched each kernel (the innermost ops function that launched it), so
+    that afterwards each kernel can be held against its plain version on
+    the card at the very inputs the path gave it."""
+
+    def __init__(self):
+        from repro_torch.kernels import _build, ops
+        self.build, self.ops = _build, ops
+        self.calls: dict = {}
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.ops, n) for n in PROBED}
+        for n, fn in self.saved.items():
+            setattr(self.ops, n, self._wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.ops, n, fn)
+        return False
+
+    def _wrap(self, name, fn):
+        def probed(*args, **kw):
+            before = dict(self.build.LAUNCHES)
+            out = fn(*args, **kw)
+            new = [k for k, v in self.build.LAUNCHES.items()
+                   if v > before.get(k, 0) and k not in self.calls]
+            if new:
+                keep = tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                             for a in args)
+                for k in new:
+                    self.calls[k] = (name, keep, kw)
+            return out
+        return probed
+
+    def check(self, run, launched):
+        """Each kernel the path launched, on its recorded inputs, against
+        the same ops function with the plain version forced; byte-equal."""
+        ops = self.ops
+        missing = [k for k in launched if k not in self.calls]
+        check(not missing, f"{run.tag}: no recorded call for {missing}")
+        for kernel in sorted(self.calls):
+            # each recorded input let go once checked; the peak of each
+            # check (the plain version's temporaries) reported with it
+            name, args, kw = self.calls.pop(kernel)
+            run.peak = max(run.peak, torch.cuda.max_memory_allocated(run.dev))
+            torch.cuda.reset_peak_memory_stats(run.dev)
+            got = run.aside(lambda: getattr(ops, name)(*args, **kw))
+            on_card = ops._on_card
+            ops._on_card = lambda x: False
+            try:
+                want = getattr(ops, name)(*args, **kw)
+            finally:
+                ops._on_card = on_card
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            check(len(got) == len(want) and all(
+                torch.equal(a, b) for a, b in zip(got, want)),
+                f"{run.tag}: {kernel} via {name} != its plain version")
+            emit(path=run.tag, phase="k_kernel_vs_plain", kernel=kernel,
+                 via=name, shapes=[list(a.shape) for a in args
+                                   if isinstance(a, torch.Tensor)],
+                 max_abs_err=0, equal=True,
+                 max_memory_allocated=torch.cuda.max_memory_allocated(
+                     run.dev))
+            del args, got, want
+
+
+class StepClock:
+    """Host ms of a server's decode steps by piece, each piece ending in a
+    synchronize: the decode step; the zone copies (`pool.state`, which
+    unshards the cache for decode, and `Pool.to_zone`, which shards the new
+    cache inside the commit); the commit less its to_zone; the scrub
+    cadence (`maybe_scrub`)."""
+
+    PIECES = ("decode", "zone_copies", "commit", "scrub")
+
+    def __init__(self, srv):
+        self.ms = dict.fromkeys(self.PIECES, 0.0)
+        self._open: list = []
+        self._wrap(srv, "_decode", "decode")
+        self._wrap(srv, "_current_cache", "zone_copies")
+        if srv.pool is not None:
+            self._wrap(srv.pool, "to_zone", "zone_copies")
+            self._wrap(srv.pool, "commit", "commit")
+            self._wrap(srv.pool, "maybe_scrub", "scrub")
+
+    def _wrap(self, obj, attr, piece):
+        fn = getattr(obj, attr)
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            self._open.append(0.0)
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            inner = self._open.pop()
+            self.ms[piece] += ms - inner
+            if self._open:
+                self._open[-1] += ms
+            return out
+        setattr(obj, attr, timed)
+
+
+def sv_model(dev):
+    """The served model: config, mesh, random weights from SEED, the
+    prompt from SEED + 1."""
+    from repro_torch import ZoneMesh
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import build_model
+    cfg = get_config(SV_ARCH, reduced=SV_REDUCED)
+    mesh = ZoneMesh(SV_MESH, ("data", "model"))
+    params = build_model(cfg, mesh).init(
+        torch.Generator(dev).manual_seed(SEED), dev)
+    prompt = torch.randint(0, cfg.vocab, (SV_BATCH, SV_PROMPT),
+                           generator=torch.Generator(dev).manual_seed(
+                               SEED + 1), device=dev)
+    return cfg, mesh, params, prompt
+
+
+def sv_server(dev, cfg, mesh, params, protect=True, **pcfg):
+    from repro_torch import ProtectConfig
+    from repro_torch.runtime.server import Server
+    srv = Server(cfg, ProtectConfig(mode="mlpc", block_words=SV_BW,
+                                    scrub_period=SV_SCRUB, **pcfg),
+                 mesh, batch=SV_BATCH, max_len=SV_MAX_LEN,
+                 protect_cache=protect, device=dev)
+    srv.start(params)
+    return srv
+
+
+def sv_steps(srv, prompt, tok, upto, events=None):
+    """`Server.generate` spelt out: decode from `srv.pos` up to position
+    `upto` (prompt tokens while the position is in the prompt, then the
+    last prediction), running `events[pos]()` after the step that reaches
+    `pos`.  Returns (the last token, the tokens generated)."""
+    out = []
+    while srv.pos < upto:
+        t = srv.pos
+        tok = srv.step(prompt[:, t] if t < SV_PROMPT else tok)
+        if t >= SV_PROMPT - 1:
+            out.append(tok)
+        if events and srv.pos in events:
+            events[srv.pos]()
+    return tok, out
+
+
+def sv_tokens(srv, out):
+    """Drain the ring (generate's boundary) and stack the tokens."""
+    if srv.pool is not None:
+        srv.pool.drain()
+    return torch.stack(out, dim=1).cpu().numpy()
+
+
+def sv_clocked(run, tag, srv, prompt, hook=None):
+    """Generate under a StepClock: the tokens, and the phase line's split
+    of ms a decode step (each step decodes SV_BATCH tokens)."""
+    clock = StepClock(srv)
+    if hook is not None:
+        srv.add_step_hook(hook)
+    steps = SV_PROMPT + SV_NEW - 1
+    torch.cuda.synchronize()
+    allocs = alloc_counts()
+    t0 = time.perf_counter()
+    toks = srv.generate(prompt, SV_NEW)
+    wall = (time.perf_counter() - t0) * 1e3
+    allocs = {k: v - allocs[k] for k, v in alloc_counts().items()}
+    split = {f"{k}_ms_per_step": v / steps for k, v in clock.ms.items()}
+    split["other_ms_per_step"] = wall / steps - sum(split.values())
+    emit(path=run.tag, phase=f"{tag}_split", steps=steps, batch=SV_BATCH,
+         wall_ms=wall, ms_per_step=wall / steps,
+         tokens_per_s=SV_BATCH * steps / wall * 1e3,
+         generated_tokens_per_s=SV_BATCH * SV_NEW / wall * 1e3,
+         alloc=allocs, **split)
+    return toks
+
+
+def sv_same_as_fresh(run, srv, tag):
+    """The pool, flushed, holds the bytes of a pool freshly opened over its
+    final cache (uncounted: a comparison)."""
+    from repro_torch import Pool
+    srv.flush()
+    pool = srv.pool
+    fresh = run.aside(lambda: Pool.open(
+        pool.state, pool.state_specs, mesh=pool.mesh, config=pool.config,
+        device=pool.device))
+    for k in ("row", "synd", "cksums", "digest"):
+        check(torch.equal(getattr(pool.prot, k), getattr(fresh.prot, k)),
+              f"{tag}: {k} != a fresh pool's")
+    emit(path=run.tag, phase=tag, equal_to_fresh_open=True,
+         fields=["row", "synd", "cksums", "digest"], step=pool.step)
+
+
+def sv_invariants(srv, tag):
+    invariants(srv.pool, tag)
+
+
+def sv_plain_logits(cfg, params, seq):
+    """An f32 forward of the whole token sequence, apart from the decode
+    path: no cache and no slots, causal attention over the sequence by
+    `scaled_dot_product_attention` with query head h on KV head
+    h // (H / K), rope from the positions 0..S-1.  `params`: the weights
+    as the server holds them, widened to f32.  (B, S) -> (B, S, V)."""
+    F = torch.nn.functional
+    check(cfg.act == "silu" and cfg.tie_embeddings and cfg.pattern == (
+        "dense",), f"plain forward: not written for {cfg.name}")
+    H, K, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    S, half = seq.shape[1], cfg.hd // 2
+
+    def norm(x, scale):
+        return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + 1e-6) * scale
+
+    ang = torch.arange(S, device=seq.device, dtype=torch.float32)[:, None] \
+        * cfg.rope_theta ** (-torch.arange(half, device=seq.device,
+                                           dtype=torch.float32) / half)
+    cos, sin = torch.cos(ang)[:, None], torch.sin(ang)[:, None]
+
+    def rot(x):                                    # (B, S, n, hd)
+        a, b = x[..., :half], x[..., half:]
+        return torch.cat([a * cos - b * sin, b * cos + a * sin], -1)
+
+    tok = params["embed"]["tok"]
+    x = tok[seq.long()]
+    for i in range(cfg.n_layers):
+        p = {k: {n: w[i] for n, w in v.items()}
+             for k, v in params["groups"]["b0_dense"].items()}
+        a, f = p["attn"], p["ffn"]
+        h = norm(x, p["ln1"]["scale"])
+        q = torch.einsum("bsd,dnh->bsnh", h, a["wq"])
+        k = torch.einsum("bsd,dnh->bsnh", h, a["wk"])
+        v = torch.einsum("bsd,dnh->bsnh", h, a["wv"])
+        if "bq" in a:
+            q, k, v = q + a["bq"], k + a["bk"], v + a["bv"]
+        if "qnorm" in a:
+            q, k = norm(q, a["qnorm"]), norm(k, a["knorm"])
+        q, k = rot(q), rot(k)
+        o = F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2).repeat_interleave(H // K, 1),
+            v.transpose(1, 2).repeat_interleave(H // K, 1), is_causal=True)
+        x = x + torch.einsum("bnsh,nhd->bsd", o, a["wo"])
+        h = norm(x, p["ln2"]["scale"])
+        x = x + (F.silu(h @ f["wg"]) * (h @ f["wi"])) @ f["wo"]
+    return norm(x, params["final_norm"]["scale"]) @ tok.T
+
+
+def sv_decode_logits(model, params, seq, max_len):
+    """The port's decode, teacher-forced on `seq` from an empty cache of
+    `max_len` slots: the logits of every step, (B, S, V) f32."""
+    cache = model.init_cache(seq.shape[0], max_len, seq.device)
+    out = []
+    for t in range(seq.shape[1]):
+        logits, cache = model.decode_step(params, seq[:, t], cache, t)
+        out.append(logits)
+    return torch.stack(out, 1)
+
+
+def sv_reference(cfg, params, prompt, toks, max_len):
+    """The served decode at full width against `sv_plain_logits` on the
+    same weights: b's prompt and tokens teacher-forced.  The decode's
+    argmax must give b's tokens, and its logits must be finite and
+    within SV_LOGIT_RTOL of the f32 forward, scaled by the largest
+    |logit|.  Returns the phase line's fields."""
+    from repro_torch import utils
+    from repro_torch.models.transformer import build_model
+    model = build_model(cfg)
+    cparams = model.compute_params(params)
+    n_new = toks.shape[1]
+    gen = torch.as_tensor(toks, device=prompt.device)
+    seq = torch.cat([prompt, gen[:, :n_new - 1].to(prompt.dtype)], 1)
+    got = sv_decode_logits(model, cparams, seq, max_len)
+    want = sv_plain_logits(
+        cfg, utils.tree_map(lambda w: w.float(), cparams), seq)
+    check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+          "h: non-finite logits")
+    lead = seq.shape[1] - n_new + 1                # the prompt's last step
+    check(torch.equal(got[:, lead - 1:].argmax(-1).cpu(),
+                      torch.as_tensor(toks).long()),
+          "h: the decode's argmax != b's tokens")
+    check(len(set(toks.ravel().tolist())) > 1, "h: every token the same")
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    check(err <= SV_LOGIT_RTOL * scale,
+          f"h: logits off the f32 forward by {err} (bound "
+          f"{SV_LOGIT_RTOL} x {scale})")
+    return dict(positions=seq.shape[1], max_abs_err=err,
+                max_abs_logit=scale, rel_err=err / scale,
+                bound=SV_LOGIT_RTOL,
+                argmax_agree=(got.argmax(-1) == want.argmax(-1)
+                              ).float().mean().item(),
+                distinct_tokens=len(set(toks.ravel().tolist())))
+
+
+def serving_path(dev):
+    """The serving plane at the model's published width (phases sv a-g)."""
+    import numpy as np
+    from repro_torch import Fault, utils
+    from repro_torch.core import layout
+    from repro_torch.runtime import failure
+    run = PathRun(dev, "sv")
+    probe = CallProbe()
+    cfg, mesh, params, prompt = sv_model(dev)
+    end = SV_PROMPT + SV_NEW - 1            # decode steps a generation takes
+    event_pos = SV_PROMPT + SV_EVENT        # where sv e and f lose ranks
+
+    # a: the server opens its pool over the empty cache
+    srv, _ = run.phase("a_start", lambda: sv_server(dev, cfg, mesh, params),
+                       inv=sv_invariants)
+    lo = srv.protector.layout
+    runs = [layout._slot_time_runs(sl, SV_MAX_LEN) for sl in lo.slots]
+    check(all(len(r) == 1 for r in runs),
+          f"max_len {SV_MAX_LEN} names {[len(r) for r in runs]} cache axes")
+    emit(path="sv", phase="a_layout", arch=cfg.name, mesh=list(SV_MESH),
+         batch=SV_BATCH, max_len=SV_MAX_LEN,
+         params=sum(x.numel() for x in utils.tree_leaves(params)),
+         cache_bytes=sum(x.numel() * x.element_size()
+                         for x in utils.tree_leaves(srv.pool.state)),
+         leaves=[list(sl.shape) for sl in lo.slots],
+         row_words=lo.row_words, n_blocks=lo.n_blocks,
+         dirty_pages_per_step=len(srv._dirty_pages(0)),
+         dirty_words_per_step=sum(len(w) for w in srv._dirty_words(0)),
+         page_capacity=layout.time_slice_page_capacity(lo, SV_MAX_LEN))
+
+    # b: prefill + generate at r = 1, window 1, depth 1, clocked; the rows
+    # at the positions sv d and e damage are kept for their checks
+    rows = {}
+
+    def keep(s, out):
+        if out["pos"] + 1 in (SV_PROMPT, event_pos):
+            rows[out["pos"] + 1] = s.prot.row.clone()
+    toks, l_b = run.phase("b_generate_r1", lambda: sv_clocked(
+        run, "b", srv, prompt, keep), srv, inv=sv_invariants)
+    check(l_b.get("fused_commit") == end, f"b launches {l_b}")
+    check(toks.shape == (SV_BATCH, SV_NEW) and toks.min() >= 0
+          and toks.max() < cfg.vocab, f"tokens {toks.shape}")
+    # g after b: every patch commit was exact
+    sv_same_as_fresh(run, srv, "g_fresh_after_b")
+    del srv
+    torch.cuda.empty_cache()
+
+    # c: protection does not change the decode path
+    toks_c, _ = run.phase("c_generate_unprotected", lambda: sv_clocked(
+        run, "c", sv_server(dev, cfg, mesh, params, protect=False), prompt),
+        inv=nothing)
+    check(np.array_equal(toks_c, toks), "unprotected tokens != protected")
+    torch.cuda.empty_cache()
+
+    # h: the decode at full width against an f32 forward apart from it
+    # (timed and uncounted: a comparison)
+    emit(path="sv", phase="h_result", **run.timed_aside(
+        "h_vs_f32_forward",
+        lambda: sv_reference(cfg, params, prompt, toks, SV_MAX_LEN)))
+    torch.cuda.empty_cache()
+
+    with probe:
+        # d: a scribble into rank 0's cache shard (a word of each leaf)
+        # after prefill: scrub and repair
+        srv = sv_server(dev, cfg, mesh, params)
+        lo = srv.protector.layout
+        offsets = [sl.offset + 11 for sl in lo.slots]
+        out = []
+
+        def scribble():
+            out.extend(sv_steps(srv, prompt, None, SV_PROMPT)[1])
+            srv.pool.inject(lambda pr, p: failure.inject_scribble(
+                pr, p, rank=0, word_offsets=offsets))
+            report = srv.pool.scrub()
+            want = {(0, o // lo.block_words) for o in offsets}
+            check(set(report.bad_locations) == want, f"scrub {report}")
+            check(report.repaired and report.repair_ok, f"repair {report}")
+            check(torch.equal(srv.prot.row, rows[SV_PROMPT]),
+                  "d: repaired cache != b's at the same position")
+        run.phase("d_prefill_scribble_repair", scribble, srv,
+                  inv=sv_invariants)
+
+        # e: a rank loss mid-generation, recovered; then to the end
+        def rank_loss():
+            event = srv.pool.inject(lambda pr, p: failure.inject_rank_loss(
+                pr, p, SV_LOST))
+            rep = srv.pool.recover(Fault.from_event(event))
+            check(rep.verified and rep.reverified, f"recovery {rep}")
+            check(torch.equal(srv.prot.row, rows[event_pos]),
+                  "e: recovered cache != b's at the same position")
+
+        def rest():
+            out.extend(sv_steps(srv, prompt, out[-1], end,
+                                {event_pos: rank_loss})[1])
+            return sv_tokens(srv, out)
+        toks_e, _ = run.phase("e_rank_loss_recover", rest, srv,
+                              inv=sv_invariants)
+        check(np.array_equal(toks_e, toks), "d / e tokens != b's")
+        del srv, rows
+        torch.cuda.empty_cache()
+
+        # f: r = 3, window 4, depth 4: the deferred patch engine on
+        # dirty_words and the commit ring, through a loss of three ranks
+        srv, _ = run.phase("f_start_r3_w4_d4", lambda: sv_server(
+            dev, cfg, mesh, params, redundancy=3, window=4,
+            pipeline_depth=4), inv=nothing)
+        check(srv.pool.engine is not None and srv.pool.engine.patch,
+              "f: not the patch engine")
+
+        def multi_loss():
+            event = srv.pool.inject(
+                lambda pr, p: failure.inject_multi_rank_loss(
+                    pr, p, SV_MULTI_LOST))
+            rep = srv.pool.recover(Fault.from_event(event))
+            check(rep.verified and rep.reverified, f"recovery {rep}")
+        toks_f, _ = run.phase("f_generate_loss_of_3", lambda: sv_tokens(
+            srv, sv_steps(srv, prompt, None, end, {event_pos: multi_loss})[1]),
+            inv=nothing)
+        check(np.array_equal(toks_f, toks), "f tokens != b's")
+        # g after f
+        sv_same_as_fresh(run, srv, "g_fresh_after_f")
+        sv_invariants(srv, "g_flushed_f")
+        del srv
+        torch.cuda.empty_cache()
+    probe.check(run, dict(run.build.LAUNCHES))
+    return run.end(PATH_SV)
 
 
 def main():
@@ -2063,7 +2549,7 @@ def main():
              "wp": window_path_wp(dev), "q3": async_path_q3(dev),
              "qw": async_path_qw(dev), "tg": tenancy_path(dev, "tg", 1),
              "tw": tenancy_path(dev, "tw", 4), "el": elastic_path(dev),
-             "ch": chaos_path(dev)}
+             "ch": chaos_path(dev), "sv": serving_path(dev)}
     rows = []
     for name in ops.ENTRY_POINTS:
         t = timing[name]

@@ -1,1 +1,1 @@
-"""Protection configuration."""
+"""Model and protection configuration."""

@@ -1,11 +1,85 @@
-"""`ProtectConfig`: the single protection knob, validated as the reference
-validates it (configs/base.py)."""
+"""Config system (the reference's configs/base.py): `ModelConfig` holds a
+model's architecture numbers, `ProtectConfig` the single protection knob,
+validated as the reference validates it.
+
+Every architecture has a `repro_torch/configs/<id>.py` exporting `CONFIG`
+(the published configuration) and `reduced()` (a small same-family variant
+for CPU tests); `repro_torch.configs.registry` resolves `--arch <id>`.
+"""
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 _PROTECT_MODES = ("none", "ml", "mlp", "mlpc", "replica", "mlp2", "mlpc2")
 MAX_REDUNDANCY = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    num_experts: int
+    top_k: int
+    d_expert: int                 # expert FFN hidden size
+    interleave: int = 1           # 1 = every layer MoE; 2 = alternate dense/MoE
+    shared_expert: bool = False   # llama4-style always-on shared expert
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                   # dense | moe | encdec | hybrid | ssm | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv: int
+    d_ff: int
+    vocab: int
+    head_dim: Optional[int] = None        # default d_model // n_heads
+    rope_theta: float = 10000.0
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    tie_embeddings: bool = False
+    act: str = "silu"                      # GLU activation
+    moe: Optional[MoESpec] = None
+    # layer pattern for hybrid/ssm families; None = homogeneous decoder
+    block_pattern: Optional[Tuple[str, ...]] = None   # e.g. ("rglru","rglru","attn")
+    window: Optional[int] = None           # sliding-window attention size
+    enc_layers: int = 0                    # >0 => encoder-decoder
+    mm_positions: int = 0                  # frontend stub embedding positions
+    subquadratic: bool = False             # True => long_500k runnable
+    # numerics
+    param_dtype: str = "float32"           # master/param dtype
+    compute_dtype: str = "bfloat16"
+    moment_dtype: Optional[str] = None     # Adam m/v dtype; None = param_dtype
+    logical_overrides: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def pattern(self) -> Tuple[str, ...]:
+        if self.block_pattern is not None:
+            return self.block_pattern
+        if self.moe is not None and self.moe.interleave == 2:
+            return ("dense", "moe")
+        if self.moe is not None:
+            return ("moe",)
+        return ("dense",)
+
+    @property
+    def n_groups(self) -> int:
+        return self.n_layers // len(self.pattern)
+
+    @property
+    def tail_pattern(self) -> Tuple[str, ...]:
+        return self.pattern[: self.n_layers % len(self.pattern)]
+
+    def param_count(self) -> int:
+        """Analytic parameter count (of the families the port builds)."""
+        from repro_torch.models import api
+        return api.count_params(self)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,6 +22,9 @@ mask (*mesh_dims, n_blocks) or None, "pending": u32 scalar, "acc": u32
 (*mesh_dims, row_words) or None}: `to_port_epoch` / `from_port_epoch`.
 A window opened in the reference then continues in the port (hand the
 port's engine the state through `DeferredProtector.resume`).
+
+`params_to_port` carries a model's parameter tree the same way (a KV
+cache is protected state and travels through `to_port`).
 """
 from __future__ import annotations
 
@@ -81,6 +84,14 @@ def _np_leaf(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).cpu().numpy().view(np.uint16)
     return t.cpu().numpy()
+
+
+def params_to_port(np_params, device=None):
+    """The reference's parameter tree (numpy; bf16 as ml_dtypes.bfloat16)
+    -> the port's tensors on `device` (the card unless the caller asks
+    for the CPU), bit for bit."""
+    device = utils.resolve_device(device)
+    return utils.tree_map(lambda a: _leaf(a, device), np_params)
 
 
 def from_port(prot: ProtectedState) -> dict:

@@ -160,3 +160,120 @@ def range_pages(layout: ZoneLayout, offset: int, n_words: int) -> np.ndarray:
     first = offset // layout.block_words
     last = (offset + max(n_words, 1) - 1) // layout.block_words
     return np.arange(first, last + 1)
+
+
+# A decode step writes one "time slot" of every cache leaf: for a leaf of
+# local shape s with its sequence axis at dim d (identified as an axis of
+# length `time_size`), position p touches, for every combination of the
+# axes before d, a contiguous run of prod(s[d+1:]) elements starting at
+# element offset p * prod(s[d+1:]).  Leaves with no axis of that length
+# (recurrent hidden state, conv windows) are rewritten wholly every step
+# and count as fully dirty.  All byte math is done on the slot's placement
+# inside the word row, so runs that straddle page-column boundaries are
+# attributed to both pages.  The result is the same on every zone rank
+# (the layout is), which the parity patch path requires.
+
+
+def _slot_time_runs(slot, time_size: int) -> list:
+    """(outer, stride_bytes, run_bytes) descriptors for each candidate
+    time axis of the slot; [] when the slot has no axis of that length.
+
+    If several axes match `time_size` the union over all of them is taken
+    — a conservative superset that stays correct whichever axis is the
+    real sequence axis.
+    """
+    esize = slot.dtype.itemsize
+    runs = []
+    for d, sz in enumerate(slot.shape):
+        if sz != time_size:
+            continue
+        inner = int(np.prod(slot.shape[d + 1:], dtype=np.int64))
+        outer = int(np.prod(slot.shape[:d], dtype=np.int64))
+        runs.append((outer, sz * inner * esize, inner * esize))
+    return runs
+
+
+def time_slice_pages(layout: ZoneLayout, time_size: int,
+                     pos: int) -> np.ndarray:
+    """Page columns touched by writing time slot `pos` of every leaf.
+
+    Ring-buffer caches wrap (`pos % time_size`); leaves without a
+    `time_size` axis contribute all of their pages.  Returns sorted
+    unique page indices (np.int32).
+    """
+    page_bytes = layout.block_words * 4
+    p = int(pos) % time_size
+    pages = []
+    for slot in layout.slots:
+        base = slot.offset * 4
+        runs = _slot_time_runs(slot, time_size)
+        if not runs:
+            pages.append(range_pages(layout, slot.offset, slot.n_words))
+            continue
+        for outer, stride_b, run_b in runs:
+            starts = base + np.arange(outer, dtype=np.int64) * stride_b \
+                + p * run_b
+            first = starts // page_bytes
+            last = (starts + max(run_b, 1) - 1) // page_bytes
+            span = int((last - first).max()) + 1 if outer else 1
+            cand = first[:, None] + np.arange(span)[None, :]
+            pages.append(cand[cand <= last[:, None]])
+    out = np.unique(np.concatenate(pages)) if pages else np.zeros(0, np.int64)
+    return out.astype(np.int32)
+
+
+def time_slice_words(layout: ZoneLayout, time_size: int, pos: int) -> list:
+    """Per-leaf *word* indices touched by writing time slot `pos`.
+
+    Returns one entry per slot: an int32 array of word indices local to
+    the slot's word range, or None meaning "whole leaf dirty" (no
+    `time_size` axis, an ambiguous shape with several candidate axes, or
+    a degenerate time_size < 2).
+
+    The array's shape is position-independent.  For word-aligned runs the
+    indices are exact and duplicate-free; for unaligned (sub-word dtype)
+    runs each run is widened to a fixed span that may overhang into the
+    next time slot's words — never into words this step modifies — and
+    may step past the slot's end, so consumers gather with fill semantics
+    (out of range -> identical old and new values).
+    """
+    if time_size < 2:
+        return [None] * len(layout.slots)
+    p = int(pos) % time_size
+    out = []
+    for slot in layout.slots:
+        runs = _slot_time_runs(slot, time_size)
+        if len(runs) != 1:
+            # no time axis, or several candidates whose run unions could
+            # overlap (and so double-count): whole leaf
+            out.append(None)
+            continue
+        outer, stride_b, run_b = runs[0]
+        starts = np.arange(outer, dtype=np.int64) * stride_b + p * run_b
+        if run_b % 4 == 0 and stride_b % 4 == 0:
+            span = run_b // 4                  # aligned: exact, every pos
+        else:
+            span = run_b // 4 + 2              # overhang absorbed by fill
+        first = starts // 4
+        out.append((first[:, None]
+                    + np.arange(span, dtype=np.int64)[None, :]
+                    ).reshape(-1).astype(np.int32))
+    return out
+
+
+def time_slice_page_capacity(layout: ZoneLayout, time_size: int) -> int:
+    """Upper bound on len(time_slice_pages(...)) over all positions.
+
+    Analytic, position-free: each run can straddle at most
+    run_bytes // page_bytes + 2 page columns.  Clamped to n_blocks.
+    """
+    page_bytes = layout.block_words * 4
+    total = 0
+    for slot in layout.slots:
+        runs = _slot_time_runs(slot, time_size)
+        if not runs:
+            total += len(range_pages(layout, slot.offset, slot.n_words))
+            continue
+        for outer, _, run_b in runs:
+            total += outer * (run_b // page_bytes + 2)
+    return min(total, layout.n_blocks)

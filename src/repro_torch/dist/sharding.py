@@ -11,11 +11,19 @@ exactly what each device holds.
 
 `shard` / `unshard` move between a global tensor and its stacked form;
 `local_shape` is the spec-to-shard rule (`NamedSharding.shard_shape`).
+
+Model and cache code names tensor dimensions logically ("embed", "heads",
+"batch", ...); `spec_for` maps the names onto mesh axes with the
+reference's divisibility fallback (dist/sharding.py there): each name has
+an ordered list of candidate axis tuples, and a candidate is taken only if
+all its axes exist, the dimension divides by their total size, and no axis
+is already used by an earlier dimension; with none left the dimension
+replicates.
 """
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -128,3 +136,72 @@ def unshard(y: torch.Tensor, spec, mesh: ZoneMesh) -> torch.Tensor:
         order += [kept.index(a) for a in axes] + [len(kept) + i]
         gshape.append(local[i] * math.prod(mesh.axis_size(a) for a in axes))
     return y.permute(order).reshape(gshape)
+
+
+# FSDP + TP defaults: batch/embed spread over the data dimension(s), the
+# contraction-heavy weight dims over the tensor-parallel model axis.
+DEFAULT_RULES = {
+    "batch": (("pod", "data"), ("data",)),
+    "embed": (("data",),),
+    "heads": (("model",),),
+    "kv_heads": (("model",),),
+    "vocab": (("model",),),
+    "ffn": (("model",),),
+    "experts": (("model",),),
+    "seq_shard": (("model",),),
+}
+
+
+def axis_sizes(mesh) -> dict:
+    """{axis name: size} of a mesh ({} for None)."""
+    return {} if mesh is None else dict(zip(mesh.axis_names, mesh.shape))
+
+
+def _candidates(rule) -> list:
+    """Normalize a rule value into a list of mesh-axis tuples."""
+    if rule is None:
+        return []
+    if isinstance(rule, str):
+        return [(rule,)]
+    out = []
+    for cand in rule:
+        out.append((cand,) if isinstance(cand, str) else tuple(cand))
+    return out
+
+
+def spec_for(mesh: ZoneMesh, logical: Sequence[Optional[str]],
+             shape: Optional[Sequence[int]] = None,
+             rules: Optional[dict] = None) -> P:
+    """Partition spec for a tensor with the given logical axes.
+
+    `shape` enables the divisibility check (omit it to trust the caller);
+    `rules` are per-call overrides merged over DEFAULT_RULES.
+    """
+    mesh_shape = axis_sizes(mesh)
+    merged = dict(DEFAULT_RULES)
+    if rules:
+        merged.update(rules)
+    used: set = set()
+    entries = []
+    for i, name in enumerate(logical):
+        dim = None if shape is None else int(shape[i])
+        chosen = None
+        if name is not None:
+            for cand in _candidates(merged.get(name)):
+                if not all(a in mesh_shape for a in cand):
+                    continue
+                if any(a in used for a in cand):
+                    continue
+                size = math.prod(mesh_shape[a] for a in cand)
+                if dim is not None and (size == 0 or dim % size != 0):
+                    continue
+                chosen = cand
+                break
+        if chosen is None:
+            entries.append(None)
+        else:
+            used.update(chosen)
+            entries.append(chosen if len(chosen) > 1 else chosen[0])
+    while entries and entries[-1] is None:   # trailing dims replicate anyway
+        entries.pop()
+    return P(*entries)

@@ -1037,6 +1037,51 @@ class Pool(EngineHost):
             self.on_resume()
 
 
+class PoolHost:
+    """Mixin for runtimes that own `self.pool` (None on an unprotected
+    runtime).  Delegates the low-level handles tests poke (`protector`,
+    `scrubber`, `prot`, `_engine`, `_est`) plus `flush()`, so every host
+    exposes the same surface."""
+
+    pool: Optional[Pool] = None
+
+    @property
+    def protector(self):
+        return self.pool.protector if self.pool is not None else None
+
+    @property
+    def scrubber(self):
+        return self.pool.scrubber if self.pool is not None else None
+
+    @property
+    def prot(self):
+        return self.pool.prot if self.pool is not None else None
+
+    @prot.setter
+    def prot(self, value):
+        if self.pool is not None:
+            self.pool.prot = value
+        elif value is not None:
+            raise ValueError("an unprotected host holds no prot")
+
+    @property
+    def _engine(self):
+        return self.pool.engine if self.pool is not None else None
+
+    @property
+    def _est(self):
+        return self.pool._est if self.pool is not None else None
+
+    @_est.setter
+    def _est(self, value):
+        self.pool._est = value
+
+    def flush(self) -> None:
+        """Bring deferred redundancy current (no-op when synchronous)."""
+        if self.pool is not None:
+            self.pool.flush()
+
+
 def protector_for(mesh: sharding.ZoneMesh, abstract_state: PyTree,
                   state_specs: PyTree, config: ProtectConfig) -> Protector:
     """The Protector of a pool of this shape and config."""

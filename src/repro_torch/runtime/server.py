@@ -1,0 +1,188 @@
+"""Serving runtime: batched greedy decode with Pangolin protection of the
+KV cache (the reference's runtime/server.py).
+
+Decode is the paper's small atomic update: each step writes one time slot
+of every cache leaf.  The dirty footprint of a step is computed from the
+cache layout on the host (`layout.time_slice_pages`: the page columns
+under time slot `pos` of every leaf), so a decode commit takes the patch
+path.  The server opens one cold `Pool` over the cache layout and hands it
+the footprint its engine takes: `dirty_pages` on the synchronous engine
+(`window=1`), `dirty_words` (`layout.time_slice_words`) on the deferred
+engine (`window=W>1`), whose patch engine spans every cache leaf with a
+page capacity from `layout.time_slice_page_capacity`.  At
+`pipeline_depth > 1` each commit goes through `commit_async` and resolves
+as its verdict lands; `generate` drains the ring before it returns.
+
+Each step reads the cache from the pool (`pool.state`, the global view)
+and hands the pool the step's new cache, which `Pool.commit` shards again:
+two copies of the cache a token.  The decode step builds the new cache in
+a fresh copy, so a pool-held cache is never written.
+
+Weights are cast to the compute dtype once, in `start`: the reference
+casts them inside every step, to the same bits.  The server runs on the
+card unless the caller passes `device="cpu"`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import obs, utils
+from repro_torch.configs.base import ModelConfig, ProtectConfig
+from repro_torch.core import layout as layout_mod
+from repro_torch.models import api
+from repro_torch.models.transformer import build_model
+from repro_torch.pool import Pool, PoolHost
+
+PyTree = Any
+
+
+class Server(PoolHost):
+    def __init__(self, cfg: ModelConfig, protect_cfg: ProtectConfig, mesh,
+                 *, batch: int, max_len: int, protect_cache: bool = True,
+                 window: Optional[int] = None,
+                 metrics_dir: Optional[str] = None,
+                 trace_dir: Optional[str] = None,
+                 metrics_every: int = 100, device=None):
+        self.cfg = cfg
+        self.mesh = mesh
+        self.batch = batch
+        self.max_len = max_len
+        self.device = utils.resolve_device(device)
+        self.model = build_model(cfg, mesh)
+        self._decode = api.make_decode_step(self.model)
+        self.window = int(window if window is not None
+                          else protect_cfg.window)
+
+        self.protect_cache = protect_cache and protect_cfg.mode != "none"
+        if (self.protect_cache and window is not None
+                and window != protect_cfg.window):
+            # the override is folded into the config, which stays the one
+            # source of truth and validates it (only when a pool is built,
+            # so an unprotected server accepts any window)
+            protect_cfg = dataclasses.replace(protect_cfg, window=window)
+        # commit ring depth: at depth > 1 decode commits go through
+        # commit_async; depth 1 resolves each commit before the next step
+        self.pipeline_depth = int(protect_cfg.pipeline_depth)
+        # telemetry (inert on an unprotected server: no pool)
+        self.metrics_dir = metrics_dir
+        self.metrics_every = max(1, int(metrics_every))
+        tracer = None
+        if trace_dir:
+            os.makedirs(trace_dir, exist_ok=True)
+            tracer = obs.Tracer(
+                os.path.join(trace_dir, "server.trace.jsonl"))
+        self.pool: Optional[Pool] = None
+        if self.protect_cache:
+            cache_abs = self.model.init_cache(batch, max_len, device="meta")
+            cache_specs = self.model.cache_specs(batch, max_len, mesh)
+            # the deferred engine spans every cache leaf, with the per-step
+            # page capacity sized from the layout the pool builds
+            self.pool = Pool(
+                mesh, cache_abs, cache_specs, protect_cfg,
+                device=self.device,
+                dirty_leaf_idx=(
+                    None if self.window == 1
+                    else (lambda lo: range(len(lo.slots)))),
+                dirty_capacity=(
+                    None if self.window == 1
+                    else (lambda lo: layout_mod.time_slice_page_capacity(
+                        lo, max_len))),
+                tracer=tracer)
+            self._page_cache: dict = {}
+            self._word_cache: dict = {}
+        # hooks fired after every decode step with {"pos": position}
+        self._step_hooks: list = []
+
+    def add_step_hook(self, fn) -> None:
+        """Register `fn(server, out_dict)`, fired after every decode step
+        (the chaos campaign's schedule attachment point)."""
+        self._step_hooks.append(fn)
+
+    # -- decode footprint ---------------------------------------------------------
+
+    def _dirty_pages(self, pos: int) -> list:
+        key = pos % self.max_len
+        if key not in self._page_cache:
+            self._page_cache[key] = layout_mod.time_slice_pages(
+                self.protector.layout, self.max_len, key).tolist()
+        return self._page_cache[key]
+
+    def _dirty_words(self, pos: int) -> tuple:
+        key = pos % self.max_len
+        if key not in self._word_cache:
+            self._word_cache[key] = tuple(layout_mod.time_slice_words(
+                self.protector.layout, self.max_len, key))
+        return self._word_cache[key]
+
+    def start(self, params: PyTree) -> None:
+        """Take the parameters (cast once to the compute dtype) and open
+        protection over an empty cache."""
+        self.params = self.model.compute_params(
+            utils.tree_map(lambda w: w.to(self.device), params))
+        cache = self.model.init_cache(self.batch, self.max_len, self.device)
+        if self.pool is not None:
+            self.pool.init(cache)
+        else:
+            self.cache = cache
+        self.pos = 0
+
+    def _current_cache(self):
+        return self.pool.state if self.pool is not None else self.cache
+
+    def step(self, tokens: torch.Tensor) -> torch.Tensor:
+        """One decode step for the whole batch; returns the next tokens."""
+        next_tok, _, new_cache = self._decode(
+            self.params, tokens, self._current_cache(), self.pos)
+        if self.pool is not None:
+            # only the built engine's footprint spelling is computed
+            fp = (dict(dirty_words=self._dirty_words(self.pos))
+                  if self.pool.engine is not None
+                  else dict(dirty_pages=self._dirty_pages(self.pos)))
+            if self.pipeline_depth > 1:
+                # dispatch and move on; verdicts resolve as they land (the
+                # ring resolves the oldest past its depth) and `generate`
+                # drains at the end
+                self.pool.commit_async(new_cache, **fp)
+                self.pool.poll()
+            else:
+                self.pool.commit(new_cache, **fp)
+            self.pool.maybe_scrub()
+            reg = self.pool.metrics
+            reg.counter("server_steps_total").inc()
+            if (self.metrics_dir
+                    and (self.pos + 1) % self.metrics_every == 0):
+                obs.write_metrics(reg, self.metrics_dir, prefix="server",
+                                  stats=self.pool.stats())
+        else:
+            self.cache = new_cache
+        self.pos += 1
+        for hook in list(self._step_hooks):
+            hook(self, {"pos": self.pos - 1})
+        return next_tok
+
+    def prefill(self, prompt: torch.Tensor) -> torch.Tensor:
+        """Feed a prompt (B, S) through decode steps."""
+        prompt = torch.as_tensor(prompt).to(self.device)
+        tok = prompt[:, 0]
+        for t in range(prompt.shape[1]):
+            tok = self.step(prompt[:, t])
+        return tok
+
+    def generate(self, prompt: torch.Tensor, n_new: int) -> np.ndarray:
+        """Prefill `prompt`, then decode; returns the (B, n_new) tokens
+        (the first is prefill's last prediction)."""
+        tok = self.prefill(prompt)
+        out = [tok]
+        for _ in range(n_new - 1):
+            tok = self.step(tok)
+            out.append(tok)
+        if self.pool is not None:
+            # a generation boundary is a pipeline boundary: every in-flight
+            # commit verdict resolves before the tokens return
+            self.pool.drain()
+        return torch.stack(out, dim=1).cpu().numpy()

@@ -89,44 +89,23 @@ def num_words(shape: Sequence[int], dtype) -> int:
     return (n + 3) // 4
 
 
-def _pack(u: torch.Tensor, per: int, bits: int) -> torch.Tensor:
-    """(*lead, m) unsigned sub-word lanes -> (*lead, ceil(m/per)) words,
-    little-endian (lane 0 in the low bits)."""
-    pad = (-u.shape[-1]) % per
-    if pad:
-        u = torch.nn.functional.pad(u, (0, pad))
-    lanes = u.reshape(*u.shape[:-1], -1, per)
-    out = lanes[..., 0]
-    for i in range(1, per):
-        out = out | (lanes[..., i] << (bits * i))
-    return wrap32(out)
+_LANE = {4: WORD, 2: torch.int16, 1: torch.uint8}
 
 
 def to_words(x: torch.Tensor, batch_dims: int = 0) -> torch.Tensor:
     """Bit-exact view of `x` as int32 words, flattened after `batch_dims`.
 
     `(*lead, *shape)` -> `(*lead, num_words(shape))`; 16- and 8-bit types
-    pack little-endian and zero-pad the last word, as the reference does.
+    pack little-endian (the bytes' own order) and zero-pad the last word,
+    as the reference does.
     """
-    d = x.dtype
-    _check(d)
+    _check(x.dtype)
     lead = tuple(x.shape[:batch_dims])
-    flat = x.reshape(*lead, -1)
-    if d in _U32_DTYPES:
-        return flat.view(WORD)
-    if d in _U16_DTYPES:
-        u = flat.view(torch.int16).to(torch.int64) & 0xFFFF
-        return _pack(u, 2, 16)
-    u = flat.view(torch.uint8).to(torch.int64)
-    return _pack(u, 4, 8)
-
-
-def _lanes(w: torch.Tensor, per: int, bits: int, n: int) -> torch.Tensor:
-    """(*lead, k) words -> (*lead, n) unsigned lanes as int64."""
-    u = as_u64(w)
-    mask = (1 << bits) - 1
-    lanes = torch.stack([(u >> (bits * i)) & mask for i in range(per)], -1)
-    return lanes.reshape(*w.shape[:-1], -1)[..., :n]
+    b = x.reshape(*lead, -1).contiguous().view(torch.uint8)
+    pad = (-b.shape[-1]) % 4
+    if pad:
+        b = torch.nn.functional.pad(b, (0, pad))
+    return b.view(WORD)
 
 
 def from_words(w: torch.Tensor, shape: Sequence[int], dtype) -> torch.Tensor:
@@ -135,15 +114,8 @@ def from_words(w: torch.Tensor, shape: Sequence[int], dtype) -> torch.Tensor:
     lead = tuple(w.shape[:-1])
     shape = tuple(shape)
     n = math.prod(shape)
-    if dtype in _U32_DTYPES:
-        flat = w[..., :n].contiguous().view(dtype)
-    elif dtype in _U16_DTYPES:
-        v = _lanes(w, 2, 16, n)
-        flat = (v - ((v >> 15) << 16)).to(torch.int16).view(dtype)
-    else:
-        v = _lanes(w, 4, 8, n)
-        flat = (v - ((v >> 7) << 8)).to(torch.int8).view(dtype)
-    return flat.reshape(*lead, *shape)
+    flat = w.contiguous().view(_LANE[dtype.itemsize])[..., :n]
+    return flat.contiguous().view(dtype).reshape(*lead, *shape)
 
 
 # ---------------------------------------------------------------------------

@@ -89,9 +89,9 @@ def ref_fields(prot, mesh) -> dict:
         log = {k: np.asarray(getattr(prot.log, k))
                for k in ("step", "data_cursor", "rng", "digest", "mark")}
     return {
-        "state": {k: stacked(v, mesh) for k, v in prot.state.items()},
+        "state": jax.tree.map(lambda v: stacked(v, mesh), prot.state),
         "replica": (None if prot.replica is None else
-                    {k: stacked(v, mesh) for k, v in prot.replica.items()}),
+                    jax.tree.map(lambda v: stacked(v, mesh), prot.replica)),
         "synd": arr(prot.synd), "cksums": arr(prot.cksums),
         "digest": arr(prot.digest), "row": arr(prot.row),
         "log": log, "step": np.asarray(prot.step),
@@ -107,6 +107,16 @@ def _same(a, b, what):
     assert a.tobytes() == b.tobytes(), f"{what}: bytes differ"
 
 
+def _same_tree(ref, port, what):
+    """Two (nested) dicts of leaves byte-equal, key for key."""
+    if not isinstance(ref, dict):
+        _same(ref, port, what)
+        return
+    assert ref.keys() == port.keys(), what
+    for k in ref:
+        _same_tree(ref[k], port[k], f"{what}.{k}")
+
+
 def assert_same(ref: dict, port: dict) -> None:
     """Every field of two field dicts byte-equal."""
     for k in ("synd", "cksums", "digest", "row", "step"):
@@ -115,9 +125,7 @@ def assert_same(ref: dict, port: dict) -> None:
         if ref[tree] is None or port[tree] is None:
             assert ref[tree] is None and port[tree] is None, tree
             continue
-        assert ref[tree].keys() == port[tree].keys(), tree
-        for k in ref[tree]:
-            _same(ref[tree][k], port[tree][k], f"{tree}.{k}")
+        _same_tree(ref[tree], port[tree], tree)
     if ref["log"] is None or port["log"] is None:
         assert ref["log"] is None and port["log"] is None, "log"
     else:

@@ -332,3 +332,40 @@ def test_cuda_traffic_step_matches_the_cpu(card):
         w = workload.fma(w, workload.GAIN, b)
         c = workload.fma(c, workload.GAIN, b)
         assert torch.equal(w.cpu(), c), t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,window,depth", [(1, 1, 1), (3, 4, 4)])
+def test_cuda_server_matches_the_cpu(card, r, window, depth):
+    """The reduced qwen3-0.6b server on the card gives the CPU's tokens,
+    and its pool, flushed, is byte-equal to a pool opened fresh over its
+    final cache."""
+    from repro_torch import Pool, ProtectConfig, ZoneMesh
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import build_model
+    from repro_torch.runtime.server import Server
+    cfg = get_config("qwen3-0.6b", reduced=True)
+    mesh = ZoneMesh((4, 2), ("data", "model"))
+    params = build_model(cfg).init(torch.Generator().manual_seed(0),
+                                   device="cpu")
+    prompt = torch.randint(0, cfg.vocab, (4, 6),
+                           generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", card):
+        srv = Server(cfg, ProtectConfig(mode="mlpc", block_words=64,
+                                        redundancy=r, window=window,
+                                        pipeline_depth=depth,
+                                        scrub_period=4),
+                     mesh, batch=4, max_len=24, device=dev)
+        srv.start(params)
+        _build.reset_launches()
+        out[str(dev)] = srv.generate(prompt, 6)
+        srv.flush()
+        pool = srv.pool
+        fresh = Pool.open(pool.state, pool.state_specs, mesh=mesh,
+                          config=pool.config, device=dev)
+        for k in ("row", "synd", "cksums", "digest"):
+            assert torch.equal(getattr(pool.prot, k),
+                               getattr(fresh.prot, k)), k
+    assert _build.LAUNCHES, "the card's server launched no kernel"
+    np.testing.assert_array_equal(out["cpu"], out[str(card)])

@@ -16,7 +16,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_warm_commits.py",
     ROOT / "scripts" / "torch_sass_counts.py",
-    ROOT / "scripts" / "torch_dispatch_profile.py"]
+    ROOT / "scripts" / "torch_dispatch_profile.py",
+    ROOT / "scripts" / "torch_serve_profile.py"]
 
 
 def _imports(path):
@@ -126,3 +127,55 @@ def test_default_device_is_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.to_port(fields)
     assert convert.to_port(fields, device="cpu").step.device.type == "cpu"
+
+
+@pytest.mark.parametrize("arch", [
+    "llama4-maverick-400b-a17b", "moonshot-v1-16b-a3b",
+    "seamless-m4t-large-v2", "chameleon-34b", "recurrentgemma-2b",
+    "xlstm-1.3b", "minitron-8b", "qwen2-0.5b", "glm4-9b", "qwen3-0.6b"])
+def test_build_model_holds_to_its_families(arch):
+    """The dense family builds; every family whose blocks are not ported
+    (moe, audio / encoder-decoder, vlm, hybrid, ssm) raises
+    NotImplementedError naming its slice, for the published and the
+    reduced config alike, and no other family stands in."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import blocks
+    from repro_torch.models.transformer import Model, build_model
+    for reduced in (False, True):
+        cfg = get_config(arch, reduced=reduced)
+        if cfg.family == "dense":
+            model = build_model(cfg)
+            assert type(model) is Model and model.pattern == ("dense",)
+            continue
+        with pytest.raises(NotImplementedError, match="S8c"):
+            build_model(cfg)
+    for btype in blocks.LATER:
+        with pytest.raises(NotImplementedError, match="S8c"):
+            blocks.block_defs(cfg, btype)
+
+
+def test_model_plane_defaults_to_the_card(monkeypatch):
+    """Model.init / init_cache, the Server, params_to_port and the serve
+    launcher run on the card unless asked for the CPU; without one they
+    raise."""
+    from repro_torch import convert
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import build_model
+    from repro_torch.runtime.server import Server
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("qwen3-0.6b", reduced=True)
+    model = build_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_cache(2, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Server(cfg, ProtectConfig(), ZoneMesh((4, 2), ("data", "model")),
+               batch=4, max_len=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.params_to_port({"w": torch.zeros(2).numpy()})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "qwen3-0.6b"])
+    assert model.init_cache(2, 8, device="cpu")["groups"]["b0_dense"][
+        "k"].device.type == "cpu"
