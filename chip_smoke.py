@@ -139,14 +139,58 @@
    Each kernel the path launched is then held against its plain version
    on the card at the very inputs its first launch on the path had
    (recorded by `CallProbe` in d-f).
-9. After each phase the invariants are recomputed apart from the engine:
+9. The training plane (tr): qwen3-0.6b at its published width trained by
+   `repro_torch.runtime.trainer.Trainer` (AdamW with f32 moments, lr
+   1e-3, warmup 2; seq 1024 x batch 8 = 8,192 tokens a step of the
+   synthetic stream) on the (4, 2) zone mesh at ProtectConfig's default
+   block_words, its 7.15 GB train state in a Pool:
+   a — start: the state made on the card from SEED, the pool opened;
+   b — sixteen steps at mlpc r = 1, window 1, depth 1, scrub every 8:
+        1-8 bulk commits, 9-16 with verify_old; the ms a step split into
+        the train step, the zone copies (`pool.state`, `Pool.to_zone`),
+        the commit and the scrub, tokens/s, each step's loss; the loss
+        falls;
+   c — the same sixteen steps unprotected (mode none): the losses and the
+        final state bit-equal to b's (the train step gives the same bits
+        on every run);
+   d — rank 1 lost after step 4 and recovered (the row equal to a copy
+        taken before the loss, and the state to the row), a word of rank
+        0's shard scribbled after step 6, scrubbed and repaired, on to
+        step 16: b's losses, b's digest after every step, b's final state;
+   e — step 5 with a failed canary: not committed, the cursor rolled back,
+        the row unchanged; the next step is b's step 5;
+   f — a checkpoint at step 8 (async save, then wait), on to step 12, the
+        trainer dropped; a fresh one restores and replays 9-12 from the
+        surviving redo log, each to its logged digest, to b's state at
+        step 12; the ms of save, wait and restore;
+   g — r = 3, window 4, pipeline_depth 4 through `run` on the ring, ranks
+        0, 1 and 3 lost after step 10 and recovered: b's losses and final
+        state; flushed, equal to a pool freshly opened over it;
+   h — straggler_threshold 2.0, replica 1 at 10x: dropped, the loss-masked
+        step commits with b's loss re-weighted (w / w: the reference's
+        mask changes no gradient) and b's digest, its dispatch (batch,
+        mask, train step, commit) under torch.cuda.set_sync_debug_mode(
+        "error"); healed at 1x;
+   i — (uncounted) the train step checked apart from the port: the
+        chunked attention and its gradients on layer 0's q, k, v against
+        `scaled_dot_product_attention` (math backend) in f32, within 1e-4
+        of the largest |value|; step 1's loss and gradients (bf16) against
+        a plain f32 forward and backward of the whole model (no chunks,
+        no checkpointing, dense attention), within TR_LOSS_RTOL and at a
+        cosine of at least TR_GRAD_COS a leaf.
+   Every trainer is let go before the next phase starts; each phase line
+   prints its peak memory.  Each kernel the path launched is held against
+   its plain version on the card at the inputs of its first launch in
+   d-h (copied to the host, checked after the phase, the plain version a
+   data rank at a time).
+10. After each phase the invariants are recomputed apart from the engine:
    every syndrome plane k = XOR over ranks i of g^(k·i)·row_i, built rank by
    rank with the plain GF multiply; cksums = Fletcher terms of the rows;
    digest = combine(cksums); row = flatten(state).  Inside a window: the
    checksums and digest are the live rows'; the stack is the epoch start's;
    the bulk engine's accumulator is row_start ^ row_now, and the patch
    engine's row is pinned at the epoch start.
-10. Each path's kernel launches (every count zeroed just before the path,
+11. Each path's kernel launches (every count zeroed just before the path,
    read just after); every entry point of the path must have run.  Peak
    device memory of each path; the host ms of each async dispatch.
 
@@ -156,7 +200,9 @@ Every phase raises on failure.  The last line is
 import collections
 import dataclasses
 import functools
+import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2108,12 +2154,18 @@ class CallProbe:
     """While entered, keeps a copy of the inputs of the first call that
     launched each kernel (the innermost ops function that launched it), so
     that afterwards each kernel can be held against its plain version on
-    the card at the very inputs the path gave it."""
+    the card at the very inputs the path gave it.  `host=True` keeps the
+    copies in host memory (the tr path's inputs run to 21 GB a call) and
+    adds the time the copies take to `ms`, so that phases can report it
+    apart; a kernel checked once is not recorded again."""
 
-    def __init__(self):
+    def __init__(self, host=False):
         from repro_torch.kernels import _build, ops
         self.build, self.ops = _build, ops
+        self.host = host
         self.calls: dict = {}
+        self.done: set = set()
+        self.ms = 0.0
 
     def __enter__(self):
         self.saved = {n: getattr(self.ops, n) for n in PROBED}
@@ -2126,71 +2178,107 @@ class CallProbe:
             setattr(self.ops, n, fn)
         return False
 
+    def _keep(self, a):
+        if not isinstance(a, torch.Tensor):
+            return a
+        return a.cpu() if self.host else a.clone()
+
     def _wrap(self, name, fn):
         def probed(*args, **kw):
             before = dict(self.build.LAUNCHES)
             out = fn(*args, **kw)
             new = [k for k, v in self.build.LAUNCHES.items()
-                   if v > before.get(k, 0) and k not in self.calls]
+                   if v > before.get(k, 0) and k not in self.calls
+                   and k not in self.done]
             if new:
-                keep = tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                             for a in args)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                keep = tuple(self._keep(a) for a in args)
+                torch.cuda.synchronize()
+                self.ms += (time.perf_counter() - t0) * 1e3
                 for k in new:
                     self.calls[k] = (name, keep, kw)
             return out
         return probed
 
-    def check(self, run, launched):
+    def check(self, run, launched, by_rank=False):
         """Each kernel the path launched, on its recorded inputs, against
-        the same ops function with the plain version forced; byte-equal."""
+        the same ops function with the plain version forced; byte-equal.
+        `by_rank`: the kernel runs on the whole recorded input and its
+        plain version a data rank (the first lead index) at a time, each
+        held against that rank's slice of the kernel's outputs: every
+        kernel is per rank, and the plain versions' temporaries run to
+        several times their input."""
         ops = self.ops
-        missing = [k for k in launched if k not in self.calls]
+        missing = [k for k in launched
+                   if k not in self.calls and k not in self.done]
         check(not missing, f"{run.tag}: no recorded call for {missing}")
         for kernel in sorted(self.calls):
             # each recorded input let go once checked; the peak of each
             # check (the plain version's temporaries) reported with it
             name, args, kw = self.calls.pop(kernel)
+            self.done.add(kernel)
             run.peak = max(run.peak, torch.cuda.max_memory_allocated(run.dev))
             torch.cuda.reset_peak_memory_stats(run.dev)
+            args = tuple(a.to(run.dev) if isinstance(a, torch.Tensor) else a
+                         for a in args)
             got = run.aside(lambda: getattr(ops, name)(*args, **kw))
+            got = got if isinstance(got, tuple) else (got,)
+            lead = args[0].shape[0]
+            parts = ([tuple(a[i:i + 1] if isinstance(a, torch.Tensor)
+                            and a.dim() and a.shape[0] == lead else a
+                            for a in args) for i in range(lead)]
+                     if by_rank else [args])
             on_card = ops._on_card
             ops._on_card = lambda x: False
             try:
-                want = getattr(ops, name)(*args, **kw)
+                for i, part in enumerate(parts):
+                    want = getattr(ops, name)(*part, **kw)
+                    want = want if isinstance(want, tuple) else (want,)
+                    mine = (tuple(g[i:i + 1] for g in got) if by_rank
+                            else got)
+                    check(len(mine) == len(want) and all(
+                        torch.equal(a, b) for a, b in zip(mine, want)),
+                        f"{run.tag}: {kernel} via {name} != its plain "
+                        f"version" + (f" (rank {i})" if by_rank else ""))
+                    del want
             finally:
                 ops._on_card = on_card
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            check(len(got) == len(want) and all(
-                torch.equal(a, b) for a, b in zip(got, want)),
-                f"{run.tag}: {kernel} via {name} != its plain version")
             emit(path=run.tag, phase="k_kernel_vs_plain", kernel=kernel,
                  via=name, shapes=[list(a.shape) for a in args
                                    if isinstance(a, torch.Tensor)],
-                 max_abs_err=0, equal=True,
+                 by_rank=by_rank, max_abs_err=0, equal=True,
                  max_memory_allocated=torch.cuda.max_memory_allocated(
                      run.dev))
-            del args, got, want
+            del args, got, parts
 
 
 class StepClock:
-    """Host ms of a server's decode steps by piece, each piece ending in a
-    synchronize: the decode step; the zone copies (`pool.state`, which
-    unshards the cache for decode, and `Pool.to_zone`, which shards the new
-    cache inside the commit); the commit less its to_zone; the scrub
-    cadence (`maybe_scrub`)."""
+    """Host ms of a runtime's steps by piece, each piece ending in a
+    synchronize; a piece's ms leaves out the pieces nested in it.  For a
+    server (`StepClock(srv)`): the decode step; the zone copies
+    (`pool.state`, which unshards the cache for decode, and
+    `Pool.to_zone`, which shards the new cache inside the commit); the
+    commit less its to_zone; the scrub cadence (`maybe_scrub`).  Other
+    runtimes pass their own `wraps`, (object, attribute, piece) each, and
+    `off`, a clock of ms spent inside a piece that no piece should count
+    (a CallProbe's copies)."""
 
     PIECES = ("decode", "zone_copies", "commit", "scrub")
 
-    def __init__(self, srv):
-        self.ms = dict.fromkeys(self.PIECES, 0.0)
+    def __init__(self, srv=None, wraps=None, pieces=None, off=None):
+        self.ms = dict.fromkeys(pieces or self.PIECES, 0.0)
         self._open: list = []
-        self._wrap(srv, "_decode", "decode")
-        self._wrap(srv, "_current_cache", "zone_copies")
-        if srv.pool is not None:
-            self._wrap(srv.pool, "to_zone", "zone_copies")
-            self._wrap(srv.pool, "commit", "commit")
-            self._wrap(srv.pool, "maybe_scrub", "scrub")
+        self._off = off or (lambda: 0.0)
+        if wraps is None:
+            wraps = [(srv, "_decode", "decode"),
+                     (srv, "_current_cache", "zone_copies")]
+            if srv.pool is not None:
+                wraps += [(srv.pool, "to_zone", "zone_copies"),
+                          (srv.pool, "commit", "commit"),
+                          (srv.pool, "maybe_scrub", "scrub")]
+        for obj, attr, piece in wraps:
+            self._wrap(obj, attr, piece)
 
     def _wrap(self, obj, attr, piece):
         fn = getattr(obj, attr)
@@ -2198,10 +2286,11 @@ class StepClock:
         def timed(*args, **kw):
             torch.cuda.synchronize()
             self._open.append(0.0)
+            off = self._off()
             t0 = time.perf_counter()
             out = fn(*args, **kw)
             torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
+            ms = (time.perf_counter() - t0) * 1e3 - (self._off() - off)
             inner = self._open.pop()
             self.ms[piece] += ms - inner
             if self._open:
@@ -2283,18 +2372,21 @@ def sv_clocked(run, tag, srv, prompt, hook=None):
     return toks
 
 
-def sv_same_as_fresh(run, srv, tag):
-    """The pool, flushed, holds the bytes of a pool freshly opened over its
-    final cache (uncounted: a comparison)."""
+def host_same_as_fresh(run, host, tag):
+    """A runtime's pool, flushed, holds the bytes of a pool freshly opened
+    over its final state (uncounted: a comparison), which is then let
+    go."""
     from repro_torch import Pool
-    srv.flush()
-    pool = srv.pool
+    host.flush()
+    pool = host.pool
     fresh = run.aside(lambda: Pool.open(
         pool.state, pool.state_specs, mesh=pool.mesh, config=pool.config,
         device=pool.device))
     for k in ("row", "synd", "cksums", "digest"):
         check(torch.equal(getattr(pool.prot, k), getattr(fresh.prot, k)),
               f"{tag}: {k} != a fresh pool's")
+    del fresh
+    gc.collect()
     emit(path=run.tag, phase=tag, equal_to_fresh_open=True,
          fields=["row", "synd", "cksums", "digest"], step=pool.step)
 
@@ -2303,29 +2395,36 @@ def sv_invariants(srv, tag):
     invariants(srv.pool, tag)
 
 
-def sv_plain_logits(cfg, params, seq):
-    """An f32 forward of the whole token sequence, apart from the decode
-    path: no cache and no slots, causal attention over the sequence by
-    `scaled_dot_product_attention` with query head h on KV head
-    h // (H / K), rope from the positions 0..S-1.  `params`: the weights
-    as the server holds them, widened to f32.  (B, S) -> (B, S, V)."""
+def plain_hidden(cfg, params, seq, *, causal=True, theta=None, kv_roll=0):
+    """An f32 forward of the whole token sequence to the final norm, apart
+    from the port's model code: no cache, no chunking, no checkpointing;
+    attention by `scaled_dot_product_attention` with query head h on KV
+    head h // (H / K), rope from the positions 0..S-1.  `params`: f32
+    weights.  The keywords plant a fault for the checks' own tests: no
+    causal mask, another rope θ, every query head on the next KV head.
+    (B, S) -> (B, S, D)."""
     F = torch.nn.functional
     check(cfg.act == "silu" and cfg.tie_embeddings and cfg.pattern == (
         "dense",), f"plain forward: not written for {cfg.name}")
     H, K, hd = cfg.n_heads, cfg.n_kv, cfg.hd
     S, half = seq.shape[1], cfg.hd // 2
+    theta = cfg.rope_theta if theta is None else theta
 
     def norm(x, scale):
         return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + 1e-6) * scale
 
     ang = torch.arange(S, device=seq.device, dtype=torch.float32)[:, None] \
-        * cfg.rope_theta ** (-torch.arange(half, device=seq.device,
-                                           dtype=torch.float32) / half)
+        * theta ** (-torch.arange(half, device=seq.device,
+                                  dtype=torch.float32) / half)
     cos, sin = torch.cos(ang)[:, None], torch.sin(ang)[:, None]
 
     def rot(x):                                    # (B, S, n, hd)
         a, b = x[..., :half], x[..., half:]
         return torch.cat([a * cos - b * sin, b * cos + a * sin], -1)
+
+    def heads(x):                                  # (B, S, K, hd) -> (B, H, S, hd)
+        return x.roll(kv_roll, 2).transpose(1, 2).repeat_interleave(
+            H // K, 1)
 
     tok = params["embed"]["tok"]
     x = tok[seq.long()]
@@ -2343,12 +2442,17 @@ def sv_plain_logits(cfg, params, seq):
             q, k = norm(q, a["qnorm"]), norm(k, a["knorm"])
         q, k = rot(q), rot(k)
         o = F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2).repeat_interleave(H // K, 1),
-            v.transpose(1, 2).repeat_interleave(H // K, 1), is_causal=True)
+            q.transpose(1, 2), heads(k), heads(v), is_causal=causal)
         x = x + torch.einsum("bnsh,nhd->bsd", o, a["wo"])
         h = norm(x, p["ln2"]["scale"])
         x = x + (F.silu(h @ f["wg"]) * (h @ f["wi"])) @ f["wo"]
-    return norm(x, params["final_norm"]["scale"]) @ tok.T
+    return norm(x, params["final_norm"]["scale"])
+
+
+def sv_plain_logits(cfg, params, seq):
+    """`plain_hidden` unembedded: (B, S) -> (B, S, V) f32 logits.
+    `params`: the weights as the server holds them, widened to f32."""
+    return plain_hidden(cfg, params, seq) @ params["embed"]["tok"].T
 
 
 def sv_decode_logits(model, params, seq, max_len):
@@ -2441,7 +2545,7 @@ def serving_path(dev):
     check(toks.shape == (SV_BATCH, SV_NEW) and toks.min() >= 0
           and toks.max() < cfg.vocab, f"tokens {toks.shape}")
     # g after b: every patch commit was exact
-    sv_same_as_fresh(run, srv, "g_fresh_after_b")
+    host_same_as_fresh(run, srv, "g_fresh_after_b")
     del srv
     torch.cuda.empty_cache()
 
@@ -2518,12 +2622,488 @@ def serving_path(dev):
             inv=nothing)
         check(np.array_equal(toks_f, toks), "f tokens != b's")
         # g after f
-        sv_same_as_fresh(run, srv, "g_fresh_after_f")
+        host_same_as_fresh(run, srv, "g_fresh_after_f")
         sv_invariants(srv, "g_flushed_f")
         del srv
         torch.cuda.empty_cache()
     probe.check(run, dict(run.build.LAUNCHES))
     return run.end(PATH_SV)
+
+
+TR_ARCH = "qwen3-0.6b"           # trained at its published width
+TR_REDUCED = False               # True: the config's reduced() (a CPU rehearsal)
+TR_MESH = (4, 2)                 # the reference launcher's default mesh
+TR_SEQ, TR_BATCH = 1024, 8       # 8,192 tokens a step
+TR_STEPS = 16                    # steps of each full phase (b, c, d, g)
+TR_SCRUB = 8                     # scrub_period
+TR_LR, TR_WARMUP, TR_TOTAL = 1e-3, 2, 100
+TR_LOST = 1                      # the rank tr d loses, after step TR_LOSS_AT
+TR_LOSS_AT, TR_SCRIBBLE_AT = 4, 6
+TR_ABORT_AT = 5                  # the step tr e runs with a failed canary
+TR_CKPT_AT, TR_CRASH_AT = 8, 12  # tr f: checkpoint, then crash after
+TR_MULTI_LOST = (0, 1, 3)        # the ranks tr g loses after step 10
+TR_MULTI_AT = 10
+TR_SLOW = 1                      # the replica tr h slows 10x
+# tr i, the train step checked apart from the port (a plain f32 forward
+# and backward of the whole model, chip_smoke.plain_hidden): the bf16
+# step's loss within TR_LOSS_RTOL of the f32 loss, and every parameter
+# leaf's gradient at a cosine of at least TR_GRAD_COS with the f32 one;
+# the chunked attention within TR_ATTN_RTOL of its largest |value|.
+# Bounds, set before the first chip run: bf16 rounding moves the loss by
+# ~5e-5 and each leaf's gradient by a cosine of ~1 - 7e-5 at reduced
+# widths (scripts/torch_train_check_faults.py on the CPU), 20x and 150x
+# inside the bounds; a wrong KV head, no causal mask or a rope θ of 1e4
+# move some leaf's gradient to a cosine of 0.90 or less there
+# (tests/test_torch_train_model.py::test_tr_check_catches_faults).
+TR_LOSS_RTOL = 1e-3
+TR_GRAD_COS = 0.99
+TR_ATTN_RTOL = 1e-4
+PATH_TR = ("fletcher_blocks", "fletcher_stream",
+           "fused_verify_commit_stream", "fused_accum_commit_stream",
+           "sdelta_stack", "gf_scale")
+
+
+def tr_free():
+    """Let go of a phase's trainer: a trainer and the clock wrapped around
+    it refer to each other, so only the cycle collector frees them."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tr_model():
+    """The trained model's config and zone mesh."""
+    from repro_torch import ZoneMesh
+    from repro_torch.configs.registry import get_config
+    return (get_config(TR_ARCH, reduced=TR_REDUCED),
+            ZoneMesh(TR_MESH, ("data", "model")))
+
+
+def tr_trainer(dev, cfg, mesh, checkpoint_dir=None, start=True, **pcfg):
+    """A Trainer of the path's model (AdamW, lr 1e-3, warmup 2), mlpc at
+    ProtectConfig's defaults unless `pcfg` says otherwise, initialized from
+    SEED on the card (every trainer starts from the same state)."""
+    from repro_torch import ProtectConfig
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.runtime.trainer import Trainer
+    pcfg = {"mode": "mlpc", "scrub_period": TR_SCRUB, **pcfg}
+    t = Trainer(cfg, TrainConfig(learning_rate=TR_LR,
+                                 warmup_steps=TR_WARMUP,
+                                 total_steps=TR_TOTAL),
+                ProtectConfig(**pcfg), mesh, seq_len=TR_SEQ,
+                global_batch=TR_BATCH, checkpoint_dir=checkpoint_dir,
+                seed=SEED, device=dev)
+    if start:
+        t.initialize()
+    return t
+
+
+def tr_clock(t, probe=None):
+    """A StepClock over a trainer: the train step (forward, backward,
+    clip, AdamW); the zone copies (`pool.state` with the batch's creation,
+    and `Pool.to_zone`); the commit less its to_zone; the scrub cadence.
+    The probe's copies count in no piece."""
+    return StepClock(pieces=("train_step", "zone_copies", "commit", "scrub"),
+                     off=(lambda: probe.ms) if probe is not None else None,
+                     wraps=[(t, "_dispatch_step", "zone_copies"),
+                            (t, "_train_step", "train_step"),
+                            (t.pool, "commit_async", "commit"),
+                            (t.pool, "to_zone", "zone_copies"),
+                            (t.pool, "maybe_scrub", "scrub")])
+
+
+def tr_steps(run, tag, t, n, probe=None, events=None, **kw):
+    """`n` steps of `t`, each resolved before the next; the phase line's
+    split of ms a step (tokens/s counts TR_BATCH x TR_SEQ tokens a step),
+    the losses and the digests after each step.  `events[k]()` runs after
+    the step that brings the trainer to step k, off the clock, as do the
+    probe's copies."""
+    if not hasattr(t, "_clock"):
+        t._clock = tr_clock(t, probe)
+    clock = t._clock
+    clock.ms = dict.fromkeys(clock.ms, 0.0)
+    losses, digests = [], []
+    off = -(probe.ms if probe is not None else 0.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        out = t.step(**kw)
+        losses.append(out["loss"])
+        digests.append(t.prot.digest.clone()
+                       if t.prot.digest is not None else None)
+        if events and out["step"] in events:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            events[out["step"]]()
+            torch.cuda.synchronize()
+            off += (time.perf_counter() - t1) * 1e3
+    torch.cuda.synchronize()
+    probe_ms = (probe.ms if probe is not None else 0.0)
+    wall = (time.perf_counter() - t0) * 1e3 - off - probe_ms
+    split = {f"{k}_ms_per_step": v / n for k, v in clock.ms.items()}
+    split["other_ms_per_step"] = wall / n - sum(split.values())
+    emit(path=run.tag, phase=f"{tag}_split", steps=n, wall_ms=wall,
+         off_clock_ms=off + probe_ms, ms_per_step=wall / n,
+         tokens_per_s=TR_BATCH * TR_SEQ * n / wall * 1e3, losses=losses,
+         **split)
+    return losses, digests
+
+
+def tr_host_state(t):
+    """The trainer's global state, copied to the host."""
+    from repro_torch import utils
+    return utils.tree_map(lambda x: x.cpu(), t.pool.state)
+
+
+def tr_same_state(t, host, tag):
+    """The trainer's global state byte-equal to a host copy."""
+    from repro_torch import utils
+    got = utils.tree_leaves(t.pool.state)
+    for a, b in zip(got, utils.tree_leaves(host), strict=True):
+        check(torch.equal(a, b.to(a.device)), f"{tag}: state != b's")
+
+
+def tr_plain_loss(cfg, params, tokens, **fault):
+    """The loss of `plain_hidden` (f32 logits of the whole batch, no
+    chunks): next-token CE with the last position masked, plus 1e-4 x the
+    mean lse², as the reference's loss."""
+    logits = plain_hidden(cfg, params, tokens, **fault) \
+        @ params["embed"]["tok"].T
+    lse = torch.logsumexp(logits, -1)[:, :-1]
+    ll = torch.gather(logits[:, :-1], -1,
+                      tokens[:, 1:, None].long())[..., 0]
+    return (lse - ll).mean() + 1e-4 * (lse ** 2).mean()
+
+
+def tr_grad_check(cfg, params, batch, **fault):
+    """The port's loss and gradients at `cfg`'s compute dtype
+    (`api.make_loss_and_grads`: chunked attention and CE, checkpointed
+    layer groups) against `tr_plain_loss`'s on the same f32 weights and
+    batch.  Returns the phase line's fields; `ok` holds the bounds."""
+    from repro_torch import utils
+    from repro_torch.models import api
+    from repro_torch.models.transformer import build_model
+    loss, _, grads = api.make_loss_and_grads(build_model(cfg))(params, batch)
+    leaves, treedef = utils.tree_flatten(params)
+    xs = [p.detach().float().requires_grad_() for p in leaves]
+    want = tr_plain_loss(cfg, utils.tree_unflatten(treedef, xs),
+                         batch["tokens"], **fault)
+    gwant = torch.autograd.grad(want, xs)
+    del xs
+    cos = [float(torch.nn.functional.cosine_similarity(
+        a.double().reshape(-1), b.double().reshape(-1), dim=0))
+        for a, b in zip(utils.tree_leaves(grads), gwant)]
+    want = float(want.detach())
+    rel = abs(float(loss) - want) / abs(want)
+    return dict(loss=float(loss), plain_loss=want, loss_rel_err=rel,
+                loss_bound=TR_LOSS_RTOL, min_grad_cos=min(cos),
+                grad_cos_bound=TR_GRAD_COS, grad_cos=cos,
+                ok=rel <= TR_LOSS_RTOL and min(cos) >= TR_GRAD_COS)
+
+
+def tr_attention_check(cfg, params, batch):
+    """The chunked `attend` (f32) and its gradients on layer 0's q, k, v
+    of the batch against `scaled_dot_product_attention` (causal, the math
+    backend, GQA by repeating k and v); each within TR_ATTN_RTOL of its
+    largest |value|."""
+    import dataclasses
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch import utils
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    p = utils.tree_map(lambda w: w[0].float(),
+                       params["groups"]["b0_dense"])
+    x = L.apply_embed(params["embed"], batch["tokens"], cfg32)
+    pos = torch.arange(x.shape[1], device=x.device)
+    with torch.no_grad():
+        h = L.apply_rmsnorm(p["ln1"], x)
+        q = A.project_q(p["attn"], h, cfg32, pos)
+        k, v = A.project_kv(p["attn"], h, cfg32, pos)
+    dout = torch.randn(q.shape, device=q.device,
+                       generator=torch.Generator(q.device).manual_seed(SEED))
+    g = cfg.n_heads // cfg.n_kv
+    outs = {}
+    for name in ("attend", "sdpa"):
+        qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        if name == "attend":
+            o = A.attend(qq, kk, vv, causal=True)
+        else:
+            with sdpa_kernel(SDPBackend.MATH):
+                o = torch.nn.functional.scaled_dot_product_attention(
+                    qq.transpose(1, 2),
+                    kk.transpose(1, 2).repeat_interleave(g, 1),
+                    vv.transpose(1, 2).repeat_interleave(g, 1),
+                    is_causal=True).transpose(1, 2)
+        o.backward(dout)
+        outs[name] = (o.detach(), qq.grad, kk.grad, vv.grad)
+    errs = {}
+    for what, a, b in zip(("out", "dq", "dk", "dv"), outs["attend"],
+                          outs["sdpa"]):
+        errs[what] = float((a - b).abs().max()) / float(b.abs().max())
+    check(all(e <= TR_ATTN_RTOL for e in errs.values()),
+          f"i: chunked attention off sdpa: {errs}")
+    return dict(shape=[list(q.shape), list(k.shape)], rel_err=errs,
+                bound=TR_ATTN_RTOL)
+
+
+def training_path(dev):
+    """The training plane at the model's published width (phases tr a-i)."""
+    import shutil
+    import tempfile
+    from repro_torch import utils
+    from repro_torch.dist.straggler import StragglerPolicy
+    from repro_torch.runtime import failure
+    run = PathRun(dev, "tr")
+    probe = CallProbe(host=True)
+    cfg, mesh = tr_model()
+    steps = TR_STEPS
+    half = steps // 2
+
+    # a: the state is made on the card and the pool opens over it
+    t, _ = run.phase("a_start", lambda: tr_trainer(dev, cfg, mesh),
+                     inv=nothing)
+    lo = t.protector.layout
+    state = t.pool.state
+    emit(path="tr", phase="a_layout", arch=cfg.name, mesh=list(TR_MESH),
+         seq_len=TR_SEQ, global_batch=TR_BATCH,
+         params=sum(x.numel() for x in utils.tree_leaves(state["params"])),
+         state_bytes=sum(x.numel() * x.element_size()
+                         for x in utils.tree_leaves(state)),
+         leaves=len(lo.slots), row_words=lo.row_words, n_blocks=lo.n_blocks,
+         block_words=lo.block_words)
+    del state
+    invariants(t.pool, "a_start")
+
+    # b: sixteen steps at mlpc r = 1, window 1, depth 1: 1-8 bulk commits,
+    # 9-16 with verify-at-open
+    ckpt = {}
+
+    def b():
+        l1, d1 = tr_steps(run, "b_bulk", t, half)
+        t.verify_old = True
+        l2, d2 = tr_steps(run, "b_verify_old", t, steps - half, events={
+            TR_CRASH_AT: lambda: ckpt.update(state=tr_host_state(t))})
+        return l1 + l2, d1 + d2
+    (b_loss, b_dig), _ = run.phase("b_train_r1", b, t.pool)
+    check(sum(b_loss[-4:]) < sum(b_loss[:4]),
+          f"b: the loss did not fall: {b_loss}")
+    check(all(math.isfinite(x) for x in b_loss), f"b: losses {b_loss}")
+    b_final = tr_host_state(t)
+    del t
+    tr_free()
+
+    # c: unprotected: the same losses and final state, bit for bit
+    def c():
+        u = tr_trainer(dev, cfg, mesh, mode="none")
+        losses, _ = tr_steps(run, "c_unprotected", u, steps)
+        check(losses == b_loss, f"c: losses {losses} != b's {b_loss}")
+        tr_same_state(u, b_final, "c")
+    run.phase("c_train_unprotected", c, inv=nothing)
+    tr_free()
+
+    with probe:
+        # d: rank 1 lost after step 4 and recovered; a word scribbled in
+        # rank 0's shard after step 6, scrubbed and repaired; on to 16
+        def d():
+            u = tr_trainer(dev, cfg, mesh)
+            losses, digs = tr_steps(run, "d_to_loss", u, TR_LOSS_AT, probe)
+            row = u.prot.row.clone()
+            ev = u.pool.inject(lambda pr, p: failure.inject_rank_loss(
+                pr, p, TR_LOST))
+            rep = u.on_failure(ev)
+            check(rep["verified"] and rep["reverified"], f"d: {rep}")
+            check(torch.equal(u.prot.row, row),
+                  "d: recovered state != the copy taken before the loss")
+            del row
+            # row == flatten(state), so the state is the copy's too
+            invariants(u.pool, "d_recovered")
+            more, dg = tr_steps(run, "d_to_scribble", u,
+                                TR_SCRIBBLE_AT - TR_LOSS_AT, probe)
+            losses, digs = losses + more, digs + dg
+            offset = lo.slots[0].offset + 11
+            u.pool.inject(lambda pr, p: failure.inject_scribble(
+                pr, p, rank=0, word_offsets=[offset]))
+            report = u.pool.scrub()
+            check(set(report.bad_locations) == {(0, offset // lo.block_words)}
+                  and report.repaired and report.repair_ok,
+                  f"d: scrub {report}")
+            more, dg = tr_steps(run, "d_bulk", u, half - TR_SCRIBBLE_AT,
+                                probe)
+            losses, digs = losses + more, digs + dg
+            u.verify_old = True
+            more, dg = tr_steps(run, "d_verify_old", u, steps - half, probe)
+            losses, digs = losses + more, digs + dg
+            check(losses == b_loss, f"d: losses {losses} != b's")
+            check(all(torch.equal(a, b) for a, b in zip(digs, b_dig)),
+                  "d: a step's digest != b's")
+            tr_same_state(u, b_final, "d")
+            return u.pool
+        run.phase("d_loss_scribble", d, inv=nothing)
+        probe.check(run, {}, by_rank=True)
+        tr_free()
+
+        # e: step 5 with a failed canary: not committed, the cursor rolled
+        # back, the bytes unchanged; the next step is b's step 5
+        def e():
+            u = tr_trainer(dev, cfg, mesh)
+            tr_steps(run, "e_to_abort", u, TR_ABORT_AT - 1, probe)
+            row, cursor = u.prot.row.clone(), u.cursor
+            out = u.step(canary_ok=False)
+            check(not out["committed"] and u.cursor == cursor
+                  and u.pool.step == TR_ABORT_AT - 1
+                  and torch.equal(u.prot.row, row), f"e: abort {out}")
+            invariants(u.pool, "e_after_abort")
+            del row
+            losses, digs = tr_steps(run, "e_after_abort", u, 1, probe)
+            check(losses[0] == b_loss[TR_ABORT_AT - 1]
+                  and torch.equal(digs[0], b_dig[TR_ABORT_AT - 1]),
+                  "e: the step after the abort != b's step 5")
+        run.phase("e_canary_abort", e, inv=nothing)
+        tr_free()
+
+        # f: checkpoint at step 8, on to 12, the trainer dropped; a fresh
+        # one restores and replays 9-12 from the redo log
+        def f():
+            where = tempfile.mkdtemp(prefix="tr_ckpt_")
+            try:
+                u = tr_trainer(dev, cfg, mesh, checkpoint_dir=where)
+                tr_steps(run, "f_to_checkpoint", u, TR_CKPT_AT, probe)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                u.save_checkpoint()
+                save_ms = (time.perf_counter() - t0) * 1e3
+                tr_steps(run, "f_to_crash", u, TR_CRASH_AT - TR_CKPT_AT,
+                         probe)
+                t0 = time.perf_counter()
+                u._ckpt_mgr.wait()
+                wait_ms = (time.perf_counter() - t0) * 1e3
+                # the surviving redo log (a peer's copy, in production)
+                log = dataclasses.replace(u.prot.log, **{
+                    k: v.clone() for k, v in vars(u.prot.log).items()})
+                del u
+                tr_free()
+                w = tr_trainer(dev, cfg, mesh, checkpoint_dir=where,
+                               start=False)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                info = w.restore_from_checkpoint(log=log)
+                torch.cuda.synchronize()
+                restore_ms = (time.perf_counter() - t0) * 1e3
+                want = list(range(TR_CKPT_AT + 1, TR_CRASH_AT + 1))
+                check(info == {"restored_step": TR_CKPT_AT,
+                               "replayed": want}, f"f: {info}")
+                replayed = [o["loss"] for o in w.history]
+                check(replayed == b_loss[TR_CKPT_AT:TR_CRASH_AT],
+                      f"f: replayed losses {replayed}")
+                tr_same_state(w, ckpt.pop("state"), "f")
+                emit(path="tr", phase="f_checkpoint", save_ms=save_ms,
+                     wait_ms=wait_ms, restore_and_replay_ms=restore_ms,
+                     replayed=info["replayed"], replayed_losses=replayed,
+                     disk_free_bytes=shutil.disk_usage(where).free)
+            finally:
+                shutil.rmtree(where, ignore_errors=True)
+        run.phase("f_checkpoint_replay", f, inv=nothing)
+        probe.check(run, {}, by_rank=True)
+        tr_free()
+
+        # g: r = 3, window 4, pipeline_depth 4 through `run` on the ring,
+        # ranks 0, 1 and 3 lost after step 10 and recovered
+        def g():
+            u = tr_trainer(dev, cfg, mesh, redundancy=3, window=4,
+                           pipeline_depth=4)
+            check(u.pool.engine is not None and not u.pool.engine.patch,
+                  "g: not the bulk engine")
+
+            def lose(tr, out):
+                if out["step"] == TR_MULTI_AT:
+                    ev = tr.pool.inject(
+                        lambda pr, p: failure.inject_multi_rank_loss(
+                            pr, p, TR_MULTI_LOST))
+                    rep = tr.on_failure(ev)
+                    check(rep["verified"] and rep["reverified"],
+                          f"g: recovery {rep}")
+            u.add_step_hook(lose)
+            probe_ms = probe.ms
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = u.run(steps)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 - (probe.ms - probe_ms)
+            losses = [o["loss"] for o in outs]
+            emit(path="tr", phase="g_split", steps=steps, wall_ms=wall,
+                 probe_copies_ms=probe.ms - probe_ms,
+                 ms_per_step=wall / steps,
+                 tokens_per_s=TR_BATCH * TR_SEQ * steps / wall * 1e3,
+                 losses=losses)
+            check(all(o["committed"] for o in outs) and losses == b_loss,
+                  f"g: losses {losses} != b's")
+            host_same_as_fresh(run, u, "g_fresh_after_run")
+            tr_same_state(u, b_final, "g")
+            invariants(u.pool, "g_flushed")
+            return u.pool
+        run.phase("g_train_r3_w4_d4", g, inv=nothing)
+        probe.check(run, {}, by_rank=True)
+        tr_free()
+
+        # h: replica 1 runs 10x slow: dropped; the loss-masked step commits
+        # with the unmasked loss (the reference's re-weighting); healed
+        def h():
+            u = tr_trainer(dev, cfg, mesh, straggler_threshold=2.0)
+            u.pool.straggler = StragglerPolicy(TR_MESH[0], threshold=2.0,
+                                               window=2)
+            u.replica_slowdown[TR_SLOW] = 10.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = [u.step() for _ in range(4)]
+            check(u.pool.dropped_replicas == [TR_SLOW],
+                  f"h: dropped {u.pool.dropped_replicas}")
+            # the masked step's dispatch (batch, mask, train step, commit)
+            # makes no host sync: set_sync_debug_mode raises on one
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                pending = u._dispatch_step()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            out = u._resolve_step(pending)
+            outs.append(out)
+            w = torch.tensor(1.0 - 1.0 / TR_MESH[0])      # the mask's mean
+            masked = [float(torch.tensor(x) * w / w) for x in b_loss[:5]]
+            check(out["committed"] and out["loss"] == masked[4]
+                  and torch.equal(u.prot.digest, b_dig[4]),
+                  f"h: masked step {out} != b's step 5 re-weighted")
+            u.replica_slowdown[TR_SLOW] = 1.0
+            outs += [u.step() for _ in range(2)]
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            check(u.pool.dropped_replicas == [], "h: not healed")
+            emit(path="tr", phase="h_result", dropped_after=[
+                o.get("dropped_replicas", []) for o in outs],
+                losses=[o["loss"] for o in outs], masked_b_losses=masked,
+                ms_per_step=wall / len(outs),
+                tokens_per_s=TR_BATCH * TR_SEQ * len(outs) / wall * 1e3)
+        run.phase("h_straggler", h, inv=nothing)
+        probe.check(run, {}, by_rank=True)
+        tr_free()
+    probe.check(run, dict(run.build.LAUNCHES), by_rank=True)
+
+    # i: the train step checked apart from the port, at full width
+    def i():
+        from repro_torch.data.synthetic import batch_for
+        from repro_torch.models.transformer import build_model
+        # the parameters every trainer starts from
+        params = build_model(cfg).init(
+            torch.Generator(dev).manual_seed(SEED), dev)
+        batch = batch_for(cfg, TR_SEQ, TR_BATCH, SEED).device_batch(0, dev)
+        emit(path="tr", phase="i_attention",
+             **tr_attention_check(cfg, params, batch))
+        tr_free()
+        got = tr_grad_check(cfg, params, batch)
+        check(abs(got["loss"] - b_loss[0]) == 0,
+              f"i: the checked loss {got['loss']} != b's step 1")
+        emit(path="tr", phase="i_loss_and_grads", **got)
+        check(got["ok"], f"i: the train step off the f32 plain step: {got}")
+    run.timed_aside("i_vs_f32_plain", i)
+    return run.end(PATH_TR)
 
 
 def main():
@@ -2549,7 +3129,8 @@ def main():
              "wp": window_path_wp(dev), "q3": async_path_q3(dev),
              "qw": async_path_qw(dev), "tg": tenancy_path(dev, "tg", 1),
              "tw": tenancy_path(dev, "tw", 4), "el": elastic_path(dev),
-             "ch": chaos_path(dev), "sv": serving_path(dev)}
+             "ch": chaos_path(dev), "sv": serving_path(dev),
+             "tr": training_path(dev)}
     rows = []
     for name in ops.ENTRY_POINTS:
         t = timing[name]

@@ -1,6 +1,9 @@
 """Config system (the reference's configs/base.py): `ModelConfig` holds a
-model's architecture numbers, `ProtectConfig` the single protection knob,
-validated as the reference validates it.
+model's architecture numbers, `TrainConfig` the optimizer and step
+settings (copied field for field, `remat`, `z_loss` and
+`grad_compression` included, though the reference reads none of them),
+`ProtectConfig` the single protection knob, validated as the reference
+validates it.
 
 Every architecture has a `repro_torch/configs/<id>.py` exporting `CONFIG`
 (the published configuration) and `reduced()` (a small same-family variant
@@ -80,6 +83,23 @@ class ModelConfig:
         """Analytic parameter count (of the families the port builds)."""
         from repro_torch.models import api
         return api.count_params(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    microbatches: int = 1             # gradient accumulation
+    remat: bool = True
+    optimizer: str = "adamw"          # adamw | adafactor
+    z_loss: float = 1e-4
+    grad_compression: bool = False    # int8 all-reduce with error feedback
 
 
 @dataclasses.dataclass(frozen=True)

@@ -23,8 +23,9 @@ mask (*mesh_dims, n_blocks) or None, "pending": u32 scalar, "acc": u32
 A window opened in the reference then continues in the port (hand the
 port's engine the state through `DeferredProtector.resume`).
 
-`params_to_port` carries a model's parameter tree the same way (a KV
-cache is protected state and travels through `to_port`).
+`params_to_port` carries a model's parameter tree the same way, and
+`train_state_to_port` a trainer's {"params", "opt", "step"} (a KV cache
+is protected state and travels through `to_port`).
 """
 from __future__ import annotations
 
@@ -92,6 +93,18 @@ def params_to_port(np_params, device=None):
     for the CPU), bit for bit."""
     device = utils.resolve_device(device)
     return utils.tree_map(lambda a: _leaf(a, device), np_params)
+
+
+def train_state_to_port(ref_state_np: dict, device=None) -> dict:
+    """The reference's train state (numpy): params, either optimizer's
+    moment tree (AdamW's {"m", "v"}, Adafactor's per-parameter {"v"} or
+    {"vr", "vc"}) and the int32 step -> the port's tensors on `device`,
+    bit for bit."""
+    device = utils.resolve_device(device)
+    return {"params": params_to_port(ref_state_np["params"], device),
+            "opt": params_to_port(ref_state_np["opt"], device),
+            "step": _leaf(np.asarray(ref_state_np["step"], np.int32),
+                          device)}
 
 
 def from_port(prot: ProtectedState) -> dict:

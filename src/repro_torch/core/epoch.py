@@ -456,8 +456,7 @@ class DeferredProtector:
                 # the stack rebuilt from the current row; the checksums are
                 # already fresh from the accumulate steps
                 if mode.has_parity:
-                    synd = parity_mod.apply_sdelta(
-                        synd, kops.syndrome_scale(acc, coeffs), dd)
+                    synd = synd ^ parity_mod.build_syndromes(acc, dd, coeffs)
                 acc = torch.zeros_like(acc)
             dirty = (torch.zeros_like(est.dirty) if est.dirty is not None
                      else None)

@@ -5,8 +5,8 @@ A log record for a step is the recipe to re-execute it deterministically —
 produced.  The log is a fixed ring of K records of int32 words on the
 device.  The reference replicates it on every rank; with the zone on one
 device there is one copy (the one `np.asarray` of the reference's shows).
-Replay (`lookup`, `replayable_steps`) arrives with the trainer (ROADMAP
-queue A, slice S8).
+Crash recovery reads it back with `replayable_steps` and `lookup`
+(runtime/trainer.py).
 """
 from __future__ import annotations
 
@@ -80,3 +80,25 @@ def commit_mark(log: RedoLog, step: torch.Tensor) -> RedoLog:
     """Set the logging-complete mark — the paper's persistent commit point."""
     return dataclasses.replace(log, mark=_set(log.mark, _slot(log, step), 1))
 
+
+
+def lookup(log: RedoLog, step: int) -> dict:
+    """The record in `step`'s slot: {step, data_cursor, rng, digest, mark}
+    as int32 word tensors."""
+    slot = (int(step) & 0xFFFFFFFF) % log.capacity
+    return dict(step=log.step[slot], data_cursor=log.data_cursor[slot],
+                rng=log.rng[slot], digest=log.digest[slot],
+                mark=log.mark[slot])
+
+
+def replayable_steps(log: RedoLog, from_step: int) -> list[int]:
+    """Host-side: contiguous marked steps strictly after `from_step` (steps
+    read as unsigned words)."""
+    steps = as_u64(log.step).tolist()
+    marks = as_u64(log.mark).tolist()
+    marked = {s for s, m in zip(steps, marks) if m == 1 and s > from_step}
+    out, s = [], from_step + 1
+    while s in marked:
+        out.append(s)
+        s += 1
+    return out

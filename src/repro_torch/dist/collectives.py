@@ -53,6 +53,12 @@ def xor_all_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
     return xor_fold(x, dim).unsqueeze(dim).expand_as(x)
 
 
+# The weighted planes of a row take r times its bytes, and their fold half
+# as much again.  Past this many bytes of planes they are built and folded
+# one zone segment at a time, G launches of sdelta_stack instead of one.
+WEIGHTED_BYTES = 1 << 32
+
+
 def syndrome_reduce_scatter(row: torch.Tensor, dim: int,
                             coeffs: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
@@ -61,8 +67,19 @@ def syndrome_reduce_scatter(row: torch.Tensor, dim: int,
     `(*M, r)` table of each rank's g^(k·j) (`gf.rank_syndrome_coeffs`), or
     None for r = 1, whose only plane is the XOR parity.  The `sdelta_stack`
     kernel weights each row into its r planes from one read; each plane
-    then folds as `xor_reduce_scatter` does."""
-    return xor_reduce_scatter(kops.syndrome_scale(row, coeffs), dim)
+    then folds as `xor_reduce_scatter` does.  The weighting is per word,
+    so a large row is weighted and folded a segment at a time, to the
+    same bytes."""
+    r = 1 if coeffs is None else coeffs.shape[-1]
+    if r * row.numel() * row.element_size() <= WEIGHTED_BYTES:
+        return xor_reduce_scatter(kops.syndrome_scale(row, coeffs), dim)
+    g, n = row.shape[dim], row.shape[-1]
+    if n % g:
+        raise ValueError(f"row of {n} words does not split into {g} segments")
+    segs = row.reshape(*row.shape[:-1], g, n // g)
+    return torch.stack([
+        xor_fold(kops.syndrome_scale(segs[..., i, :].contiguous(), coeffs),
+                 dim) for i in range(g)], dim=dim)
 
 
 def syndrome_apply_delta(synd: torch.Tensor, sdelta: torch.Tensor,

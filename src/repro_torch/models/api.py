@@ -1,16 +1,166 @@
-"""Public model API (the reference's models/api.py, its serving half):
-parameter counting and `make_decode_step`."""
+"""Public model API (the reference's models/api.py): parameter counting,
+the train state and its specs, and the step builders the trainer and the
+server run (`make_train_step`, `make_forward`, `make_prefill`,
+`make_decode_step`).
+
+A train state is {"params", "opt", "step"}: f32 parameters (cast to the
+compute dtype inside each step, so gradients reach the f32 leaves through
+the casts), the optimizer's moments, and the step counter as a 0-d int32
+tensor.  A train step reads nothing back to the host: loss, gradient
+norm, learning rate and step stay on the device.  The reference's dry-run
+input specs (`input_specs`, `Workload`) belong to the tooling slice.
+"""
 from __future__ import annotations
+
+from typing import Any
 
 import torch
 
+from repro_torch import utils
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import sharding as shd
+from repro_torch.dist.sharding import P
+from repro_torch.models import layers as L
 from repro_torch.models import params as prm
 from repro_torch.models.transformer import Model, build_model
+from repro_torch.optim import Optimizer, clip_by_global_norm
+
+PyTree = Any
 
 
 def count_params(cfg: ModelConfig) -> int:
     return prm.count(build_model(cfg).param_defs())
+
+
+def batch_specs(cfg: ModelConfig, mesh, global_batch: int = 1 << 30) -> dict:
+    rules = cfg.logical_overrides
+    B = global_batch
+    specs = {"tokens": shd.spec_for(mesh, ("batch", None), (B, 1), rules)}
+    if cfg.mm_positions:
+        specs["mm_embeds"] = shd.spec_for(
+            mesh, ("batch", None, None), (B, 1, 1), rules)
+    if cfg.enc_layers:
+        specs["src_embeds"] = shd.spec_for(
+            mesh, ("batch", None, None), (B, 1, 1), rules)
+    return specs
+
+
+# ---------------------------------------------------------------------------
+# train state
+# ---------------------------------------------------------------------------
+
+def init_train_state(model: Model, optimizer: Optimizer,
+                     gen: torch.Generator, device=None) -> dict:
+    """Random parameters from `gen` (a generator on `device`, the card
+    unless the caller asks for the CPU), zero moments, step 0."""
+    device = utils.resolve_device(device)
+    params = model.init(gen, device)
+    return {"params": params, "opt": optimizer.init(params),
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def abstract_train_state(model: Model, optimizer: Optimizer) -> dict:
+    """The train state's shapes and dtypes as `device="meta"` tensors."""
+    params = prm.abstract_params(model.param_defs())
+    return {"params": params, "opt": optimizer.init(params),
+            "step": torch.zeros((), dtype=torch.int32, device="meta")}
+
+
+def train_state_specs(model: Model, optimizer: Optimizer, mesh) -> dict:
+    pspecs = model.param_specs(mesh)
+    return {"params": pspecs, "opt": optimizer.state_specs(pspecs),
+            "step": P()}
+
+
+# ---------------------------------------------------------------------------
+# train / serve step builders
+# ---------------------------------------------------------------------------
+
+def make_loss_and_grads(model: Model):
+    """Returns loss_and_grads(params, batch) -> (loss, metrics, grads): the
+    loss (re-weighted by the batch's `loss_mask`, as the reference does)
+    and its gradients with respect to the parameters, all detached."""
+
+    def loss_fn(params, batch):
+        loss, metrics = model.loss(params, batch)
+        if "loss_mask" in batch:
+            # the reference re-weights the scalar: loss * w / max(w, 1e-9)
+            # is the loss itself for any w > 1e-9, so a dropped replica
+            # changes no gradient (a reference fault, kept on purpose)
+            w = torch.mean(batch["loss_mask"].float())
+            loss = loss * w / torch.clamp(w, min=1e-9)
+        return loss, metrics
+
+    def loss_and_grads(params, batch):
+        leaves, treedef = utils.tree_flatten(params)
+        xs = [p.detach().requires_grad_() for p in leaves]
+        with torch.enable_grad():
+            loss, metrics = loss_fn(utils.tree_unflatten(treedef, xs), batch)
+            grads = torch.autograd.grad(loss, xs)
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                utils.tree_unflatten(treedef, list(grads)))
+
+    return loss_and_grads
+
+
+def make_train_step(model: Model, optimizer: Optimizer, train_cfg):
+    """Returns train_step(state, batch) -> (new_state, metrics).
+
+    Supports microbatch gradient accumulation (f32 gradients; the metrics
+    are then only `loss` and `grad_norm`, as the reference's) and
+    per-example loss masks (straggler mitigation drops slow replicas'
+    examples via the mask).  Clip, then the optimizer update, then step + 1.
+    """
+    nmb = train_cfg.microbatches
+    single = make_loss_and_grads(model)
+
+    def train_step(state, batch):
+        params = state["params"]
+        if nmb > 1:
+            grads = utils.tree_map(
+                lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device), params)
+            loss = torch.zeros((), device=state["step"].device)
+            for i in range(nmb):
+                mb = {k: x.reshape((nmb, x.shape[0] // nmb) + x.shape[1:])[i]
+                      for k, x in batch.items()}
+                mb_loss, _, mb_grads = single(params, mb)
+                grads = utils.tree_map(torch.add, grads, mb_grads)
+                loss = loss + mb_loss
+            grads = utils.tree_map(lambda g: g / nmb, grads)
+            loss = loss / nmb
+            metrics = {}
+        else:
+            loss, metrics, grads = single(params, batch)
+        grads, gnorm = clip_by_global_norm(grads, train_cfg.grad_clip)
+        new_params, new_opt = optimizer.update(grads, state["opt"], params,
+                                               state["step"])
+        new_state = {"params": new_params, "opt": new_opt,
+                     "step": state["step"] + 1}
+        metrics = dict(metrics, loss=loss, grad_norm=gnorm)
+        return new_state, metrics
+
+    return train_step
+
+
+def make_forward(model: Model):
+    """Full-sequence forward: batch -> (B, S, V) logits (eval/scoring)."""
+    def forward(params, batch):
+        logits, _ = model.forward(params, batch)
+        return logits
+    return forward
+
+
+def make_prefill(model: Model):
+    """Serving prefill: batch -> next-token logits (B, V).
+
+    Slices the hidden state to the last position BEFORE the unembedding so
+    the (B, S, vocab) logits tensor never materializes."""
+    def prefill(params, batch):
+        x, _ = model.hidden(params, batch)
+        logits = L.apply_unembed(params["embed"], x[:, -1:, :], model.cfg)
+        return logits[:, 0]
+    return prefill
 
 
 def make_decode_step(model: Model, sample: str = "greedy"):

@@ -1,10 +1,26 @@
-"""GQA attention, the decode half (the reference's models/attention.py).
+"""GQA attention (the reference's models/attention.py): chunked
+(online-softmax) training path, KV-cache decode.
 
-Decode attends one query against a linear or ring (sliding-window) cache.
-GQA: queries are grouped as (B, K, g, hd) with g = H // K, so scores are
-computed against un-broadcast KV heads.  The scores and `p·v` are kept in
-f32, as the reference keeps them.  The chunked training attention and its
-backward are not here: they belong to the training slice.
+The training / prefill path `attend` is blockwise "flash"-style attention
+in plain PyTorch: a loop over query tiles and, inside it, over KV tiles
+with an online-softmax carry, so the score working set is one
+(q_chunk x kv_chunk) tile instead of S^2.  Its backward (a
+`torch.autograd.Function`, the reference's custom VJP) recomputes the
+score tiles from (q, k, v, out, lse) and saves nothing else: autograd
+through the loops would keep every tile.  Tiles whose mask is all False
+(above the causal diagonal, before a window) are skipped: their softmax
+weights are exactly 0 once a row has seen a live tile, as every causal
+row has by its first tile.  Decode attends one query against a linear or
+ring (sliding-window) cache.
+
+GQA: queries are grouped as (B, K, g, ·) with g = H // K, so scores are
+computed against un-broadcast KV heads.  The scores, `p·v` and every
+gradient product are kept in f32, as the reference keeps them
+(`preferred_element_type=float32` of compute-dtype operands: the port
+widens the operands, exact per product), with the reference's casts: p
+to q's dtype before `p·v`, ds to k's (q's) dtype before `ds·k` (`ds·q`).
+The reference's `_tile_specs` / `_hint` are sharding hints for a mesh of
+devices and have no counterpart on one device.
 """
 from __future__ import annotations
 
@@ -96,6 +112,184 @@ def apply_out(p: dict, attn: torch.Tensor, cfg) -> torch.Tensor:
     a = attn.to(dt)
     return torch.matmul(a.reshape(*a.shape[:-2], H * hd),
                         wo.reshape(H * hd, d))
+
+
+# ---------------------------------------------------------------------------
+# chunked online-softmax attention (training / prefill)
+# ---------------------------------------------------------------------------
+
+def _pick_chunk(s: int, target: int) -> int:
+    """The largest divisor of s that is at most `target`."""
+    c = min(target, s)
+    while s % c:
+        c -= 1
+    return c
+
+
+def _tile_mask(causal: bool, window: Optional[int], qp: int, kp: int,
+               qc: int, kc: int, device) -> Optional[torch.Tensor]:
+    """(qc, kc) bool mask for a tile at query offset qp, key offset kp; None
+    when every entry is live (the host's arithmetic on the offsets)."""
+    lo, hi = qp - (kp + kc - 1), (qp + qc - 1) - kp    # range of q - k
+    if (not causal or lo >= 0) and (window is None or hi < window):
+        return None
+    qpos = qp + torch.arange(qc, device=device)[:, None]
+    kpos = kp + torch.arange(kc, device=device)[None, :]
+    mask = torch.ones((qc, kc), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= qpos - kpos < window
+    return mask
+
+
+def _tile_live(causal: bool, window: Optional[int], qp: int, kp: int,
+               qc: int, kc: int) -> bool:
+    """Whether a tile has any unmasked entry."""
+    lo, hi = qp - (kp + kc - 1), (qp + qc - 1) - kp
+    return (not causal or hi >= 0) and (window is None or lo < window)
+
+
+def _tiles(x: torch.Tensor, n: int, c: int, K: int, g: int) -> torch.Tensor:
+    """(B, S, K*g, hd) -> (n, B, K, g*c, hd): query-tile i's rows grouped
+    by KV head, head-group-major within a tile."""
+    B, _, _, hd = x.shape
+    return x.reshape(B, n, c, K, g, hd).permute(1, 0, 3, 4, 2, 5).reshape(
+        n, B, K, g * c, hd)
+
+
+def _untile(x: torch.Tensor, B: int, c: int, K: int, g: int
+            ) -> torch.Tensor:
+    """(n, B, K, g*c, hd) -> (B, n*c, K*g, hd)."""
+    n, hd = x.shape[0], x.shape[-1]
+    return x.reshape(n, B, K, g, c, hd).permute(1, 0, 4, 2, 3, 5).reshape(
+        B, n * c, K * g, hd)
+
+
+def _masked(s: torch.Tensor, mask: Optional[torch.Tensor], g: int
+            ) -> torch.Tensor:
+    """Scores (B, K, g*qc, kc) with the tile mask applied."""
+    if mask is None:
+        return s
+    B, K, gq, kc = s.shape
+    return torch.where(mask, s.reshape(B, K, g, gq // g, kc),
+                       NEG_INF).reshape(B, K, gq, kc)
+
+
+def _attend_fwd(q, k, v, causal, window, chunk) -> tuple:
+    """Returns (out (B,S,H,hd) in q's dtype, lse (B,K,g,S) f32)."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    g = H // K
+    scale = 1.0 / math.sqrt(hd)
+    qc, kc = _pick_chunk(S, chunk), _pick_chunk(T, chunk)
+    nq, nk = S // qc, T // kc
+    qt = _tiles(q, nq, qc, K, g).float()
+    kt = k.permute(0, 2, 3, 1).float()                 # (B, K, hd, T)
+    vt = v.permute(0, 2, 1, 3).float()                 # (B, K, T, hd)
+    outs, lses = [], []
+    for i in range(nq):
+        qi = qt[i]                                     # (B, K, g*qc, hd)
+        m = torch.full((B, K, g * qc), NEG_INF, device=q.device)
+        l = torch.zeros((B, K, g * qc), device=q.device)
+        acc = torch.zeros((B, K, g * qc, hd), device=q.device)
+        for j in range(nk):
+            if not _tile_live(causal, window, i * qc, j * kc, qc, kc):
+                continue
+            s = torch.matmul(qi, kt[..., j * kc:(j + 1) * kc]) * scale
+            s = _masked(s, _tile_mask(causal, window, i * qc, j * kc, qc, kc,
+                                      q.device), g)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.matmul(p.to(q.dtype).float(),
+                              vt[:, :, j * kc:(j + 1) * kc])
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        l_safe = torch.clamp(l, min=1e-30)
+        outs.append(acc / l_safe[..., None])
+        lses.append(m + torch.log(l_safe))
+    out = _untile(torch.stack(outs), B, qc, K, g).to(q.dtype)
+    lse = torch.stack(lses).reshape(nq, B, K, g, qc).permute(
+        1, 2, 3, 0, 4).reshape(B, K, g, S)
+    return out, lse
+
+
+def _attend_bwd(q, k, v, out, lse, dout, causal, window, chunk) -> tuple:
+    """Flash backward: recompute score tiles; only lse was saved."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    g = H // K
+    scale = 1.0 / math.sqrt(hd)
+    qc, kc = _pick_chunk(S, chunk), _pick_chunk(T, chunk)
+    nq, nk = S // qc, T // kc
+    qt = _tiles(q, nq, qc, K, g).float()
+    dot = _tiles(dout, nq, qc, K, g)
+    kt = k.permute(0, 2, 3, 1).float()                 # (B, K, hd, T)
+    kr = k.permute(0, 2, 1, 3).float()                 # (B, K, T, hd)
+    vt = v.permute(0, 2, 3, 1).float()                 # (B, K, hd, T)
+    # lse and D = rowsum(dout * out) as (nq, B, K, g*qc)
+    lser = lse.reshape(B, K, g, nq, qc).permute(3, 0, 1, 2, 4).reshape(
+        nq, B, K, g * qc)
+    d_row = torch.sum(dout.float() * out.float(), dim=-1)  # (B, S, H)
+    d_row = d_row.reshape(B, nq, qc, K, g).permute(1, 0, 3, 4, 2).reshape(
+        nq, B, K, g * qc)
+    dk = torch.zeros((B, K, T, hd), device=q.device)
+    dv = torch.zeros((B, K, T, hd), device=q.device)
+    dqs = []
+    for i in range(nq):
+        qi, doi = qt[i], dot[i].float()
+        dq_i = torch.zeros((B, K, g * qc, hd), device=q.device)
+        for j in range(nk):
+            if not _tile_live(causal, window, i * qc, j * kc, qc, kc):
+                continue
+            ks = slice(j * kc, (j + 1) * kc)
+            s = torch.matmul(qi, kt[..., ks]) * scale
+            s = _masked(s, _tile_mask(causal, window, i * qc, j * kc, qc, kc,
+                                      q.device), g)
+            p = torch.exp(s - lser[i][..., None])      # (B, K, g*qc, kc)
+            dp = torch.matmul(doi, vt[..., ks])
+            ds = p * (dp - d_row[i][..., None]) * scale
+            dq_i = dq_i + torch.matmul(ds.to(k.dtype).float(), kr[:, :, ks])
+            dk[:, :, ks] += torch.matmul(
+                ds.to(q.dtype).float().transpose(-1, -2), qi)
+            dv[:, :, ks] += torch.matmul(
+                p.to(dout.dtype).float().transpose(-1, -2), doi)
+        dqs.append(dq_i)
+    dq = _untile(torch.stack(dqs), B, qc, K, g).to(q.dtype)
+    return (dq, dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+class _Attend(torch.autograd.Function):
+    """`attend` with the reference's custom VJP: forward saves
+    (q, k, v, out, lse) and the backward recomputes the score tiles."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk):
+        out, lse = _attend_fwd(q, k, v, causal, window, chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = (causal, window, chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _attend_bwd(q, k, v, out, lse, dout.contiguous(),
+                                 *ctx.cfg)
+        return dq, dk, dv, None, None, None
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool, window: Optional[int] = None,
+           chunk: int = 256) -> torch.Tensor:
+    """Blockwise attention.  q: (B,S,H,hd); k,v: (B,T,K,hd) -> (B,S,H,hd).
+
+    Query position i attends key position j under `causal` (j <= i) and
+    `window` (i - j < window); positions are block-index-derived (both
+    sequences start at position 0)."""
+    return _Attend.apply(q, k, v, bool(causal), window, int(chunk))
 
 
 # ---------------------------------------------------------------------------

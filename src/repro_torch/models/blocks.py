@@ -2,6 +2,9 @@
 
   dense   — causal GQA attention + GLU MLP
 
+Each type provides defs / train (`apply_train`, the full sequence) /
+decode (`apply_decode`, one token against the cache) / cache-init.
+
 The sliding-window, routed-expert, recurrent, xLSTM and encoder-decoder
 types (attn, moe, rglru, mlstm, slstm, enc, dec_x) come with their
 families' slice; asking for one raises NotImplementedError.
@@ -62,6 +65,25 @@ def cache_logical_axes(cfg, btype: str, tp: int = 1) -> dict:
     return {"k": ("batch", seq, kv, "head_dim"),
             "v": ("batch", seq, kv, "head_dim"),
             "pos": (None,)}
+
+
+def apply_train(p: dict, btype: str, x: torch.Tensor, cfg, *,
+                positions: torch.Tensor, rope_table=None,
+                causal: bool = True) -> tuple:
+    """Full-sequence application.  Returns (x, aux losses dict).
+    `rope_table`: the positions' `layers.rope_table`, when the caller has
+    it (shared by every layer)."""
+    _check(btype)
+    h = L.apply_rmsnorm(p["ln1"], x)
+    q = attn_mod.project_q(p["attn"], h, cfg, positions,
+                           rope_table=rope_table)
+    k, v = attn_mod.project_kv(p["attn"], h, cfg, positions,
+                               rope_table=rope_table)
+    o = attn_mod.attend(q, k, v, causal=causal)
+    x = x + attn_mod.apply_out(p["attn"], o, cfg).to(x.dtype)
+    h2 = L.apply_rmsnorm(p["ln2"], x)
+    x = x + L.apply_mlp(p["ffn"], h2, cfg).to(x.dtype)
+    return x, {}
 
 
 def decode_positions(pos: int, cfg, device) -> tuple:

@@ -124,8 +124,52 @@ def embed_defs(cfg) -> dict:
     return d
 
 
+def row_sums(g: torch.Tensor, idx: torch.Tensor, rows: int
+             ) -> torch.Tensor:
+    """`(rows, D)` sums of the rows of `g` `(..., D)` by `idx` `(...)`, in
+    the same order on every run: the rows sorted stably by index, an f64
+    prefix sum down them, each index's sum read at its run's end and
+    written to its own row (the other rows write a spare row, dropped).
+    `index_add_` and the backward of indexing add with atomics on the
+    card, whose order, and so whose float sum, changes between runs."""
+    D = g.shape[-1]
+    i = idx.reshape(-1).long()
+    order = torch.argsort(i, stable=True)
+    si = i[order]
+    csum = torch.cumsum(g.reshape(-1, D)[order].double(), dim=0)
+    n = si.shape[0]
+    brk = si[1:] != si[:-1]
+    at = torch.arange(n, device=g.device)
+    start = torch.where(torch.cat([brk.new_ones(1), brk]), at, 0).cummax(
+        0).values
+    before = torch.where((start > 0)[:, None], csum[(start - 1).clamp(min=0)],
+                         0.0)
+    dest = torch.where(torch.cat([brk, brk.new_ones(1)]), si, rows)
+    out = torch.zeros((rows + 1, D), dtype=g.dtype, device=g.device)
+    out[dest] = (csum - before).to(g.dtype)
+    return out[:rows]
+
+
+class _RowGather(torch.autograd.Function):
+    """`table[idx]` whose backward sums the rows with `row_sums`: a train
+    step gives the same bits on every run."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return row_sums(g, idx, ctx.rows), None
+
+
 def apply_embed(p: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    return p["tok"].to(cdt(cfg))[tokens.long()]
+    """The rows of `tokens`, cast to the compute dtype (the reference casts
+    the table, then gathers: the same values)."""
+    return _RowGather.apply(p["tok"], tokens.long()).to(cdt(cfg))
 
 
 def apply_unembed(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:

@@ -2,9 +2,10 @@
 
 Each module declares its parameters as `ParamDef`s (shape, dtype, logical
 axes, initializer).  From one definition tree come the initialized
-parameter tree (`init_params`, from an explicit `torch.Generator`), the
-partition specs through the logical-axis rules (`spec_tree`) and the
-parameter count (`count`).  Layer stacks are declared once and `stacked`
+parameter tree (`init_params`, from an explicit `torch.Generator`), its
+shapes alone (`abstract_params`, meta tensors), the partition specs
+through the logical-axis rules (`spec_tree`) and the parameter count
+(`count`).  Layer stacks are declared once and `stacked`
 over a leading "layers" axis, so the tree, and every leaf's layout, is the
 reference's.
 """
@@ -63,6 +64,13 @@ def leaves(defs: PyTree) -> list:
 def stacked(defs: PyTree, n: int) -> PyTree:
     """Add a leading layer axis of size n to every ParamDef in the tree."""
     return _map(lambda d: d.with_stack(n), defs)
+
+
+def abstract_params(defs: PyTree) -> PyTree:
+    """The parameter tree's shapes and dtypes as `device="meta"` tensors
+    (the reference's ShapeDtypeStruct tree), holding no bytes."""
+    return _map(lambda d: torch.empty(d.shape, dtype=torch_dtype(d.dtype),
+                                      device="meta"), defs)
 
 
 def _init_one(d: ParamDef, gen: torch.Generator, device) -> torch.Tensor:

@@ -1,15 +1,24 @@
 """Model assembly: the decoder-only LM over the block registry (the
-reference's models/transformer.py, its decode half).
+reference's models/transformer.py).
 
 Parameters of each pattern position are stacked over a leading "layers"
-axis (`groups`), as in the reference, so the parameter tree and the KV
-cache have the reference's leaves and layouts word for word: a pool's row
-over the cache is the reference's.  (The reference's unstacked tail
-blocks, `n_layers % len(pattern)`, exist only for the multi-block
-patterns of the families this slice does not build.)
+axis (`groups`), as in the reference, so the parameter tree, the train
+state and the KV cache have the reference's leaves and layouts word for
+word: a pool's row over them is the reference's.  The full-sequence
+forward runs the layer groups in order over the stacked leaves, each
+group under `torch.utils.checkpoint` when there is more than one (the
+reference's `jax.checkpoint` of its scan body): the backward recomputes a
+group's activations from its input.  The stacked leaves are unbound once
+a call, so every layer's gradient lands in its slice of the stacked leaf.
+(The reference's unstacked tail blocks, `n_layers % len(pattern)`, exist
+only for the multi-block patterns of the families this slice does not
+build.)
 
 Entry points:
     init(gen)                        -> params
+    hidden(params, batch)            -> (x (B,S,D), aux)  backbone output
+    forward(params, batch)           -> (logits, aux)     (train fwd & prefill)
+    loss(params, batch)              -> (scalar, metrics)
     init_cache(batch, max_len)       -> cache tree
     cache_specs(batch, max_len)      -> partition specs of the cache
     decode_step(params, tok, cache, pos) -> (logits, new cache)
@@ -23,6 +32,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import utils
 from repro_torch.configs.base import ModelConfig
@@ -42,7 +52,7 @@ PORTED_FAMILIES = ("dense",)
 
 class Model(torch.nn.Module):
     """Decoder-only LM.  A parameter tree is passed to each call, as in
-    the reference; `forward` is `decode_step`."""
+    the reference."""
 
     def __init__(self, cfg: ModelConfig, mesh=None):
         super().__init__()
@@ -81,6 +91,104 @@ class Model(torch.nn.Module):
                         else v if k in F32_LEAVES else v.to(dt))
                     for k, v in tree.items()}
         return cast(params)
+
+    # -- embedding of (tokens, optional multimodal stub embeds) ---------------
+
+    def _embed_inputs(self, params, batch) -> torch.Tensor:
+        cfg = self.cfg
+        x = L.apply_embed(params["embed"], batch["tokens"], cfg)
+        if cfg.mm_positions:
+            mm = batch["mm_embeds"].to(x.dtype)
+            x = torch.cat([mm, x], dim=1)
+        return x
+
+    # -- full-sequence forward (training fwd / serving prefill) ----------------
+
+    def hidden(self, params, batch) -> tuple:
+        """Backbone output before unembedding: (x (B,S,D), aux_total)."""
+        cfg = self.cfg
+        x = self._embed_inputs(params, batch)
+        S = x.shape[1]
+        positions = torch.arange(S, device=x.device)
+        table = L.rope_table(positions, cfg.hd, cfg.rope_theta, x.device)
+        leaves, treedef = utils.tree_flatten(params["groups"])
+        layers = [w.unbind(0) for w in leaves]
+
+        def group_body(x, *gleaves):
+            gp = utils.tree_unflatten(treedef, gleaves)
+            for j, t in enumerate(self.pattern):
+                x, _ = B.apply_train(gp[f"b{j}_{t}"], t, x, cfg,
+                                     positions=positions, rope_table=table)
+            return x
+
+        remat = self.n_groups > 1 and torch.is_grad_enabled()
+        for i in range(self.n_groups):
+            gleaves = [layer[i] for layer in layers]
+            if remat:
+                x = checkpoint(group_body, x, *gleaves, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = group_body(x, *gleaves)
+        # the dense family has no auxiliary (router) losses
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        x = L.apply_rmsnorm(params["final_norm"], x)
+        return x, aux_total
+
+    def forward(self, params, batch) -> tuple:
+        """(logits (B, S, V) f32, aux)."""
+        x, aux_total = self.hidden(params, batch)
+        return L.apply_unembed(params["embed"], x, self.cfg), aux_total
+
+    def _chunked_ce(self, params, x, targets, valid) -> tuple:
+        """CE over sequence chunks, so the full-vocab logits never
+        materialize: each chunk's logits are recomputed in the backward
+        (`checkpoint`), and only the chunk's input is kept.  Returns (mean
+        CE, mean lse²) over the valid positions.
+
+        x: (B, S, D) hidden; targets: (B, S) ids; valid: (B, S) bool."""
+        cfg = self.cfg
+        S = x.shape[1]
+        c = min(512, S)
+        while S % c:
+            c -= 1
+
+        def chunk_terms(xc, embed, tc, vf):
+            lg = L.apply_unembed(embed, xc, cfg).float()
+            lse = torch.logsumexp(lg, dim=-1)
+            ll = torch.gather(lg, -1, tc[..., None].long())[..., 0]
+            return torch.stack([torch.sum((lse - ll) * vf),
+                                torch.sum((lse ** 2) * vf)])
+
+        remat = torch.is_grad_enabled()
+        sums = torch.zeros(2, device=x.device)
+        n = torch.zeros((), device=x.device)
+        for i in range(S // c):
+            sl = slice(i * c, (i + 1) * c)
+            vf = valid[:, sl].float()
+            args = (x[:, sl], params["embed"], targets[:, sl], vf)
+            sums = sums + (checkpoint(chunk_terms, *args, use_reentrant=False,
+                                      preserve_rng_state=False)
+                           if remat else chunk_terms(*args))
+            n = n + torch.sum(vf)
+        n = torch.clamp(n, min=1.0)
+        return sums[0] / n, sums[1] / n
+
+    def loss(self, params, batch) -> tuple:
+        cfg = self.cfg
+        x, aux = self.hidden(params, batch)
+        # next-token CE on token positions (skip the mm stub prefix)
+        x = x[:, cfg.mm_positions:, :]
+        tokens = batch["tokens"]
+        targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                            dim=1)
+        valid = torch.ones(tokens.shape, dtype=torch.bool,
+                           device=tokens.device)
+        valid[:, -1] = False
+        ce, zterm = self._chunked_ce(params, x, targets, valid)
+        z_loss = 1e-4 * zterm
+        # the dense family's aux is 0 and weighs 0 (the reference's
+        # moe_coef), so the total is ce + z_loss
+        return ce + z_loss, {"ce": ce, "z_loss": z_loss, "aux": aux}
 
     # -- decode -----------------------------------------------------------------
 
@@ -134,8 +242,6 @@ class Model(torch.nn.Module):
         x = L.apply_rmsnorm(params["final_norm"], x)
         logits = L.apply_unembed(params["embed"], x, cfg)[:, 0]
         return logits, {"groups": new_groups}
-
-    forward = decode_step
 
 
 def build_model(cfg: ModelConfig, mesh=None) -> Model:

@@ -65,6 +65,47 @@ def sum32(x: torch.Tensor, dim=None) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# the reference's PRNG key words (threefry-2x32), on the host
+# ---------------------------------------------------------------------------
+# A redo record carries the step's RNG key as two u32 words: the reference
+# logs `key_data(fold_in(PRNGKey(seed), cursor))`.  JAX's default PRNG is
+# threefry-2x32: PRNGKey(seed) is the words (0, seed mod 2^32) under JAX's
+# default 32-bit integers, and fold_in(key, d) hashes the count (0, d)
+# under the key.
+
+_M32 = 0xFFFFFFFF
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x: int, r: int) -> int:
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def threefry2x32(key: Sequence[int], count: Sequence[int]) -> list:
+    """The 20-round threefry-2x32 hash of one count pair under `key`."""
+    k0, k1 = key[0] & _M32, key[1] & _M32
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0, x1 = (count[0] + ks[0]) & _M32, (count[1] + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return [x0, x1]
+
+
+def prng_key(seed: int) -> list:
+    """The words of the reference's `jax.random.PRNGKey(seed)`."""
+    return [0, int(seed) & _M32]
+
+
+def fold_in(key: Sequence[int], data: int) -> list:
+    """The words of `jax.random.fold_in(key, data)` (data as a u32)."""
+    return threefry2x32(key, [0, int(data) & _M32])
+
+
+# ---------------------------------------------------------------------------
 # dtype <-> u32 word views
 # ---------------------------------------------------------------------------
 

@@ -369,3 +369,59 @@ def test_cuda_server_matches_the_cpu(card, r, window, depth):
                                getattr(fresh.prot, k)), k
     assert _build.LAUNCHES, "the card's server launched no kernel"
     np.testing.assert_array_equal(out["cpu"], out[str(card)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 24),
+                                           (False, None)])
+def test_cuda_attend_matches_the_cpu(card, dtype, causal, window):
+    """The chunked training attention (its forward and its recomputing
+    backward) on the card against the same function on the CPU: f32 within
+    1e-5 of the largest |value|, bf16 within 2^-7 (the card's and the
+    CPU's matmuls sum in another order)."""
+    from repro_torch.models import attention
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(4)
+    q, k, v, dout = (torch.randn(s, generator=gen).to(dt) for s in (
+        (2, 96, 4, 16), (2, 96, 2, 16), (2, 96, 2, 16), (2, 96, 4, 16)))
+    out = {}
+    for dev in ("cpu", card):
+        xs = [t.to(dev).detach().requires_grad_() for t in (q, k, v)]
+        o = attention.attend(*xs, causal=causal, window=window, chunk=32)
+        o.backward(dout.to(dev))
+        out[str(dev)] = [t.detach().float().cpu() for t in
+                         (o, *(x.grad for x in xs))]
+    rtol = 1e-5 if dtype == "float32" else 2 ** -7
+    for a, b in zip(out["cpu"], out[str(card)]):
+        assert (a - b).abs().max() <= rtol * a.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_train_step_gives_the_same_bytes_twice(card, dtype):
+    """Two train steps from one state on the card give the same bytes:
+    the embedding's backward sums its rows in a fixed order
+    (`layers.row_sums`), so the step is deterministic, as the trainer's
+    replay and chip_smoke's tr b / c comparison need."""
+    import dataclasses
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.models import api
+    from repro_torch.models.transformer import build_model
+    from repro_torch.optim import build_optimizer
+    from repro_torch import utils
+    cfg = dataclasses.replace(get_config("qwen3-0.6b", reduced=True),
+                              compute_dtype=dtype)
+    model = build_model(cfg)
+    opt = build_optimizer(TrainConfig(), cfg)
+    state = api.init_train_state(model, opt, torch.Generator(card)
+                                 .manual_seed(0), card)
+    step = api.make_train_step(model, opt, TrainConfig())
+    batch = batch_for(cfg, 64, 8, 0).device_batch(0, card)
+    a, am = step(state, batch)
+    b, bm = step(state, batch)
+    assert torch.equal(am["loss"], bm["loss"])
+    for x, y in zip(utils.tree_leaves(a), utils.tree_leaves(b)):
+        assert torch.equal(x, y)

@@ -17,7 +17,9 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_warm_commits.py",
     ROOT / "scripts" / "torch_sass_counts.py",
     ROOT / "scripts" / "torch_dispatch_profile.py",
-    ROOT / "scripts" / "torch_serve_profile.py"]
+    ROOT / "scripts" / "torch_serve_profile.py",
+    ROOT / "scripts" / "torch_train_profile.py",
+    ROOT / "scripts" / "torch_train_check_faults.py"]
 
 
 def _imports(path):
@@ -179,3 +181,38 @@ def test_model_plane_defaults_to_the_card(monkeypatch):
         serve.main(["--arch", "qwen3-0.6b"])
     assert model.init_cache(2, 8, device="cpu")["groups"]["b0_dense"][
         "k"].device.type == "cpu"
+
+
+def test_training_plane_defaults_to_the_card(monkeypatch, tmp_path):
+    """The Trainer, its train state, data, checkpoints, the converter and
+    the train launcher run on the card unless asked for the CPU; without
+    one they raise."""
+    from repro_torch import convert
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.launch import train
+    from repro_torch.models import api
+    from repro_torch.models.transformer import build_model
+    from repro_torch.optim import build_optimizer
+    from repro_torch.runtime.trainer import Trainer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("qwen3-0.6b", reduced=True)
+    mesh = ZoneMesh((4, 2), ("data", "model"))
+    model, opt = build_model(cfg), build_optimizer(TrainConfig(), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, TrainConfig(), ProtectConfig(), mesh)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.init_train_state(model, opt, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        batch_for(cfg, 8, 2).device_batch(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CheckpointManager(str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.train_state_to_port({"params": {}, "opt": {}, "step": 0})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "qwen3-0.6b"])
+    state = api.init_train_state(model, opt, torch.Generator().manual_seed(0),
+                                 "cpu")
+    assert state["step"].device.type == "cpu"

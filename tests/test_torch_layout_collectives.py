@@ -234,3 +234,28 @@ def test_syndrome_stack_delta_equals_rebuild():
     fold = np.bitwise_xor.reduce(new, axis=1).reshape(3, 2, 5, 4)
     np.testing.assert_array_equal(words(got[..., 0, :]),
                                   fold.transpose(0, 2, 1, 3))
+
+
+@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("shape,dim", [((4, 2, 40), 0), ((2, 5, 1, 20), 1),
+                                       ((8, 1, 24), 0)])
+def test_syndrome_build_by_segments_is_the_whole_build(monkeypatch, r, shape,
+                                                       dim):
+    """Past WEIGHTED_BYTES of weighted planes the stack is weighted and
+    folded a zone segment at a time (G sdelta_stack launches): the same
+    bytes as the one-launch build, and as the stack rebuilt from numpy."""
+    row = as_words(rand_u32(shape, seed=r + shape[dim]))
+    lead = shape[:-1]
+    coeffs = None if r == 1 else as_words(rand_u32((*lead, r), seed=7))
+    whole = coll.syndrome_reduce_scatter(row, dim, coeffs)
+    monkeypatch.setattr(coll, "WEIGHTED_BYTES", 0)
+    by_segment = coll.syndrome_reduce_scatter(row, dim, coeffs)
+    assert by_segment.shape == whole.shape == (
+        *lead, r, shape[-1] // shape[dim])
+    assert torch.equal(by_segment, whole)
+    if r == 1:
+        fold = np.bitwise_xor.reduce(words(row), axis=dim)
+        g = shape[dim]
+        segs = fold.reshape(*fold.shape[:-1], g, -1)
+        np.testing.assert_array_equal(
+            words(whole[..., 0, :]), np.moveaxis(segs, -2, dim))
