@@ -1,6 +1,7 @@
 """Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every path, the kernels line
+    python3 chip_smoke.py --paths rg,rt   # only those, no kernel timing
 
 1. Card and build: the card's name and power limit; the four CUDA
    libraries built from src/repro_torch/kernels/csrc/ (one nvcc per
@@ -183,14 +184,60 @@
    its plain version on the card at the inputs of its first launch in
    d-h (copied to the host, checked after the phase, the plain version a
    data rank at a time).
-10. After each phase the invariants are recomputed apart from the engine:
+10. The hybrid served (rg): recurrentgemma-2b at its published width and
+   depth (26 layers: (rglru, rglru, attn) x 8 and a tail of two rglru
+   blocks; d_model 2560, 10 heads on one KV head of 256, vocab 256,000,
+   window 2048; 2,658,736,640 parameters from SEED, bf16 compute) served
+   by `Server` at batch 128 and max_len 2048 (the window), block_words
+   256, its 2,206,531,584 B cache of K/V rings and recurrent state in a
+   Pool:
+   a — start on the (4, 2) mesh, where the one KV head puts the rings'
+        sequence on `model`: every leaf but the slot positions is dirty
+        whole every step, so every commit is bulk (the footprint and the
+        path recorded);
+   b — 32 + 32 tokens at mlpc r = 1, window 1, depth 1, clocked: decode,
+        zone copies, commit, scrub and the footprint's host time a step;
+        equal to a fresh open;
+   c — unprotected: b's tokens;
+   h — (after c) b's tokens teacher-forced through the decode against an
+        f32 forward apart from the port (the RG-LRU a loop over time, the
+        conv a grouped conv1d, windowed attention by sdpa): at f32 compute
+        on the served weights' first group and tail, every logit within
+        2^-4 of the largest; the f32 decode at all 26 layers and the
+        served bf16 decode (whose argmax must give b's tokens) measured
+        only (`rg_reference` says why);
+   d — a word of each leaf scribbled in rank 0 after prefill, scrubbed and
+        repaired: the row equals b's there;
+   e — rank 1 lost 16 tokens later and recovered (the row equals b's),
+        on to the end: b's tokens and final row, checksums and digest;
+   f — r = 3, depth 4 through the loss of ranks 0, 1 and 3: b's tokens and
+        final words, equal to a fresh open;
+   g — the same decode on an (8, 1) mesh, where the rings keep their
+        sequence: a time slot a ring plus the recurrent state, so every
+        commit is a patch; b's tokens, equal to a fresh open.
+   Each kernel the path launched is held against its plain version on the
+   inputs of its first launch in d-g, a data rank at a time.
+11. The hybrid trained (rt): the same model at full width, one group of
+   depth (3 layers, 886,115,840 parameters), AdamW with bf16 moments (a
+   7.09 GB state), seq 4096 (twice the window) x batch 2 on (4, 2):
+   a start; b 2 bulk and 2 verify_old steps; c the same unprotected,
+   losses and state bit-equal; d rank 1 lost after step 2 and recovered,
+   b's losses, digests and state; i the step at f32 compute against a
+   plain f32 one (loss within TR_LOSS_RTOL, every gradient at a cosine of
+   TR_GRAD_COS), the trained bf16 step (its loss b's step 1) measured
+   against it.
+12. The vlm (vl): chameleon-34b at full width (d_model 8192, GQA 64 / 8,
+   qk-norm, 256 stub embedding positions), two layers (2,457,903,616
+   parameters): one bf16 train step of 768 tokens behind the stub prefix
+   against a plain f32 step, within TR_LOSS_RTOL and TR_GRAD_COS.
+13. After each phase the invariants are recomputed apart from the engine:
    every syndrome plane k = XOR over ranks i of g^(k·i)·row_i, built rank by
    rank with the plain GF multiply; cksums = Fletcher terms of the rows;
    digest = combine(cksums); row = flatten(state).  Inside a window: the
    checksums and digest are the live rows'; the stack is the epoch start's;
    the bulk engine's accumulator is row_start ^ row_now, and the patch
    engine's row is pinned at the epoch start.
-11. Each path's kernel launches (every count zeroed just before the path,
+14. Each path's kernel launches (every count zeroed just before the path,
    read just after); every entry point of the path must have run.  Peak
    device memory of each path; the host ms of each async dispatch.
 
@@ -1037,6 +1084,9 @@ class PathRun:
         from repro_torch.kernels import _build
         self.build, self.dev, self.tag = _build, dev, tag
         self.peak = 0
+        # an earlier path's runtimes and their step clocks refer to each
+        # other: only the cycle collector lets go of their tensors
+        gc.collect()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2259,12 +2309,14 @@ class StepClock:
     server (`StepClock(srv)`): the decode step; the zone copies
     (`pool.state`, which unshards the cache for decode, and
     `Pool.to_zone`, which shards the new cache inside the commit); the
-    commit less its to_zone; the scrub cadence (`maybe_scrub`).  Other
+    commit less its to_zone; the scrub cadence (`maybe_scrub`); the
+    footprint (`_dirty_pages` / `_dirty_words`: the pages or words a step
+    dirties, from the layout on the host, kept by position).  Other
     runtimes pass their own `wraps`, (object, attribute, piece) each, and
     `off`, a clock of ms spent inside a piece that no piece should count
     (a CallProbe's copies)."""
 
-    PIECES = ("decode", "zone_copies", "commit", "scrub")
+    PIECES = ("decode", "zone_copies", "commit", "scrub", "footprint")
 
     def __init__(self, srv=None, wraps=None, pieces=None, off=None):
         self.ms = dict.fromkeys(pieces or self.PIECES, 0.0)
@@ -2276,7 +2328,9 @@ class StepClock:
             if srv.pool is not None:
                 wraps += [(srv.pool, "to_zone", "zone_copies"),
                           (srv.pool, "commit", "commit"),
-                          (srv.pool, "maybe_scrub", "scrub")]
+                          (srv.pool, "maybe_scrub", "scrub"),
+                          (srv, "_dirty_pages", "footprint"),
+                          (srv, "_dirty_words", "footprint")]
         for obj, attr, piece in wraps:
             self._wrap(obj, attr, piece)
 
@@ -2331,11 +2385,11 @@ def sv_steps(srv, prompt, tok, upto, events=None):
     `upto` (prompt tokens while the position is in the prompt, then the
     last prediction), running `events[pos]()` after the step that reaches
     `pos`.  Returns (the last token, the tokens generated)."""
-    out = []
+    out, n_prompt = [], prompt.shape[1]
     while srv.pos < upto:
         t = srv.pos
-        tok = srv.step(prompt[:, t] if t < SV_PROMPT else tok)
-        if t >= SV_PROMPT - 1:
+        tok = srv.step(prompt[:, t] if t < n_prompt else tok)
+        if t >= n_prompt - 1:
             out.append(tok)
         if events and srv.pos in events:
             events[srv.pos]()
@@ -2349,25 +2403,27 @@ def sv_tokens(srv, out):
     return torch.stack(out, dim=1).cpu().numpy()
 
 
-def sv_clocked(run, tag, srv, prompt, hook=None):
-    """Generate under a StepClock: the tokens, and the phase line's split
-    of ms a decode step (each step decodes SV_BATCH tokens)."""
+def sv_clocked(run, tag, srv, prompt, hook=None, n_new=SV_NEW):
+    """Generate `n_new` tokens under a StepClock: the tokens, and the phase
+    line's split of ms a decode step (each step decodes a token of every
+    sequence of `prompt`)."""
     clock = StepClock(srv)
     if hook is not None:
         srv.add_step_hook(hook)
-    steps = SV_PROMPT + SV_NEW - 1
+    batch = prompt.shape[0]
+    steps = prompt.shape[1] + n_new - 1
     torch.cuda.synchronize()
     allocs = alloc_counts()
     t0 = time.perf_counter()
-    toks = srv.generate(prompt, SV_NEW)
+    toks = srv.generate(prompt, n_new)
     wall = (time.perf_counter() - t0) * 1e3
     allocs = {k: v - allocs[k] for k, v in alloc_counts().items()}
     split = {f"{k}_ms_per_step": v / steps for k, v in clock.ms.items()}
     split["other_ms_per_step"] = wall / steps - sum(split.values())
-    emit(path=run.tag, phase=f"{tag}_split", steps=steps, batch=SV_BATCH,
+    emit(path=run.tag, phase=f"{tag}_split", steps=steps, batch=batch,
          wall_ms=wall, ms_per_step=wall / steps,
-         tokens_per_s=SV_BATCH * steps / wall * 1e3,
-         generated_tokens_per_s=SV_BATCH * SV_NEW / wall * 1e3,
+         tokens_per_s=batch * steps / wall * 1e3,
+         generated_tokens_per_s=batch * n_new / wall * 1e3,
          alloc=allocs, **split)
     return toks
 
@@ -2395,28 +2451,79 @@ def sv_invariants(srv, tag):
     invariants(srv.pool, tag)
 
 
-def plain_hidden(cfg, params, seq, *, causal=True, theta=None, kv_roll=0):
+def plain_rglru(r, h):
+    """The RG-LRU mixer in f32, apart from the port: the causal width-4
+    conv as a grouped `conv1d`, the gates, and the recurrence h_t = a_t
+    h_{t-1} + b_t run step by step (a loop over time, not a scan).
+    (B, S, D) -> (B, S, D)."""
+    F = torch.nn.functional
+    gate = F.gelu(h @ r["wg"], approximate="tanh")
+    u = h @ r["wr"]
+    width, dr = r["conv_w"].shape
+    # in f32 proper: cuDNN would take TF32 (a 10-bit mantissa) on the card
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        u = F.conv1d(F.pad(u.transpose(1, 2), (width - 1, 0)),
+                     r["conv_w"].T[:, None, :], r["conv_b"],
+                     groups=dr).transpose(1, 2)
+    gr = torch.sigmoid(u * r["wa"] + r["ba"])
+    gi = torch.sigmoid(u * r["wx"] + r["bx"])
+    a = torch.exp(-8.0 * F.softplus(r["lam"] - 4.0) * gr)
+    b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * gi * u
+    state, hs = torch.zeros_like(b[:, 0]), []
+    for t in range(b.shape[1]):
+        state = a[:, t] * state + b[:, t]
+        hs.append(state)
+    return (gate * torch.stack(hs, 1)) @ r["wo"]
+
+
+def plain_blocks(cfg, params):
+    """(block type, block parameters) of every layer in order: the stacked
+    groups a layer at a time, then the unstacked tail."""
+    out = []
+    for i in range(cfg.n_groups):
+        for j, t in enumerate(cfg.pattern):
+            out.append((t, {k: {n: w[i] for n, w in v.items()} for k, v in
+                            params["groups"][f"b{j}_{t}"].items()}))
+    for i, t in enumerate(cfg.tail_pattern):
+        out.append((t, params[f"tail{i}_{t}"]))
+    return out
+
+
+def plain_hidden(cfg, params, seq, *, mm=None, causal=True, theta=None,
+                 kv_roll=0):
     """An f32 forward of the whole token sequence to the final norm, apart
     from the port's model code: no cache, no chunking, no checkpointing;
     attention by `scaled_dot_product_attention` with query head h on KV
-    head h // (H / K), rope from the positions 0..S-1.  `params`: f32
-    weights.  The keywords plant a fault for the checks' own tests: no
-    causal mask, another rope θ, every query head on the next KV head.
-    (B, S) -> (B, S, D)."""
+    head h // (H / K), rope from the positions 0..S-1, an `attn` block's
+    keys masked a window or more behind; the RG-LRU by `plain_rglru`.
+    `mm`: the vlm's stub embeddings (B, P, D), put before the tokens'
+    rows.  `params`: f32 weights.  The keywords plant a fault for the
+    checks' own tests: no causal mask, another rope θ, every query head
+    on the next KV head.  (B, S) -> (B, S + P, D)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     F = torch.nn.functional
-    check(cfg.act == "silu" and cfg.tie_embeddings and cfg.pattern == (
-        "dense",), f"plain forward: not written for {cfg.name}")
+    check(cfg.act == "silu" and set(cfg.pattern) <= {"dense", "attn",
+                                                     "rglru"},
+          f"plain forward: not written for {cfg.name}")
     H, K, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-    S, half = seq.shape[1], cfg.hd // 2
+    half = hd // 2
     theta = cfg.rope_theta if theta is None else theta
 
     def norm(x, scale):
         return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + 1e-6) * scale
 
-    ang = torch.arange(S, device=seq.device, dtype=torch.float32)[:, None] \
-        * theta ** (-torch.arange(half, device=seq.device,
-                                  dtype=torch.float32) / half)
+    x = params["embed"]["tok"][seq.long()]
+    if mm is not None:
+        x = torch.cat([mm.float(), x], 1)
+    S = x.shape[1]
+    at = torch.arange(S, device=seq.device)
+    ang = at.float()[:, None] * theta ** (-torch.arange(
+        half, device=seq.device, dtype=torch.float32) / half)
     cos, sin = torch.cos(ang)[:, None], torch.sin(ang)[:, None]
+    window = None
+    if cfg.window is not None:
+        window = (at[:, None] >= at[None, :]) & (
+            at[:, None] - at[None, :] < cfg.window)
 
     def rot(x):                                    # (B, S, n, hd)
         a, b = x[..., :half], x[..., half:]
@@ -2426,13 +2533,7 @@ def plain_hidden(cfg, params, seq, *, causal=True, theta=None, kv_roll=0):
         return x.roll(kv_roll, 2).transpose(1, 2).repeat_interleave(
             H // K, 1)
 
-    tok = params["embed"]["tok"]
-    x = tok[seq.long()]
-    for i in range(cfg.n_layers):
-        p = {k: {n: w[i] for n, w in v.items()}
-             for k, v in params["groups"]["b0_dense"].items()}
-        a, f = p["attn"], p["ffn"]
-        h = norm(x, p["ln1"]["scale"])
+    def attention(a, h, mask):
         q = torch.einsum("bsd,dnh->bsnh", h, a["wq"])
         k = torch.einsum("bsd,dnh->bsnh", h, a["wk"])
         v = torch.einsum("bsd,dnh->bsnh", h, a["wv"])
@@ -2441,18 +2542,36 @@ def plain_hidden(cfg, params, seq, *, causal=True, theta=None, kv_roll=0):
         if "qnorm" in a:
             q, k = norm(q, a["qnorm"]), norm(k, a["knorm"])
         q, k = rot(q), rot(k)
-        o = F.scaled_dot_product_attention(
-            q.transpose(1, 2), heads(k), heads(v), is_causal=causal)
-        x = x + torch.einsum("bnsh,nhd->bsd", o, a["wo"])
+        with sdpa_kernel(SDPBackend.MATH):         # f32 products, softmax
+            o = F.scaled_dot_product_attention(
+                q.transpose(1, 2), heads(k), heads(v),
+                attn_mask=mask if causal else None,
+                is_causal=causal and mask is None)
+        return torch.einsum("bnsh,nhd->bsd", o, a["wo"])
+
+    for t, p in plain_blocks(cfg, params):
+        h = norm(x, p["ln1"]["scale"])
+        if t == "rglru":
+            x = x + plain_rglru(p["rec"], h)
+        else:
+            x = x + attention(p["attn"], h, window if t == "attn" else None)
         h = norm(x, p["ln2"]["scale"])
+        f = p["ffn"]
         x = x + (F.silu(h @ f["wg"]) * (h @ f["wi"])) @ f["wo"]
     return norm(x, params["final_norm"]["scale"])
+
+
+def plain_logits(params, x):
+    """f32 logits of hidden states: the untied unembedding, or the token
+    table's transpose."""
+    emb = params["embed"]
+    return x @ (emb["unembed"] if "unembed" in emb else emb["tok"].T)
 
 
 def sv_plain_logits(cfg, params, seq):
     """`plain_hidden` unembedded: (B, S) -> (B, S, V) f32 logits.
     `params`: the weights as the server holds them, widened to f32."""
-    return plain_hidden(cfg, params, seq) @ params["embed"]["tok"].T
+    return plain_logits(params, plain_hidden(cfg, params, seq))
 
 
 def sv_decode_logits(model, params, seq, max_len):
@@ -2466,40 +2585,62 @@ def sv_decode_logits(model, params, seq, max_len):
     return torch.stack(out, 1)
 
 
-def sv_reference(cfg, params, prompt, toks, max_len):
+def sv_reference(cfg, params, prompt, toks, max_len, chunk=None,
+                 argmax=True, bound=SV_LOGIT_RTOL):
     """The served decode at full width against `sv_plain_logits` on the
-    same weights: b's prompt and tokens teacher-forced.  The decode's
-    argmax must give b's tokens, and its logits must be finite and
-    within SV_LOGIT_RTOL of the f32 forward, scaled by the largest
-    |logit|.  Returns the phase line's fields."""
+    same weights: b's prompt and tokens teacher-forced, compared `chunk`
+    sequences at a time (all at once by default).  The decode's argmax must give b's
+    tokens (unless `argmax` is False: a decode at another compute dtype
+    than b's), and its logits must be finite and within `bound` of the
+    f32 forward, scaled by the largest |logit| (None: measured only).
+    Returns the phase line's fields, with each position's largest error
+    summed up."""
     from repro_torch import utils
     from repro_torch.models.transformer import build_model
     model = build_model(cfg)
     cparams = model.compute_params(params)
+    wide = utils.tree_map(lambda w: w.float(), cparams)
     n_new = toks.shape[1]
     gen = torch.as_tensor(toks, device=prompt.device)
     seq = torch.cat([prompt, gen[:, :n_new - 1].to(prompt.dtype)], 1)
-    got = sv_decode_logits(model, cparams, seq, max_len)
-    want = sv_plain_logits(
-        cfg, utils.tree_map(lambda w: w.float(), cparams), seq)
-    check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
-          "h: non-finite logits")
     lead = seq.shape[1] - n_new + 1                # the prompt's last step
-    check(torch.equal(got[:, lead - 1:].argmax(-1).cpu(),
-                      torch.as_tensor(toks).long()),
-          "h: the decode's argmax != b's tokens")
+    chunk = chunk or seq.shape[0]
+    err = scale = agree = 0.0
+    pos_err = []                        # each position's largest error
+    # the decode at the served batch: cuBLAS picks its products' order by
+    # shape, so a smaller batch need not give the served tokens' bits
+    logits = sv_decode_logits(model, cparams, seq, max_len)
+    for lo in range(0, seq.shape[0], chunk):
+        part = seq[lo:lo + chunk]
+        got = logits[lo:lo + chunk]
+        want = sv_plain_logits(cfg, wide, part)
+        check(bool(torch.isfinite(got).all()
+                   and torch.isfinite(want).all()), "h: non-finite logits")
+        check(not argmax or torch.equal(
+            got[:, lead - 1:].argmax(-1).cpu(),
+            torch.as_tensor(toks[lo:lo + chunk]).long()),
+            "h: the decode's argmax != b's tokens")
+        pos_err.append((got - want).abs().amax(-1).flatten().cpu())
+        err = max(err, pos_err[-1].max().item())
+        scale = max(scale, want.abs().max().item())
+        agree += (got.argmax(-1) == want.argmax(-1)).float().sum().item()
+        del got, want
+    del logits
     check(len(set(toks.ravel().tolist())) > 1, "h: every token the same")
-    err = (got - want).abs().max().item()
-    scale = want.abs().max().item()
-    check(err <= SV_LOGIT_RTOL * scale,
-          f"h: logits off the f32 forward by {err} (bound "
-          f"{SV_LOGIT_RTOL} x {scale})")
-    return dict(positions=seq.shape[1], max_abs_err=err,
-                max_abs_logit=scale, rel_err=err / scale,
-                bound=SV_LOGIT_RTOL,
-                argmax_agree=(got.argmax(-1) == want.argmax(-1)
-                              ).float().mean().item(),
-                distinct_tokens=len(set(toks.ravel().tolist())))
+    pos_rel = torch.cat(pos_err).double() / scale
+    over = None if bound is None else int((pos_rel > bound).sum())
+    out = dict(positions=seq.shape[1], sequences=seq.shape[0],
+               compute_dtype=cfg.compute_dtype, max_abs_err=err,
+               max_abs_logit=scale, rel_err=err / scale, bound=bound,
+               positions_over_bound=over,
+               median_position_rel_err=pos_rel.median().item(),
+               p99_position_rel_err=pos_rel.quantile(0.99).item(),
+               argmax_agree=agree / seq.numel(),
+               distinct_tokens=len(set(toks.ravel().tolist())))
+    check(bound is None or over == 0,
+          f"h: logits off the f32 forward by {err} (bound {bound} x "
+          f"{scale}) at {over} of {pos_rel.numel()} positions: {out}")
+    return out
 
 
 def serving_path(dev):
@@ -2678,7 +2819,8 @@ def tr_model():
             ZoneMesh(TR_MESH, ("data", "model")))
 
 
-def tr_trainer(dev, cfg, mesh, checkpoint_dir=None, start=True, **pcfg):
+def tr_trainer(dev, cfg, mesh, checkpoint_dir=None, start=True,
+               seq_len=TR_SEQ, global_batch=TR_BATCH, **pcfg):
     """A Trainer of the path's model (AdamW, lr 1e-3, warmup 2), mlpc at
     ProtectConfig's defaults unless `pcfg` says otherwise, initialized from
     SEED on the card (every trainer starts from the same state)."""
@@ -2689,8 +2831,8 @@ def tr_trainer(dev, cfg, mesh, checkpoint_dir=None, start=True, **pcfg):
     t = Trainer(cfg, TrainConfig(learning_rate=TR_LR,
                                  warmup_steps=TR_WARMUP,
                                  total_steps=TR_TOTAL),
-                ProtectConfig(**pcfg), mesh, seq_len=TR_SEQ,
-                global_batch=TR_BATCH, checkpoint_dir=checkpoint_dir,
+                ProtectConfig(**pcfg), mesh, seq_len=seq_len,
+                global_batch=global_batch, checkpoint_dir=checkpoint_dir,
                 seed=SEED, device=dev)
     if start:
         t.initialize()
@@ -2713,7 +2855,7 @@ def tr_clock(t, probe=None):
 
 def tr_steps(run, tag, t, n, probe=None, events=None, **kw):
     """`n` steps of `t`, each resolved before the next; the phase line's
-    split of ms a step (tokens/s counts TR_BATCH x TR_SEQ tokens a step),
+    split of ms a step (tokens/s counts the trainer's batch x sequence),
     the losses and the digests after each step.  `events[k]()` runs after
     the step that brings the trainer to step k, off the clock, as do the
     probe's copies."""
@@ -2743,8 +2885,8 @@ def tr_steps(run, tag, t, n, probe=None, events=None, **kw):
     split["other_ms_per_step"] = wall / n - sum(split.values())
     emit(path=run.tag, phase=f"{tag}_split", steps=n, wall_ms=wall,
          off_clock_ms=off + probe_ms, ms_per_step=wall / n,
-         tokens_per_s=TR_BATCH * TR_SEQ * n / wall * 1e3, losses=losses,
-         **split)
+         tokens_per_s=t.global_batch * t.seq_len * n / wall * 1e3,
+         losses=losses, **split)
     return losses, digests
 
 
@@ -2762,12 +2904,13 @@ def tr_same_state(t, host, tag):
         check(torch.equal(a, b.to(a.device)), f"{tag}: state != b's")
 
 
-def tr_plain_loss(cfg, params, tokens, **fault):
+def tr_plain_loss(cfg, params, tokens, mm=None, **fault):
     """The loss of `plain_hidden` (f32 logits of the whole batch, no
-    chunks): next-token CE with the last position masked, plus 1e-4 x the
-    mean lse², as the reference's loss."""
-    logits = plain_hidden(cfg, params, tokens, **fault) \
-        @ params["embed"]["tok"].T
+    chunks) on the token positions (after the vlm's stub prefix `mm`):
+    next-token CE with the last position masked, plus 1e-4 x the mean
+    lse², as the reference's loss."""
+    x = plain_hidden(cfg, params, tokens, mm=mm, **fault)
+    logits = plain_logits(params, x[:, cfg.mm_positions:])
     lse = torch.logsumexp(logits, -1)[:, :-1]
     ll = torch.gather(logits[:, :-1], -1,
                       tokens[:, 1:, None].long())[..., 0]
@@ -2786,7 +2929,7 @@ def tr_grad_check(cfg, params, batch, **fault):
     leaves, treedef = utils.tree_flatten(params)
     xs = [p.detach().float().requires_grad_() for p in leaves]
     want = tr_plain_loss(cfg, utils.tree_unflatten(treedef, xs),
-                         batch["tokens"], **fault)
+                         batch["tokens"], batch.get("mm_embeds"), **fault)
     gwant = torch.autograd.grad(want, xs)
     del xs
     cos = [float(torch.nn.functional.cosine_similarity(
@@ -3106,7 +3249,422 @@ def training_path(dev):
     return run.end(PATH_TR)
 
 
-def main():
+RG_ARCH = "recurrentgemma-2b"    # served at its published width and depth
+RG_REDUCED = False               # True: the config's reduced() (a CPU rehearsal)
+RG_OVERRIDES: dict = {}          # config fields replaced (a rehearsal's window)
+RG_MESH = (4, 2)                 # the reference launcher's default mesh
+RG_WIDE_MESH = (8, 1)            # rg g: the cache's sequence axis unsplit
+RG_BATCH = 128                   # the reference's decode_32k global batch
+RG_PROMPT, RG_NEW = 32, 32       # max_len is the window (2048)
+RG_BW = 256                      # block_words, as launch/serve.py sets it
+RG_SCRUB = 16
+RG_LOST = 1                      # the rank rg e loses
+RG_MULTI_LOST = (0, 1, 3)        # the ranks rg f loses at once
+RG_EVENT = 16                    # generated tokens before rg e / f's loss
+RG_H_CHUNK = 32                  # sequences of rg h's comparison a pass
+PATH_RG = ("fletcher_blocks", "fletcher_stream", "fused_commit",
+           "sdelta_stack", "gf_scale")
+
+
+def rg_model(dev):
+    """The served hybrid: config (max_len = its window), random weights
+    from SEED, the prompt from SEED + 1."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import build_model
+    cfg = dataclasses.replace(get_config(RG_ARCH, reduced=RG_REDUCED),
+                              **RG_OVERRIDES)
+    params = build_model(cfg).init(
+        torch.Generator(dev).manual_seed(SEED), dev)
+    prompt = torch.randint(0, cfg.vocab, (RG_BATCH, RG_PROMPT),
+                           generator=torch.Generator(dev).manual_seed(
+                               SEED + 1), device=dev)
+    return cfg, params, prompt
+
+
+def rg_server(dev, cfg, mesh_shape, params, protect=True, **pcfg):
+    from repro_torch import ProtectConfig, ZoneMesh
+    from repro_torch.runtime.server import Server
+    srv = Server(cfg, ProtectConfig(mode="mlpc", block_words=RG_BW,
+                                    scrub_period=RG_SCRUB, **pcfg),
+                 ZoneMesh(mesh_shape, ("data", "model")), batch=RG_BATCH,
+                 max_len=cfg.window, protect_cache=protect, device=dev)
+    srv.start(params)
+    return srv
+
+
+def rg_footprint(srv):
+    """A decode step's footprint as the server hands it to its pool (the
+    reference's rule: a leaf with no local axis of length max_len is dirty
+    whole) and the commit path the synchronous engine takes for it."""
+    lo, prot = srv.protector.layout, srv.protector
+    pages = srv._dirty_pages(0)
+    words = srv._dirty_words(0)
+    share = len(pages) / lo.n_blocks
+    return dict(dirty_pages_per_step=len(pages), n_blocks=lo.n_blocks,
+                dirty_share=share,
+                whole_leaves=[list(sl.shape) for sl, w in
+                              zip(lo.slots, words) if w is None],
+                sliced_leaves=[list(sl.shape) for sl, w in
+                               zip(lo.slots, words) if w is not None],
+                commit_path=("patch" if share < prot.hybrid_threshold
+                             else "bulk"))
+
+
+def rg_final(srv):
+    """The words of a server's pool that do not depend on r: row,
+    checksums, digest."""
+    return {k: getattr(srv.prot, k).clone() for k in ("row", "cksums",
+                                                      "digest")}
+
+
+def rg_same_final(srv, want, tag):
+    for k, v in want.items():
+        check(torch.equal(getattr(srv.prot, k), v), f"{tag}: {k} != b's")
+
+
+def rg_reference(cfg, params, prompt, toks):
+    """rg h: b's tokens teacher-forced through the port's decode against
+    `sv_plain_logits` on the same weights.  Held: at f32 compute, on the
+    served weights' first group and tail (5 layers), every logit within
+    SV_LOGIT_RTOL of the largest.  Measured, not held: the f32 decode at
+    all 26 layers, and the served bf16 one (whose argmax must give b's
+    tokens).  The reference's init draws each (d, heads, head_dim)
+    projection with std 1/sqrt(heads) and recurrentgemma has no qk-norm,
+    so its attention scores have a std of ~800 and the softmax is one-hot
+    at init: a bf16 rounding of q or k picks another key, and in f32 two
+    sums of the same products in another order now and then break a near
+    tie; the recurrence then carries the other key's value to every later
+    position, and each layer above compounds it (scripts/
+    torch_hybrid_chaos.py on the CPU, full width at vocab 512: largest f32
+    error 2.3e-4 of the largest logit at 5 layers, 0.016 at 14, 0.39 at
+    26)."""
+    from repro_torch import utils
+    depth = len(cfg.pattern) + len(cfg.tail_pattern)
+    cut = dataclasses.replace(cfg, n_layers=depth, compute_dtype="float32")
+    cut_params = dict(params, groups=utils.tree_map(lambda w: w[:1],
+                                                    params["groups"]))
+    out = {}
+    for tag, c, p, kw in (
+            ("f32_first_group_and_tail", cut, cut_params,
+             dict(argmax=False)),
+            ("f32_all_layers", dataclasses.replace(
+                cfg, compute_dtype="float32"), params,
+             dict(argmax=False, bound=None)),
+            ("served_bf16", cfg, params, dict(bound=None))):
+        out[tag] = sv_reference(c, p, prompt, toks, cfg.window,
+                                chunk=RG_H_CHUNK, **kw)
+        torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_serving_path(dev):
+    """The hybrid served at its published width and depth (phases rg a-h)."""
+    import numpy as np
+    from repro_torch import Fault, utils
+    from repro_torch.runtime import failure
+    run = PathRun(dev, "rg")
+    probe = CallProbe()
+    cfg, params, prompt = rg_model(dev)
+    end = RG_PROMPT + RG_NEW - 1            # decode steps a generation takes
+    event_pos = RG_PROMPT + RG_EVENT        # where rg e and f lose ranks
+
+    # a: the server opens its pool over the empty cache (rings of the
+    # window's length, the recurrent state)
+    srv, _ = run.phase("a_start", lambda: rg_server(dev, cfg, RG_MESH,
+                                                    params),
+                       inv=sv_invariants)
+    fp = rg_footprint(srv)
+    lo = srv.protector.layout
+    emit(path="rg", phase="a_layout", arch=cfg.name, layers=cfg.n_layers,
+         pattern=list(cfg.pattern), tail=list(cfg.tail_pattern),
+         mesh=list(RG_MESH), batch=RG_BATCH, max_len=cfg.window,
+         params=sum(x.numel() for x in utils.tree_leaves(params)),
+         cache_bytes=sum(x.numel() * x.element_size()
+                         for x in utils.tree_leaves(srv.pool.state)),
+         leaves=len(lo.slots), row_words=lo.row_words, **fp)
+
+    # b: prefill + generate at r = 1, window 1, depth 1, clocked; the rows
+    # at the positions rg d and e damage are kept for their checks
+    rows = {}
+
+    def keep(s, out):
+        if out["pos"] + 1 in (RG_PROMPT, event_pos):
+            rows[out["pos"] + 1] = s.prot.row.clone()
+    toks, l_b = run.phase("b_generate_r1", lambda: sv_clocked(
+        run, "b", srv, prompt, keep, n_new=RG_NEW), srv, inv=sv_invariants)
+    bulk = l_b.get("fletcher_stream", 0) + l_b.get("fletcher_blocks", 0)
+    check(fp["commit_path"] == "bulk" and bulk >= end
+          and not l_b.get("fused_commit"),
+          f"b: the footprint {fp['dirty_share']} of the row took {l_b}")
+    check(toks.shape == (RG_BATCH, RG_NEW) and toks.min() >= 0
+          and toks.max() < cfg.vocab, f"tokens {toks.shape}")
+    host_same_as_fresh(run, srv, "b_fresh_after_b")
+    b_final = rg_final(srv)
+    del srv
+    torch.cuda.empty_cache()
+
+    # c: protection does not change the decode path
+    toks_c, _ = run.phase("c_generate_unprotected", lambda: sv_clocked(
+        run, "c", rg_server(dev, cfg, RG_MESH, params, protect=False),
+        prompt, n_new=RG_NEW), inv=nothing)
+    check(np.array_equal(toks_c, toks), "unprotected tokens != protected")
+    torch.cuda.empty_cache()
+
+    # h: the decode against an f32 forward apart from the port (its
+    # recurrence a loop over time), every sequence, RG_H_CHUNK a pass:
+    # the port's decode at f32 held to it; the served bf16 decode, which
+    # must give b's tokens, measured against it (see rg_reference)
+    emit(path="rg", phase="h_result", **run.timed_aside(
+        "h_vs_f32_forward", lambda: rg_reference(cfg, params, prompt,
+                                                 toks)))
+    torch.cuda.empty_cache()
+
+    with probe:
+        # d: a scribble into rank 0's shard (a word of each leaf) after
+        # prefill: scrub and repair
+        srv = rg_server(dev, cfg, RG_MESH, params)
+        lo = srv.protector.layout
+        offsets = [sl.offset + 11 for sl in lo.slots]
+        out = []
+
+        def scribble():
+            out.extend(sv_steps(srv, prompt, None, RG_PROMPT)[1])
+            srv.pool.inject(lambda pr, p: failure.inject_scribble(
+                pr, p, rank=0, word_offsets=offsets))
+            report = srv.pool.scrub()
+            want = {(0, o // lo.block_words) for o in offsets}
+            check(set(report.bad_locations) == want, f"scrub {report}")
+            check(report.repaired and report.repair_ok, f"repair {report}")
+            check(torch.equal(srv.prot.row, rows[RG_PROMPT]),
+                  "d: repaired cache != b's at the same position")
+        run.phase("d_prefill_scribble_repair", scribble, srv,
+                  inv=sv_invariants)
+
+        # e: a rank loss mid-generation at r = 1, recovered; to the end
+        def rank_loss():
+            event = srv.pool.inject(lambda pr, p: failure.inject_rank_loss(
+                pr, p, RG_LOST))
+            rep = srv.pool.recover(Fault.from_event(event))
+            check(rep.verified and rep.reverified, f"recovery {rep}")
+            check(torch.equal(srv.prot.row, rows[event_pos]),
+                  "e: recovered cache != b's at the same position")
+
+        def rest():
+            out.extend(sv_steps(srv, prompt, out[-1], end,
+                                {event_pos: rank_loss})[1])
+            return sv_tokens(srv, out)
+        toks_e, _ = run.phase("e_rank_loss_recover", rest, srv,
+                              inv=sv_invariants)
+        check(np.array_equal(toks_e, toks), "d / e tokens != b's")
+        rg_same_final(srv, b_final, "e")
+        del srv, rows
+        torch.cuda.empty_cache()
+
+        # f: r = 3, depth 4 (the commit ring) through a loss of three
+        # ranks, on the synchronous engine: the deferred one (window > 1)
+        # does not restore a hybrid cache on recovery, in the reference
+        # as in the port (ROADMAP queue C; tests/test_torch_hybrid_runtime
+        # .py::test_deferred_recovery_is_the_references)
+        srv, _ = run.phase("f_start_r3_d4", lambda: rg_server(
+            dev, cfg, RG_MESH, params, redundancy=3, pipeline_depth=4),
+            inv=nothing)
+
+        def multi_loss():
+            event = srv.pool.inject(
+                lambda pr, p: failure.inject_multi_rank_loss(
+                    pr, p, RG_MULTI_LOST))
+            rep = srv.pool.recover(Fault.from_event(event))
+            check(rep.verified and rep.reverified, f"recovery {rep}")
+        toks_f, _ = run.phase("f_generate_loss_of_3", lambda: sv_tokens(
+            srv, sv_steps(srv, prompt, None, end,
+                          {event_pos: multi_loss})[1]), inv=nothing)
+        check(np.array_equal(toks_f, toks), "f tokens != b's")
+        host_same_as_fresh(run, srv, "f_fresh_after_f")
+        sv_invariants(srv, "f_flushed")
+        rg_same_final(srv, b_final, "f")
+        del srv
+        torch.cuda.empty_cache()
+
+        # g: the same decode on an (8, 1) mesh, where the rings keep the
+        # whole sequence: a time slot a ring plus the recurrent state, so
+        # each commit takes the patch path
+        srv = rg_server(dev, cfg, RG_WIDE_MESH, params)
+        fp_g = rg_footprint(srv)
+        emit(path="rg", phase="g_layout", mesh=list(RG_WIDE_MESH), **fp_g)
+        # sliced: the attn block's k, v and slot positions
+        check(fp_g["commit_path"] == "patch"
+              and len(fp_g["sliced_leaves"]) == 3, f"g: footprint {fp_g}")
+        toks_g, l_g = run.phase("g_generate_wide_mesh", lambda: sv_clocked(
+            run, "g", srv, prompt, n_new=RG_NEW), srv, inv=sv_invariants)
+        check(np.array_equal(toks_g, toks), "g tokens != b's")
+        check(l_g.get("fused_commit") == end, f"g launches {l_g}")
+        host_same_as_fresh(run, srv, "g_fresh_after_g")
+        del srv
+        torch.cuda.empty_cache()
+    probe.check(run, dict(run.build.LAUNCHES), by_rank=True)
+    return run.end(PATH_RG)
+
+
+RT_LAYERS = 3                    # one group (rglru, rglru, attn)
+RT_REDUCED = False
+# AdamW's moments in bf16 (the config's `moment_dtype`, as llama4-maverick
+# sets it): an 8 B a parameter state, 7.09 GB.  At f32 moments the 10.63 GB
+# state ran out of the card's memory in b's first commit (four state-sized
+# copies beside the pool's).
+RT_OVERRIDES: dict = {"moment_dtype": "bfloat16"}
+RT_MESH = (4, 2)
+RT_SEQ, RT_BATCH = 4096, 2       # twice the window: it masks in the step
+RT_STEPS = 4                     # steps of b, c, d
+RT_SCRUB = 2
+RT_LOST, RT_LOSS_AT = 1, 2       # rt d: rank 1 lost after step 2
+PATH_RT = ("fletcher_blocks", "fletcher_stream",
+           "fused_verify_commit_stream")
+
+
+def hybrid_training_path(dev):
+    """The hybrid trained at its published width, depth cut to one group
+    (phases rt a-d, i)."""
+    from repro_torch import ZoneMesh, utils
+    from repro_torch.configs.registry import get_config
+    from repro_torch.runtime import failure
+    run = PathRun(dev, "rt")
+    probe = CallProbe(host=True)
+    cfg = dataclasses.replace(get_config(RG_ARCH, reduced=RT_REDUCED),
+                              n_layers=RT_LAYERS, **RT_OVERRIDES)
+    mesh = ZoneMesh(RT_MESH, ("data", "model"))
+    kw = dict(seq_len=RT_SEQ, global_batch=RT_BATCH, scrub_period=RT_SCRUB)
+    half = RT_STEPS // 2
+
+    t, _ = run.phase("a_start", lambda: tr_trainer(dev, cfg, mesh, **kw),
+                     inv=nothing)
+    lo = t.protector.layout
+    state = t.pool.state
+    emit(path="rt", phase="a_layout", arch=cfg.name, layers=cfg.n_layers,
+         mesh=list(RT_MESH), seq_len=RT_SEQ, global_batch=RT_BATCH,
+         window=cfg.window,
+         params=sum(x.numel() for x in utils.tree_leaves(state["params"])),
+         state_bytes=sum(x.numel() * x.element_size()
+                         for x in utils.tree_leaves(state)),
+         leaves=len(lo.slots), row_words=lo.row_words, n_blocks=lo.n_blocks,
+         block_words=lo.block_words)
+    del state
+    invariants(t.pool, "a_start")
+
+    # b: 1-2 bulk commits, 3-4 with verify-at-open, mlpc r = 1
+    def b():
+        l1, d1 = tr_steps(run, "b_bulk", t, half)
+        t.verify_old = True
+        l2, d2 = tr_steps(run, "b_verify_old", t, RT_STEPS - half)
+        return l1 + l2, d1 + d2
+    (b_loss, b_dig), _ = run.phase("b_train_r1", b, t.pool)
+    check(all(math.isfinite(x) for x in b_loss), f"b: losses {b_loss}")
+    b_final = tr_host_state(t)
+    del t
+    tr_free()
+
+    # c: unprotected: the same losses and final state, bit for bit
+    def c():
+        u = tr_trainer(dev, cfg, mesh, mode="none", **kw)
+        losses, _ = tr_steps(run, "c_unprotected", u, RT_STEPS)
+        check(losses == b_loss, f"c: losses {losses} != b's {b_loss}")
+        tr_same_state(u, b_final, "c")
+    run.phase("c_train_unprotected", c, inv=nothing)
+    tr_free()
+
+    with probe:
+        # d: rank 1 lost after step 2 and recovered; on to step 4
+        def d():
+            u = tr_trainer(dev, cfg, mesh, **kw)
+            losses, digs = tr_steps(run, "d_to_loss", u, RT_LOSS_AT, probe)
+            row = u.prot.row.clone()
+            ev = u.pool.inject(lambda pr, p: failure.inject_rank_loss(
+                pr, p, RT_LOST))
+            rep = u.on_failure(ev)
+            check(rep["verified"] and rep["reverified"], f"d: {rep}")
+            check(torch.equal(u.prot.row, row),
+                  "d: recovered state != the copy taken before the loss")
+            del row
+            invariants(u.pool, "d_recovered")
+            u.verify_old = True
+            more, dg = tr_steps(run, "d_verify_old", u,
+                                RT_STEPS - RT_LOSS_AT, probe)
+            losses, digs = losses + more, digs + dg
+            check(losses == b_loss, f"d: losses {losses} != b's")
+            check(all(torch.equal(a, b) for a, b in zip(digs, b_dig)),
+                  "d: a step's digest != b's")
+            tr_same_state(u, b_final, "d")
+            return u.pool
+        run.phase("d_rank_loss", d, inv=nothing)
+        tr_free()
+    probe.check(run, dict(run.build.LAUNCHES), by_rank=True)
+
+    # i: the train step checked apart from the port, at full width
+    def i():
+        from repro_torch.data.synthetic import batch_for
+        from repro_torch.models.transformer import build_model
+        params = build_model(cfg).init(
+            torch.Generator(dev).manual_seed(SEED), dev)
+        batch = batch_for(cfg, RT_SEQ, RT_BATCH, SEED).device_batch(0, dev)
+        # the step at f32 compute, held to the plain step; the trained
+        # bf16 step, whose loss must be b's step 1, measured against it
+        # (not held: rg_reference says why bf16 is not within any bound)
+        got = tr_grad_check(dataclasses.replace(
+            cfg, compute_dtype="float32"), params, batch)
+        emit(path="rt", phase="i_loss_and_grads_f32", **got)
+        check(got["ok"], f"i: the train step off the f32 plain step: {got}")
+        tr_free()
+        got = tr_grad_check(cfg, params, batch)
+        check(abs(got["loss"] - b_loss[0]) == 0,
+              f"i: the checked loss {got['loss']} != b's step 1")
+        emit(path="rt", phase="i_loss_and_grads_bf16_measured", **got)
+    run.timed_aside("i_vs_f32_plain", i)
+    tr_free()
+    return run.end(PATH_RT)
+
+
+VL_ARCH = "chameleon-34b"        # at its published width
+VL_REDUCED = False
+VL_LAYERS = 2                    # two groups: the layer checkpointing
+VL_SEQ, VL_BATCH = 1024, 1       # 256 stub positions + 768 tokens
+
+
+def vlm_path(dev):
+    """The vlm's train step at its published width, depth cut to two
+    layers, against the f32 plain step (phase vl i; unprotected: a train
+    state and a pool do not fit beside it)."""
+    from repro_torch import utils
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import batch_for
+    from repro_torch.models.transformer import build_model
+    run = PathRun(dev, "vl")
+    cfg = dataclasses.replace(get_config(VL_ARCH, reduced=VL_REDUCED),
+                              n_layers=VL_LAYERS)
+
+    def i():
+        params = build_model(cfg).init(
+            torch.Generator(dev).manual_seed(SEED), dev)
+        batch = batch_for(cfg, VL_SEQ, VL_BATCH, SEED).device_batch(0, dev)
+        got = tr_grad_check(cfg, params, batch)
+        emit(path="vl", phase="i_loss_and_grads", arch=cfg.name,
+             layers=cfg.n_layers, seq_len=VL_SEQ, global_batch=VL_BATCH,
+             mm_positions=cfg.mm_positions,
+             params=sum(p.numel() for p in utils.tree_leaves(params)),
+             **got)
+        check(got["ok"], f"i: the train step off the f32 plain step: {got}")
+    run.phase("i_vs_f32_plain", i, inv=nothing)
+    tr_free()
+    return run.end(())
+
+
+def main(argv=None):
+    """`--paths a,b`: only those paths, after the build, with no kernel
+    timing and no `kernels` line (a quicker run while a path is brought
+    up); the contract's run takes no argument."""
+    argv = sys.argv[1:] if argv is None else argv
+    only = None
+    if argv:
+        check(len(argv) == 2 and argv[0] == "--paths", f"arguments {argv}")
+        only = argv[1].split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
@@ -3123,14 +3681,26 @@ def main():
     emit(phase="build", ms=(time.perf_counter() - t0) * 1e3,
          sources=list(_build.SOURCES))
 
+    drivers = {"r1": main_path, "r3": main_path_r3,
+               "w3": window_path_w3, "w1f": window_path_w1f,
+               "wp": window_path_wp, "q3": async_path_q3,
+               "qw": async_path_qw,
+               "tg": functools.partial(tenancy_path, tag="tg", window=1),
+               "tw": functools.partial(tenancy_path, tag="tw", window=4),
+               "el": elastic_path, "ch": chaos_path, "sv": serving_path,
+               "tr": training_path, "rg": hybrid_serving_path,
+               "rt": hybrid_training_path, "vl": vlm_path}
+    if only is not None:
+        check(set(only) <= set(drivers), f"paths {only}")
+        for name in only:
+            emit(path=name, phase="launches", launches=drivers[name](dev))
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
     timing = kernels_vs_plain(dev)
-    paths = {"r1": main_path(dev), "r3": main_path_r3(dev),
-             "w3": window_path_w3(dev), "w1f": window_path_w1f(dev),
-             "wp": window_path_wp(dev), "q3": async_path_q3(dev),
-             "qw": async_path_qw(dev), "tg": tenancy_path(dev, "tg", 1),
-             "tw": tenancy_path(dev, "tw", 4), "el": elastic_path(dev),
-             "ch": chaos_path(dev), "sv": serving_path(dev),
-             "tr": training_path(dev)}
+    paths = {name: fn(dev) for name, fn in drivers.items()}
     rows = []
     for name in ops.ENTRY_POINTS:
         t = timing[name]

@@ -1,36 +1,50 @@
-"""Block registry, the dense block (the reference's models/blocks.py):
+"""Block registry (the reference's models/blocks.py), the types the port
+builds:
 
   dense   — causal GQA attention + GLU MLP
+  attn    — sliding-window attention + MLP (hybrid patterns)
+  rglru   — RG-LRU recurrence + MLP (RecurrentGemma)
 
 Each type provides defs / train (`apply_train`, the full sequence) /
 decode (`apply_decode`, one token against the cache) / cache-init.
 
-The sliding-window, routed-expert, recurrent, xLSTM and encoder-decoder
-types (attn, moe, rglru, mlstm, slstm, enc, dec_x) come with their
-families' slice; asking for one raises NotImplementedError.
+The routed-expert, xLSTM and encoder-decoder types (moe, mlstm, slstm,
+enc, dec_x) come with their families' slice; asking for one raises
+NotImplementedError.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as rglru_mod
 
-LATER = ("attn", "moe", "rglru", "mlstm", "slstm", "enc", "dec_x")
+ATTN_TYPES = ("dense", "attn")
+LATER = ("moe", "mlstm", "slstm", "enc", "dec_x")
 
 
 def _check(btype: str) -> None:
     if btype in LATER:
         raise NotImplementedError(
             f"block type {btype!r} is not ported yet: it comes with slice "
-            "S8c (the moe, hybrid, ssm and encoder-decoder families)")
-    if btype != "dense":
+            "S8c (the moe, ssm and encoder-decoder families)")
+    if btype not in ATTN_TYPES + ("rglru",):
         raise ValueError(btype)
 
 
 def block_defs(cfg, btype: str) -> dict:
     _check(btype)
     d = cfg.d_model
+    if btype == "rglru":
+        return {
+            "ln1": L.rmsnorm_defs(d, cfg),
+            "rec": rglru_mod.rglru_defs(cfg),
+            "ln2": L.rmsnorm_defs(d, cfg),
+            "ffn": L.mlp_defs(d, cfg.d_ff, cfg),
+        }
     return {
         "ln1": L.rmsnorm_defs(d, cfg),
         "attn": attn_mod.attn_defs(cfg),
@@ -39,11 +53,20 @@ def block_defs(cfg, btype: str) -> dict:
     }
 
 
+def _window_for(cfg, btype: str) -> Optional[int]:
+    return cfg.window if btype == "attn" else None
+
+
 def init_cache(cfg, btype: str, batch: int, max_len: int,
                device=None) -> dict:
     _check(btype)
+    if btype == "rglru":
+        return rglru_mod.init_cache(cfg, batch, device)
     cdt = L.cdt(cfg)
     K, hd, t = cfg.n_kv, cfg.hd, max_len
+    w = _window_for(cfg, btype)
+    if w is not None:
+        t = min(t, w)
     return {
         "k": torch.zeros((batch, t, K, hd), dtype=cdt, device=device),
         "v": torch.zeros((batch, t, K, hd), dtype=cdt, device=device),
@@ -58,6 +81,8 @@ def cache_logical_axes(cfg, btype: str, tp: int = 1) -> dict:
     not divide it, shard the cache's *sequence* dimension instead.
     """
     _check(btype)
+    if btype == "rglru":
+        return {"conv": ("batch", None, "rnn"), "h": ("batch", "rnn")}
     if tp > 1 and cfg.n_kv % tp == 0:
         kv, seq = "kv_heads", None
     else:
@@ -67,6 +92,12 @@ def cache_logical_axes(cfg, btype: str, tp: int = 1) -> dict:
             "pos": (None,)}
 
 
+def _ffn(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The residual MLP every block ends with: x + mlp(norm2(x))."""
+    h = L.apply_rmsnorm(p["ln2"], x)
+    return x + L.apply_mlp(p["ffn"], h, cfg).to(x.dtype)
+
+
 def apply_train(p: dict, btype: str, x: torch.Tensor, cfg, *,
                 positions: torch.Tensor, rope_table=None,
                 causal: bool = True) -> tuple:
@@ -74,16 +105,19 @@ def apply_train(p: dict, btype: str, x: torch.Tensor, cfg, *,
     `rope_table`: the positions' `layers.rope_table`, when the caller has
     it (shared by every layer)."""
     _check(btype)
+    if btype == "rglru":
+        h = L.apply_rmsnorm(p["ln1"], x)
+        x = x + rglru_mod.apply_train(p["rec"], h, cfg).to(x.dtype)
+        return _ffn(p, x, cfg), {}
     h = L.apply_rmsnorm(p["ln1"], x)
     q = attn_mod.project_q(p["attn"], h, cfg, positions,
                            rope_table=rope_table)
     k, v = attn_mod.project_kv(p["attn"], h, cfg, positions,
                                rope_table=rope_table)
-    o = attn_mod.attend(q, k, v, causal=causal)
+    o = attn_mod.attend(q, k, v, causal=causal,
+                        window=_window_for(cfg, btype))
     x = x + attn_mod.apply_out(p["attn"], o, cfg).to(x.dtype)
-    h2 = L.apply_rmsnorm(p["ln2"], x)
-    x = x + L.apply_mlp(p["ffn"], h2, cfg).to(x.dtype)
-    return x, {}
+    return _ffn(p, x, cfg), {}
 
 
 def decode_positions(pos: int, cfg, device) -> tuple:
@@ -103,16 +137,19 @@ def apply_decode(p: dict, btype: str, x: torch.Tensor, cache: dict, pos,
     fresh copy), never a staged or pool-held cache.  `positions`: the
     step's `decode_positions`, shared by every layer."""
     _check(btype)
+    if btype == "rglru":
+        h = L.apply_rmsnorm(p["ln1"], x)
+        o, cache = rglru_mod.apply_decode(p["rec"], h, cache, cfg)
+        return _ffn(p, x + o.to(x.dtype), cfg), cache
     pos = int(pos)
+    w = _window_for(cfg, btype)
     h = L.apply_rmsnorm(p["ln1"], x)
     positions, table = positions
     q = attn_mod.project_q(p["attn"], h, cfg, positions, rope_table=table)
     k, v = attn_mod.project_kv(p["attn"], h, cfg, positions,
                                rope_table=table)
     kc, vc, pc = attn_mod.cache_write(cache["k"], cache["v"], cache["pos"],
-                                      k, v, pos)
-    o = attn_mod.attend_decode(q, kc, vc, pc, pos)
+                                      k, v, pos, window=w)
+    o = attn_mod.attend_decode(q, kc, vc, pc, pos, window=w)
     x = x + attn_mod.apply_out(p["attn"], o, cfg).to(x.dtype)
-    h2 = L.apply_rmsnorm(p["ln2"], x)
-    x = x + L.apply_mlp(p["ffn"], h2, cfg).to(x.dtype)
-    return x, {"k": kc, "v": vc, "pos": pc}
+    return _ffn(p, x, cfg), {"k": kc, "v": vc, "pos": pc}

@@ -10,9 +10,10 @@ group under `torch.utils.checkpoint` when there is more than one (the
 reference's `jax.checkpoint` of its scan body): the backward recomputes a
 group's activations from its input.  The stacked leaves are unbound once
 a call, so every layer's gradient lands in its slice of the stacked leaf.
-(The reference's unstacked tail blocks, `n_layers % len(pattern)`, exist
-only for the multi-block patterns of the families this slice does not
-build.)
+A multi-block pattern that does not divide the depth leaves a tail of
+`n_layers % len(pattern)` blocks (`ModelConfig.tail_pattern`), run after
+the groups, unrolled and not checkpointed, whose parameters and cache
+leaves are not stacked (`tail{i}_{type}`), as in the reference.
 
 Entry points:
     init(gen)                        -> params
@@ -23,9 +24,10 @@ Entry points:
     cache_specs(batch, max_len)      -> partition specs of the cache
     decode_step(params, tok, cache, pos) -> (logits, new cache)
 
-`build_model` builds the dense family; the others (moe, hybrid, ssm,
-encoder-decoder, vlm, audio) raise NotImplementedError, naming their
-slice.
+`build_model` builds the dense, vlm (dense blocks behind a prefix of
+multimodal stub embeddings) and hybrid (RG-LRU and sliding-window
+attention blocks) families; the others (moe, ssm, encoder-decoder
+audio) raise NotImplementedError, naming their slice.
 """
 from __future__ import annotations
 
@@ -43,11 +45,12 @@ from repro_torch.models import params as prm
 
 PyTree = Any
 
-# the parameter leaves the model reads in f32 whatever the compute dtype
-# (the norms' scales); every other leaf it casts to the compute dtype
-F32_LEAVES = ("scale", "qnorm", "knorm")
+# the parameter leaves the model reads in f32 whatever the compute dtype:
+# the norms' scales, and the RG-LRU's gate weights and decay
+# (`rglru._gates`); every other leaf it casts to the compute dtype
+F32_LEAVES = ("scale", "qnorm", "knorm", "wa", "ba", "wx", "bx", "lam")
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "vlm", "hybrid")
 
 
 class Model(torch.nn.Module):
@@ -60,6 +63,7 @@ class Model(torch.nn.Module):
         self.mesh = mesh
         self.pattern = cfg.pattern
         self.n_groups = cfg.n_groups
+        self.tail = cfg.tail_pattern
 
     # -- parameter definitions -------------------------------------------------
 
@@ -67,11 +71,14 @@ class Model(torch.nn.Module):
         cfg = self.cfg
         group = {f"b{j}_{t}": B.block_defs(cfg, t)
                  for j, t in enumerate(self.pattern)}
-        return {
+        defs = {
             "embed": L.embed_defs(cfg),
             "groups": prm.stacked(group, self.n_groups),
             "final_norm": L.rmsnorm_defs(cfg.d_model, cfg),
         }
+        for i, t in enumerate(self.tail):
+            defs[f"tail{i}_{t}"] = B.block_defs(cfg, t)
+        return defs
 
     def param_specs(self, mesh=None) -> PyTree:
         return prm.spec_tree(self.param_defs(), mesh or self.mesh,
@@ -129,7 +136,10 @@ class Model(torch.nn.Module):
                                preserve_rng_state=False)
             else:
                 x = group_body(x, *gleaves)
-        # the dense family has no auxiliary (router) losses
+        for i, t in enumerate(self.tail):
+            x, _ = B.apply_train(params[f"tail{i}_{t}"], t, x, cfg,
+                                 positions=positions, rope_table=table)
+        # no block type the port builds has auxiliary (router) losses
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         x = L.apply_rmsnorm(params["final_norm"], x)
         return x, aux_total
@@ -186,8 +196,8 @@ class Model(torch.nn.Module):
         valid[:, -1] = False
         ce, zterm = self._chunked_ce(params, x, targets, valid)
         z_loss = 1e-4 * zterm
-        # the dense family's aux is 0 and weighs 0 (the reference's
-        # moe_coef), so the total is ce + z_loss
+        # without routed experts the aux is 0 and weighs 0 (the
+        # reference's moe_coef), so the total is ce + z_loss
         return ce + z_loss, {"ce": ce, "z_loss": z_loss, "aux": aux}
 
     # -- decode -----------------------------------------------------------------
@@ -200,7 +210,9 @@ class Model(torch.nn.Module):
             groups[f"b{j}_{t}"] = {
                 n: x.expand(self.n_groups, *x.shape).contiguous()
                 for n, x in one.items()}
-        return {"groups": groups}
+        tail = {f"tail{i}_{t}": B.init_cache(cfg, t, batch, max_len, device)
+                for i, t in enumerate(self.tail)}
+        return {"groups": groups, **tail}
 
     def init_cache(self, batch: int, max_len: int, device=None) -> PyTree:
         """An empty cache on `device` (the card unless the caller asks for
@@ -214,16 +226,24 @@ class Model(torch.nn.Module):
         rules = cfg.logical_overrides
         tp = shd.axis_sizes(mesh).get("model", 1)
 
-        def spec_of(btype, leafname, arr):
-            axes = ("layers",) + tuple(
-                B.cache_logical_axes(cfg, btype, tp)[leafname])
+        def spec_of(btype, leafname, arr, stacked):
+            axes = tuple(B.cache_logical_axes(cfg, btype, tp)[leafname])
+            if stacked:
+                axes = ("layers",) + axes
             return shd.spec_for(mesh, axes, arr.shape, rules)
 
-        groups = self._cache_defs(batch, max_len, "meta")["groups"]
-        return {"groups": {
-            bk: {ln: spec_of(bk.split("_", 1)[1], ln, arr)
-                 for ln, arr in leaves.items()}
-            for bk, leaves in groups.items()}}
+        def specs_of(key, leaves, stacked):
+            bt = key.split("_", 1)[1]
+            return {ln: spec_of(bt, ln, arr, stacked)
+                    for ln, arr in leaves.items()}
+
+        cache = self._cache_defs(batch, max_len, "meta")
+        specs = {"groups": {bk: specs_of(bk, leaves, True)
+                            for bk, leaves in cache["groups"].items()}}
+        for key, leaves in cache.items():
+            if key != "groups":
+                specs[key] = specs_of(key, leaves, False)
+        return specs
 
     def decode_step(self, params, token, cache, pos) -> tuple:
         """token: (B,) ints; pos: an int.  Returns (logits (B, V) f32, new
@@ -232,16 +252,21 @@ class Model(torch.nn.Module):
         pos = int(pos)
         x = L.apply_embed(params["embed"], token[:, None], cfg)
         at = B.decode_positions(pos, cfg, x.device)
-        new_groups = utils.tree_map(torch.clone, cache["groups"])
+        new_cache = utils.tree_map(torch.clone, cache)
+        new_groups = new_cache["groups"]
         for i in range(self.n_groups):
             for j, t in enumerate(self.pattern):
                 key = f"b{j}_{t}"
                 gp = utils.tree_map(lambda w: w[i], params["groups"][key])
                 gc = {n: leaf[i] for n, leaf in new_groups[key].items()}
                 x, _ = B.apply_decode(gp, t, x, gc, pos, cfg, at)
+        for i, t in enumerate(self.tail):
+            key = f"tail{i}_{t}"
+            x, _ = B.apply_decode(params[key], t, x, new_cache[key], pos,
+                                  cfg, at)
         x = L.apply_rmsnorm(params["final_norm"], x)
         logits = L.apply_unembed(params["embed"], x, cfg)[:, 0]
-        return logits, {"groups": new_groups}
+        return logits, new_cache
 
 
 def build_model(cfg: ModelConfig, mesh=None) -> Model:

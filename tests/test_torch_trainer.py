@@ -58,19 +58,20 @@ def host_bytes(t):
 
 class Lockstep:
     """A reference Trainer and a port Trainer over the same mesh shape and
-    config, the port's train step replaying the reference's."""
+    config (`model`: ModelConfig's fields, t_train unless given), the
+    port's train step replaying the reference's."""
 
     def __init__(self, mode="mlpc", seed=0, ref_dir=None, port_dir=None,
-                 **pkw):
+                 model=T_TRAIN, seq=SEQ, **pkw):
         self.mesh, self.zmesh = tr.jax_mesh("mesh42"), tr.zone_mesh(
             "mesh42")
-        kw = dict(seq_len=SEQ, global_batch=BATCH, seed=seed)
+        kw = dict(seq_len=seq, global_batch=BATCH, seed=seed)
         self.ref = RefTrainer(
-            RefModelConfig(**T_TRAIN), RefTrainConfig(**TRAIN),
+            RefModelConfig(**model), RefTrainConfig(**TRAIN),
             RefProtectConfig(mode=mode, block_words=64, **pkw), self.mesh,
             checkpoint_dir=ref_dir, **kw)
         self.port = Trainer(
-            ModelConfig(**T_TRAIN), TrainConfig(**TRAIN),
+            ModelConfig(**model), TrainConfig(**TRAIN),
             ProtectConfig(mode=mode, block_words=64, **pkw), self.zmesh,
             checkpoint_dir=port_dir, device="cpu", **kw)
         self.ref.initialize()
