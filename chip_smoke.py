@@ -1,7 +1,6 @@
 """Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py                 # every path, the kernels line
-    python3 chip_smoke.py --paths rg,rt   # only those, no kernel timing
+    python3 chip_smoke.py
 
 1. Card and build: the card's name and power limit; the four CUDA
    libraries built from src/repro_torch/kernels/csrc/ (one nvcc per
@@ -187,7 +186,8 @@
 10. The hybrid served (rg): recurrentgemma-2b at its published width and
    depth (26 layers: (rglru, rglru, attn) x 8 and a tail of two rglru
    blocks; d_model 2560, 10 heads on one KV head of 256, vocab 256,000,
-   window 2048; 2,658,736,640 parameters from SEED, bf16 compute) served
+   window 2048; 2,658,736,640 parameters from SEED, the attention's
+   projections at a d_model fan-in (`soft_attention`), bf16 compute) served
    by `Server` at batch 128 and max_len 2048 (the window), block_words
    256, its 2,206,531,584 B cache of K/V rings and recurrent state in a
    Pool:
@@ -199,33 +199,31 @@
         zone copies, commit, scrub and the footprint's host time a step;
         equal to a fresh open;
    c — unprotected: b's tokens;
-   h — (after c) b's tokens teacher-forced through the decode against an
-        f32 forward apart from the port (the RG-LRU a loop over time, the
-        conv a grouped conv1d, windowed attention by sdpa): at f32 compute
-        on the served weights' first group and tail, every logit within
-        2^-4 of the largest; the f32 decode at all 26 layers and the
-        served bf16 decode (whose argmax must give b's tokens) measured
-        only (`rg_reference` says why);
+   h — (after c) b's tokens teacher-forced through the served bf16 decode
+        at all 26 layers against an f32 forward apart from the port (the
+        RG-LRU a loop over time, the conv a grouped conv1d, windowed
+        attention by sdpa): its argmax gives b's tokens, every logit within
+        2^-4 of the largest;
    d — a word of each leaf scribbled in rank 0 after prefill, scrubbed and
         repaired: the row equals b's there;
    e — rank 1 lost 16 tokens later and recovered (the row equals b's),
         on to the end: b's tokens and final row, checksums and digest;
-   f — r = 3, depth 4 through the loss of ranks 0, 1 and 3: b's tokens and
-        final words, equal to a fresh open;
+   f — r = 3, window 4 (the deferred engine), depth 4 through the loss of
+        ranks 0, 1 and 3 two commits into a window: b's tokens and final
+        words, equal to a fresh open;
    g — the same decode on an (8, 1) mesh, where the rings keep their
         sequence: a time slot a ring plus the recurrent state, so every
         commit is a patch; b's tokens, equal to a fresh open.
    Each kernel the path launched is held against its plain version on the
    inputs of its first launch in d-g, a data rank at a time.
 11. The hybrid trained (rt): the same model at full width, one group of
-   depth (3 layers, 886,115,840 parameters), AdamW with bf16 moments (a
-   7.09 GB state), seq 4096 (twice the window) x batch 2 on (4, 2):
-   a start; b 2 bulk and 2 verify_old steps; c the same unprotected,
-   losses and state bit-equal; d rank 1 lost after step 2 and recovered,
-   b's losses, digests and state; i the step at f32 compute against a
-   plain f32 one (loss within TR_LOSS_RTOL, every gradient at a cosine of
-   TR_GRAD_COS), the trained bf16 step (its loss b's step 1) measured
-   against it.
+   depth (3 layers, 886,115,840 parameters, the attention as rg's),
+   AdamW with bf16 moments (a 7.09 GB state), seq 4096 (twice the window)
+   x batch 2 on (4, 2): a start; b 2 bulk and 2 verify_old steps; c the
+   same unprotected, losses and state bit-equal; d rank 1 lost after step
+   2 and recovered, b's losses, digests and state; i the trained bf16
+   step (its loss b's step 1) against a plain f32 one: loss within
+   TR_LOSS_RTOL, every gradient at a cosine of TR_GRAD_COS.
 12. The vlm (vl): chameleon-34b at full width (d_model 8192, GQA 64 / 8,
    qk-norm, 256 stub embedding positions), two layers (2,457,903,616
    parameters): one bf16 train step of 768 tokens behind the stub prefix
@@ -236,7 +234,7 @@
    digest = combine(cksums); row = flatten(state).  Inside a window: the
    checksums and digest are the live rows'; the stack is the epoch start's;
    the bulk engine's accumulator is row_start ^ row_now, and the patch
-   engine's row is pinned at the epoch start.
+   engine's row is pinned at the epoch start, its live row the live rows.
 14. Each path's kernel launches (every count zeroed just before the path,
    read just after); every entry point of the path must have run.  Peak
    device memory of each path; the host ms of each async dispatch.
@@ -1354,7 +1352,7 @@ def window_invariants(start_row, start_synd):
     the digest are the live rows' (the Fletcher terms, plain); the stack is
     the epoch start's; the bulk engine's row is the live rows and its
     accumulator row_start ^ row_now; the patch engine's row is pinned at
-    the epoch start."""
+    the epoch start and its live row is the live rows."""
     def inv(pool, tag):
         from repro_torch.core import checksum, layout
         from repro_torch.kernels.fletcher import fletcher_pages_plain
@@ -1368,6 +1366,8 @@ def window_invariants(start_row, start_synd):
         check(torch.equal(prot.synd, start_synd), f"{tag}: stack moved")
         if pool.engine.patch:
             check(torch.equal(prot.row, start_row), f"{tag}: row moved")
+            check(torch.equal(pool._est.live, rows),
+                  f"{tag}: live row != flatten")
         else:
             check(torch.equal(prot.row, rows), f"{tag}: row != flatten")
             check(torch.equal(pool._est.acc, start_row ^ rows),
@@ -2820,10 +2820,11 @@ def tr_model():
 
 
 def tr_trainer(dev, cfg, mesh, checkpoint_dir=None, start=True,
-               seq_len=TR_SEQ, global_batch=TR_BATCH, **pcfg):
+               seq_len=TR_SEQ, global_batch=TR_BATCH, params=None, **pcfg):
     """A Trainer of the path's model (AdamW, lr 1e-3, warmup 2), mlpc at
-    ProtectConfig's defaults unless `pcfg` says otherwise, initialized from
-    SEED on the card (every trainer starts from the same state)."""
+    ProtectConfig's defaults unless `pcfg` says otherwise, initialized
+    from `params` (a factory of them), else from SEED on the card (every
+    trainer starts from the same state)."""
     from repro_torch import ProtectConfig
     from repro_torch.configs.base import TrainConfig
     from repro_torch.runtime.trainer import Trainer
@@ -2835,7 +2836,7 @@ def tr_trainer(dev, cfg, mesh, checkpoint_dir=None, start=True,
                 global_batch=global_batch, checkpoint_dir=checkpoint_dir,
                 seed=SEED, device=dev)
     if start:
-        t.initialize()
+        t.initialize(params=None if params is None else params())
     return t
 
 
@@ -3260,21 +3261,50 @@ RG_BW = 256                      # block_words, as launch/serve.py sets it
 RG_SCRUB = 16
 RG_LOST = 1                      # the rank rg e loses
 RG_MULTI_LOST = (0, 1, 3)        # the ranks rg f loses at once
-RG_EVENT = 16                    # generated tokens before rg e / f's loss
+RG_EVENT = 16                    # generated tokens before rg e's loss
+RG_F_EVENT = 18                  # before rg f's: two commits into a window
+RG_F_WINDOW = 4
 RG_H_CHUNK = 32                  # sequences of rg h's comparison a pass
 PATH_RG = ("fletcher_blocks", "fletcher_stream", "fused_commit",
            "sdelta_stack", "gf_scale")
 
 
-def rg_model(dev):
-    """The served hybrid: config (max_len = its window), random weights
-    from SEED, the prompt from SEED + 1."""
-    from repro_torch.configs.registry import get_config
+def soft_attention(params):
+    """Scale every attention block's (d_model, heads, head_dim)
+    projections wq, wk, wv in place to a std of 1/sqrt(d_model).  The
+    reference's init takes `heads` as their fan-in (ROADMAP queue C);
+    recurrentgemma has no qk-norm and one KV head, so its scores would
+    have a std of ~800 and the softmax would be one-hot: a bf16 rounding
+    of q or k would pick another key, and the decode and the train step
+    would sit at no fixed distance from an f32 forward
+    (scripts/torch_hybrid_chaos.py).  At this scale q and k have a std of
+    ~1 and the scores ~1, as a trained model's.  Returns `params`."""
+    def walk(tree):
+        for key, sub in tree.items():
+            if key == "attn" and "wq" in sub:
+                for w in (sub["wq"], sub["wk"], sub["wv"]):
+                    w.mul_(math.sqrt(w.shape[-2] / w.shape[-3]))
+            elif isinstance(sub, dict):
+                walk(sub)
+    with torch.no_grad():
+        walk(params)
+    return params
+
+
+def hybrid_params(cfg, dev):
+    """The hybrid's weights: random from SEED, the attention soft."""
     from repro_torch.models.transformer import build_model
+    return soft_attention(build_model(cfg).init(
+        torch.Generator(dev).manual_seed(SEED), dev))
+
+
+def rg_model(dev):
+    """The served hybrid: config (max_len = its window), weights from
+    `hybrid_params`, the prompt from SEED + 1."""
+    from repro_torch.configs.registry import get_config
     cfg = dataclasses.replace(get_config(RG_ARCH, reduced=RG_REDUCED),
                               **RG_OVERRIDES)
-    params = build_model(cfg).init(
-        torch.Generator(dev).manual_seed(SEED), dev)
+    params = hybrid_params(cfg, dev)
     prompt = torch.randint(0, cfg.vocab, (RG_BATCH, RG_PROMPT),
                            generator=torch.Generator(dev).manual_seed(
                                SEED + 1), device=dev)
@@ -3323,38 +3353,12 @@ def rg_same_final(srv, want, tag):
 
 
 def rg_reference(cfg, params, prompt, toks):
-    """rg h: b's tokens teacher-forced through the port's decode against
-    `sv_plain_logits` on the same weights.  Held: at f32 compute, on the
-    served weights' first group and tail (5 layers), every logit within
-    SV_LOGIT_RTOL of the largest.  Measured, not held: the f32 decode at
-    all 26 layers, and the served bf16 one (whose argmax must give b's
-    tokens).  The reference's init draws each (d, heads, head_dim)
-    projection with std 1/sqrt(heads) and recurrentgemma has no qk-norm,
-    so its attention scores have a std of ~800 and the softmax is one-hot
-    at init: a bf16 rounding of q or k picks another key, and in f32 two
-    sums of the same products in another order now and then break a near
-    tie; the recurrence then carries the other key's value to every later
-    position, and each layer above compounds it (scripts/
-    torch_hybrid_chaos.py on the CPU, full width at vocab 512: largest f32
-    error 2.3e-4 of the largest logit at 5 layers, 0.016 at 14, 0.39 at
-    26)."""
-    from repro_torch import utils
-    depth = len(cfg.pattern) + len(cfg.tail_pattern)
-    cut = dataclasses.replace(cfg, n_layers=depth, compute_dtype="float32")
-    cut_params = dict(params, groups=utils.tree_map(lambda w: w[:1],
-                                                    params["groups"]))
-    out = {}
-    for tag, c, p, kw in (
-            ("f32_first_group_and_tail", cut, cut_params,
-             dict(argmax=False)),
-            ("f32_all_layers", dataclasses.replace(
-                cfg, compute_dtype="float32"), params,
-             dict(argmax=False, bound=None)),
-            ("served_bf16", cfg, params, dict(bound=None))):
-        out[tag] = sv_reference(c, p, prompt, toks, cfg.window,
-                                chunk=RG_H_CHUNK, **kw)
-        torch.cuda.empty_cache()
-    return out
+    """rg h: b's tokens teacher-forced through the served bf16 decode at
+    every layer against `sv_plain_logits` on the same weights, RG_H_CHUNK
+    sequences a comparison: its argmax gives b's tokens, every logit
+    within SV_LOGIT_RTOL of the largest."""
+    return sv_reference(cfg, params, prompt, toks, cfg.window,
+                        chunk=RG_H_CHUNK)
 
 
 def hybrid_serving_path(dev):
@@ -3366,7 +3370,7 @@ def hybrid_serving_path(dev):
     probe = CallProbe()
     cfg, params, prompt = rg_model(dev)
     end = RG_PROMPT + RG_NEW - 1            # decode steps a generation takes
-    event_pos = RG_PROMPT + RG_EVENT        # where rg e and f lose ranks
+    event_pos = RG_PROMPT + RG_EVENT        # where rg e loses a rank
 
     # a: the server opens its pool over the empty cache (rings of the
     # window's length, the recurrent state)
@@ -3410,10 +3414,8 @@ def hybrid_serving_path(dev):
     check(np.array_equal(toks_c, toks), "unprotected tokens != protected")
     torch.cuda.empty_cache()
 
-    # h: the decode against an f32 forward apart from the port (its
-    # recurrence a loop over time), every sequence, RG_H_CHUNK a pass:
-    # the port's decode at f32 held to it; the served bf16 decode, which
-    # must give b's tokens, measured against it (see rg_reference)
+    # h: the served decode against an f32 forward apart from the port
+    # (its recurrence a loop over time), every sequence
     emit(path="rg", phase="h_result", **run.timed_aside(
         "h_vs_f32_forward", lambda: rg_reference(cfg, params, prompt,
                                                  toks)))
@@ -3460,16 +3462,17 @@ def hybrid_serving_path(dev):
         del srv, rows
         torch.cuda.empty_cache()
 
-        # f: r = 3, depth 4 (the commit ring) through a loss of three
-        # ranks, on the synchronous engine: the deferred one (window > 1)
-        # does not restore a hybrid cache on recovery, in the reference
-        # as in the port (ROADMAP queue C; tests/test_torch_hybrid_runtime
-        # .py::test_deferred_recovery_is_the_references)
-        srv, _ = run.phase("f_start_r3_d4", lambda: rg_server(
-            dev, cfg, RG_MESH, params, redundancy=3, pipeline_depth=4),
-            inv=nothing)
+        # f: r = 3, window 4 (the deferred engine, whole-leaf dirty words),
+        # depth 4 (the commit ring) through a loss of three ranks inside
+        # an open window
+        srv, _ = run.phase("f_start_r3_w4_d4", lambda: rg_server(
+            dev, cfg, RG_MESH, params, redundancy=3, window=RG_F_WINDOW,
+            pipeline_depth=4), inv=nothing)
+        check(srv.pool.engine is not None and srv.pool.engine.patch,
+              "f: not the patch engine")
 
         def multi_loss():
+            check(srv.pool.engine.needs_flush, "f: the loss is not mid-window")
             event = srv.pool.inject(
                 lambda pr, p: failure.inject_multi_rank_loss(
                     pr, p, RG_MULTI_LOST))
@@ -3477,7 +3480,8 @@ def hybrid_serving_path(dev):
             check(rep.verified and rep.reverified, f"recovery {rep}")
         toks_f, _ = run.phase("f_generate_loss_of_3", lambda: sv_tokens(
             srv, sv_steps(srv, prompt, None, end,
-                          {event_pos: multi_loss})[1]), inv=nothing)
+                          {RG_PROMPT + RG_F_EVENT: multi_loss})[1]),
+            inv=nothing)
         check(np.array_equal(toks_f, toks), "f tokens != b's")
         host_same_as_fresh(run, srv, "f_fresh_after_f")
         sv_invariants(srv, "f_flushed")
@@ -3532,7 +3536,8 @@ def hybrid_training_path(dev):
     cfg = dataclasses.replace(get_config(RG_ARCH, reduced=RT_REDUCED),
                               n_layers=RT_LAYERS, **RT_OVERRIDES)
     mesh = ZoneMesh(RT_MESH, ("data", "model"))
-    kw = dict(seq_len=RT_SEQ, global_batch=RT_BATCH, scrub_period=RT_SCRUB)
+    kw = dict(seq_len=RT_SEQ, global_batch=RT_BATCH, scrub_period=RT_SCRUB,
+              params=lambda: hybrid_params(cfg, dev))
     half = RT_STEPS // 2
 
     t, _ = run.phase("a_start", lambda: tr_trainer(dev, cfg, mesh, **kw),
@@ -3598,25 +3603,16 @@ def hybrid_training_path(dev):
         tr_free()
     probe.check(run, dict(run.build.LAUNCHES), by_rank=True)
 
-    # i: the train step checked apart from the port, at full width
+    # i: the trained step checked apart from the port, at full width
     def i():
         from repro_torch.data.synthetic import batch_for
-        from repro_torch.models.transformer import build_model
-        params = build_model(cfg).init(
-            torch.Generator(dev).manual_seed(SEED), dev)
+        params = hybrid_params(cfg, dev)
         batch = batch_for(cfg, RT_SEQ, RT_BATCH, SEED).device_batch(0, dev)
-        # the step at f32 compute, held to the plain step; the trained
-        # bf16 step, whose loss must be b's step 1, measured against it
-        # (not held: rg_reference says why bf16 is not within any bound)
-        got = tr_grad_check(dataclasses.replace(
-            cfg, compute_dtype="float32"), params, batch)
-        emit(path="rt", phase="i_loss_and_grads_f32", **got)
-        check(got["ok"], f"i: the train step off the f32 plain step: {got}")
-        tr_free()
         got = tr_grad_check(cfg, params, batch)
         check(abs(got["loss"] - b_loss[0]) == 0,
               f"i: the checked loss {got['loss']} != b's step 1")
-        emit(path="rt", phase="i_loss_and_grads_bf16_measured", **got)
+        emit(path="rt", phase="i_loss_and_grads", **got)
+        check(got["ok"], f"i: the train step off the f32 plain step: {got}")
     run.timed_aside("i_vs_f32_plain", i)
     tr_free()
     return run.end(PATH_RT)
@@ -3656,15 +3652,7 @@ def vlm_path(dev):
     return run.end(())
 
 
-def main(argv=None):
-    """`--paths a,b`: only those paths, after the build, with no kernel
-    timing and no `kernels` line (a quicker run while a path is brought
-    up); the contract's run takes no argument."""
-    argv = sys.argv[1:] if argv is None else argv
-    only = None
-    if argv:
-        check(len(argv) == 2 and argv[0] == "--paths", f"arguments {argv}")
-        only = argv[1].split(",")
+def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
@@ -3690,15 +3678,6 @@ def main(argv=None):
                "el": elastic_path, "ch": chaos_path, "sv": serving_path,
                "tr": training_path, "rg": hybrid_serving_path,
                "rt": hybrid_training_path, "vl": vlm_path}
-    if only is not None:
-        check(set(only) <= set(drivers), f"paths {only}")
-        for name in only:
-            emit(path=name, phase="launches", launches=drivers[name](dev))
-        print(smi, flush=True)
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}), flush=True)
-        return
     timing = kernels_vs_plain(dev)
     paths = {name: fn(dev) for name, fn in drivers.items()}
     rows = []

@@ -13,7 +13,8 @@ teacher-forced, `chip_smoke.sv_reference`) against `sv_plain_logits` —
 the largest error as a share of the largest logit, the median and 99th
 percentile of each position's, the argmax agreement; and the train step
 (`chip_smoke.tr_grad_check`, one group) at f32 and bf16 compute against
-the plain f32 step.  chip_smoke's rg h and rt i cite these.
+the plain f32 step.  These are why chip_smoke's rg and rt serve and
+train weights whose attention `chip_smoke.soft_attention` has scaled.
 """
 import dataclasses
 import json

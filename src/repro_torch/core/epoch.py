@@ -19,10 +19,16 @@ interval.  Two flavours, computing the reference's bytes:
     digest from the modified words alone (`checksum.update_digest_words`)
     and unions the dirty pages; the stack, the checksums and the cached
     row stay at the epoch start (the pinned row is the accumulator).  The
-    flush splices the state into the row and either patches the dirty
-    pages (`fused_commit_s` with checksums, else `xor_delta` +
+    modified words also go into the window's `live` row, so the intended
+    values sit in a buffer apart from the state, as the bulk engine's
+    current row does.  The flush takes the live row and either patches
+    the dirty pages (`fused_commit_s` with checksums, else `xor_delta` +
     `syndrome_scale`) or, past the hybrid threshold, rebuilds the stack
-    and checksums from the spliced row.
+    and checksums from it.  A fault that damages the state mid-window
+    therefore never reaches the redundancy that recovery rebuilds from.
+    (The reference's flush splices the live state instead, so a rank loss
+    or scribble mid-window on the patch engine recovers to the damaged
+    words of the window's dirty pages.)
 
 At every epoch boundary the stack, checksums, digest, row and redo log are
 byte-equal to the synchronous engine's after the same commits.
@@ -30,7 +36,8 @@ byte-equal to the synchronous engine's after the same commits.
 The reference's programs are jitted shard_map bodies that donate their
 inputs; here the step and the flush are plain functions on zone-stacked
 tensors that build every successor functionally (nothing is written in
-place, so there is nothing to donate), and the per-device dirty masks,
+place but the patch engine's live row, which a window owns alone), and
+the per-device dirty masks,
 accumulators and digests carry the mesh dims in front.  Nothing in a
 commit or a flush waits for the device.
 """
@@ -62,12 +69,15 @@ class EpochState:
     commits since the last flush, a 0-d int32 (u32 bits).  `acc`: the bulk
     engine's XOR accumulator, `(*mesh_dims, row_words)` int32 (None for
     the patch engine); after W steps it holds row_start ^ row_now.
-    Mid-window the patch engine's `prot.row` is the epoch-start row.
+    Mid-window the patch engine's `prot.row` is the epoch-start row and
+    `live` (`(*mesh_dims, row_words)` int32, None for the bulk engine) the
+    row of the last committed state, which its commits write in place.
     """
     prot: ProtectedState
     dirty: Optional[torch.Tensor]
     pending: torch.Tensor
     acc: Optional[torch.Tensor] = None
+    live: Optional[torch.Tensor] = None
 
 
 class EngineHost:
@@ -199,15 +209,22 @@ class DeferredProtector:
             pending=torch.zeros((), dtype=utils.WORD, device=dev),
             acc=(None if self.patch else
                  torch.zeros(*shape, lo.row_words, dtype=utils.WORD,
-                             device=dev)))
+                             device=dev)),
+            live=prot.row.clone() if self.patch else None)
 
     def init(self, state) -> EpochState:
         return self.wrap(self.p.init(state))
 
     def resume(self, est: EpochState) -> EpochState:
         """Adopt a window opened elsewhere (`convert.to_port_epoch`): the
-        host cadence continues from its pending count (one host read)."""
+        host cadence continues from its pending count (one host read).
+        A patch window's live row is the epoch-start row with the state
+        spliced in."""
         self._since = int(est.pending) & 0xFFFFFFFF
+        if self.patch and est.live is None:
+            est = dataclasses.replace(est, live=layout_mod.update_row(
+                self.p.layout, est.prot.row, est.prot.state,
+                self.dirty_leaf_idx))
         return est
 
     @property
@@ -288,7 +305,8 @@ class DeferredProtector:
         leaf_pages = ({li: layout_mod.leaf_pages(lo, li)
                        for li in dirty_leaves} if patch else None)
 
-        def _patch_step(digest, dirty, state_old, state_new, widx):
+        def _patch_step(digest, dirty, live, state_old, state_new, widx,
+                        keep):
             old_leaves = utils.tree_leaves(state_old)
             new_leaves = utils.tree_leaves(state_new)
             dev = digest.device
@@ -307,6 +325,9 @@ class DeferredProtector:
                                                      device=dev)
                     o_g, n_g = ow, nw
                     pg = utils.to_device(leaf_pages[li], dev)
+                    seg = live[..., slot.offset:slot.offset + slot.n_words]
+                    seg.copy_(nw if keep is None
+                              else torch.where(keep, nw, seg))
                 else:
                     wi, inb = _word_index(wi, slot.n_words, dev)
                     at = wi.clamp(max=slot.n_words - 1)
@@ -314,6 +335,12 @@ class DeferredProtector:
                     n_g = torch.where(inb, nw[..., at], 0)
                     off = slot.offset + wi
                     pg = (slot.offset + wi) // bw
+                    # an index past the leaf writes its last word, which
+                    # the live row takes from the new state all the same
+                    at_row = slot.offset + at
+                    live[..., at_row] = (nw[..., at] if keep is None else
+                                         torch.where(keep, nw[..., at],
+                                                     live[..., at_row]))
                 digest = ck.update_digest_words(digest, o_g, n_g, off, rw)
                 mask[..., pg.clamp(max=nb)] = True
             return digest, mask[..., :nb]
@@ -334,20 +361,23 @@ class DeferredProtector:
                     acc_v, old_v, new_v)
             return acc_v.reshape(acc.shape), row_new, new_ck, digest
 
-        def commit(prot: ProtectedState, dirty, pending, acc, state_new,
-                   dirty_words, data_cursor, rng_key, canary_ok):
+        def commit(prot: ProtectedState, dirty, pending, acc, live,
+                   state_new, dirty_words, data_cursor, rng_key, canary_ok,
+                   keep=None):
             # canary_ok is host-known: an abort is a no-op that leaves the
-            # window, the log included, untouched
+            # window, the log included, untouched.  `keep`: the staged
+            # canary, which the live row's in-place writes select on
             if not canary_ok:
-                return (prot, dirty, pending, acc,
+                return (prot, dirty, pending, acc, live,
                         torch.zeros((), dtype=torch.bool,
                                     device=prot.step.device))
             _check_like(state_new, prot.state)
             step = prot.step + 1
             row, cksums = prot.row, prot.cksums
             if patch:
-                digest, dirty = _patch_step(prot.digest, dirty, prot.state,
-                                            state_new, dirty_words)
+                digest, dirty = _patch_step(prot.digest, dirty, live,
+                                            prot.state, state_new,
+                                            dirty_words, keep)
             else:
                 acc, row, new_ck, digest = _bulk_step(acc, prot.row,
                                                       state_new)
@@ -366,7 +396,7 @@ class DeferredProtector:
                 state=state_new, synd=prot.synd, cksums=cksums,
                 digest=digest, replica=prot.replica, log=log, step=step,
                 row=row)
-            return (new_prot, dirty, pending + 1, acc,
+            return (new_prot, dirty, pending + 1, acc, live,
                     torch.ones((), dtype=torch.bool,
                                device=prot.step.device))
 
@@ -378,23 +408,25 @@ class DeferredProtector:
         staging buffers).  The all-clear step runs unconditionally; then
         every output is selected against the previous (prot, dirty,
         pending, acc) on the canary, so a False canary leaves the window,
-        the redo log included, exactly as the host-known abort does."""
+        the redo log included, exactly as the host-known abort does; the
+        live row's writes select on it in place."""
         inner = self._step
 
-        def commit(prot: ProtectedState, dirty, pending, acc, state_new,
-                   dirty_words, data_cursor, rng_key, canary):
-            new = inner(prot, dirty, pending, acc, state_new, dirty_words,
-                        data_cursor, rng_key, True)[:4]
+        def commit(prot: ProtectedState, dirty, pending, acc, live,
+                   state_new, dirty_words, data_cursor, rng_key, canary):
             v = device_bool(canary, prot.step.device)
-            return (*tree_select(v, new, (prot, dirty, pending, acc)), v)
+            new = inner(prot, dirty, pending, acc, live, state_new,
+                        dirty_words, data_cursor, rng_key, True, keep=v)
+            return (*tree_select(v, new[:4], (prot, dirty, pending, acc)),
+                    live, v)
 
         return commit
 
     # -- epoch flush -----------------------------------------------------------
 
     def make_flush(self):
-        """Build the once-per-epoch refresh.  Patch engine: splice the state
-        into the epoch-start row; patch the dirty pages' weighted deltas
+        """Build the once-per-epoch refresh.  Patch engine: take the live
+        row (never the state, which a fault may have damaged); patch the dirty pages' weighted deltas
         into the stack (+ their fresh terms), or rebuild both from the
         spliced row past the hybrid threshold.  Bulk engine: weight the
         accumulator into the r planes and fold them into the stack."""
@@ -402,7 +434,6 @@ class DeferredProtector:
         mode, bw, dd = p.mode, lo.block_words, p.data_dim
         nb, kf = lo.n_blocks, self.flush_capacity
         fpatch, patch = self.flush_patch, self.patch
-        dirty_leaves = self.dirty_leaf_idx
         shape = p.mesh.shape
 
         def _patch_pages(base, row, synd, cksums, dirty, coeffs):
@@ -438,8 +469,8 @@ class DeferredProtector:
             base, synd, cksums, acc = prot.row, prot.synd, prot.cksums, \
                 est.acc
             coeffs = p.coeffs(base.device) if mode.has_parity else None
-            row = (layout_mod.update_row(lo, base, prot.state, dirty_leaves)
-                   if patch else base)
+            # the live row goes on taking the next window's writes
+            row = est.live.clone() if patch else base
             if fpatch:
                 synd, cksums = _patch_pages(base, row, synd, cksums,
                                             est.dirty, coeffs)
@@ -463,7 +494,8 @@ class DeferredProtector:
             return EpochState(
                 prot=dataclasses.replace(prot, synd=synd, cksums=cksums,
                                          row=row),
-                dirty=dirty, pending=torch.zeros_like(est.pending), acc=acc)
+                dirty=dirty, pending=torch.zeros_like(est.pending), acc=acc,
+                live=est.live)
 
         return flush
 
@@ -482,10 +514,11 @@ class DeferredProtector:
                 or len(dirty_words) != len(self.dirty_leaf_idx)):
             raise ValueError("dirty_words needs a patch engine, one entry "
                              "per leaf of dirty_leaf_idx")
-        prot, dirty, pending, acc, ok = self._step(
-            est.prot, est.dirty, est.pending, est.acc, state_new,
+        prot, dirty, pending, acc, live, ok = self._step(
+            est.prot, est.dirty, est.pending, est.acc, est.live, state_new,
             dirty_words, data_cursor, rng_key, bool(canary_ok))
-        est = EpochState(prot=prot, dirty=dirty, pending=pending, acc=acc)
+        est = EpochState(prot=prot, dirty=dirty, pending=pending, acc=acc,
+                         live=live)
         return self._after_step(est), ok
 
     def commit_staged(self, est: EpochState, state_new, *, canary,
@@ -501,10 +534,11 @@ class DeferredProtector:
                 or len(dirty_words) != len(self.dirty_leaf_idx)):
             raise ValueError("dirty_words needs a patch engine, one entry "
                              "per leaf of dirty_leaf_idx")
-        prot, dirty, pending, acc, ok = self._step_staged(
-            est.prot, est.dirty, est.pending, est.acc, state_new,
+        prot, dirty, pending, acc, live, ok = self._step_staged(
+            est.prot, est.dirty, est.pending, est.acc, est.live, state_new,
             dirty_words, data_cursor, rng_key, canary)
-        est = EpochState(prot=prot, dirty=dirty, pending=pending, acc=acc)
+        est = EpochState(prot=prot, dirty=dirty, pending=pending, acc=acc,
+                         live=live)
         return self._after_step(est), ok
 
     def _after_step(self, est: EpochState) -> EpochState:

@@ -12,7 +12,7 @@ input specs (`input_specs`, `Workload`) belong to the tooling slice.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -50,11 +50,14 @@ def batch_specs(cfg: ModelConfig, mesh, global_batch: int = 1 << 30) -> dict:
 # ---------------------------------------------------------------------------
 
 def init_train_state(model: Model, optimizer: Optimizer,
-                     gen: torch.Generator, device=None) -> dict:
-    """Random parameters from `gen` (a generator on `device`, the card
-    unless the caller asks for the CPU), zero moments, step 0."""
+                     gen: Optional[torch.Generator], device=None,
+                     params: Optional[dict] = None) -> dict:
+    """`params` (taken as they are), else random parameters from `gen` (a
+    generator on `device`, the card unless the caller asks for the CPU);
+    zero moments, step 0."""
     device = utils.resolve_device(device)
-    params = model.init(gen, device)
+    if params is None:
+        params = model.init(gen, device)
     return {"params": params, "opt": optimizer.init(params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 

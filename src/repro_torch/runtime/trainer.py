@@ -125,14 +125,15 @@ class Trainer(PoolHost):
 
     # -- lifecycle ---------------------------------------------------------------
 
-    def initialize(self, gen: Optional[torch.Generator] = None) -> None:
-        """Open protection over a fresh train state: random parameters from
-        `gen`, by default a generator on the trainer's device seeded with
-        `seed`."""
-        gen = (gen if gen is not None
-               else torch.Generator(self.device).manual_seed(self.seed))
+    def initialize(self, gen: Optional[torch.Generator] = None,
+                   params: Optional[dict] = None) -> None:
+        """Open protection over a fresh train state: `params` on the
+        trainer's device, else random parameters from `gen`, by default a
+        generator on the trainer's device seeded with `seed`."""
+        if params is None and gen is None:
+            gen = torch.Generator(self.device).manual_seed(self.seed)
         self.pool.init(api.init_train_state(self.model, self.optimizer, gen,
-                                            self.device))
+                                            self.device, params=params))
         self._host_step = 0
 
     def freeze(self):

@@ -106,7 +106,8 @@ def test_out_of_range_word_indices_read_zero_and_set_no_page():
     for i, pos in enumerate((7, 2, 7, 5)):
         new = _slot_step(ep.cur, pos, seed=i)
         w = np.asarray(new["w"]).copy()
-        w[:, :3] += 1.0                  # local words 0-2 of every rank
+        # local words 0-2 of every rank: the first row of each (2, 32) shard
+        w[0::2, [0, 1, 2, 32, 33, 34]] += 1.0
         w_words = np.array([0, 1, 2, n_w, n_w + 3, n_w + 200, 10**6],
                            np.int32)
         assert ep.commit(patched(new, w=w, pos=np.float32(ep.cur["pos"])),

@@ -248,12 +248,13 @@ def test_window_footprint_layout_kinds(served):
 @pytest.mark.parametrize("window", [1, 4])
 def test_recovery_restores_the_cache_only_on_the_sync_engine(served,
                                                              window):
-    """A rank lost after prefill and recovered.  On the synchronous engine
-    the cache comes back as it was.  On the deferred engine (window 4)
-    the reference's recovery verifies but hands back another cache, every
-    leaf but the slot positions changed, and the port does the same: the
-    two pools are byte-equal after it (a reference fault, ROADMAP queue
-    C; chip_smoke's rg f runs window 1)."""
+    """A rank lost after prefill (at window 4, two commits into an open
+    window) and recovered: the port's cache comes back as it was and its
+    flushed pool holds the bytes of a pool opened over it.  The
+    reference restores the cache only on its synchronous engine (window
+    1), where the two pools are byte-equal after the recovery: its patch
+    engine's flush splices the damaged state into the row (ROADMAP queue
+    C), while the port's flushes from the window's live row."""
     from repro.pool import Fault as RefFault
     from repro_torch import Fault
     from repro_torch.runtime import failure
@@ -266,19 +267,25 @@ def test_recovery_restores_the_cache_only_on_the_sync_engine(served,
     p = prompt(3)
     ref.prefill(jnp.asarray(p))
     fed.prefill(torch.from_numpy(p))
-    before = [np.asarray(x).tobytes() for x in jax.tree.leaves(
-        ref.pool.state)]
+    assert fed.pool.engine is None if window == 1 else \
+        fed.pool.engine.needs_flush
+    before = [convert._np_leaf(x).tobytes()
+              for x in utils.tree_leaves(fed.pool.state)]
+    fresh = Pool.open(fed.pool.state, fed.pool.state_specs,
+                      mesh=fed.pool.mesh, config=fed.pool.config,
+                      device="cpu")
     rev = ref.pool.inject(lambda pr, s: ref_failure.inject_rank_loss(
         pr, s, rank=1))
     pev = fed.pool.inject(lambda pr, s: failure.inject_rank_loss(
         pr, s, rank=1))
     assert ref.pool.recover(RefFault.from_event(rev)).verified
-    assert fed.pool.recover(Fault.from_event(pev)).verified
-    same_pool(ref, mesh, fed)
-    after = [np.asarray(x).tobytes() for x in jax.tree.leaves(
-        ref.pool.state)]
-    changed = [i for i, (a, b) in enumerate(zip(before, after)) if a != b]
+    rep = fed.pool.recover(Fault.from_event(pev))
+    assert rep.verified and rep.reverified
+    after = [convert._np_leaf(x).tobytes()
+             for x in utils.tree_leaves(fed.pool.state)]
+    assert after == before
+    fed.flush()
+    for k in ("row", "synd", "cksums", "digest"):
+        assert torch.equal(getattr(fed.prot, k), getattr(fresh.prot, k)), k
     if window == 1:
-        assert changed == []
-    else:
-        assert len(changed) == len(before) - 1
+        same_pool(ref, mesh, fed)

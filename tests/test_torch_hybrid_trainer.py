@@ -52,6 +52,35 @@ def test_trainer_r3_window4_on_the_hybrid():
     ls.check()
 
 
+def test_initialize_takes_given_parameters():
+    """`Trainer.initialize(params=...)` opens the pool over those
+    parameters (as chip_smoke's rt does with its soft attention), zero
+    moments and step 0; a step then trains them."""
+    import torch
+    from repro_torch import ZoneMesh, utils
+    from repro_torch.configs.base import (ModelConfig, ProtectConfig,
+                                          TrainConfig)
+    from repro_torch.models.transformer import build_model
+    from repro_torch.runtime.trainer import Trainer
+    cfg = ModelConfig(**T_HYB)
+    params = build_model(cfg).init(torch.Generator().manual_seed(3), "cpu")
+    want = utils.tree_map(torch.clone, params)
+    t = Trainer(cfg, TrainConfig(), ProtectConfig(mode="mlpc"),
+                ZoneMesh((4, 2), ("data", "model")), seq_len=16,
+                global_batch=8, device="cpu")
+    t.initialize(params=params)
+    state = t.pool.state
+    for a, b in zip(utils.tree_leaves(state["params"]),
+                    utils.tree_leaves(want), strict=True):
+        assert torch.equal(a, b)
+    assert all(not x.any() for x in utils.tree_leaves(state["opt"]))
+    assert int(state["step"]) == 0
+    t.step()
+    assert int(t.pool.state["step"]) == 1
+    assert not all(torch.equal(a, b) for a, b in zip(
+        utils.tree_leaves(t.pool.state["params"]), utils.tree_leaves(want)))
+
+
 def test_launch_train_hybrid(capsys):
     from repro_torch.launch import train
     assert train.main(["--arch", "recurrentgemma-2b", "--reduced",

@@ -208,6 +208,48 @@ def test_server_cache_scribble_recovery(served):
     assert torch.equal(srv.prot.row, rows[10])
 
 
+@pytest.mark.parametrize("fault", ["rank_loss", "scribble"])
+@pytest.mark.parametrize("window", [1, 4])
+def test_mid_window_fault_restores_the_cache(served, window, fault):
+    """A fault after a prefill of six commits (at window 4 two of them in
+    an open window): a rank loss recovered, or a scribble on the last
+    step's words that the scrub finds and repairs, hands back the cache
+    as it was, and decoding goes on to the clean run's tokens.  The
+    deferred engine's flush takes the window's live row, not the damaged
+    state (the reference's splices the state in: ROADMAP queue C)."""
+    from repro_torch import Fault
+    p = torch.from_numpy(prompt(5))
+    want = port_server(served, window=window).generate(p, n_new=6)
+    srv = port_server(served, window=window)
+    tok = srv.prefill(p)
+    assert srv.pool.engine is None if window == 1 else \
+        srv.pool.engine.needs_flush
+    before = [x.clone() for x in utils.tree_leaves(srv.pool.state)]
+    if fault == "rank_loss":
+        ev = srv.pool.inject(lambda pr, s: failure.inject_rank_loss(
+            pr, s, rank=1))
+        rep = srv.pool.recover(Fault.from_event(ev))
+        assert rep.verified and rep.reverified
+    else:
+        lo = srv.protector.layout
+        offsets = [sl.offset + int(w[0]) for sl, w in
+                   zip(lo.slots, srv._dirty_words(srv.pos - 1))]
+        srv.pool.inject(lambda pr, s: failure.inject_scribble(
+            pr, s, rank=0, word_offsets=offsets))
+        report = srv.pool.scrub()
+        assert {(0, o // lo.block_words) for o in offsets} == \
+            set(report.bad_locations)
+        assert report.repaired and report.repair_ok
+    for a, b in zip(before, utils.tree_leaves(srv.pool.state),
+                    strict=True):
+        assert torch.equal(a, b)
+    out = [tok]
+    for _ in range(5):
+        tok = srv.step(tok)
+        out.append(tok)
+    np.testing.assert_array_equal(torch.stack(out, 1).numpy(), want)
+
+
 def test_aborted_step_leaves_the_pool_untouched(served):
     """A decode step builds its new cache in a fresh copy: decoding from
     the pool's state and aborting the commit leaves every byte of the
