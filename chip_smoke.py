@@ -228,14 +228,49 @@
    qk-norm, 256 stub embedding positions), two layers (2,457,903,616
    parameters): one bf16 train step of 768 tokens behind the stub prefix
    against a plain f32 step, within TR_LOSS_RTOL and TR_GRAD_COS.
-13. After each phase the invariants are recomputed apart from the engine:
+13. The ssm served (xs): xlstm-1.3b at its published width and depth
+   (48 blocks: (7 mLSTM, sLSTM) x 6; d_model 2048, 4 heads, vocab
+   50,304; 1,945,057,616 parameters from SEED conditioned by
+   `soft_xlstm`, bf16 compute) served by `Server` at batch 4 and max_len
+   2048 (off every state axis), block_words 256, on (4, 2): its
+   2,826,242,688 B recurrent state (mLSTM C, n, m, conv history; sLSTM
+   c, n, h, m) in a Pool, rewritten whole every token, so every commit
+   is bulk and streamed.  a start; b 32 + 32 tokens at r = 1, clocked;
+   c unprotected, b's tokens; h b's tokens teacher-forced through the
+   served bf16 decode at all 48 blocks against an f32 forward that steps
+   the recurrence a position at a time (`plain_mlstm`, `plain_slstm`),
+   within 2^-4 of the largest logit, argmax agreement reported; d a
+   scribble repaired; e a rank loss recovered; f r = 3, window 4, depth 4
+   through a three-rank loss two commits into a window.  Each kernel
+   held against its plain version at its first launch in d-f.
+14. The ssm trained (xt): the same model at one group (7 mLSTM + 1
+   sLSTM, 495,882,296 parameters), seq 4096 (16 chunks of 256) x batch
+   2 on (4, 2), AdamW with bf16 moments: a start; b 2 bulk and 2
+   verify_old steps; c unprotected, losses and state bit-equal; d a
+   rank loss; i the bf16 step against a plain f32 one whose mLSTM runs
+   in chunks of 64 (so the chunk algebra is held too).
+15. The moe served (mo): moonshot-v1-16b-a3b at its published width (d
+   2048, 16 heads of 128, 64 experts of 1408, top-6 + shared, vocab
+   163,840), depth cut to 8 layers (5,304,780,800 parameters, the
+   attention as rg's), batch 16, max_len 2048, (4, 2), block_words 256:
+   a 2,147,549,184 B KV cache, a time slot a step (the patch path).  The
+   phases of xs; h against an f32 forward whose routed FFN loops over
+   experts (`plain_moe`), every choice kept as a decode step keeps them,
+   with the share of expert choices the two routers share.
+16. The moe trained (mt): moonshot's train step at full width and two
+   layers (checkpointed groups), seq 1024 x batch 1, routed in the (4,
+   2) mesh's four groups (capacity 30 an expert), aux losses weighed in,
+   against a plain f32 step that routes in the same groups; the share of
+   choices the two routers share (if the bound is missed on the plain
+   router's own choices, it is rerun on the port's).
+17. After each phase the invariants are recomputed apart from the engine:
    every syndrome plane k = XOR over ranks i of g^(k·i)·row_i, built rank by
    rank with the plain GF multiply; cksums = Fletcher terms of the rows;
    digest = combine(cksums); row = flatten(state).  Inside a window: the
    checksums and digest are the live rows'; the stack is the epoch start's;
    the bulk engine's accumulator is row_start ^ row_now, and the patch
    engine's row is pinned at the epoch start, its live row the live rows.
-14. Each path's kernel launches (every count zeroed just before the path,
+18. Each path's kernel launches (every count zeroed just before the path,
    read just after); every entry point of the path must have run.  Peak
    device memory of each path; the host ms of each async dispatch.
 
@@ -2451,6 +2486,22 @@ def sv_invariants(srv, tag):
     invariants(srv.pool, tag)
 
 
+def plain_norm(x, scale):
+    """RMS norm over the last axis, eps 1e-6."""
+    return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + 1e-6) * scale
+
+
+def plain_conv(u, w, b):
+    """A causal depthwise conv of width w.shape[0] over (B, S, C) as a
+    grouped `conv1d`, in f32 proper (cuDNN would take TF32, a 10-bit
+    mantissa, on the card)."""
+    F = torch.nn.functional
+    width, ch = w.shape
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        return F.conv1d(F.pad(u.transpose(1, 2), (width - 1, 0)),
+                        w.T[:, None, :], b, groups=ch).transpose(1, 2)
+
+
 def plain_rglru(r, h):
     """The RG-LRU mixer in f32, apart from the port: the causal width-4
     conv as a grouped `conv1d`, the gates, and the recurrence h_t = a_t
@@ -2458,13 +2509,7 @@ def plain_rglru(r, h):
     (B, S, D) -> (B, S, D)."""
     F = torch.nn.functional
     gate = F.gelu(h @ r["wg"], approximate="tanh")
-    u = h @ r["wr"]
-    width, dr = r["conv_w"].shape
-    # in f32 proper: cuDNN would take TF32 (a 10-bit mantissa) on the card
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        u = F.conv1d(F.pad(u.transpose(1, 2), (width - 1, 0)),
-                     r["conv_w"].T[:, None, :], r["conv_b"],
-                     groups=dr).transpose(1, 2)
+    u = plain_conv(h @ r["wr"], r["conv_w"], r["conv_b"])
     gr = torch.sigmoid(u * r["wa"] + r["ba"])
     gi = torch.sigmoid(u * r["wx"] + r["bx"])
     a = torch.exp(-8.0 * F.softplus(r["lam"] - 4.0) * gr)
@@ -2476,21 +2521,171 @@ def plain_rglru(r, h):
     return (gate * torch.stack(hs, 1)) @ r["wo"]
 
 
+def plain_mlstm(c, x, chunk=None):
+    """An mLSTM block's residual branch in f32, apart from the port: the
+    projections, the conv as `plain_conv`, and the matrix memory either
+    stepped a position at a time (chunk None: C_t = f'_t C_{t-1} +
+    i'_t k_t v_t^T with the stabilizer m_t = max(log f_t + m_{t-1}, i_t)),
+    or in chunks of `chunk` positions written as masked log-weights: within
+    a chunk position j reads source s <= j at F_j - F_s + i_s (F the
+    chunk's cumulative log f) and the carried state at F_j + m, each
+    stabilized by their max.  (B, S, D) -> (B, S, D)."""
+    F = torch.nn.functional
+    B, S, D = x.shape
+    H, dh = c["wq"].shape[0], c["wq"].shape[1]
+    di = H * dh
+    up = plain_norm(x, c["norm"]["scale"]) @ c["w_up"]
+    xin, z = up[..., :di], up[..., di:]
+    u = F.silu(plain_conv(xin, c["conv_w"], c["conv_b"]))
+    q = torch.einsum("bshe,hef->bshf", u.reshape(B, S, H, dh),
+                     c["wq"]) / math.sqrt(dh)
+    k = torch.einsum("bshe,hef->bshf", u.reshape(B, S, H, dh), c["wk"])
+    v = torch.einsum("bshe,hef->bshf", xin.reshape(B, S, H, dh), c["wv"])
+    g = u @ c["w_if"] + c["b_if"]
+    ig, lf = g[..., :H], F.logsigmoid(g[..., H:])          # (B, S, H)
+    C = x.new_zeros((B, H, dh, dh))
+    n = x.new_zeros((B, H, dh))
+    m = x.new_full((B, H), -1e30)
+    hs = []
+    if chunk is None:
+        for t in range(S):
+            m_new = torch.maximum(lf[:, t] + m, ig[:, t])
+            ip = torch.exp(ig[:, t] - m_new)[..., None]
+            fp = torch.exp(lf[:, t] + m - m_new)[..., None]
+            C = fp[..., None] * C + ip[..., None] * (
+                k[:, t, :, :, None] * v[:, t, :, None, :])
+            n = fp * n + ip * k[:, t]
+            m = m_new
+            num = torch.einsum("bhd,bhde->bhe", q[:, t], C)
+            den = torch.einsum("bhd,bhd->bh", q[:, t], n)
+            hs.append(num / torch.maximum(den.abs(), torch.exp(-m))[..., None])
+        h = torch.stack(hs, 1)
+    else:
+        for lo in range(0, S, chunk):
+            sl = slice(lo, lo + chunk)
+            L = min(chunk, S - lo)
+            Fc = torch.cumsum(lf[:, sl], 1)                     # (B, L, H)
+            lw = Fc[:, :, None] - Fc[:, None, :] + ig[:, None, sl]
+            mask = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
+            lw = torch.where(mask[None, :, :, None], lw, -math.inf)
+            carry = Fc + m[:, None]                             # (B, L, H)
+            mj = torch.maximum(carry, lw.amax(2))
+            w = torch.exp(lw - mj[:, :, None])                  # (B, j, s, H)
+            cw = torch.exp(carry - mj)
+            qk = torch.einsum("bjhd,bshd->bjsh", q[:, sl], k[:, sl]) * w
+            num = (torch.einsum("bjsh,bshe->bjhe", qk, v[:, sl])
+                   + torch.einsum("bjhd,bhde->bjhe", q[:, sl], C)
+                   * cw[..., None])
+            den = qk.sum(2) + torch.einsum("bjhd,bhd->bjh", q[:, sl], n) * cw
+            hs.append(num / torch.maximum(den.abs(), torch.exp(-mj))[..., None])
+            # the state at the chunk's end
+            end = lw[:, -1]                                     # (B, s, H)
+            m_new = torch.maximum(carry[:, -1], end.amax(1))
+            ws = torch.exp(end - m_new[:, None])
+            cf = torch.exp(carry[:, -1] - m_new)
+            C = cf[..., None, None] * C + torch.einsum(
+                "bshd,bshe->bhde", ws[..., None] * k[:, sl], v[:, sl])
+            n = cf[..., None] * n + torch.einsum("bsh,bshd->bhd", ws,
+                                                 k[:, sl])
+            m = m_new
+        h = torch.cat(hs, 1)
+    h = plain_norm(h.reshape(B, S, di), c["outnorm"])
+    return (h * F.silu(z)) @ c["w_down"]
+
+
+def plain_slstm(c, x):
+    """An sLSTM block's residual branch in f32: the input's gate
+    pre-activations, then the cell a position at a time (its gates read
+    h_{t-1} through r_h), exponential input gate stabilized by m.
+    (B, S, D) -> (B, S, D)."""
+    F = torch.nn.functional
+    B, S, D = x.shape
+    gx = torch.einsum("bsd,dghe->bsghe", plain_norm(x, c["norm"]["scale"]),
+                      c["w_in"])
+    H, dh = gx.shape[3], gx.shape[4]
+    cs, n, h = (x.new_zeros((B, H, dh)) for _ in range(3))
+    n = n + 1e-6
+    m = x.new_full((B, H, dh), -1e30)
+    hs = []
+    for t in range(S):
+        g = gx[:, t] + torch.einsum("bhd,hdge->bghe", h, c["r_h"]) + c["bias"]
+        lf = F.logsigmoid(g[:, 2])
+        m_new = torch.maximum(lf + m, g[:, 1])
+        ip, fp = torch.exp(g[:, 1] - m_new), torch.exp(lf + m - m_new)
+        cs = fp * cs + ip * torch.tanh(g[:, 0])
+        n = fp * n + ip
+        h = torch.sigmoid(g[:, 3]) * cs / torch.clamp(n, min=1e-6)
+        m = m_new
+        hs.append(h)
+    return plain_norm(torch.stack(hs, 1).reshape(B, S, D),
+                      c["outnorm"]) @ c["w_out"]
+
+
+def plain_moe(f, h, cfg, groups=None, choices=None, record=None):
+    """A routed-expert FFN in f32, apart from the port: softmax router,
+    top k, gates renormalized; each expert's MLP on the tokens that chose
+    it, gate-weighted and summed; the shared expert.  `groups`: a train
+    step's routing groups, each keeping an expert's first ceil(Tg k / E x
+    capacity_factor) choices in (token, rank) order; None keeps every
+    choice (a decode step's capacity is its whole group).  `choices`: (top
+    k indices, kept mask) to use in place of the router's; `record`: a
+    list the (indices, kept mask) are appended to.  Returns (out, aux: the
+    load-balance and router-z terms)."""
+    F = torch.nn.functional
+    m = cfg.moe
+    E, K = m.num_experts, m.top_k
+    B, S, D = h.shape
+    T = B * S
+    x = h.reshape(T, D)
+    logits = x @ f["router"]
+    probs = torch.softmax(logits, -1)
+    idx = probs.topk(K, -1).indices
+    keep = torch.ones_like(idx, dtype=torch.bool)
+    if groups is not None:
+        cap = max(math.ceil(T // groups * K / E * m.capacity_factor), 1)
+        hot = F.one_hot(idx.reshape(groups, -1), E)       # (G, Tg K, E)
+        rank = ((hot.cumsum(1) - 1) * hot).sum(-1)
+        keep = (rank < cap).reshape(T, K)
+    if choices is not None:
+        idx, keep = choices
+    if record is not None:
+        record.append((idx, keep))
+    gate = probs.gather(1, idx)
+    gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
+    out = torch.zeros_like(x)
+    for e in range(E):
+        tok, j = ((idx == e) & keep).nonzero(as_tuple=True)
+        if tok.numel():
+            xe = x[tok]
+            ye = (F.silu(xe @ f["wg"][e]) * (xe @ f["wi"][e])) @ f["wo"][e]
+            out = out.index_add(0, tok, ye * gate[tok, j, None])
+    out = out.reshape(B, S, D)
+    if m.shared_expert:
+        s = f["shared"]
+        out = out + (F.silu(h @ s["wg"]) * (h @ s["wi"])) @ s["wo"]
+    assign = torch.bincount(idx.reshape(-1), minlength=E).float() / (T * K)
+    aux = (E * (probs.mean(0) * assign).sum()
+           + (torch.logsumexp(logits, -1) ** 2).mean())
+    return out, aux
+
+
 def plain_blocks(cfg, params):
     """(block type, block parameters) of every layer in order: the stacked
     groups a layer at a time, then the unstacked tail."""
+    from repro_torch import utils
     out = []
     for i in range(cfg.n_groups):
         for j, t in enumerate(cfg.pattern):
-            out.append((t, {k: {n: w[i] for n, w in v.items()} for k, v in
-                            params["groups"][f"b{j}_{t}"].items()}))
+            out.append((t, utils.tree_map(lambda w: w[i],
+                                          params["groups"][f"b{j}_{t}"])))
     for i, t in enumerate(cfg.tail_pattern):
         out.append((t, params[f"tail{i}_{t}"]))
     return out
 
 
 def plain_hidden(cfg, params, seq, *, mm=None, causal=True, theta=None,
-                 kv_roll=0):
+                 kv_roll=0, mlstm_chunk=None, moe_groups=None, aux=None,
+                 choices=None, record=None):
     """An f32 forward of the whole token sequence to the final norm, apart
     from the port's model code: no cache, no chunking, no checkpointing;
     attention by `scaled_dot_product_attention` with query head h on KV
@@ -2499,18 +2694,19 @@ def plain_hidden(cfg, params, seq, *, mm=None, causal=True, theta=None,
     `mm`: the vlm's stub embeddings (B, P, D), put before the tokens'
     rows.  `params`: f32 weights.  The keywords plant a fault for the
     checks' own tests: no causal mask, another rope θ, every query head
-    on the next KV head.  (B, S) -> (B, S + P, D)."""
+    on the next KV head.  The xLSTM blocks by `plain_mlstm` (stepped, or
+    in chunks of `mlstm_chunk`) and `plain_slstm`; a moe block's FFN by
+    `plain_moe` (routed in `moe_groups`; `choices`: an iterator of each
+    moe layer's choices to use, `record` a list they are appended to),
+    its aux terms appended to `aux`.  (B, S) -> (B, S + P, D)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     F = torch.nn.functional
-    check(cfg.act == "silu" and set(cfg.pattern) <= {"dense", "attn",
-                                                     "rglru"},
-          f"plain forward: not written for {cfg.name}")
+    check(cfg.act == "silu" and set(cfg.pattern) <= {
+        "dense", "attn", "rglru", "mlstm", "slstm", "moe"},
+        f"plain forward: not written for {cfg.name}")
     H, K, hd = cfg.n_heads, cfg.n_kv, cfg.hd
     half = hd // 2
     theta = cfg.rope_theta if theta is None else theta
-
-    def norm(x, scale):
-        return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + 1e-6) * scale
 
     x = params["embed"]["tok"][seq.long()]
     if mm is not None:
@@ -2540,7 +2736,7 @@ def plain_hidden(cfg, params, seq, *, mm=None, causal=True, theta=None,
         if "bq" in a:
             q, k, v = q + a["bq"], k + a["bk"], v + a["bv"]
         if "qnorm" in a:
-            q, k = norm(q, a["qnorm"]), norm(k, a["knorm"])
+            q, k = plain_norm(q, a["qnorm"]), plain_norm(k, a["knorm"])
         q, k = rot(q), rot(k)
         with sdpa_kernel(SDPBackend.MATH):         # f32 products, softmax
             o = F.scaled_dot_product_attention(
@@ -2550,15 +2746,29 @@ def plain_hidden(cfg, params, seq, *, mm=None, causal=True, theta=None,
         return torch.einsum("bnsh,nhd->bsd", o, a["wo"])
 
     for t, p in plain_blocks(cfg, params):
-        h = norm(x, p["ln1"]["scale"])
+        if t == "mlstm":
+            x = x + plain_mlstm(p["cell"], x, mlstm_chunk)
+            continue
+        if t == "slstm":
+            x = x + plain_slstm(p["cell"], x)
+            continue
+        h = plain_norm(x, p["ln1"]["scale"])
         if t == "rglru":
             x = x + plain_rglru(p["rec"], h)
         else:
             x = x + attention(p["attn"], h, window if t == "attn" else None)
-        h = norm(x, p["ln2"]["scale"])
+        h = plain_norm(x, p["ln2"]["scale"])
         f = p["ffn"]
+        if t == "moe":
+            y, a = plain_moe(f, h, cfg, moe_groups,
+                             None if choices is None else next(choices),
+                             record)
+            x = x + y
+            if aux is not None:
+                aux.append(a)
+            continue
         x = x + (F.silu(h @ f["wg"]) * (h @ f["wi"])) @ f["wo"]
-    return norm(x, params["final_norm"]["scale"])
+    return plain_norm(x, params["final_norm"]["scale"])
 
 
 def plain_logits(params, x):
@@ -2568,10 +2778,11 @@ def plain_logits(params, x):
     return x @ (emb["unembed"] if "unembed" in emb else emb["tok"].T)
 
 
-def sv_plain_logits(cfg, params, seq):
+def sv_plain_logits(cfg, params, seq, **kw):
     """`plain_hidden` unembedded: (B, S) -> (B, S, V) f32 logits.
-    `params`: the weights as the server holds them, widened to f32."""
-    return plain_logits(params, plain_hidden(cfg, params, seq))
+    `params`: the weights as the server holds them, widened to f32; `kw`:
+    `plain_hidden`'s keywords."""
+    return plain_logits(params, plain_hidden(cfg, params, seq, **kw))
 
 
 def sv_decode_logits(model, params, seq, max_len):
@@ -2586,20 +2797,19 @@ def sv_decode_logits(model, params, seq, max_len):
 
 
 def sv_reference(cfg, params, prompt, toks, max_len, chunk=None,
-                 argmax=True, bound=SV_LOGIT_RTOL):
+                 argmax=True, bound=SV_LOGIT_RTOL, plain_kw=None):
     """The served decode at full width against `sv_plain_logits` on the
     same weights: b's prompt and tokens teacher-forced, compared `chunk`
     sequences at a time (all at once by default).  The decode's argmax must give b's
     tokens (unless `argmax` is False: a decode at another compute dtype
     than b's), and its logits must be finite and within `bound` of the
     f32 forward, scaled by the largest |logit| (None: measured only).
-    Returns the phase line's fields, with each position's largest error
-    summed up."""
+    `plain_kw`: `plain_hidden`'s keywords.  Returns the phase line's
+    fields, with each position's largest error summed up."""
     from repro_torch import utils
     from repro_torch.models.transformer import build_model
     model = build_model(cfg)
     cparams = model.compute_params(params)
-    wide = utils.tree_map(lambda w: w.float(), cparams)
     n_new = toks.shape[1]
     gen = torch.as_tensor(toks, device=prompt.device)
     seq = torch.cat([prompt, gen[:, :n_new - 1].to(prompt.dtype)], 1)
@@ -2610,10 +2820,14 @@ def sv_reference(cfg, params, prompt, toks, max_len, chunk=None,
     # the decode at the served batch: cuBLAS picks its products' order by
     # shape, so a smaller batch need not give the served tokens' bits
     logits = sv_decode_logits(model, cparams, seq, max_len)
+    # the served weights widened to f32, once the decode has let go of
+    # its own copies
+    wide = utils.tree_map(lambda w: w.float(), cparams)
+    del cparams
     for lo in range(0, seq.shape[0], chunk):
         part = seq[lo:lo + chunk]
         got = logits[lo:lo + chunk]
-        want = sv_plain_logits(cfg, wide, part)
+        want = sv_plain_logits(cfg, wide, part, **(plain_kw or {}))
         check(bool(torch.isfinite(got).all()
                    and torch.isfinite(want).all()), "h: non-finite logits")
         check(not argmax or torch.equal(
@@ -2905,43 +3119,117 @@ def tr_same_state(t, host, tag):
         check(torch.equal(a, b.to(a.device)), f"{tag}: state != b's")
 
 
-def tr_plain_loss(cfg, params, tokens, mm=None, **fault):
+def tr_plain_loss(cfg, params, tokens, mm=None, **kw):
     """The loss of `plain_hidden` (f32 logits of the whole batch, no
     chunks) on the token positions (after the vlm's stub prefix `mm`):
     next-token CE with the last position masked, plus 1e-4 x the mean
-    lse², as the reference's loss."""
-    x = plain_hidden(cfg, params, tokens, mm=mm, **fault)
+    lse², plus 0.01 x the moe blocks' aux terms, as the reference's loss.
+    `kw`: `plain_hidden`'s keywords."""
+    aux = []
+    x = plain_hidden(cfg, params, tokens, mm=mm, aux=aux, **kw)
     logits = plain_logits(params, x[:, cfg.mm_positions:])
     lse = torch.logsumexp(logits, -1)[:, :-1]
     ll = torch.gather(logits[:, :-1], -1,
                       tokens[:, 1:, None].long())[..., 0]
-    return (lse - ll).mean() + 1e-4 * (lse ** 2).mean()
+    loss = (lse - ll).mean() + 1e-4 * (lse ** 2).mean()
+    return loss + 0.01 * sum(aux) if cfg.moe is not None else loss
 
 
-def tr_grad_check(cfg, params, batch, **fault):
+class RouteRecorder:
+    """While entered, records each moe layer's expert choices the port
+    makes (`moe._route_group`): (top k indices, kept mask) a call, in
+    (token, rank) order, the first `limit` calls (a train step's forward;
+    the checkpointed groups route again in the backward)."""
+
+    def __init__(self, limit=None):
+        self.calls, self.limit = [], limit
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.route = moe, moe._route_group
+
+        def route(xt, router, E, k, capacity, dt):
+            out = self.route(xt, router, E, k, capacity, dt)
+            if self.limit is None or len(self.calls) < self.limit:
+                order, keep, flat = out[4], out[5], out[7]
+                mask = torch.empty_like(keep).scatter_(1, order, keep)
+                self.calls.append((flat.reshape(-1, k).clone(),
+                                   mask.reshape(-1, k).clone()))
+            return out
+        moe._route_group = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route_group = self.route
+        return False
+
+
+def choice_agreement(port, plain):
+    """The share of (token, rank) expert choices and kept flags that two
+    routings share: lists of (indices, kept) of equal shapes."""
+    same = total = 0
+    for (pi, pk), (qi, qk) in zip(port, plain, strict=True):
+        a, b = pi.sort(-1).values, qi.sort(-1).values
+        same += int(((a == b) & (pk.sum(-1, keepdim=True)
+                                 == qk.sum(-1, keepdim=True))).sum())
+        total += a.numel()
+    return same / max(total, 1)
+
+
+def tr_grad_check(cfg, params, batch, mesh=None, plain_kw=None, **fault):
     """The port's loss and gradients at `cfg`'s compute dtype
     (`api.make_loss_and_grads`: chunked attention and CE, checkpointed
-    layer groups) against `tr_plain_loss`'s on the same f32 weights and
-    batch.  Returns the phase line's fields; `ok` holds the bounds."""
+    layer groups; a moe block routed in `mesh`'s groups) against
+    `tr_plain_loss`'s on the same f32 weights and batch.  With experts,
+    the plain step routes by its own f32 router in the same groups; if
+    that misses the bounds, it is run again on the port's choices (its
+    top k and kept masks), and both readings and the share of choices the
+    two routers share are reported.  Returns the phase line's fields;
+    `ok` holds the bounds."""
     from repro_torch import utils
+    from repro_torch.dist import sharding as shd
     from repro_torch.models import api
     from repro_torch.models.transformer import build_model
-    loss, _, grads = api.make_loss_and_grads(build_model(cfg))(params, batch)
+    n_moe = (sum(t == "moe" for t in cfg.pattern) * cfg.n_groups
+             + sum(t == "moe" for t in cfg.tail_pattern))
+    with RouteRecorder(limit=n_moe) as rec:
+        loss, _, grads = api.make_loss_and_grads(build_model(cfg, mesh))(
+            params, batch)
     leaves, treedef = utils.tree_flatten(params)
-    xs = [p.detach().float().requires_grad_() for p in leaves]
-    want = tr_plain_loss(cfg, utils.tree_unflatten(treedef, xs),
-                         batch["tokens"], batch.get("mm_embeds"), **fault)
-    gwant = torch.autograd.grad(want, xs)
-    del xs
-    cos = [float(torch.nn.functional.cosine_similarity(
-        a.double().reshape(-1), b.double().reshape(-1), dim=0))
-        for a, b in zip(utils.tree_leaves(grads), gwant)]
-    want = float(want.detach())
-    rel = abs(float(loss) - want) / abs(want)
-    return dict(loss=float(loss), plain_loss=want, loss_rel_err=rel,
-                loss_bound=TR_LOSS_RTOL, min_grad_cos=min(cos),
-                grad_cos_bound=TR_GRAD_COS, grad_cos=cos,
-                ok=rel <= TR_LOSS_RTOL and min(cos) >= TR_GRAD_COS)
+    kw = dict(plain_kw or {}, **fault)
+    if cfg.moe is not None:
+        sizes = shd.axis_sizes(mesh)
+        g = sizes.get("data", 1) * sizes.get("pod", 1)
+        kw["moe_groups"] = g if batch["tokens"].numel() % g == 0 else 1
+
+    def plain(**more):
+        xs = [p.detach().float().requires_grad_() for p in leaves]
+        want = tr_plain_loss(cfg, utils.tree_unflatten(treedef, xs),
+                             batch["tokens"], batch.get("mm_embeds"),
+                             **kw, **more)
+        gwant = torch.autograd.grad(want, xs)
+        cos = [float(torch.nn.functional.cosine_similarity(
+            a.double().reshape(-1), b.double().reshape(-1), dim=0))
+            for a, b in zip(utils.tree_leaves(grads), gwant)]
+        want = float(want.detach())
+        rel = abs(float(loss) - want) / abs(want)
+        return dict(loss=float(loss), plain_loss=want, loss_rel_err=rel,
+                    loss_bound=TR_LOSS_RTOL, min_grad_cos=min(cos),
+                    grad_cos_bound=TR_GRAD_COS, grad_cos=cos,
+                    ok=rel <= TR_LOSS_RTOL and min(cos) >= TR_GRAD_COS)
+    mine = []
+    out = plain(record=mine) if cfg.moe is not None else plain()
+    if cfg.moe is None:
+        return out
+    out["router_agreement"] = choice_agreement(rec.calls, mine)
+    if not out["ok"]:
+        fed = plain(choices=iter(rec.calls))
+        out = dict(fed, own_router=out,
+                   router_agreement=out["router_agreement"],
+                   plain_routing="the port's choices")
+    else:
+        out["plain_routing"] = "its own f32 router"
+    return out
 
 
 def tr_attention_check(cfg, params, batch):
@@ -3298,30 +3586,6 @@ def hybrid_params(cfg, dev):
         torch.Generator(dev).manual_seed(SEED), dev))
 
 
-def rg_model(dev):
-    """The served hybrid: config (max_len = its window), weights from
-    `hybrid_params`, the prompt from SEED + 1."""
-    from repro_torch.configs.registry import get_config
-    cfg = dataclasses.replace(get_config(RG_ARCH, reduced=RG_REDUCED),
-                              **RG_OVERRIDES)
-    params = hybrid_params(cfg, dev)
-    prompt = torch.randint(0, cfg.vocab, (RG_BATCH, RG_PROMPT),
-                           generator=torch.Generator(dev).manual_seed(
-                               SEED + 1), device=dev)
-    return cfg, params, prompt
-
-
-def rg_server(dev, cfg, mesh_shape, params, protect=True, **pcfg):
-    from repro_torch import ProtectConfig, ZoneMesh
-    from repro_torch.runtime.server import Server
-    srv = Server(cfg, ProtectConfig(mode="mlpc", block_words=RG_BW,
-                                    scrub_period=RG_SCRUB, **pcfg),
-                 ZoneMesh(mesh_shape, ("data", "model")), batch=RG_BATCH,
-                 max_len=cfg.window, protect_cache=protect, device=dev)
-    srv.start(params)
-    return srv
-
-
 def rg_footprint(srv):
     """A decode step's footprint as the server hands it to its pool (the
     reference's rule: a leaf with no local axis of length max_len is dirty
@@ -3361,152 +3625,36 @@ def rg_reference(cfg, params, prompt, toks):
                         chunk=RG_H_CHUNK)
 
 
-def hybrid_serving_path(dev):
-    """The hybrid served at its published width and depth (phases rg a-h)."""
+def rg_wide_mesh(run, server, prompt, toks, end):
+    """rg g: the same decode on an (8, 1) mesh, where the rings keep the
+    whole sequence: a time slot a ring plus the recurrent state, so each
+    commit takes the patch path; b's tokens, equal to a fresh open."""
     import numpy as np
-    from repro_torch import Fault, utils
-    from repro_torch.runtime import failure
-    run = PathRun(dev, "rg")
-    probe = CallProbe()
-    cfg, params, prompt = rg_model(dev)
-    end = RG_PROMPT + RG_NEW - 1            # decode steps a generation takes
-    event_pos = RG_PROMPT + RG_EVENT        # where rg e loses a rank
+    srv = server(mesh=RG_WIDE_MESH)
+    fp_g = rg_footprint(srv)
+    emit(path="rg", phase="g_layout", mesh=list(RG_WIDE_MESH), **fp_g)
+    # sliced: the attn block's k, v and slot positions
+    check(fp_g["commit_path"] == "patch"
+          and len(fp_g["sliced_leaves"]) == 3, f"g: footprint {fp_g}")
+    toks_g, l_g = run.phase("g_generate_wide_mesh", lambda: sv_clocked(
+        run, "g", srv, prompt, n_new=RG_NEW), srv, inv=sv_invariants)
+    check(np.array_equal(toks_g, toks), "g tokens != b's")
+    check(l_g.get("fused_commit") == end, f"g launches {l_g}")
+    host_same_as_fresh(run, srv, "g_fresh_after_g")
 
-    # a: the server opens its pool over the empty cache (rings of the
-    # window's length, the recurrent state)
-    srv, _ = run.phase("a_start", lambda: rg_server(dev, cfg, RG_MESH,
-                                                    params),
-                       inv=sv_invariants)
-    fp = rg_footprint(srv)
-    lo = srv.protector.layout
-    emit(path="rg", phase="a_layout", arch=cfg.name, layers=cfg.n_layers,
-         pattern=list(cfg.pattern), tail=list(cfg.tail_pattern),
-         mesh=list(RG_MESH), batch=RG_BATCH, max_len=cfg.window,
-         params=sum(x.numel() for x in utils.tree_leaves(params)),
-         cache_bytes=sum(x.numel() * x.element_size()
-                         for x in utils.tree_leaves(srv.pool.state)),
-         leaves=len(lo.slots), row_words=lo.row_words, **fp)
 
-    # b: prefill + generate at r = 1, window 1, depth 1, clocked; the rows
-    # at the positions rg d and e damage are kept for their checks
-    rows = {}
-
-    def keep(s, out):
-        if out["pos"] + 1 in (RG_PROMPT, event_pos):
-            rows[out["pos"] + 1] = s.prot.row.clone()
-    toks, l_b = run.phase("b_generate_r1", lambda: sv_clocked(
-        run, "b", srv, prompt, keep, n_new=RG_NEW), srv, inv=sv_invariants)
-    bulk = l_b.get("fletcher_stream", 0) + l_b.get("fletcher_blocks", 0)
-    check(fp["commit_path"] == "bulk" and bulk >= end
-          and not l_b.get("fused_commit"),
-          f"b: the footprint {fp['dirty_share']} of the row took {l_b}")
-    check(toks.shape == (RG_BATCH, RG_NEW) and toks.min() >= 0
-          and toks.max() < cfg.vocab, f"tokens {toks.shape}")
-    host_same_as_fresh(run, srv, "b_fresh_after_b")
-    b_final = rg_final(srv)
-    del srv
-    torch.cuda.empty_cache()
-
-    # c: protection does not change the decode path
-    toks_c, _ = run.phase("c_generate_unprotected", lambda: sv_clocked(
-        run, "c", rg_server(dev, cfg, RG_MESH, params, protect=False),
-        prompt, n_new=RG_NEW), inv=nothing)
-    check(np.array_equal(toks_c, toks), "unprotected tokens != protected")
-    torch.cuda.empty_cache()
-
-    # h: the served decode against an f32 forward apart from the port
-    # (its recurrence a loop over time), every sequence
-    emit(path="rg", phase="h_result", **run.timed_aside(
-        "h_vs_f32_forward", lambda: rg_reference(cfg, params, prompt,
-                                                 toks)))
-    torch.cuda.empty_cache()
-
-    with probe:
-        # d: a scribble into rank 0's shard (a word of each leaf) after
-        # prefill: scrub and repair
-        srv = rg_server(dev, cfg, RG_MESH, params)
-        lo = srv.protector.layout
-        offsets = [sl.offset + 11 for sl in lo.slots]
-        out = []
-
-        def scribble():
-            out.extend(sv_steps(srv, prompt, None, RG_PROMPT)[1])
-            srv.pool.inject(lambda pr, p: failure.inject_scribble(
-                pr, p, rank=0, word_offsets=offsets))
-            report = srv.pool.scrub()
-            want = {(0, o // lo.block_words) for o in offsets}
-            check(set(report.bad_locations) == want, f"scrub {report}")
-            check(report.repaired and report.repair_ok, f"repair {report}")
-            check(torch.equal(srv.prot.row, rows[RG_PROMPT]),
-                  "d: repaired cache != b's at the same position")
-        run.phase("d_prefill_scribble_repair", scribble, srv,
-                  inv=sv_invariants)
-
-        # e: a rank loss mid-generation at r = 1, recovered; to the end
-        def rank_loss():
-            event = srv.pool.inject(lambda pr, p: failure.inject_rank_loss(
-                pr, p, RG_LOST))
-            rep = srv.pool.recover(Fault.from_event(event))
-            check(rep.verified and rep.reverified, f"recovery {rep}")
-            check(torch.equal(srv.prot.row, rows[event_pos]),
-                  "e: recovered cache != b's at the same position")
-
-        def rest():
-            out.extend(sv_steps(srv, prompt, out[-1], end,
-                                {event_pos: rank_loss})[1])
-            return sv_tokens(srv, out)
-        toks_e, _ = run.phase("e_rank_loss_recover", rest, srv,
-                              inv=sv_invariants)
-        check(np.array_equal(toks_e, toks), "d / e tokens != b's")
-        rg_same_final(srv, b_final, "e")
-        del srv, rows
-        torch.cuda.empty_cache()
-
-        # f: r = 3, window 4 (the deferred engine, whole-leaf dirty words),
-        # depth 4 (the commit ring) through a loss of three ranks inside
-        # an open window
-        srv, _ = run.phase("f_start_r3_w4_d4", lambda: rg_server(
-            dev, cfg, RG_MESH, params, redundancy=3, window=RG_F_WINDOW,
-            pipeline_depth=4), inv=nothing)
-        check(srv.pool.engine is not None and srv.pool.engine.patch,
-              "f: not the patch engine")
-
-        def multi_loss():
-            check(srv.pool.engine.needs_flush, "f: the loss is not mid-window")
-            event = srv.pool.inject(
-                lambda pr, p: failure.inject_multi_rank_loss(
-                    pr, p, RG_MULTI_LOST))
-            rep = srv.pool.recover(Fault.from_event(event))
-            check(rep.verified and rep.reverified, f"recovery {rep}")
-        toks_f, _ = run.phase("f_generate_loss_of_3", lambda: sv_tokens(
-            srv, sv_steps(srv, prompt, None, end,
-                          {RG_PROMPT + RG_F_EVENT: multi_loss})[1]),
-            inv=nothing)
-        check(np.array_equal(toks_f, toks), "f tokens != b's")
-        host_same_as_fresh(run, srv, "f_fresh_after_f")
-        sv_invariants(srv, "f_flushed")
-        rg_same_final(srv, b_final, "f")
-        del srv
-        torch.cuda.empty_cache()
-
-        # g: the same decode on an (8, 1) mesh, where the rings keep the
-        # whole sequence: a time slot a ring plus the recurrent state, so
-        # each commit takes the patch path
-        srv = rg_server(dev, cfg, RG_WIDE_MESH, params)
-        fp_g = rg_footprint(srv)
-        emit(path="rg", phase="g_layout", mesh=list(RG_WIDE_MESH), **fp_g)
-        # sliced: the attn block's k, v and slot positions
-        check(fp_g["commit_path"] == "patch"
-              and len(fp_g["sliced_leaves"]) == 3, f"g: footprint {fp_g}")
-        toks_g, l_g = run.phase("g_generate_wide_mesh", lambda: sv_clocked(
-            run, "g", srv, prompt, n_new=RG_NEW), srv, inv=sv_invariants)
-        check(np.array_equal(toks_g, toks), "g tokens != b's")
-        check(l_g.get("fused_commit") == end, f"g launches {l_g}")
-        host_same_as_fresh(run, srv, "g_fresh_after_g")
-        del srv
-        torch.cuda.empty_cache()
-    probe.check(run, dict(run.build.LAUNCHES), by_rank=True)
-    return run.end(PATH_RG)
+def hybrid_serving_path(dev):
+    """The hybrid served at its published width and depth (phases rg a-h:
+    `served_path`'s on (4, 2), where every commit is bulk, and g on (8,
+    1))."""
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(get_config(RG_ARCH, reduced=RG_REDUCED),
+                              **RG_OVERRIDES)
+    return served_path(dev, ServeCell(
+        "rg", cfg, lambda: hybrid_params(cfg, dev), RG_MESH, RG_BATCH,
+        cfg.window, RG_PROMPT, RG_NEW, RG_BW, RG_SCRUB, RG_LOST,
+        RG_MULTI_LOST, RG_EVENT, RG_F_EVENT, RG_F_WINDOW, "bulk", PATH_RG,
+        rg_reference, rg_wide_mesh))
 
 
 RT_LAYERS = 3                    # one group (rglru, rglru, attn)
@@ -3525,28 +3673,50 @@ PATH_RT = ("fletcher_blocks", "fletcher_stream",
            "fused_verify_commit_stream")
 
 
-def hybrid_training_path(dev):
-    """The hybrid trained at its published width, depth cut to one group
-    (phases rt a-d, i)."""
+@dataclasses.dataclass
+class TrainCell:
+    """A trained path's numbers: its tag, model config, zone mesh, seq x
+    batch, the steps of b, c and d, the scrub period, the rank d loses and
+    the step it loses it after, the weights (a factory), the entry points
+    that must launch, and `plain_hidden`'s keywords for i."""
+    tag: str
+    cfg: object
+    mesh: tuple
+    seq: int
+    batch: int
+    steps: int
+    scrub: int
+    lost: int
+    loss_at: int
+    params: object
+    must_launch: tuple
+    plain_kw: dict = dataclasses.field(default_factory=dict)
+
+
+def trained_path(dev, c):
+    """A model trained at its published width, depth cut (phases a-d, i:
+    start; b half the steps bulk, half with verify_old; c unprotected, the
+    losses and state bit-equal to b's; d a rank lost and recovered, on to
+    b's losses, digests and state; i the bf16 step against a plain f32
+    one).  `c`: a TrainCell."""
     from repro_torch import ZoneMesh, utils
-    from repro_torch.configs.registry import get_config
     from repro_torch.runtime import failure
-    run = PathRun(dev, "rt")
+    run = PathRun(dev, c.tag)
     probe = CallProbe(host=True)
-    cfg = dataclasses.replace(get_config(RG_ARCH, reduced=RT_REDUCED),
-                              n_layers=RT_LAYERS, **RT_OVERRIDES)
-    mesh = ZoneMesh(RT_MESH, ("data", "model"))
-    kw = dict(seq_len=RT_SEQ, global_batch=RT_BATCH, scrub_period=RT_SCRUB,
-              params=lambda: hybrid_params(cfg, dev))
-    half = RT_STEPS // 2
+    cfg = c.cfg
+    mesh = ZoneMesh(c.mesh, ("data", "model"))
+    kw = dict(seq_len=c.seq, global_batch=c.batch, scrub_period=c.scrub,
+              params=c.params)
+    half = c.steps // 2
 
     t, _ = run.phase("a_start", lambda: tr_trainer(dev, cfg, mesh, **kw),
                      inv=nothing)
     lo = t.protector.layout
     state = t.pool.state
-    emit(path="rt", phase="a_layout", arch=cfg.name, layers=cfg.n_layers,
-         mesh=list(RT_MESH), seq_len=RT_SEQ, global_batch=RT_BATCH,
-         window=cfg.window,
+    emit(path=c.tag, phase="a_layout", arch=cfg.name, layers=cfg.n_layers,
+         pattern=list(cfg.pattern), mesh=list(c.mesh), seq_len=c.seq,
+         global_batch=c.batch, window=cfg.window,
+         moment_dtype=cfg.moment_dtype or cfg.param_dtype,
          params=sum(x.numel() for x in utils.tree_leaves(state["params"])),
          state_bytes=sum(x.numel() * x.element_size()
                          for x in utils.tree_leaves(state)),
@@ -3559,7 +3729,7 @@ def hybrid_training_path(dev):
     def b():
         l1, d1 = tr_steps(run, "b_bulk", t, half)
         t.verify_old = True
-        l2, d2 = tr_steps(run, "b_verify_old", t, RT_STEPS - half)
+        l2, d2 = tr_steps(run, "b_verify_old", t, c.steps - half)
         return l1 + l2, d1 + d2
     (b_loss, b_dig), _ = run.phase("b_train_r1", b, t.pool)
     check(all(math.isfinite(x) for x in b_loss), f"b: losses {b_loss}")
@@ -3568,22 +3738,22 @@ def hybrid_training_path(dev):
     tr_free()
 
     # c: unprotected: the same losses and final state, bit for bit
-    def c():
+    def unprotected():
         u = tr_trainer(dev, cfg, mesh, mode="none", **kw)
-        losses, _ = tr_steps(run, "c_unprotected", u, RT_STEPS)
+        losses, _ = tr_steps(run, "c_unprotected", u, c.steps)
         check(losses == b_loss, f"c: losses {losses} != b's {b_loss}")
         tr_same_state(u, b_final, "c")
-    run.phase("c_train_unprotected", c, inv=nothing)
+    run.phase("c_train_unprotected", unprotected, inv=nothing)
     tr_free()
 
     with probe:
-        # d: rank 1 lost after step 2 and recovered; on to step 4
+        # d: a rank lost after step loss_at and recovered; on to the end
         def d():
             u = tr_trainer(dev, cfg, mesh, **kw)
-            losses, digs = tr_steps(run, "d_to_loss", u, RT_LOSS_AT, probe)
+            losses, digs = tr_steps(run, "d_to_loss", u, c.loss_at, probe)
             row = u.prot.row.clone()
             ev = u.pool.inject(lambda pr, p: failure.inject_rank_loss(
-                pr, p, RT_LOST))
+                pr, p, c.lost))
             rep = u.on_failure(ev)
             check(rep["verified"] and rep["reverified"], f"d: {rep}")
             check(torch.equal(u.prot.row, row),
@@ -3592,7 +3762,7 @@ def hybrid_training_path(dev):
             invariants(u.pool, "d_recovered")
             u.verify_old = True
             more, dg = tr_steps(run, "d_verify_old", u,
-                                RT_STEPS - RT_LOSS_AT, probe)
+                                c.steps - c.loss_at, probe)
             losses, digs = losses + more, digs + dg
             check(losses == b_loss, f"d: losses {losses} != b's")
             check(all(torch.equal(a, b) for a, b in zip(digs, b_dig)),
@@ -3606,16 +3776,401 @@ def hybrid_training_path(dev):
     # i: the trained step checked apart from the port, at full width
     def i():
         from repro_torch.data.synthetic import batch_for
-        params = hybrid_params(cfg, dev)
-        batch = batch_for(cfg, RT_SEQ, RT_BATCH, SEED).device_batch(0, dev)
-        got = tr_grad_check(cfg, params, batch)
+        params = c.params()
+        batch = batch_for(cfg, c.seq, c.batch, SEED).device_batch(0, dev)
+        got = tr_grad_check(cfg, params, batch, mesh, plain_kw=c.plain_kw)
+        del params
         check(abs(got["loss"] - b_loss[0]) == 0,
               f"i: the checked loss {got['loss']} != b's step 1")
-        emit(path="rt", phase="i_loss_and_grads", **got)
+        emit(path=c.tag, phase="i_loss_and_grads", **got)
         check(got["ok"], f"i: the train step off the f32 plain step: {got}")
     run.timed_aside("i_vs_f32_plain", i)
     tr_free()
-    return run.end(PATH_RT)
+    return run.end(c.must_launch)
+
+
+def hybrid_training_path(dev):
+    """The hybrid trained at its published width, depth cut to one group
+    (phases rt a-d, i)."""
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(get_config(RG_ARCH, reduced=RT_REDUCED),
+                              n_layers=RT_LAYERS, **RT_OVERRIDES)
+    return trained_path(dev, TrainCell(
+        "rt", cfg, RT_MESH, RT_SEQ, RT_BATCH, RT_STEPS, RT_SCRUB, RT_LOST,
+        RT_LOSS_AT, lambda: hybrid_params(cfg, dev), PATH_RT))
+
+
+@dataclasses.dataclass
+class ServeCell:
+    """A served path's numbers: its tag, model config, weights (a
+    factory), zone mesh, batch, max_len, prompt and generated tokens,
+    block_words, scrub period, the rank e loses, the ranks f loses and
+    after how many generated tokens each loss comes, f's window, the
+    commit path every decode step must take ("bulk" or "patch"), the entry
+    points that must launch, h's comparison (cfg, params, prompt, tokens)
+    -> the phase line's fields, and phases of the path's own after f
+    (run, server factory, prompt, b's tokens, decode steps), or None."""
+    tag: str
+    cfg: object
+    params: object
+    mesh: tuple
+    batch: int
+    max_len: int
+    prompt: int
+    new: int
+    bw: int
+    scrub: int
+    lost: int
+    multi_lost: tuple
+    event: int
+    f_event: int
+    f_window: int
+    commit_path: str
+    must_launch: tuple
+    h: object
+    extra: object = None
+
+
+def served_path(dev, c):
+    """A model served at its published width (phases a-f, h): a start; b
+    a clocked generation at r = 1; c the same unprotected, equal tokens;
+    h the served bf16 decode against an f32 forward apart from the port;
+    d a scribble after prefill scrubbed and repaired; e a rank lost
+    mid-generation and recovered; f r = 3, window `f_window`, depth 4
+    through the loss of three ranks inside an open window; then `extra`.
+    Each kernel the path launched is then held against its plain version
+    on the inputs of its first launch from d on, a data rank at a time.
+    `c`: a ServeCell."""
+    import numpy as np
+    from repro_torch import Fault, ProtectConfig, ZoneMesh, utils
+    from repro_torch.runtime import failure
+    from repro_torch.runtime.server import Server
+    run = PathRun(dev, c.tag)
+    probe = CallProbe()
+    cfg = c.cfg
+    params = c.params()
+    prompt = torch.randint(0, cfg.vocab, (c.batch, c.prompt),
+                           generator=torch.Generator(dev).manual_seed(
+                               SEED + 1), device=dev)
+    end = c.prompt + c.new - 1              # decode steps a generation takes
+    event_pos = c.prompt + c.event          # where e loses a rank
+
+    def server(protect=True, mesh=c.mesh, **pcfg):
+        srv = Server(cfg, ProtectConfig(mode="mlpc", block_words=c.bw,
+                                        scrub_period=c.scrub, **pcfg),
+                     ZoneMesh(mesh, ("data", "model")), batch=c.batch,
+                     max_len=c.max_len, protect_cache=protect, device=dev)
+        srv.start(params)
+        return srv
+
+    # a: the server opens its pool over the empty cache
+    srv, _ = run.phase("a_start", server, inv=sv_invariants)
+    fp = rg_footprint(srv)
+    lo = srv.protector.layout
+    emit(path=c.tag, phase="a_layout", arch=cfg.name, layers=cfg.n_layers,
+         pattern=list(cfg.pattern), tail=list(cfg.tail_pattern),
+         mesh=list(c.mesh), batch=c.batch, max_len=c.max_len,
+         params=sum(x.numel() for x in utils.tree_leaves(params)),
+         cache_bytes=sum(x.numel() * x.element_size()
+                         for x in utils.tree_leaves(srv.pool.state)),
+         leaves=len(lo.slots), row_words=lo.row_words, **fp)
+    check(fp["commit_path"] == c.commit_path,
+          f"a: a decode step's footprint takes the {fp['commit_path']} "
+          f"path: {fp}")
+
+    # b: prefill + generate at r = 1, window 1, depth 1, clocked; the rows
+    # at the positions d and e damage are kept for their checks
+    rows = {}
+
+    def keep(s, out):
+        if out["pos"] + 1 in (c.prompt, event_pos):
+            rows[out["pos"] + 1] = s.prot.row.clone()
+    toks, l_b = run.phase("b_generate_r1", lambda: sv_clocked(
+        run, "b", srv, prompt, keep, n_new=c.new), srv, inv=sv_invariants)
+    if c.commit_path == "bulk":
+        bulk = l_b.get("fletcher_stream", 0) + l_b.get("fletcher_blocks", 0)
+        check(bulk >= end and not l_b.get("fused_commit"),
+              f"b: a bulk footprint took {l_b}")
+    else:
+        check(l_b.get("fused_commit") == end, f"b: patch launches {l_b}")
+    check(toks.shape == (c.batch, c.new) and toks.min() >= 0
+          and toks.max() < cfg.vocab, f"tokens {toks.shape}")
+    host_same_as_fresh(run, srv, "b_fresh_after_b")
+    b_final = rg_final(srv)
+    del srv
+    torch.cuda.empty_cache()
+
+    # c: protection does not change the decode path
+    toks_c, _ = run.phase("c_generate_unprotected", lambda: sv_clocked(
+        run, "c", server(protect=False), prompt, n_new=c.new), inv=nothing)
+    check(np.array_equal(toks_c, toks), "unprotected tokens != protected")
+    torch.cuda.empty_cache()
+
+    # h: the served decode against an f32 forward apart from the port
+    emit(path=c.tag, phase="h_result", **run.timed_aside(
+        "h_vs_f32_forward", lambda: c.h(cfg, params, prompt, toks)))
+    torch.cuda.empty_cache()
+
+    with probe:
+        # d: a scribble into rank 0's shard (a word of each leaf) after
+        # prefill: scrub and repair
+        srv = server()
+        lo = srv.protector.layout
+        offsets = [sl.offset + 11 for sl in lo.slots]
+        out = []
+
+        def scribble():
+            out.extend(sv_steps(srv, prompt, None, c.prompt)[1])
+            srv.pool.inject(lambda pr, p: failure.inject_scribble(
+                pr, p, rank=0, word_offsets=offsets))
+            report = srv.pool.scrub()
+            want = {(0, o // lo.block_words) for o in offsets}
+            check(set(report.bad_locations) == want, f"scrub {report}")
+            check(report.repaired and report.repair_ok, f"repair {report}")
+            check(torch.equal(srv.prot.row, rows[c.prompt]),
+                  "d: repaired cache != b's at the same position")
+        run.phase("d_prefill_scribble_repair", scribble, srv,
+                  inv=sv_invariants)
+
+        # e: a rank loss mid-generation at r = 1, recovered; to the end
+        def rank_loss():
+            event = srv.pool.inject(lambda pr, p: failure.inject_rank_loss(
+                pr, p, c.lost))
+            rep = srv.pool.recover(Fault.from_event(event))
+            check(rep.verified and rep.reverified, f"recovery {rep}")
+            check(torch.equal(srv.prot.row, rows[event_pos]),
+                  "e: recovered cache != b's at the same position")
+
+        def rest():
+            out.extend(sv_steps(srv, prompt, out[-1], end,
+                                {event_pos: rank_loss})[1])
+            return sv_tokens(srv, out)
+        toks_e, _ = run.phase("e_rank_loss_recover", rest, srv,
+                              inv=sv_invariants)
+        check(np.array_equal(toks_e, toks), "d / e tokens != b's")
+        rg_same_final(srv, b_final, "e")
+        del srv, rows
+        torch.cuda.empty_cache()
+
+        # f: r = 3, window f_window (the deferred engine), depth 4 (the
+        # commit ring) through a loss of three ranks inside an open window
+        srv, _ = run.phase("f_start_r3_w4_d4", lambda: server(
+            redundancy=3, window=c.f_window, pipeline_depth=4), inv=nothing)
+        check(srv.pool.engine is not None and srv.pool.engine.patch,
+              "f: not the patch engine")
+
+        def multi_loss():
+            check(srv.pool.engine.needs_flush, "f: the loss is not mid-window")
+            event = srv.pool.inject(
+                lambda pr, p: failure.inject_multi_rank_loss(
+                    pr, p, c.multi_lost))
+            rep = srv.pool.recover(Fault.from_event(event))
+            check(rep.verified and rep.reverified, f"recovery {rep}")
+        toks_f, _ = run.phase("f_generate_loss_of_3", lambda: sv_tokens(
+            srv, sv_steps(srv, prompt, None, end,
+                          {c.prompt + c.f_event: multi_loss})[1]),
+            inv=nothing)
+        check(np.array_equal(toks_f, toks), "f tokens != b's")
+        host_same_as_fresh(run, srv, "f_fresh_after_f")
+        sv_invariants(srv, "f_flushed")
+        rg_same_final(srv, b_final, "f")
+        del srv
+        torch.cuda.empty_cache()
+        if c.extra is not None:
+            c.extra(run, server, prompt, toks, end)
+            torch.cuda.empty_cache()
+    probe.check(run, dict(run.build.LAUNCHES), by_rank=True)
+    del params
+    return run.end(c.must_launch)
+
+
+XS_ARCH = "xlstm-1.3b"           # served at its published width and depth
+XS_REDUCED = False               # True: the config's reduced() (a CPU rehearsal)
+XS_MESH = (4, 2)
+# the batch the reckoning admits beside the weights: a 2,826,242,688 B
+# state (706,560,672 B a sequence), each decode step rewriting it whole
+XS_BATCH = 4
+XS_MAX_LEN = 2048                # off every local state axis (6, 1, 2, 3,
+                                 # 512, 1024, 4096): no leaf has a time axis
+XS_PROMPT, XS_NEW = 32, 32
+XS_BW = 256
+XS_SCRUB = 16
+XS_EVENT, XS_F_EVENT = 16, 18    # generated tokens before e's / f's loss
+PATH_XS = ("fletcher_blocks", "fletcher_stream", "sdelta_stack",
+           "gf_scale")
+XT_LAYERS = 8                    # one group: 7 mLSTM + 1 sLSTM
+XT_REDUCED = False
+# AdamW's moments in bf16, as rt's: the mLSTM's w_up, w_down and gates
+# are split over `data` only, so on (4, 2) the zone rows hold them twice
+# and the f32-moment state's 5.95 GB makes 11.4 GB of rows; b's first
+# verify_old commit ran out of the card's memory there (a batch cut
+# frees nothing by the commit).  bf16 moments: a 3.97 GB state.
+XT_OVERRIDES: dict = {"moment_dtype": "bfloat16"}
+XT_MESH = (4, 2)
+XT_SEQ, XT_BATCH = 4096, 2       # train_4k's length: 16 chunks of 256
+XT_STEPS = 4
+XT_SCRUB = 2
+XT_LOST, XT_LOSS_AT = 1, 2
+XT_PLAIN_CHUNK = 64              # i's plain mLSTM: chunks of 64, not 256
+PATH_XT = ("fletcher_blocks", "fletcher_stream",
+           "fused_verify_commit_stream")
+
+
+def soft_xlstm(params, n_layers):
+    """Condition an xLSTM's random weights in place as a trained model's
+    are: the token embeddings at a std of 1 (the init's 0.02), each
+    block's output projection (mLSTM w_down, sLSTM w_out) at 1 /
+    sqrt(2 n_layers) (GPT-2's residual scaling), and the sLSTM's w_in at a
+    d_model fan-in (the reference's init takes `heads`: gate
+    pre-activations of std ~22).  At the reference's init each block's
+    output dwarfs the 0.02 embedding and feeds the next with a gain above
+    1, so the stack is chaotic: a bf16 forward of 8 mLSTM blocks sits
+    over 2^-4 of the largest logit from the f32 one, and within 2^-5
+    here (ROADMAP queue C).  Returns `params`."""
+    with torch.no_grad():
+        params["embed"]["tok"].mul_(1 / EMBED_STD)
+        out = 1 / math.sqrt(2 * n_layers)
+        blocks = [g["cell"] for g in params["groups"].values()] + [
+            v["cell"] for k, v in params.items() if k.startswith("tail")]
+        for c in blocks:
+            if "w_down" in c:
+                c["w_down"].mul_(out)
+            else:
+                c["w_out"].mul_(out)
+                w = c["w_in"]
+                w.mul_(math.sqrt(w.shape[-2] / w.shape[-4]))
+    return params
+
+
+EMBED_STD = 0.02                 # the token embeddings' init scale
+
+
+def xlstm_params(cfg, dev):
+    """The xLSTM's weights: random from SEED, conditioned by
+    `soft_xlstm`."""
+    from repro_torch.models.transformer import build_model
+    return soft_xlstm(build_model(cfg).init(
+        torch.Generator(dev).manual_seed(SEED), dev), cfg.n_layers)
+
+
+def xs_reference(cfg, params, prompt, toks):
+    """xs h: b's tokens teacher-forced through the served bf16 decode at
+    every layer against `sv_plain_logits` on the same weights, the mLSTM
+    stepped a position at a time: its argmax gives b's tokens, every logit
+    within SV_LOGIT_RTOL of the largest; the argmax agreement."""
+    return sv_reference(cfg, params, prompt, toks, XS_MAX_LEN)
+
+
+def xlstm_serving_path(dev):
+    """xlstm-1.3b served at its published width and depth (phases xs)."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(XS_ARCH, reduced=XS_REDUCED)
+    return served_path(dev, ServeCell(
+        "xs", cfg, lambda: xlstm_params(cfg, dev), XS_MESH, XS_BATCH,
+        XS_MAX_LEN, XS_PROMPT, XS_NEW, XS_BW, XS_SCRUB, RG_LOST,
+        RG_MULTI_LOST, XS_EVENT, XS_F_EVENT, RG_F_WINDOW, "bulk", PATH_XS,
+        xs_reference))
+
+
+def xlstm_training_path(dev):
+    """xlstm-1.3b trained at its published width, depth cut to one group
+    (phases xt a-d, i; AdamW with bf16 moments)."""
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(get_config(XS_ARCH, reduced=XT_REDUCED),
+                              n_layers=XT_LAYERS, **XT_OVERRIDES)
+    return trained_path(dev, TrainCell(
+        "xt", cfg, XT_MESH, XT_SEQ, XT_BATCH, XT_STEPS, XT_SCRUB, XT_LOST,
+        XT_LOSS_AT, lambda: xlstm_params(cfg, dev), PATH_XT,
+        {"mlstm_chunk": XT_PLAIN_CHUNK}))
+
+
+MO_ARCH = "moonshot-v1-16b-a3b"  # at its published width
+MO_REDUCED = False
+MO_LAYERS = 8                    # the depth the reckoning admits
+MO_MESH = (4, 2)
+MO_BATCH, MO_MAX_LEN = 16, 2048  # a 2,147,549,184 B KV cache
+MO_PROMPT, MO_NEW = 32, 32
+MO_BW = 256
+MO_SCRUB = 16
+MO_EVENT, MO_F_EVENT = 16, 18
+PATH_MO = ("fletcher_blocks", "fused_commit", "fused_commit_s",
+           "sdelta_stack", "gf_scale")
+MT_LAYERS = 2                    # two groups: the layer checkpointing
+MT_SEQ, MT_BATCH = 1024, 1
+MT_MESH = (4, 2)                 # routing in its 4 data-shard groups
+
+
+def mo_reference(cfg, params, prompt, toks):
+    """mo h: b's tokens teacher-forced through the served bf16 decode
+    against `sv_plain_logits` (every expert choice kept: a decode step's
+    capacity is its whole group), within SV_LOGIT_RTOL of the largest
+    logit, its argmax b's tokens; the share of (token, layer) expert
+    choices the bf16 decode and the f32 forward share.  Routing is
+    discontinuous (a bf16 rounding can swap a token's k-th and k+1-th
+    expert): if the f32 forward on its own router misses the bound, it
+    is run again on the decode's choices, and both readings are
+    reported."""
+    plain = []
+    n_moe = cfg.n_layers
+    with RouteRecorder() as rec:
+        own = sv_reference(cfg, params, prompt, toks, MO_MAX_LEN,
+                           bound=None, plain_kw={"record": plain})
+    B, S = prompt.shape[0], prompt.shape[1] + toks.shape[1] - 1
+    steps = [rec.calls[t * n_moe:(t + 1) * n_moe] for t in range(S)]
+    port = [steps[t][layer] for layer in range(n_moe) for t in range(S)]
+    mine = [(i.reshape(B, S, -1)[:, t], k.reshape(B, S, -1)[:, t])
+            for i, k in plain for t in range(S)]
+    agree = choice_agreement(port, mine)
+    if own["rel_err"] <= SV_LOGIT_RTOL:
+        return dict(own, bound=SV_LOGIT_RTOL, positions_over_bound=0,
+                    expert_choice_agreement=agree,
+                    plain_routing="its own f32 router")
+    # each layer's (indices, kept) over the whole (B, S) sequence
+    fed = [tuple(torch.stack([steps[t][layer][j] for t in range(S)], 1)
+                 .reshape(B * S, -1) for j in (0, 1))
+           for layer in range(n_moe)]
+    out = sv_reference(cfg, params, prompt, toks, MO_MAX_LEN,
+                       plain_kw={"choices": iter(fed)})
+    return dict(out, expert_choice_agreement=agree, own_router=own,
+                plain_routing="the decode's choices")
+
+
+def moe_serving_path(dev):
+    """moonshot served at its published width, depth cut (phases mo)."""
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(get_config(MO_ARCH, reduced=MO_REDUCED),
+                              n_layers=MO_LAYERS)
+    return served_path(dev, ServeCell(
+        "mo", cfg, lambda: hybrid_params(cfg, dev), MO_MESH, MO_BATCH,
+        MO_MAX_LEN, MO_PROMPT, MO_NEW, MO_BW, MO_SCRUB, RG_LOST,
+        RG_MULTI_LOST, MO_EVENT, MO_F_EVENT, RG_F_WINDOW, "patch", PATH_MO,
+        mo_reference))
+
+
+def moe_step_path(dev):
+    """moonshot's train step at its published width, two layers, routed
+    in the (4, 2) mesh's groups, against the f32 plain step (phase mt i;
+    unprotected: a train state and a pool do not fit beside it)."""
+    from repro_torch import ZoneMesh, utils
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import batch_for
+    run = PathRun(dev, "mt")
+    cfg = dataclasses.replace(get_config(MO_ARCH, reduced=MO_REDUCED),
+                              n_layers=MT_LAYERS)
+
+    def i():
+        params = hybrid_params(cfg, dev)
+        batch = batch_for(cfg, MT_SEQ, MT_BATCH, SEED).device_batch(0, dev)
+        got = tr_grad_check(cfg, params, batch,
+                            ZoneMesh(MT_MESH, ("data", "model")))
+        emit(path="mt", phase="i_loss_and_grads", arch=cfg.name,
+             layers=cfg.n_layers, seq_len=MT_SEQ, global_batch=MT_BATCH,
+             params=sum(p.numel() for p in utils.tree_leaves(params)),
+             **got)
+        check(got["ok"], f"i: the train step off the f32 plain step: {got}")
+    run.phase("i_vs_f32_plain", i, inv=nothing)
+    tr_free()
+    return run.end(())
 
 
 VL_ARCH = "chameleon-34b"        # at its published width
@@ -3677,7 +4232,9 @@ def main():
                "tw": functools.partial(tenancy_path, tag="tw", window=4),
                "el": elastic_path, "ch": chaos_path, "sv": serving_path,
                "tr": training_path, "rg": hybrid_serving_path,
-               "rt": hybrid_training_path, "vl": vlm_path}
+               "rt": hybrid_training_path, "vl": vlm_path,
+               "xs": xlstm_serving_path, "xt": xlstm_training_path,
+               "mo": moe_serving_path, "mt": moe_step_path}
     timing = kernels_vs_plain(dev)
     paths = {name: fn(dev) for name, fn in drivers.items()}
     rows = []

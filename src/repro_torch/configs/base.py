@@ -84,6 +84,12 @@ class ModelConfig:
         from repro_torch.models import api
         return api.count_params(self)
 
+    def active_param_count(self) -> int:
+        """The parameters a token runs through: an expert stack counted
+        at top_k of num_experts."""
+        from repro_torch.models import api
+        return api.count_params(self, active_only=True)
+
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:

@@ -12,6 +12,7 @@ input specs (`input_specs`, `Workload`) belong to the tooling slice.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Optional
 
 import torch
@@ -28,8 +29,16 @@ from repro_torch.optim import Optimizer, clip_by_global_norm
 PyTree = Any
 
 
-def count_params(cfg: ModelConfig) -> int:
-    return prm.count(build_model(cfg).param_defs())
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """The parameter count; `active_only`: an expert stack counted at the
+    top_k of num_experts that a token runs through."""
+    total = 0
+    for d in prm.leaves(build_model(cfg).param_defs()):
+        n = math.prod(d.shape)
+        if active_only and cfg.moe is not None and "experts" in d.logical:
+            n = n * cfg.moe.top_k // cfg.moe.num_experts
+        total += n
+    return total
 
 
 def batch_specs(cfg: ModelConfig, mesh, global_batch: int = 1 << 30) -> dict:

@@ -2,15 +2,19 @@
 builds:
 
   dense   — causal GQA attention + GLU MLP
+  moe     — causal GQA attention + routed-expert FFN
   attn    — sliding-window attention + MLP (hybrid patterns)
   rglru   — RG-LRU recurrence + MLP (RecurrentGemma)
+  mlstm   — xLSTM matrix-memory block (self-contained)
+  slstm   — xLSTM scalar-memory block (self-contained)
 
 Each type provides defs / train (`apply_train`, the full sequence) /
-decode (`apply_decode`, one token against the cache) / cache-init.
+decode (`apply_decode`, one token against the cache) / cache-init.  A moe
+block routes a full sequence in the mesh's data-shard groups and a decode
+step in one group, as the reference's.
 
-The routed-expert, xLSTM and encoder-decoder types (moe, mlstm, slstm,
-enc, dec_x) come with their families' slice; asking for one raises
-NotImplementedError.
+The encoder-decoder types (enc, dec_x) come with their family's slice;
+asking for one raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -20,18 +24,21 @@ import torch
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import xlstm as xlstm_mod
 
-ATTN_TYPES = ("dense", "attn")
-LATER = ("moe", "mlstm", "slstm", "enc", "dec_x")
+ATTN_TYPES = ("dense", "moe", "attn")
+XLSTM_TYPES = ("mlstm", "slstm")
+LATER = ("enc", "dec_x")
 
 
 def _check(btype: str) -> None:
     if btype in LATER:
         raise NotImplementedError(
             f"block type {btype!r} is not ported yet: it comes with slice "
-            "S8c (the moe, ssm and encoder-decoder families)")
-    if btype not in ATTN_TYPES + ("rglru",):
+            "S8c (the encoder-decoder family)")
+    if btype not in ATTN_TYPES + XLSTM_TYPES + ("rglru",):
         raise ValueError(btype)
 
 
@@ -45,11 +52,16 @@ def block_defs(cfg, btype: str) -> dict:
             "ln2": L.rmsnorm_defs(d, cfg),
             "ffn": L.mlp_defs(d, cfg.d_ff, cfg),
         }
+    if btype == "mlstm":
+        return {"cell": xlstm_mod.mlstm_defs(cfg)}
+    if btype == "slstm":
+        return {"cell": xlstm_mod.slstm_defs(cfg)}
     return {
         "ln1": L.rmsnorm_defs(d, cfg),
         "attn": attn_mod.attn_defs(cfg),
         "ln2": L.rmsnorm_defs(d, cfg),
-        "ffn": L.mlp_defs(d, cfg.d_ff, cfg),
+        "ffn": (moe_mod.moe_defs(cfg) if btype == "moe"
+                else L.mlp_defs(d, cfg.d_ff, cfg)),
     }
 
 
@@ -62,6 +74,10 @@ def init_cache(cfg, btype: str, batch: int, max_len: int,
     _check(btype)
     if btype == "rglru":
         return rglru_mod.init_cache(cfg, batch, device)
+    if btype == "mlstm":
+        return xlstm_mod.mlstm_init_state(cfg, batch, device)
+    if btype == "slstm":
+        return xlstm_mod.slstm_init_state(cfg, batch, device)
     cdt = L.cdt(cfg)
     K, hd, t = cfg.n_kv, cfg.hd, max_len
     w = _window_for(cfg, btype)
@@ -83,6 +99,14 @@ def cache_logical_axes(cfg, btype: str, tp: int = 1) -> dict:
     _check(btype)
     if btype == "rglru":
         return {"conv": ("batch", None, "rnn"), "h": ("batch", "rnn")}
+    if btype == "mlstm":
+        return {"C": ("batch", "heads", None, None),
+                "n": ("batch", "heads", None),
+                "m": ("batch", "heads"),
+                "conv": ("batch", None, "rnn")}
+    if btype == "slstm":
+        return {k: ("batch", "heads", "head_dim")
+                for k in ("c", "n", "h", "m")}
     if tp > 1 and cfg.n_kv % tp == 0:
         kv, seq = "kv_heads", None
     else:
@@ -92,23 +116,36 @@ def cache_logical_axes(cfg, btype: str, tp: int = 1) -> dict:
             "pos": (None,)}
 
 
-def _ffn(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    """The residual MLP every block ends with: x + mlp(norm2(x))."""
+def _ffn(p: dict, x: torch.Tensor, cfg, btype: str = "dense",
+         mesh=None) -> tuple:
+    """The residual FFN every block ends with: (x + ffn(norm2(x)), aux
+    losses).  A moe block routes in `mesh`'s groups (none: one group)."""
     h = L.apply_rmsnorm(p["ln2"], x)
-    return x + L.apply_mlp(p["ffn"], h, cfg).to(x.dtype)
+    if btype == "moe":
+        f, aux = moe_mod.apply_moe(p["ffn"], h, cfg, mesh)
+    else:
+        f, aux = L.apply_mlp(p["ffn"], h, cfg), {}
+    return x + f.to(x.dtype), aux
 
 
 def apply_train(p: dict, btype: str, x: torch.Tensor, cfg, *,
-                positions: torch.Tensor, rope_table=None,
+                positions: torch.Tensor, rope_table=None, mesh=None,
                 causal: bool = True) -> tuple:
     """Full-sequence application.  Returns (x, aux losses dict).
     `rope_table`: the positions' `layers.rope_table`, when the caller has
-    it (shared by every layer)."""
+    it (shared by every layer).  `mesh`: the model's, whose data shards
+    are a moe block's routing groups."""
     _check(btype)
     if btype == "rglru":
         h = L.apply_rmsnorm(p["ln1"], x)
         x = x + rglru_mod.apply_train(p["rec"], h, cfg).to(x.dtype)
-        return _ffn(p, x, cfg), {}
+        return _ffn(p, x, cfg)
+    if btype == "mlstm":
+        return x + xlstm_mod.mlstm_apply_train(p["cell"], x, cfg
+                                               ).to(x.dtype), {}
+    if btype == "slstm":
+        return x + xlstm_mod.slstm_apply_train(p["cell"], x, cfg
+                                               ).to(x.dtype), {}
     h = L.apply_rmsnorm(p["ln1"], x)
     q = attn_mod.project_q(p["attn"], h, cfg, positions,
                            rope_table=rope_table)
@@ -117,7 +154,7 @@ def apply_train(p: dict, btype: str, x: torch.Tensor, cfg, *,
     o = attn_mod.attend(q, k, v, causal=causal,
                         window=_window_for(cfg, btype))
     x = x + attn_mod.apply_out(p["attn"], o, cfg).to(x.dtype)
-    return _ffn(p, x, cfg), {}
+    return _ffn(p, x, cfg, btype, mesh)
 
 
 def decode_positions(pos: int, cfg, device) -> tuple:
@@ -140,7 +177,12 @@ def apply_decode(p: dict, btype: str, x: torch.Tensor, cache: dict, pos,
     if btype == "rglru":
         h = L.apply_rmsnorm(p["ln1"], x)
         o, cache = rglru_mod.apply_decode(p["rec"], h, cache, cfg)
-        return _ffn(p, x + o.to(x.dtype), cfg), cache
+        return _ffn(p, x + o.to(x.dtype), cfg)[0], cache
+    if btype in XLSTM_TYPES:
+        step = (xlstm_mod.mlstm_apply_decode if btype == "mlstm"
+                else xlstm_mod.slstm_apply_decode)
+        o, cache = step(p["cell"], x, cache, cfg)
+        return x + o.to(x.dtype), cache
     pos = int(pos)
     w = _window_for(cfg, btype)
     h = L.apply_rmsnorm(p["ln1"], x)
@@ -152,4 +194,5 @@ def apply_decode(p: dict, btype: str, x: torch.Tensor, cache: dict, pos,
                                       k, v, pos, window=w)
     o = attn_mod.attend_decode(q, kc, vc, pc, pos, window=w)
     x = x + attn_mod.apply_out(p["attn"], o, cfg).to(x.dtype)
-    return _ffn(p, x, cfg), {"k": kc, "v": vc, "pos": pc}
+    # a moe block decodes in one group: capacity is the whole group
+    return _ffn(p, x, cfg, btype)[0], {"k": kc, "v": vc, "pos": pc}

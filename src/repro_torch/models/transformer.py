@@ -24,10 +24,15 @@ Entry points:
     cache_specs(batch, max_len)      -> partition specs of the cache
     decode_step(params, tok, cache, pos) -> (logits, new cache)
 
+Routed-expert blocks add their auxiliary losses (load balance and router
+z) to `hidden`'s aux, summed over the groups and the tail, and `loss`
+weighs that aux by 0.01 when the config has experts, as the reference.
+
 `build_model` builds the dense, vlm (dense blocks behind a prefix of
-multimodal stub embeddings) and hybrid (RG-LRU and sliding-window
-attention blocks) families; the others (moe, ssm, encoder-decoder
-audio) raise NotImplementedError, naming their slice.
+multimodal stub embeddings), hybrid (RG-LRU and sliding-window attention
+blocks), ssm (mLSTM and sLSTM blocks) and moe (routed-expert blocks,
+interleaved with dense ones or not) families; the encoder-decoder audio
+family raises NotImplementedError, naming its slice.
 """
 from __future__ import annotations
 
@@ -46,11 +51,16 @@ from repro_torch.models import params as prm
 PyTree = Any
 
 # the parameter leaves the model reads in f32 whatever the compute dtype:
-# the norms' scales, and the RG-LRU's gate weights and decay
-# (`rglru._gates`); every other leaf it casts to the compute dtype
-F32_LEAVES = ("scale", "qnorm", "knorm", "wa", "ba", "wx", "bx", "lam")
+# the norms' scales, the RG-LRU's gate weights and decay (`rglru._gates`),
+# the mLSTM's gate bias and output norm, the sLSTM's recurrent weights,
+# bias and output norm (`xlstm`), and the experts' router (`moe`); every
+# other leaf it casts to the compute dtype
+F32_LEAVES = ("scale", "qnorm", "knorm", "wa", "ba", "wx", "bx", "lam",
+              "b_if", "outnorm", "r_h", "bias", "router")
+AUX_LOSSES = ("load_balance", "router_z")
+MOE_AUX_WEIGHT = 0.01
 
-PORTED_FAMILIES = ("dense", "vlm", "hybrid")
+PORTED_FAMILIES = ("dense", "vlm", "hybrid", "ssm", "moe")
 
 
 class Model(torch.nn.Module):
@@ -121,26 +131,37 @@ class Model(torch.nn.Module):
         leaves, treedef = utils.tree_flatten(params["groups"])
         layers = [w.unbind(0) for w in leaves]
 
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+
+        def block(p, t, x, aux):
+            x, terms = B.apply_train(p, t, x, cfg, positions=positions,
+                                     rope_table=table, mesh=self.mesh)
+            for k in AUX_LOSSES:
+                if k in terms:
+                    aux = aux + terms[k]
+            return x, aux
+
         def group_body(x, *gleaves):
             gp = utils.tree_unflatten(treedef, gleaves)
+            aux = zero
             for j, t in enumerate(self.pattern):
-                x, _ = B.apply_train(gp[f"b{j}_{t}"], t, x, cfg,
-                                     positions=positions, rope_table=table)
-            return x
+                x, aux = block(gp[f"b{j}_{t}"], t, x, aux)
+            return x, aux
 
         remat = self.n_groups > 1 and torch.is_grad_enabled()
+        auxs = []
         for i in range(self.n_groups):
             gleaves = [layer[i] for layer in layers]
             if remat:
-                x = checkpoint(group_body, x, *gleaves, use_reentrant=False,
-                               preserve_rng_state=False)
+                x, aux = checkpoint(group_body, x, *gleaves,
+                                    use_reentrant=False,
+                                    preserve_rng_state=False)
             else:
-                x = group_body(x, *gleaves)
+                x, aux = group_body(x, *gleaves)
+            auxs.append(aux)
+        aux_total = sum(auxs, zero)
         for i, t in enumerate(self.tail):
-            x, _ = B.apply_train(params[f"tail{i}_{t}"], t, x, cfg,
-                                 positions=positions, rope_table=table)
-        # no block type the port builds has auxiliary (router) losses
-        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+            x, aux_total = block(params[f"tail{i}_{t}"], t, x, aux_total)
         x = L.apply_rmsnorm(params["final_norm"], x)
         return x, aux_total
 
@@ -196,9 +217,12 @@ class Model(torch.nn.Module):
         valid[:, -1] = False
         ce, zterm = self._chunked_ce(params, x, targets, valid)
         z_loss = 1e-4 * zterm
+        total = ce + z_loss
         # without routed experts the aux is 0 and weighs 0 (the
         # reference's moe_coef), so the total is ce + z_loss
-        return ce + z_loss, {"ce": ce, "z_loss": z_loss, "aux": aux}
+        if cfg.moe is not None:
+            total = total + MOE_AUX_WEIGHT * aux
+        return total, {"ce": ce, "z_loss": z_loss, "aux": aux}
 
     # -- decode -----------------------------------------------------------------
 

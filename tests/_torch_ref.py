@@ -10,6 +10,7 @@ shapes and axis names are those of the conftest fixtures.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from jax.sharding import AxisType, NamedSharding, PartitionSpec
 
@@ -311,3 +312,62 @@ def eq_words(got, *wants):
 def check_outputs(got, *wants):
     for outs in zip(got, *wants, strict=True):
         eq_words(*outs)
+
+
+class _F32Dots:
+    """`jax.numpy` with `einsum` taking a `preferred_element_type=float32`
+    product of bf16 operands in f32: the operands widened (exactly) and
+    multiplied in f32, the function the reference asks for.  XLA's CPU
+    backend runs no batched bf16 x bf16 -> f32 dot (the mLSTM's per-head
+    and the experts' products), so the reference's modules reach it
+    through this stand-in on the CPU (`f32_dots`)."""
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+    @staticmethod
+    def einsum(spec, *ops, preferred_element_type=None, **kw):
+        if preferred_element_type == jnp.float32:
+            ops = [o.astype(jnp.float32) for o in ops]
+        return jnp.einsum(spec, *ops,
+                          preferred_element_type=preferred_element_type,
+                          **kw)
+
+
+def f32_dots(monkeypatch, *modules) -> None:
+    """Point each reference module's `jnp` at `_F32Dots` for a test."""
+    for m in modules:
+        monkeypatch.setattr(m, "jnp", _F32Dots())
+
+
+def allclose(got: torch.Tensor, want, rtol: float = 1e-5,
+             atol: float = 1e-6) -> None:
+    """Elementwise |got - want| <= atol + rtol |want|."""
+    want = np.asarray(jnp.asarray(want, jnp.float32)).astype(np.float64)
+    got = got.detach().double().numpy()
+    assert got.shape == want.shape
+    err = np.abs(got - want) - rtol * np.abs(want)
+    assert float(err.max()) <= atol, float(err.max())
+
+
+_CACHE_KEYS = ("jax_compilation_cache_dir",
+               "jax_persistent_cache_min_compile_time_secs",
+               "jax_persistent_cache_min_entry_size_bytes")
+
+
+@pytest.fixture(scope="module")
+def compile_cache(tmp_path_factory):
+    """For a module's tests, keep the reference's compiled XLA programs in
+    the session's temporary directory: each reference Server and Trainer
+    jit-compiles its decode, commit and scrub programs anew, the same
+    programs from one test to the next.  A cache hit skips XLA's compile
+    only; tracing and results are unchanged.  The settings come back
+    after the module.  Use with `pytestmark =
+    pytest.mark.usefixtures("compile_cache")`."""
+    saved = [jax.config.values[k] for k in _CACHE_KEYS]
+    for k, v in zip(_CACHE_KEYS, (
+            str(tmp_path_factory.getbasetemp() / "jax_cache"), 0.0, 0)):
+        jax.config.update(k, v)
+    yield
+    for k, v in zip(_CACHE_KEYS, saved):
+        jax.config.update(k, v)

@@ -136,28 +136,35 @@ def test_default_device_is_the_card(monkeypatch):
     "seamless-m4t-large-v2", "chameleon-34b", "recurrentgemma-2b",
     "xlstm-1.3b", "minitron-8b", "qwen2-0.5b", "glm4-9b", "qwen3-0.6b"])
 def test_build_model_holds_to_its_families(arch):
-    """The dense, vlm and hybrid families build, each its own pattern (the
-    hybrid with its unstacked tail); every family whose blocks are not
-    ported (moe, audio / encoder-decoder, ssm) raises NotImplementedError
-    naming its slice, for the published and the reduced config alike,
-    and no other family stands in."""
+    """The dense, vlm, hybrid, ssm and moe families build, each its own
+    pattern (the hybrid with its unstacked tail; xlstm 7 x mlstm + slstm;
+    moonshot ("moe",), maverick ("dense", "moe")); the encoder-decoder
+    audio family, whose blocks are not ported, raises NotImplementedError
+    naming its slice, for the published and the reduced config alike, and
+    no other family stands in."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import blocks
     from repro_torch.models.transformer import Model, build_model
+    want = {"xlstm-1.3b": ("mlstm",) * 7 + ("slstm",),
+            "moonshot-v1-16b-a3b": ("moe",),
+            "llama4-maverick-400b-a17b": ("dense", "moe")}
     for reduced in (False, True):
         cfg = get_config(arch, reduced=reduced)
-        if cfg.family in ("dense", "vlm", "hybrid"):
+        if cfg.family in ("dense", "vlm", "hybrid", "ssm", "moe"):
             model = build_model(cfg)
             assert type(model) is Model and model.pattern == cfg.pattern
             assert model.tail == cfg.tail_pattern
-            assert cfg.family == "hybrid" or model.pattern == ("dense",)
+            if cfg.family in ("ssm", "moe") and not reduced:
+                assert model.pattern == want[arch] and model.tail == ()
+            assert cfg.family in ("hybrid", "ssm", "moe") or \
+                model.pattern == ("dense",)
             continue
         with pytest.raises(NotImplementedError, match="S8c"):
             build_model(cfg)
     for btype in blocks.LATER:
         with pytest.raises(NotImplementedError, match="S8c"):
             blocks.block_defs(cfg, btype)
-    assert blocks.LATER == ("moe", "mlstm", "slstm", "enc", "dec_x")
+    assert blocks.LATER == ("enc", "dec_x")
 
 
 def test_model_plane_defaults_to_the_card(monkeypatch):
