@@ -256,13 +256,12 @@
    a 2,147,549,184 B KV cache, a time slot a step (the patch path).  The
    phases of xs; h against an f32 forward whose routed FFN loops over
    experts (`plain_moe`), every choice kept as a decode step keeps them,
-   with the share of expert choices the two routers share.
+   the share of expert choices the two routers make alike held to 0.9.
 16. The moe trained (mt): moonshot's train step at full width and two
    layers (checkpointed groups), seq 1024 x batch 1, routed in the (4,
    2) mesh's four groups (capacity 30 an expert), aux losses weighed in,
-   against a plain f32 step that routes in the same groups; the share of
-   choices the two routers share (if the bound is missed on the plain
-   router's own choices, it is rerun on the port's).
+   against a plain f32 step that routes in the same groups by its own
+   router; the share of choices the two routers make alike held to 0.9.
 17. After each phase the invariants are recomputed apart from the engine:
    every syndrome plane k = XOR over ranks i of g^(k·i)·row_i, built rank by
    rank with the plain GF multiply; cksums = Fletcher terms of the rows;
@@ -2621,16 +2620,15 @@ def plain_slstm(c, x):
                       c["outnorm"]) @ c["w_out"]
 
 
-def plain_moe(f, h, cfg, groups=None, choices=None, record=None):
+def plain_moe(f, h, cfg, groups=None, record=None):
     """A routed-expert FFN in f32, apart from the port: softmax router,
     top k, gates renormalized; each expert's MLP on the tokens that chose
     it, gate-weighted and summed; the shared expert.  `groups`: a train
     step's routing groups, each keeping an expert's first ceil(Tg k / E x
     capacity_factor) choices in (token, rank) order; None keeps every
-    choice (a decode step's capacity is its whole group).  `choices`: (top
-    k indices, kept mask) to use in place of the router's; `record`: a
-    list the (indices, kept mask) are appended to.  Returns (out, aux: the
-    load-balance and router-z terms)."""
+    choice (a decode step's capacity is its whole group).  `record`: a
+    list the (top k indices, kept mask) are appended to.  Returns (out,
+    aux: the load-balance and router-z terms)."""
     F = torch.nn.functional
     m = cfg.moe
     E, K = m.num_experts, m.top_k
@@ -2646,8 +2644,6 @@ def plain_moe(f, h, cfg, groups=None, choices=None, record=None):
         hot = F.one_hot(idx.reshape(groups, -1), E)       # (G, Tg K, E)
         rank = ((hot.cumsum(1) - 1) * hot).sum(-1)
         keep = (rank < cap).reshape(T, K)
-    if choices is not None:
-        idx, keep = choices
     if record is not None:
         record.append((idx, keep))
     gate = probs.gather(1, idx)
@@ -2685,7 +2681,7 @@ def plain_blocks(cfg, params):
 
 def plain_hidden(cfg, params, seq, *, mm=None, causal=True, theta=None,
                  kv_roll=0, mlstm_chunk=None, moe_groups=None, aux=None,
-                 choices=None, record=None):
+                 record=None):
     """An f32 forward of the whole token sequence to the final norm, apart
     from the port's model code: no cache, no chunking, no checkpointing;
     attention by `scaled_dot_product_attention` with query head h on KV
@@ -2696,9 +2692,9 @@ def plain_hidden(cfg, params, seq, *, mm=None, causal=True, theta=None,
     checks' own tests: no causal mask, another rope θ, every query head
     on the next KV head.  The xLSTM blocks by `plain_mlstm` (stepped, or
     in chunks of `mlstm_chunk`) and `plain_slstm`; a moe block's FFN by
-    `plain_moe` (routed in `moe_groups`; `choices`: an iterator of each
-    moe layer's choices to use, `record` a list they are appended to),
-    its aux terms appended to `aux`.  (B, S) -> (B, S + P, D)."""
+    `plain_moe` (routed in `moe_groups`; `record`: a list each moe layer's
+    choices are appended to), its aux terms appended to `aux`.
+    (B, S) -> (B, S + P, D)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     F = torch.nn.functional
     check(cfg.act == "silu" and set(cfg.pattern) <= {
@@ -2760,9 +2756,7 @@ def plain_hidden(cfg, params, seq, *, mm=None, causal=True, theta=None,
         h = plain_norm(x, p["ln2"]["scale"])
         f = p["ffn"]
         if t == "moe":
-            y, a = plain_moe(f, h, cfg, moe_groups,
-                             None if choices is None else next(choices),
-                             record)
+            y, a = plain_moe(f, h, cfg, moe_groups, record)
             x = x + y
             if aux is not None:
                 aux.append(a)
@@ -3012,6 +3006,11 @@ TR_SLOW = 1                      # the replica tr h slows 10x
 # (tests/test_torch_train_model.py::test_tr_check_catches_faults).
 TR_LOSS_RTOL = 1e-3
 TR_GRAD_COS = 0.99
+# mo h and mt i also hold the share of (token, rank) expert choices the
+# port's router and the plain f32 one make alike to ROUTER_AGREEMENT: a
+# bf16 rounding can swap a token's k-th and k+1-th expert (measured 0.962
+# and 0.979 on the card), a router that picks wrong experts shares few.
+ROUTER_AGREEMENT = 0.9
 TR_ATTN_RTOL = 1e-4
 PATH_TR = ("fletcher_blocks", "fletcher_stream",
            "fused_verify_commit_stream", "fused_accum_commit_stream",
@@ -3181,11 +3180,10 @@ def tr_grad_check(cfg, params, batch, mesh=None, plain_kw=None, **fault):
     (`api.make_loss_and_grads`: chunked attention and CE, checkpointed
     layer groups; a moe block routed in `mesh`'s groups) against
     `tr_plain_loss`'s on the same f32 weights and batch.  With experts,
-    the plain step routes by its own f32 router in the same groups; if
-    that misses the bounds, it is run again on the port's choices (its
-    top k and kept masks), and both readings and the share of choices the
-    two routers share are reported.  Returns the phase line's fields;
-    `ok` holds the bounds."""
+    the plain step routes by its own f32 router in the same groups, and
+    the share of choices the two routers make alike is held to
+    ROUTER_AGREEMENT.  Returns the phase line's fields; `ok` holds the
+    bounds."""
     from repro_torch import utils
     from repro_torch.dist import sharding as shd
     from repro_torch.models import api
@@ -3202,33 +3200,26 @@ def tr_grad_check(cfg, params, batch, mesh=None, plain_kw=None, **fault):
         g = sizes.get("data", 1) * sizes.get("pod", 1)
         kw["moe_groups"] = g if batch["tokens"].numel() % g == 0 else 1
 
-    def plain(**more):
-        xs = [p.detach().float().requires_grad_() for p in leaves]
-        want = tr_plain_loss(cfg, utils.tree_unflatten(treedef, xs),
-                             batch["tokens"], batch.get("mm_embeds"),
-                             **kw, **more)
-        gwant = torch.autograd.grad(want, xs)
-        cos = [float(torch.nn.functional.cosine_similarity(
-            a.double().reshape(-1), b.double().reshape(-1), dim=0))
-            for a, b in zip(utils.tree_leaves(grads), gwant)]
-        want = float(want.detach())
-        rel = abs(float(loss) - want) / abs(want)
-        return dict(loss=float(loss), plain_loss=want, loss_rel_err=rel,
-                    loss_bound=TR_LOSS_RTOL, min_grad_cos=min(cos),
-                    grad_cos_bound=TR_GRAD_COS, grad_cos=cos,
-                    ok=rel <= TR_LOSS_RTOL and min(cos) >= TR_GRAD_COS)
-    mine = []
-    out = plain(record=mine) if cfg.moe is not None else plain()
-    if cfg.moe is None:
-        return out
-    out["router_agreement"] = choice_agreement(rec.calls, mine)
-    if not out["ok"]:
-        fed = plain(choices=iter(rec.calls))
-        out = dict(fed, own_router=out,
-                   router_agreement=out["router_agreement"],
-                   plain_routing="the port's choices")
-    else:
-        out["plain_routing"] = "its own f32 router"
+    mine = [] if cfg.moe is not None else None
+    xs = [p.detach().float().requires_grad_() for p in leaves]
+    want = tr_plain_loss(cfg, utils.tree_unflatten(treedef, xs),
+                         batch["tokens"], batch.get("mm_embeds"), **kw,
+                         record=mine)
+    gwant = torch.autograd.grad(want, xs)
+    cos = [float(torch.nn.functional.cosine_similarity(
+        a.double().reshape(-1), b.double().reshape(-1), dim=0))
+        for a, b in zip(utils.tree_leaves(grads), gwant)]
+    want = float(want.detach())
+    rel = abs(float(loss) - want) / abs(want)
+    out = dict(loss=float(loss), plain_loss=want, loss_rel_err=rel,
+               loss_bound=TR_LOSS_RTOL, min_grad_cos=min(cos),
+               grad_cos_bound=TR_GRAD_COS, grad_cos=cos,
+               ok=rel <= TR_LOSS_RTOL and min(cos) >= TR_GRAD_COS)
+    if cfg.moe is not None:
+        agree = choice_agreement(rec.calls, mine)
+        out.update(router_agreement=agree,
+                   router_agreement_bound=ROUTER_AGREEMENT,
+                   ok=out["ok"] and agree >= ROUTER_AGREEMENT)
     return out
 
 
@@ -4003,8 +3994,9 @@ XT_REDUCED = False
 # AdamW's moments in bf16, as rt's: the mLSTM's w_up, w_down and gates
 # are split over `data` only, so on (4, 2) the zone rows hold them twice
 # and the f32-moment state's 5.95 GB makes 11.4 GB of rows; b's first
-# verify_old commit ran out of the card's memory there (a batch cut
-# frees nothing by the commit).  bf16 moments: a 3.97 GB state.
+# verify_old commit ran out of the card's memory there, and at batch 1
+# (`scripts/torch_path_rerun.py xt-f32-batch1`) as well.  bf16 moments: a
+# 3.97 GB state.
 XT_OVERRIDES: dict = {"moment_dtype": "bfloat16"}
 XT_MESH = (4, 2)
 XT_SEQ, XT_BATCH = 4096, 2       # train_4k's length: 16 chunks of 256
@@ -4105,34 +4097,24 @@ def mo_reference(cfg, params, prompt, toks):
     against `sv_plain_logits` (every expert choice kept: a decode step's
     capacity is its whole group), within SV_LOGIT_RTOL of the largest
     logit, its argmax b's tokens; the share of (token, layer) expert
-    choices the bf16 decode and the f32 forward share.  Routing is
-    discontinuous (a bf16 rounding can swap a token's k-th and k+1-th
-    expert): if the f32 forward on its own router misses the bound, it
-    is run again on the decode's choices, and both readings are
-    reported."""
+    choices the bf16 decode and the f32 forward make alike, held to
+    ROUTER_AGREEMENT."""
     plain = []
     n_moe = cfg.n_layers
     with RouteRecorder() as rec:
-        own = sv_reference(cfg, params, prompt, toks, MO_MAX_LEN,
-                           bound=None, plain_kw={"record": plain})
+        out = sv_reference(cfg, params, prompt, toks, MO_MAX_LEN,
+                           plain_kw={"record": plain})
     B, S = prompt.shape[0], prompt.shape[1] + toks.shape[1] - 1
     steps = [rec.calls[t * n_moe:(t + 1) * n_moe] for t in range(S)]
     port = [steps[t][layer] for layer in range(n_moe) for t in range(S)]
     mine = [(i.reshape(B, S, -1)[:, t], k.reshape(B, S, -1)[:, t])
             for i, k in plain for t in range(S)]
-    agree = choice_agreement(port, mine)
-    if own["rel_err"] <= SV_LOGIT_RTOL:
-        return dict(own, bound=SV_LOGIT_RTOL, positions_over_bound=0,
-                    expert_choice_agreement=agree,
-                    plain_routing="its own f32 router")
-    # each layer's (indices, kept) over the whole (B, S) sequence
-    fed = [tuple(torch.stack([steps[t][layer][j] for t in range(S)], 1)
-                 .reshape(B * S, -1) for j in (0, 1))
-           for layer in range(n_moe)]
-    out = sv_reference(cfg, params, prompt, toks, MO_MAX_LEN,
-                       plain_kw={"choices": iter(fed)})
-    return dict(out, expert_choice_agreement=agree, own_router=own,
-                plain_routing="the decode's choices")
+    out = dict(out, expert_choice_agreement=choice_agreement(port, mine),
+               expert_choice_bound=ROUTER_AGREEMENT)
+    check(out["expert_choice_agreement"] >= ROUTER_AGREEMENT,
+          f"h: expert choices made alike {out['expert_choice_agreement']} "
+          f"(floor {ROUTER_AGREEMENT}): {out}")
+    return out
 
 
 def moe_serving_path(dev):

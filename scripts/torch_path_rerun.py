@@ -1,0 +1,120 @@
+"""One of chip_smoke.py's card paths alone, or a study of its xt cell, on
+one GPU.
+
+    python3 scripts/torch_path_rerun.py path hybrid_serving_path [--root DIR]
+    python3 scripts/torch_path_rerun.py xt-f32-batch1
+    python3 scripts/torch_path_rerun.py xt-lr
+
+`path FN` builds the kernels and runs chip_smoke's path function `FN` (its
+phase lines as chip_smoke prints them).  `--root DIR` takes chip_smoke.py
+and src/ from the checkout at DIR, e.g. an unpacked older commit: run the
+two commits in turn, in one call, to compare them on one card.
+
+`xt-f32-batch1`: xt's path (xlstm-1.3b at one group, seq 4096, (4, 2),
+protected) at batch 1 with the config's f32 AdamW moments, in place of
+chip_smoke's batch 2 with bf16 moments.  An out-of-memory error is printed
+as a line of its own, with the memory held when it struck.
+
+`xt-lr`: xt's model and batch unprotected, four steps from the same
+weights at each (moment dtype, learning rate) in XT_LR_RUNS, warmup 2 as
+chip_smoke's trainers: each run's losses.  At lr 0 the weights stay put,
+so the losses move with the batches alone.
+
+Prints the card's name and power limit first, then one JSON line a phase
+or a run.
+"""
+import argparse
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+XT_LR_RUNS = (("bfloat16", 0.0), ("bfloat16", 1e-4), ("bfloat16", 1e-3),
+              ("float32", 1e-3))
+XT_LR_STEPS = 4
+
+
+def smoke_from(root):
+    """chip_smoke of the checkout at `root` (it adds its src/ to the
+    path)."""
+    sys.path.insert(0, os.path.abspath(root))
+    import chip_smoke
+    return chip_smoke
+
+
+def xt_cfg(cs, **over):
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(cs.XS_ARCH, reduced=cs.XT_REDUCED),
+                               n_layers=cs.XT_LAYERS, **over)
+
+
+def xt_f32_batch1(cs, dev):
+    cfg = xt_cfg(cs)
+    try:
+        cs.trained_path(dev, cs.TrainCell(
+            "xt_f32_b1", cfg, cs.XT_MESH, cs.XT_SEQ, 1, cs.XT_STEPS,
+            cs.XT_SCRUB, cs.XT_LOST, cs.XT_LOSS_AT,
+            lambda: cs.xlstm_params(cfg, dev), cs.PATH_XT,
+            {"mlstm_chunk": cs.XT_PLAIN_CHUNK}))
+    except torch.OutOfMemoryError as e:
+        cs.emit(path="xt_f32_b1", outcome="out of memory",
+                memory_allocated=torch.cuda.memory_allocated(),
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                error=str(e).splitlines()[0])
+
+
+def xt_lr(cs, dev):
+    from repro_torch import ProtectConfig, ZoneMesh
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.runtime.trainer import Trainer
+    mesh = ZoneMesh(cs.XT_MESH, ("data", "model"))
+    for moments, lr in XT_LR_RUNS:
+        cfg = xt_cfg(cs, moment_dtype=moments)
+        t = Trainer(cfg, TrainConfig(learning_rate=lr,
+                                     warmup_steps=cs.TR_WARMUP,
+                                     total_steps=cs.TR_TOTAL),
+                    ProtectConfig(mode="none"), mesh, seq_len=cs.XT_SEQ,
+                    global_batch=cs.XT_BATCH, seed=cs.SEED, device=dev)
+        t.initialize(params=cs.xlstm_params(cfg, dev))
+        losses = [float(t.step()["loss"]) for _ in range(XT_LR_STEPS)]
+        cs.emit(path="xt_lr", moment_dtype=moments, learning_rate=lr,
+                warmup_steps=cs.TR_WARMUP, losses=losses,
+                max_memory_allocated=torch.cuda.max_memory_allocated())
+        del t
+        cs.tr_free()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("what", choices=("path", "xt-f32-batch1", "xt-lr"))
+    ap.add_argument("fn", nargs="?", help="chip_smoke's path function")
+    ap.add_argument("--root", default=ROOT)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("torch_path_rerun: no CUDA device")
+    cs = smoke_from(args.root)
+    from repro_torch.kernels import _build
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0], flush=True)
+    _build.build()
+    dev = torch.device("cuda", 0)
+    if args.what == "path":
+        launches = getattr(cs, args.fn)(dev)
+        print(json.dumps({"path_fn": args.fn, "root": args.root,
+                          "launches": launches}), flush=True)
+    elif args.what == "xt-f32-batch1":
+        xt_f32_batch1(cs, dev)
+    else:
+        xt_lr(cs, dev)
+
+
+if __name__ == "__main__":
+    main()

@@ -9,7 +9,10 @@ path.  The server opens one cold `Pool` over the cache layout and hands it
 the footprint its engine takes: `dirty_pages` on the synchronous engine
 (`window=1`), `dirty_words` (`layout.time_slice_words`) on the deferred
 engine (`window=W>1`), whose patch engine spans every cache leaf with a
-page capacity from `layout.time_slice_page_capacity`.  At
+page capacity from `layout.time_slice_page_capacity`.  The rule takes
+any local axis of length max_len for time, so a max_len equal to a local
+axis of a leaf that has no time axis (an xLSTM head_dim, a conv width)
+is refused: it would declare one slot of a leaf rewritten whole.  At
 `pipeline_depth > 1` each commit goes through `commit_async` and resolves
 as its verdict lands; `generate` drains the ring before it returns.
 
@@ -39,6 +42,18 @@ from repro_torch.models.transformer import build_model
 from repro_torch.pool import Pool, PoolHost
 
 PyTree = Any
+
+
+def _state_axis_clashes(lo, cache_abs, shorter, max_len: int) -> list:
+    """Local shapes of the cache leaves that do not grow with max_len (the
+    same at max_len - 1) yet have a local axis of length max_len, which
+    the footprint rule (`layout._slot_time_runs`) would take for time."""
+    if max_len < 2:
+        return []
+    return [tuple(sl.shape) for sl, a, b in zip(
+        lo.slots, utils.tree_leaves(cache_abs), utils.tree_leaves(shorter),
+        strict=True)
+        if a.shape == b.shape and layout_mod._slot_time_runs(sl, max_len)]
 
 
 class Server(PoolHost):
@@ -93,6 +108,16 @@ class Server(PoolHost):
                     else (lambda lo: layout_mod.time_slice_page_capacity(
                         lo, max_len))),
                 tracer=tracer)
+            clash = _state_axis_clashes(
+                self.protector.layout, cache_abs,
+                self.model.init_cache(batch, max_len - 1, device="meta"),
+                max_len)
+            if clash:
+                raise ValueError(
+                    f"max_len {max_len} is the length of a local axis of "
+                    f"the state leaves {clash}, which every step rewrites "
+                    "whole: the footprint would take that axis for time "
+                    "and declare one slot of them; choose another max_len")
             self._page_cache: dict = {}
             self._word_cache: dict = {}
         # hooks fired after every decode step with {"pos": position}

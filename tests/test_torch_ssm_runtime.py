@@ -13,10 +13,10 @@ the reference's pool, byte for byte.  The port's own decode gives the
 reference's greedy tokens.  The Trainer is in
 tests/test_torch_ssm_trainer.py.
 
-`max_len` is chosen off every local state axis (1, 2, 3, 16, 32, 64,
-128 at this width): the footprint rule takes any local axis of that
-length for time.  `test_a_clashing_max_len_*` shows what both packages
-do when it is not.
+`max_len` is chosen off every local state axis (1, 2, 3, 16, 32, 128
+on (4, 2); 1, 3, 4, 16, 32, 128 on (8, 1)): the footprint rule takes any local axis of that
+length for time.  `test_a_clashing_max_len_*` shows what the reference
+does when it is not; the port's Server refuses such a max_len.
 """
 import jax
 import jax.numpy as jnp
@@ -198,53 +198,65 @@ def test_rank_loss_and_recovery(served, window):
 @pytest.mark.parametrize("window", [1, 4])
 def test_a_clashing_max_len_declares_a_slot_of_a_whole_leaf(window):
     """At max_len 32, the mLSTM's head_dim, the footprint rule takes the
-    state's 32-long axes for time: a step declares one "slot" of leaves
-    it rewrites whole (n's slot words; C, with two such axes, stays
-    whole), in both packages alike, page for page and word for word.
+    state's 32-long axes for time: on the layout a port Server would
+    build, it declares one "slot" of leaves a step rewrites whole (n's
+    slot words; C, with two such axes, stays whole), as the reference
+    server does, page for page and word for word.
 
-    At window 1 the declared pages are still most of the row, so the
-    commit takes the bulk path and both pools end equal, to each other
-    and to a fresh open.  At window 4 the deferred patch engine takes the
-    declared words: the reference's flush re-reads the state and ends
-    equal to a fresh open, while the port's flushes from its live row,
-    which holds the declared words only, so its row falls behind the
-    state (ROADMAP queue C).  Every max_len the port's runtimes are
-    driven at stays off the state axes."""
+    The reference serves there: at window 1 the declared pages are most
+    of the row, so its commits take the bulk path, and at window 4 its
+    flush re-reads the state, so its pool ends equal to a fresh open of
+    its cache either way.  The port's Server refuses the max_len: its
+    deferred engine flushes from a live row that would hold the declared
+    words only, and fall behind the state (ROADMAP queue C)."""
+    from repro_torch import pool as pool_mod
+    from repro_torch.models.transformer import build_model
     clash = Served(ARCH, max_len=32, new=4)
     ref = clash.ref("mesh42", window=window)
-    port = clash.port("mesh42", window=window)
-    lo = port.protector.layout
+    zm = tr.zone_mesh("mesh42")
+    model = build_model(clash.cfg, zm)
+    lo = pool_mod.protector_for(
+        zm, model.init_cache(BATCH, 32, device="meta"),
+        model.cache_specs(BATCH, 32, zm),
+        ProtectConfig(mode="mlpc", block_words=64, window=window)).layout
     timed = {tuple(sl.shape) for sl in lo.slots
              if layout._slot_time_runs(sl, 32)}
     assert timed == {(1, 2, 2, 32), (1, 2, 2, 32, 32)}
     for pos in (0, 7):
-        np.testing.assert_array_equal(port._dirty_pages(pos),
+        np.testing.assert_array_equal(layout.time_slice_pages(lo, 32, pos),
                                       ref._dirty_pages(pos))
-        for g, w in zip(port._dirty_words(pos), ref._dirty_words(pos),
-                        strict=True):
+        for g, w in zip(layout.time_slice_words(lo, 32, pos),
+                        ref._dirty_words(pos), strict=True):
             assert (g is None) == (w is None)
             if w is not None:
                 np.testing.assert_array_equal(g, w)
-    sliced = [tuple(sl.shape) for sl, w in zip(lo.slots,
-                                               port._dirty_words(0))
-              if w is not None]
+    sliced = [tuple(sl.shape) for sl, w in zip(
+        lo.slots, layout.time_slice_words(lo, 32, 0)) if w is not None]
     assert sliced == [(1, 2, 2, 32)] * 3
-    steps = record(ref)
+    with pytest.raises(ValueError, match="max_len 32 is the length"):
+        clash.port("mesh42", window=window)
     ref.generate(jnp.asarray(clash.prompt), n_new=clash.new)
-    fed = clash.port("mesh42", window=window)
-    replay(fed, steps)
-    fed.generate(torch.from_numpy(clash.prompt), n_new=clash.new)
     ref.flush()
-    fed.flush()
-    fresh = fresh_words(fed)
+    cache = convert.params_to_port(
+        jax.tree.map(np.asarray, ref.pool.state), "cpu")
+    fresh = Pool.open(cache, model.cache_specs(BATCH, 32, zm), mesh=zm,
+                      config=ProtectConfig(mode="mlpc", block_words=64),
+                      device="cpu")
     want = tr.ref_fields(ref.prot, tr.jax_mesh("mesh42"))
     for k in ("row", "synd", "cksums"):
-        np.testing.assert_array_equal(want[k], tr.words(fresh[k]))
-    if window == 1:
-        same_pool(ref, tr.jax_mesh("mesh42"), fed)
-        same_as_fresh(fed)
-    else:
-        assert not torch.equal(fed.prot.row, fresh["row"])
+        np.testing.assert_array_equal(want[k],
+                                      tr.words(getattr(fresh.prot, k)))
+
+
+@pytest.mark.parametrize("mesh_name,max_len", [
+    ("mesh42", 2), ("mesh42", 3), ("mesh42", 16), ("mesh42", 32),
+    ("mesh42", 128), ("mesh81", 4)])
+def test_the_server_refuses_every_state_axis_length(mesh_name, max_len):
+    """Every local state-axis length of the reduced xLSTM but 1 (2, 3,
+    16, 32, 128 on (4, 2); 4 is (8, 1)'s batch shard) is refused as a
+    max_len, before a cache is allocated."""
+    with pytest.raises(ValueError, match=f"max_len {max_len} is"):
+        Served(ARCH, max_len=max_len).port(mesh_name)
 
 
 class StateLockstep(Lockstep):
