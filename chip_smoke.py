@@ -262,14 +262,31 @@
    2) mesh's four groups (capacity 30 an expert), aux losses weighed in,
    against a plain f32 step that routes in the same groups by its own
    router; the share of choices the two routers make alike held to 0.9.
-17. After each phase the invariants are recomputed apart from the engine:
+17. The encoder-decoder served (es): seamless-m4t-large-v2 at its
+   published width and depth (24 encoder + 24 decoder layers, d_model
+   1024, 16 heads of 64, vocab 256,206; 2,034,784,256 parameters, the
+   self and cross attention as rg's) served at batch 8, max_len 2048,
+   (4, 2), block_words 256: a 3,221,422,080 B cache, half of it the
+   cross K/V.  a0: the reference's serving, a few decode steps on the
+   zero cross cache `start` opens, protected and unprotected alike, and
+   the footprint a step declares (a slot of the cross leaves too).  Then
+   every server's cross cache is filled after its start from 2,048
+   frames of the synthetic stream's `src_embeds` (one bulk verify_old
+   commit; at window 4 the pool opened again over the filled cache), and
+   the phases of xs run on the patch path; h against an f32 forward of
+   encoder and decoder (`plain_hidden` with `src`).
+18. The encoder-decoder trained (et): the same model at 2 + 2 layers
+   (650,551,296 parameters; both stacks checkpointed), seq 4096 source
+   and target x batch 2, (4, 2), AdamW with f32 moments (a 7.81 GB
+   state): the phases of xt.
+19. After each phase the invariants are recomputed apart from the engine:
    every syndrome plane k = XOR over ranks i of g^(k·i)·row_i, built rank by
    rank with the plain GF multiply; cksums = Fletcher terms of the rows;
    digest = combine(cksums); row = flatten(state).  Inside a window: the
    checksums and digest are the live rows'; the stack is the epoch start's;
    the bulk engine's accumulator is row_start ^ row_now, and the patch
    engine's row is pinned at the epoch start, its live row the live rows.
-18. Each path's kernel launches (every count zeroed just before the path,
+20. Each path's kernel launches (every count zeroed just before the path,
    read just after); every entry point of the path must have run.  Peak
    device memory of each path; the host ms of each async dispatch.
 
@@ -2667,11 +2684,13 @@ def plain_moe(f, h, cfg, groups=None, record=None):
 
 def plain_blocks(cfg, params):
     """(block type, block parameters) of every layer in order: the stacked
-    groups a layer at a time, then the unstacked tail."""
+    groups a layer at a time, then the unstacked tail (an encoder-decoder's
+    decoder layers: its dec_x blocks)."""
     from repro_torch import utils
     out = []
-    for i in range(cfg.n_groups):
-        for j, t in enumerate(cfg.pattern):
+    pattern = ("dec_x",) if cfg.enc_layers else cfg.pattern
+    for i in range(cfg.n_layers // len(pattern)):
+        for j, t in enumerate(pattern):
             out.append((t, utils.tree_map(lambda w: w[i],
                                           params["groups"][f"b{j}_{t}"])))
     for i, t in enumerate(cfg.tail_pattern):
@@ -2679,23 +2698,28 @@ def plain_blocks(cfg, params):
     return out
 
 
-def plain_hidden(cfg, params, seq, *, mm=None, causal=True, theta=None,
-                 kv_roll=0, mlstm_chunk=None, moe_groups=None, aux=None,
-                 record=None):
+def plain_hidden(cfg, params, seq, *, mm=None, src=None, causal=True,
+                 theta=None, kv_roll=0, mlstm_chunk=None, moe_groups=None,
+                 aux=None, record=None, enc_causal=False, cross=True):
     """An f32 forward of the whole token sequence to the final norm, apart
     from the port's model code: no cache, no chunking, no checkpointing;
     attention by `scaled_dot_product_attention` with query head h on KV
     head h // (H / K), rope from the positions 0..S-1, an `attn` block's
     keys masked a window or more behind; the RG-LRU by `plain_rglru`.
     `mm`: the vlm's stub embeddings (B, P, D), put before the tokens'
-    rows.  `params`: f32 weights.  The keywords plant a fault for the
-    checks' own tests: no causal mask, another rope θ, every query head
-    on the next KV head.  The xLSTM blocks by `plain_mlstm` (stepped, or
-    in chunks of `mlstm_chunk`) and `plain_slstm`; a moe block's FFN by
-    `plain_moe` (routed in `moe_groups`; `record`: a list each moe layer's
-    choices are appended to), its aux terms appended to `aux`.
-    (B, S) -> (B, S + P, D)."""
+    rows.  `src`: an encoder-decoder's source embeddings (B, S_src, D),
+    run through the encoder (attention with no mask, rope from 0..S_src-1)
+    and its norm; each decoder layer then attends to the tokens causally
+    and to the encoder's output with no mask and no rope.  `params`: f32
+    weights.  The keywords plant a fault for the checks' own tests: no
+    causal mask, another rope θ, every query head on the next KV head, a
+    causal encoder, no cross attention.  The xLSTM blocks by
+    `plain_mlstm` (stepped, or in chunks of `mlstm_chunk`) and
+    `plain_slstm`; a moe block's FFN by `plain_moe` (routed in
+    `moe_groups`; `record`: a list each moe layer's choices are appended
+    to), its aux terms appended to `aux`.  (B, S) -> (B, S + P, D)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch import utils
     F = torch.nn.functional
     check(cfg.act == "silu" and set(cfg.pattern) <= {
         "dense", "attn", "rglru", "mlstm", "slstm", "moe"},
@@ -2709,15 +2733,16 @@ def plain_hidden(cfg, params, seq, *, mm=None, causal=True, theta=None,
         x = torch.cat([mm.float(), x], 1)
     S = x.shape[1]
     at = torch.arange(S, device=seq.device)
-    ang = at.float()[:, None] * theta ** (-torch.arange(
-        half, device=seq.device, dtype=torch.float32) / half)
-    cos, sin = torch.cos(ang)[:, None], torch.sin(ang)[:, None]
     window = None
     if cfg.window is not None:
         window = (at[:, None] >= at[None, :]) & (
             at[:, None] - at[None, :] < cfg.window)
 
     def rot(x):                                    # (B, S, n, hd)
+        ang = torch.arange(x.shape[1], device=x.device).float()[:, None] * (
+            theta ** (-torch.arange(half, device=x.device,
+                                    dtype=torch.float32) / half))
+        cos, sin = torch.cos(ang)[:, None], torch.sin(ang)[:, None]
         a, b = x[..., :half], x[..., half:]
         return torch.cat([a * cos - b * sin, b * cos + a * sin], -1)
 
@@ -2725,21 +2750,39 @@ def plain_hidden(cfg, params, seq, *, mm=None, causal=True, theta=None,
         return x.roll(kv_roll, 2).transpose(1, 2).repeat_interleave(
             H // K, 1)
 
-    def attention(a, h, mask):
+    def attention(a, h, mask, causal=causal, kv=None):
+        """Self attention with rope, or (`kv`: the encoder's output) cross
+        attention with none."""
+        src_ = h if kv is None else kv
         q = torch.einsum("bsd,dnh->bsnh", h, a["wq"])
-        k = torch.einsum("bsd,dnh->bsnh", h, a["wk"])
-        v = torch.einsum("bsd,dnh->bsnh", h, a["wv"])
+        k = torch.einsum("bsd,dnh->bsnh", src_, a["wk"])
+        v = torch.einsum("bsd,dnh->bsnh", src_, a["wv"])
         if "bq" in a:
             q, k, v = q + a["bq"], k + a["bk"], v + a["bv"]
         if "qnorm" in a:
             q, k = plain_norm(q, a["qnorm"]), plain_norm(k, a["knorm"])
-        q, k = rot(q), rot(k)
+        if kv is None:
+            q, k = rot(q), rot(k)
         with sdpa_kernel(SDPBackend.MATH):         # f32 products, softmax
             o = F.scaled_dot_product_attention(
                 q.transpose(1, 2), heads(k), heads(v),
                 attn_mask=mask if causal else None,
                 is_causal=causal and mask is None)
         return torch.einsum("bnsh,nhd->bsd", o, a["wo"])
+
+    def mlp(f, h):
+        return (F.silu(h @ f["wg"]) * (h @ f["wi"])) @ f["wo"]
+
+    enc = None
+    if cfg.enc_layers:
+        enc = src.float()
+        for i in range(cfg.enc_layers):
+            p = utils.tree_map(lambda w: w[i],
+                               params["enc_groups"]["b0_enc"])
+            h = plain_norm(enc, p["ln1"]["scale"])
+            enc = enc + attention(p["attn"], h, None, causal=enc_causal)
+            enc = enc + mlp(p["ffn"], plain_norm(enc, p["ln2"]["scale"]))
+        enc = plain_norm(enc, params["enc_norm"]["scale"])
 
     for t, p in plain_blocks(cfg, params):
         if t == "mlstm":
@@ -2753,6 +2796,9 @@ def plain_hidden(cfg, params, seq, *, mm=None, causal=True, theta=None,
             x = x + plain_rglru(p["rec"], h)
         else:
             x = x + attention(p["attn"], h, window if t == "attn" else None)
+        if t == "dec_x" and cross:
+            x = x + attention(p["xattn"], plain_norm(x, p["lnx"]["scale"]),
+                              None, causal=False, kv=enc)
         h = plain_norm(x, p["ln2"]["scale"])
         f = p["ffn"]
         if t == "moe":
@@ -2761,7 +2807,7 @@ def plain_hidden(cfg, params, seq, *, mm=None, causal=True, theta=None,
             if aux is not None:
                 aux.append(a)
             continue
-        x = x + (F.silu(h @ f["wg"]) * (h @ f["wi"])) @ f["wo"]
+        x = x + mlp(f, h)
     return plain_norm(x, params["final_norm"]["scale"])
 
 
@@ -2779,10 +2825,13 @@ def sv_plain_logits(cfg, params, seq, **kw):
     return plain_logits(params, plain_hidden(cfg, params, seq, **kw))
 
 
-def sv_decode_logits(model, params, seq, max_len):
+def sv_decode_logits(model, params, seq, max_len, cross=None):
     """The port's decode, teacher-forced on `seq` from an empty cache of
-    `max_len` slots: the logits of every step, (B, S, V) f32."""
+    `max_len` slots (an encoder-decoder's cross K/V from `cross`): the
+    logits of every step, (B, S, V) f32."""
     cache = model.init_cache(seq.shape[0], max_len, seq.device)
+    if cross is not None:
+        cache["cross"] = cross
     out = []
     for t in range(seq.shape[1]):
         logits, cache = model.decode_step(params, seq[:, t], cache, t)
@@ -2791,15 +2840,18 @@ def sv_decode_logits(model, params, seq, max_len):
 
 
 def sv_reference(cfg, params, prompt, toks, max_len, chunk=None,
-                 argmax=True, bound=SV_LOGIT_RTOL, plain_kw=None):
+                 argmax=True, bound=SV_LOGIT_RTOL, plain_kw=None, src=None):
     """The served decode at full width against `sv_plain_logits` on the
     same weights: b's prompt and tokens teacher-forced, compared `chunk`
     sequences at a time (all at once by default).  The decode's argmax must give b's
     tokens (unless `argmax` is False: a decode at another compute dtype
     than b's), and its logits must be finite and within `bound` of the
     f32 forward, scaled by the largest |logit| (None: measured only).
-    `plain_kw`: `plain_hidden`'s keywords.  Returns the phase line's
-    fields, with each position's largest error summed up."""
+    `plain_kw`: `plain_hidden`'s keywords.  `src`: an encoder-decoder's
+    source (B, S_src, D), encoded and projected into the decode's cross
+    cache as the server's is filled, and run through the f32 encoder.
+    Returns the phase line's fields, with each position's largest error
+    summed up."""
     from repro_torch import utils
     from repro_torch.models.transformer import build_model
     model = build_model(cfg)
@@ -2813,15 +2865,20 @@ def sv_reference(cfg, params, prompt, toks, max_len, chunk=None,
     pos_err = []                        # each position's largest error
     # the decode at the served batch: cuBLAS picks its products' order by
     # shape, so a smaller batch need not give the served tokens' bits
-    logits = sv_decode_logits(model, cparams, seq, max_len)
+    cross = None if src is None else ed_cross(model, cparams, src)
+    logits = sv_decode_logits(model, cparams, seq, max_len, cross)
     # the served weights widened to f32, once the decode has let go of
     # its own copies
+    del cross
     wide = utils.tree_map(lambda w: w.float(), cparams)
     del cparams
     for lo in range(0, seq.shape[0], chunk):
         part = seq[lo:lo + chunk]
         got = logits[lo:lo + chunk]
-        want = sv_plain_logits(cfg, wide, part, **(plain_kw or {}))
+        kw = dict(plain_kw or {})
+        if src is not None:
+            kw["src"] = src[lo:lo + chunk]
+        want = sv_plain_logits(cfg, wide, part, **kw)
         check(bool(torch.isfinite(got).all()
                    and torch.isfinite(want).all()), "h: non-finite logits")
         check(not argmax or torch.equal(
@@ -3195,6 +3252,8 @@ def tr_grad_check(cfg, params, batch, mesh=None, plain_kw=None, **fault):
             params, batch)
     leaves, treedef = utils.tree_flatten(params)
     kw = dict(plain_kw or {}, **fault)
+    if "src_embeds" in batch:
+        kw["src"] = batch["src_embeds"]
     if cfg.moe is not None:
         sizes = shd.axis_sizes(mesh)
         g = sizes.get("data", 1) * sizes.get("pod", 1)
@@ -3205,7 +3264,9 @@ def tr_grad_check(cfg, params, batch, mesh=None, plain_kw=None, **fault):
     want = tr_plain_loss(cfg, utils.tree_unflatten(treedef, xs),
                          batch["tokens"], batch.get("mm_embeds"), **kw,
                          record=mine)
-    gwant = torch.autograd.grad(want, xs)
+    # a leaf a planted fault leaves out of the plain step has no gradient
+    gwant = [torch.zeros_like(x) if g is None else g for x, g in zip(
+        xs, torch.autograd.grad(want, xs, allow_unused=True))]
     cos = [float(torch.nn.functional.cosine_similarity(
         a.double().reshape(-1), b.double().reshape(-1), dim=0))
         for a, b in zip(utils.tree_leaves(grads), gwant)]
@@ -3550,17 +3611,20 @@ PATH_RG = ("fletcher_blocks", "fletcher_stream", "fused_commit",
 
 def soft_attention(params):
     """Scale every attention block's (d_model, heads, head_dim)
-    projections wq, wk, wv in place to a std of 1/sqrt(d_model).  The
-    reference's init takes `heads` as their fan-in (ROADMAP queue C);
+    projections wq, wk, wv in place to a std of 1/sqrt(d_model), the
+    self attention's (`attn`) and the cross attention's (`xattn`) alike.
+    The reference's init takes `heads` as their fan-in (ROADMAP queue C);
     recurrentgemma has no qk-norm and one KV head, so its scores would
     have a std of ~800 and the softmax would be one-hot: a bf16 rounding
     of q or k would pick another key, and the decode and the train step
     would sit at no fixed distance from an f32 forward
-    (scripts/torch_hybrid_chaos.py).  At this scale q and k have a std of
-    ~1 and the scores ~1, as a trained model's.  Returns `params`."""
+    (scripts/torch_hybrid_chaos.py).  seamless's cross attention reads
+    the encoder's normed output, so its scores are one-hot the same way.
+    At this scale q and k have a std of ~1 and the scores ~1, as a
+    trained model's.  Returns `params`."""
     def walk(tree):
         for key, sub in tree.items():
-            if key == "attn" and "wq" in sub:
+            if key in ("attn", "xattn") and "wq" in sub:
                 for w in (sub["wq"], sub["wk"], sub["wv"]):
                     w.mul_(math.sqrt(w.shape[-2] / w.shape[-3]))
             elif isinstance(sub, dict):
@@ -3800,7 +3864,9 @@ class ServeCell:
     commit path every decode step must take ("bulk" or "patch"), the entry
     points that must launch, h's comparison (cfg, params, prompt, tokens)
     -> the phase line's fields, and phases of the path's own after f
-    (run, server factory, prompt, b's tokens, decode steps), or None."""
+    (run, server factory, prompt, b's tokens, decode steps), or None;
+    and `fill`: what every server takes after `start` (srv -> None: an
+    encoder-decoder's cross cache), or None."""
     tag: str
     cfg: object
     params: object
@@ -3820,6 +3886,7 @@ class ServeCell:
     must_launch: tuple
     h: object
     extra: object = None
+    fill: object = None
 
 
 def served_path(dev, c):
@@ -3852,6 +3919,8 @@ def served_path(dev, c):
                      ZoneMesh(mesh, ("data", "model")), batch=c.batch,
                      max_len=c.max_len, protect_cache=protect, device=dev)
         srv.start(params)
+        if c.fill is not None:
+            c.fill(srv)
         return srv
 
     # a: the server opens its pool over the empty cache
@@ -3949,6 +4018,14 @@ def served_path(dev, c):
             redundancy=3, window=c.f_window, pipeline_depth=4), inv=nothing)
         check(srv.pool.engine is not None and srv.pool.engine.patch,
               "f: not the patch engine")
+        # the host's count of a step's declared pages, which the patch
+        # engine makes before every commit (`_check_footprint`)
+        eng, words = srv.pool.engine, srv._dirty_words(c.prompt)
+        t0 = time.perf_counter()
+        pages = [eng._declared_pages(words) for _ in range(20)]
+        emit(path=c.tag, phase="f_footprint_count",
+             ms=(time.perf_counter() - t0) * 1e3 / 20, pages=pages[0],
+             dirty_capacity=eng.dirty_capacity, checked=eng._capped)
 
         def multi_loss():
             check(srv.pool.engine.needs_flush, "f: the loss is not mid-window")
@@ -4189,6 +4266,171 @@ def vlm_path(dev):
     return run.end(())
 
 
+ES_ARCH = "seamless-m4t-large-v2"  # served at its published width and depth
+ES_REDUCED = False
+ES_MESH = (4, 2)                 # 16 KV heads split over `model`
+# batch 8, cut from decode_32k's 128: a 3,221,422,080 B cache, half of it
+# the cross K/V; batch 16's 6.44 GB cache would not fit beside the
+# weights' f32 and bf16 copies and the pool's rows at ~15x the cache
+ES_BATCH = 8
+ES_MAX_LEN = 2048                # the served source's length too
+ES_PROMPT, ES_NEW = 32, 32
+ES_BW = 256
+ES_SCRUB = 16
+ES_EVENT, ES_F_EVENT = 16, 18
+ES_ZERO_STEPS = 4                # es a's decode steps on the zero cross cache
+PATH_ES = ("fletcher_blocks", "fused_commit",
+           "fused_verify_commit_stream", "fused_commit_s", "sdelta_stack",
+           "gf_scale")
+ET_LAYERS = 2                    # 2 encoder + 2 decoder layers: two groups
+ET_REDUCED = False               # each, so both stacks run checkpointed;
+                                 # the config's f32 AdamW moments: a 7.81 GB
+                                 # state, which fits (68.46 GB peak)
+ET_MESH = (4, 2)
+ET_SEQ, ET_BATCH = 4096, 2       # source and target lengths
+ET_STEPS = 4
+ET_SCRUB = 2
+PATH_ET = ("fletcher_blocks", "fletcher_stream",
+           "fused_verify_commit_stream")
+
+
+def ed_cross(model, params, src):
+    """An encoder-decoder's cross K/V of `src` (B, S_src, D): the source
+    encoded and projected a decoder layer at a time (the prefill)."""
+    with torch.no_grad():
+        return model.build_cross_cache(params, model.encode(params, src))
+
+
+def ed_fill(srv, cross):
+    """Write `cross` into a started server's cache in place of the zeros
+    `start` opened it over: the cache with its two cross leaves replaced,
+    one bulk commit with verify_old on the synchronous engine.  The
+    deferred patch engine refuses a commit of more pages than a decode
+    step's footprint (its flush holds that many), so there the pool is
+    opened again over the filled cache (`Pool.init`); an unprotected
+    server takes the cache as it is."""
+    cache = dict(srv._current_cache(), cross=cross)
+    if srv.pool is None:
+        srv.cache = cache
+    elif srv.pool.engine is None:
+        check(bool(srv.pool.commit(cache, verify_old=True)),
+              "the cross cache's commit aborted")
+    else:
+        srv.pool.init(cache)
+
+
+class CrossFill:
+    """es's `ServeCell.fill`: the source encoded by the first server's
+    weights (cast to bf16 once, as every server casts them) into the cross
+    K/V, kept and written into every server after its start (`ed_fill`);
+    the first fill's ms and launches on a line of its own."""
+
+    def __init__(self, run_tag, src):
+        self.tag, self.src, self.cross = run_tag, src, None
+
+    def __call__(self, srv):
+        from repro_torch.kernels import _build
+        if self.cross is None:
+            self.cross = ed_cross(srv.model, srv.params, self.src)
+            torch.cuda.synchronize()
+            before = dict(_build.LAUNCHES)
+            t0 = time.perf_counter()
+            ed_fill(srv, self.cross)
+            torch.cuda.synchronize()
+            emit(path=self.tag, phase="fill_cross_commit",
+                 ms=(time.perf_counter() - t0) * 1e3,
+                 cross_bytes=sum(x.numel() * x.element_size()
+                                 for x in self.cross.values()),
+                 launches={k: v - before.get(k, 0)
+                           for k, v in _build.LAUNCHES.items()
+                           if v - before.get(k, 0)})
+            return
+        ed_fill(srv, self.cross)
+
+
+def es_zero_cross(dev, cfg, params):
+    """es a0: the reference's serving, whose `Server` never encodes a
+    source: ES_ZERO_STEPS decode steps on the cross cache `start` leaves
+    zero, protected and unprotected, equal tokens; the pool's cross
+    leaves still zero.  The footprint a step declares: a time slot of
+    each self and each cross K/V leaf (the cross slot is never written).
+    Returns the phases' launches."""
+    from repro_torch import ProtectConfig, ZoneMesh, utils
+    from repro_torch.runtime.server import Server
+    run = PathRun(dev, "es")
+    prompt = torch.randint(0, cfg.vocab, (ES_BATCH, ES_ZERO_STEPS),
+                           generator=torch.Generator(dev).manual_seed(
+                               SEED + 1), device=dev)
+
+    def steps(protect):
+        srv = Server(cfg, ProtectConfig(mode="mlpc", block_words=ES_BW,
+                                        scrub_period=ES_SCRUB),
+                     ZoneMesh(ES_MESH, ("data", "model")), batch=ES_BATCH,
+                     max_len=ES_MAX_LEN, protect_cache=protect, device=dev)
+        srv.start(params)
+        toks = [srv.step(prompt[:, t]) for t in range(ES_ZERO_STEPS)]
+        return srv, torch.stack(toks, 1).cpu()
+
+    (srv, toks), _ = run.phase("a0_zero_cross_protected",
+                               lambda: steps(True), inv=nothing)
+    cross = srv.pool.state["cross"]
+    check(all(not bool(x.any()) for x in cross.values()),
+          "a0: the served cross cache is not zero")
+    lo = srv.protector.layout
+    leaves = utils.tree_leaves(srv.model.init_cache(1, 1, "meta"))
+    names = ["cross/k", "cross/v", "groups/k", "groups/pos", "groups/v"]
+    check(len(leaves) == len(names), f"a0: cache leaves {len(leaves)}")
+    words = srv._dirty_words(ES_ZERO_STEPS)
+    declared = {n: (None if w is None else len(w))
+                for n, w in zip(names, words)}
+    emit(path=run.tag, phase="a0_footprint", declared_words=declared,
+         dirty_pages_per_step=len(srv._dirty_pages(ES_ZERO_STEPS)),
+         n_blocks=lo.n_blocks)
+    check(all(isinstance(v, int) and v for v in declared.values()),
+          f"a0: a leaf declared whole or not at all: {declared}")
+    del srv, cross
+    (_, toks_u), _ = run.phase("a0_zero_cross_unprotected",
+                               lambda: steps(False), inv=nothing)
+    check(torch.equal(toks, toks_u), "a0: unprotected tokens != protected")
+    emit(path=run.tag, phase="a0_tokens_equal", steps=ES_ZERO_STEPS,
+         tokens=toks.tolist())
+    return dict(run.build.LAUNCHES)
+
+
+def encdec_serving_path(dev):
+    """seamless-m4t-large-v2 served at its published width and depth
+    (phases es): a0 on the zero cross cache, then `served_path`'s a-f, h
+    with the cross cache filled from a source of ES_MAX_LEN frames of the
+    synthetic stream after every start.  Returns the launches of both."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import batch_for
+    cfg = get_config(ES_ARCH, reduced=ES_REDUCED)
+    params = hybrid_params(cfg, dev)
+    zero = es_zero_cross(dev, cfg, params)
+    src = torch.from_numpy(batch_for(cfg, ES_MAX_LEN, ES_BATCH, SEED)
+                           .batch_at(0)["src_embeds"]).to(dev)
+    counts = served_path(dev, ServeCell(
+        "es", cfg, lambda: params, ES_MESH, ES_BATCH, ES_MAX_LEN,
+        ES_PROMPT, ES_NEW, ES_BW, ES_SCRUB, RG_LOST, RG_MULTI_LOST,
+        ES_EVENT, ES_F_EVENT, RG_F_WINDOW, "patch", PATH_ES,
+        lambda cfg, params, prompt, toks: sv_reference(
+            cfg, params, prompt, toks, ES_MAX_LEN, src=src),
+        fill=CrossFill("es", src)))
+    return {k: counts.get(k, 0) + zero.get(k, 0)
+            for k in set(counts) | set(zero)}
+
+
+def encdec_training_path(dev):
+    """seamless-m4t-large-v2 trained at its published width, each stack
+    cut to ET_LAYERS layers (phases et a-d, i)."""
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(get_config(ES_ARCH, reduced=ET_REDUCED),
+                              n_layers=ET_LAYERS, enc_layers=ET_LAYERS)
+    return trained_path(dev, TrainCell(
+        "et", cfg, ET_MESH, ET_SEQ, ET_BATCH, ET_STEPS, ET_SCRUB, RT_LOST,
+        RT_LOSS_AT, lambda: hybrid_params(cfg, dev), PATH_ET))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4216,7 +4458,8 @@ def main():
                "tr": training_path, "rg": hybrid_serving_path,
                "rt": hybrid_training_path, "vl": vlm_path,
                "xs": xlstm_serving_path, "xt": xlstm_training_path,
-               "mo": moe_serving_path, "mt": moe_step_path}
+               "mo": moe_serving_path, "mt": moe_step_path,
+               "es": encdec_serving_path, "et": encdec_training_path}
     timing = kernels_vs_plain(dev)
     paths = {name: fn(dev) for name, fn in drivers.items()}
     rows = []

@@ -185,6 +185,13 @@ class DeferredProtector:
         self.flush_patch = (self.patch
                             and self.flush_capacity / lo.n_blocks
                             < protector.hybrid_threshold)
+        # a step's pages past `dirty_capacity` would overflow the flush's
+        # page slots; a commit declaring more is refused
+        self._capped = self.patch and self.dirty_capacity < min(
+            lo.n_blocks, leaf_bound)
+        self._leaf_pages = (tuple(len(layout_mod.leaf_pages(lo, i))
+                                  for i in self.dirty_leaf_idx)
+                            if self.patch else ())
         self._since = 0
         self._step = self.make_step_commit()
         self._step_staged = self.make_step_commit_staged()
@@ -501,19 +508,63 @@ class DeferredProtector:
 
     # -- entry points ----------------------------------------------------------
 
+    def _declared_pages(self, dirty_words) -> int:
+        """The pages a patch commit's footprint names, leaf by leaf (a
+        page two leaves share counted for each); a word index past its
+        leaf names none (`_word_index`)."""
+        if dirty_words is None:
+            return sum(self._leaf_pages)
+        lo = self.p.layout
+        n = 0
+        for li, w, whole in zip(self.dirty_leaf_idx, dirty_words,
+                                self._leaf_pages):
+            if w is None:
+                n += whole
+                continue
+            slot = lo.slots[li]
+            w = np.asarray(w.cpu() if isinstance(w, torch.Tensor) else w,
+                           np.int64).reshape(-1)
+            w = w[w < slot.n_words]
+            first = slot.offset // lo.block_words
+            seen = np.zeros(whole, bool)
+            seen[(slot.offset + w) // lo.block_words - first] = True
+            n += int(np.count_nonzero(seen))
+        return n
+
+    def _check_footprint(self, dirty_words) -> None:
+        """Refuse a patch commit that declares more than `dirty_capacity`
+        pages: the flush gathers at most `flush_capacity` dirty pages, so
+        the pages past it would miss the stack and the checksums (the
+        reference's flush keeps the first ones and drops the rest: ROADMAP
+        queue C)."""
+        if not self._capped:
+            return
+        n = self._declared_pages(dirty_words)
+        if n > self.dirty_capacity:
+            raise ValueError(
+                f"the footprint names {n} pages, past the "
+                f"{self.dirty_capacity} a commit of this patch engine may "
+                "touch: its flush would drop the rest; open the pool "
+                "again over the state (Pool.init) instead")
+
+    def _check_dirty_words(self, dirty_words) -> None:
+        if dirty_words is not None and (
+                not self.patch
+                or len(dirty_words) != len(self.dirty_leaf_idx)):
+            raise ValueError("dirty_words needs a patch engine, one entry "
+                             "per leaf of dirty_leaf_idx")
+        if self.patch:
+            self._check_footprint(dirty_words)
+
     def commit(self, est: EpochState, state_new, *, dirty_words=None,
                data_cursor=0, rng_key=None, canary_ok: bool = True):
         """One transactional update of zone-stacked `state_new`; flushes
         automatically at the window boundary.  `dirty_words` (patch
         engines): a tuple aligned with `dirty_leaf_idx` of per-leaf
         word-index arrays, or None entries (or None for the whole tuple)
-        for wholly dirty leaves.  Returns (successor, ok) with `ok` a 0-d
-        bool tensor."""
-        if dirty_words is not None and (
-                not self.patch
-                or len(dirty_words) != len(self.dirty_leaf_idx)):
-            raise ValueError("dirty_words needs a patch engine, one entry "
-                             "per leaf of dirty_leaf_idx")
+        for wholly dirty leaves, naming at most `dirty_capacity` pages.
+        Returns (successor, ok) with `ok` a 0-d bool tensor."""
+        self._check_dirty_words(dirty_words)
         prot, dirty, pending, acc, live, ok = self._step(
             est.prot, est.dirty, est.pending, est.acc, est.live, state_new,
             dirty_words, data_cursor, rng_key, bool(canary_ok))
@@ -529,11 +580,7 @@ class DeferredProtector:
         cadence (`_since`, the boundary flush) counts the attempt exactly
         as the host-known path does, so a drained pipeline holds what
         resolving each commit at once would."""
-        if dirty_words is not None and (
-                not self.patch
-                or len(dirty_words) != len(self.dirty_leaf_idx)):
-            raise ValueError("dirty_words needs a patch engine, one entry "
-                             "per leaf of dirty_leaf_idx")
+        self._check_dirty_words(dirty_words)
         prot, dirty, pending, acc, live, ok = self._step_staged(
             est.prot, est.dirty, est.pending, est.acc, est.live, state_new,
             dirty_words, data_cursor, rng_key, canary)

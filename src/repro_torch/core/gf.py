@@ -103,6 +103,11 @@ def pow_g_table(g: int) -> tuple:
     return tuple(out)
 
 
+def pow_g_array(g: int) -> np.ndarray:
+    """`pow_g_table` as a uint32 ndarray."""
+    return np.asarray(pow_g_table(g), np.uint32)
+
+
 @functools.lru_cache(maxsize=None)
 def syndrome_table(g: int, r: int) -> tuple:
     """Entry [i][k] = g^(k·i): rank i's weight in syndrome S_k.  Column 0
@@ -236,4 +241,14 @@ def solve_e(deficits: torch.Tensor, lost_ranks) -> tuple:
             acc = term if acc is None else acc ^ term
         out.append(acc)
     return tuple(out)
+
+
+def solve_two(p: torch.Tensor, q: torch.Tensor, rank_a: int,
+              rank_b: int) -> tuple:
+    """The e = 2 case of `solve_e` (the P + Q double-loss solve): the two
+    lost rows' words from the deficits `p` (S_0) and `q` (S_1)."""
+    rank_a, rank_b = int(rank_a), int(rank_b)
+    if rank_a == rank_b:
+        raise ValueError("double-loss solve needs two distinct ranks")
+    return solve_e(torch.stack([p, q]), (rank_a, rank_b))
 

@@ -599,6 +599,42 @@ class Protector:
             prot, state=layout_mod.unflatten_row(lo, row_out),
             row=row_out), self._verified(row_out, prot)
 
+    # -- the reference's program factories -------------------------------------
+    # The reference builds each scrub and recovery as a program to jit; here
+    # the direct methods are that program, and a factory hands it back with
+    # the reference's signature.
+
+    def make_scrub(self):
+        """`scrub(prot) -> dict`, as `Protector.scrub`."""
+        return self.scrub
+
+    def make_local_scrub(self):
+        """`local_scrub(prot) -> dict`, as `Protector.local_scrub`."""
+        return self.local_scrub
+
+    def make_recover_rank(self):
+        """`recover(prot, lost_rank) -> (prot, ok)`."""
+        return self.recover_rank
+
+    def make_recover_e(self, lost_ranks):
+        """`recover(prot) -> (prot, ok)` for the static erasure set
+        `lost_ranks`, checked here: distinct ranks, at most r of them."""
+        ranks = tuple(sorted(int(a) for a in lost_ranks))
+        if len(set(ranks)) != len(ranks):
+            raise ValueError(f"erasure recovery needs distinct ranks, got "
+                             f"{ranks}")
+        self.check_budget(ranks)
+        return lambda prot: self.recover_e(prot, ranks)
+
+    def make_repair_pages(self, n_pages: int):
+        """`repair(prot, bad_rank, bad_page) -> (prot, ok)` for `n_pages`
+        (rank, page) locations."""
+        def repair(prot: ProtectedState, bad_rank, bad_page):
+            return self.repair_pages(
+                prot, np.asarray(bad_rank).reshape(n_pages),
+                np.asarray(bad_page).reshape(n_pages))
+        return repair
+
     # -- introspection ----------------------------------------------------------
 
     def overhead_report(self) -> dict:

@@ -7,14 +7,15 @@ builds:
   rglru   — RG-LRU recurrence + MLP (RecurrentGemma)
   mlstm   — xLSTM matrix-memory block (self-contained)
   slstm   — xLSTM scalar-memory block (self-contained)
+  enc     — bidirectional attention + MLP (encoder stacks)
+  dec_x   — causal self-attention + cross-attention + MLP (decoder stacks)
 
 Each type provides defs / train (`apply_train`, the full sequence) /
 decode (`apply_decode`, one token against the cache) / cache-init.  A moe
 block routes a full sequence in the mesh's data-shard groups and a decode
-step in one group, as the reference's.
-
-The encoder-decoder types (enc, dec_x) come with their family's slice;
-asking for one raises NotImplementedError.
+step in one group, as the reference's.  A dec_x block's cross attention
+reads the encoder's output in training and its projected K/V (the cross
+cache, written once) in decode, with no rope and no mask.
 """
 from __future__ import annotations
 
@@ -28,16 +29,11 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import xlstm as xlstm_mod
 
-ATTN_TYPES = ("dense", "moe", "attn")
+ATTN_TYPES = ("dense", "moe", "attn", "enc", "dec_x")
 XLSTM_TYPES = ("mlstm", "slstm")
-LATER = ("enc", "dec_x")
 
 
 def _check(btype: str) -> None:
-    if btype in LATER:
-        raise NotImplementedError(
-            f"block type {btype!r} is not ported yet: it comes with slice "
-            "S8c (the encoder-decoder family)")
     if btype not in ATTN_TYPES + XLSTM_TYPES + ("rglru",):
         raise ValueError(btype)
 
@@ -56,13 +52,17 @@ def block_defs(cfg, btype: str) -> dict:
         return {"cell": xlstm_mod.mlstm_defs(cfg)}
     if btype == "slstm":
         return {"cell": xlstm_mod.slstm_defs(cfg)}
-    return {
+    defs = {
         "ln1": L.rmsnorm_defs(d, cfg),
         "attn": attn_mod.attn_defs(cfg),
         "ln2": L.rmsnorm_defs(d, cfg),
         "ffn": (moe_mod.moe_defs(cfg) if btype == "moe"
                 else L.mlp_defs(d, cfg.d_ff, cfg)),
     }
+    if btype == "dec_x":
+        defs["lnx"] = L.rmsnorm_defs(d, cfg)
+        defs["xattn"] = attn_mod.attn_defs(cfg, cross=True)
+    return defs
 
 
 def _window_for(cfg, btype: str) -> Optional[int]:
@@ -128,13 +128,27 @@ def _ffn(p: dict, x: torch.Tensor, cfg, btype: str = "dense",
     return x + f.to(x.dtype), aux
 
 
+def _cross_out(p: dict, x: torch.Tensor, o: torch.Tensor, cfg
+               ) -> torch.Tensor:
+    return x + attn_mod.apply_out(p["xattn"], o, cfg).to(x.dtype)
+
+
+def _cross_q(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """A dec_x block's cross-attention query: norm `lnx`, no rope."""
+    return attn_mod.project_q(p["xattn"], L.apply_rmsnorm(p["lnx"], x), cfg,
+                              None, use_rope=False)
+
+
 def apply_train(p: dict, btype: str, x: torch.Tensor, cfg, *,
                 positions: torch.Tensor, rope_table=None, mesh=None,
+                enc_out: Optional[torch.Tensor] = None,
                 causal: bool = True) -> tuple:
     """Full-sequence application.  Returns (x, aux losses dict).
     `rope_table`: the positions' `layers.rope_table`, when the caller has
     it (shared by every layer).  `mesh`: the model's, whose data shards
-    are a moe block's routing groups."""
+    are a moe block's routing groups.  `enc_out`: the encoder's output
+    (B, S_src, D) a dec_x block cross-attends to, unmasked; an enc block
+    attends with no causal mask."""
     _check(btype)
     if btype == "rglru":
         h = L.apply_rmsnorm(p["ln1"], x)
@@ -151,9 +165,14 @@ def apply_train(p: dict, btype: str, x: torch.Tensor, cfg, *,
                            rope_table=rope_table)
     k, v = attn_mod.project_kv(p["attn"], h, cfg, positions,
                                rope_table=rope_table)
-    o = attn_mod.attend(q, k, v, causal=causal,
+    o = attn_mod.attend(q, k, v, causal=causal and btype != "enc",
                         window=_window_for(cfg, btype))
     x = x + attn_mod.apply_out(p["attn"], o, cfg).to(x.dtype)
+    if btype == "dec_x":
+        kx, vx = attn_mod.project_kv(p["xattn"], enc_out, cfg, None,
+                                     use_rope=False)
+        ox = attn_mod.attend(_cross_q(p, x, cfg), kx, vx, causal=False)
+        x = _cross_out(p, x, ox, cfg)
     return _ffn(p, x, cfg, btype, mesh)
 
 
@@ -167,12 +186,16 @@ def decode_positions(pos: int, cfg, device) -> tuple:
 
 
 def apply_decode(p: dict, btype: str, x: torch.Tensor, cache: dict, pos,
-                 cfg, positions: tuple) -> tuple:
+                 cfg, positions: tuple, *,
+                 cross_cache: Optional[dict] = None) -> tuple:
     """Single-token application.  x: (B, 1, D).  Returns (x, cache).
 
     The new slot is written into `cache` itself: the caller owns it (a
     fresh copy), never a staged or pool-held cache.  `positions`: the
-    step's `decode_positions`, shared by every layer."""
+    step's `decode_positions`, shared by every layer.  `cross_cache`: a
+    dec_x block's {"k", "v"} (B, S_src, K, hd), read and never written;
+    the query attends to all S_src slots (the reference's slot positions
+    0..S_src-1 at position S_src)."""
     _check(btype)
     if btype == "rglru":
         h = L.apply_rmsnorm(p["ln1"], x)
@@ -194,5 +217,12 @@ def apply_decode(p: dict, btype: str, x: torch.Tensor, cache: dict, pos,
                                       k, v, pos, window=w)
     o = attn_mod.attend_decode(q, kc, vc, pc, pos, window=w)
     x = x + attn_mod.apply_out(p["attn"], o, cfg).to(x.dtype)
+    if btype == "dec_x":
+        kx, vx = cross_cache["k"], cross_cache["v"]
+        src_len = kx.shape[1]
+        ox = attn_mod.attend_decode(
+            _cross_q(p, x, cfg), kx, vx,
+            torch.arange(src_len, device=x.device), src_len)
+        x = _cross_out(p, x, ox, cfg)
     # a moe block decodes in one group: capacity is the whole group
     return _ffn(p, x, cfg, btype)[0], {"k": kc, "v": vc, "pos": pc}

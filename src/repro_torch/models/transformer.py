@@ -31,8 +31,12 @@ weighs that aux by 0.01 when the config has experts, as the reference.
 `build_model` builds the dense, vlm (dense blocks behind a prefix of
 multimodal stub embeddings), hybrid (RG-LRU and sliding-window attention
 blocks), ssm (mLSTM and sLSTM blocks) and moe (routed-expert blocks,
-interleaved with dense ones or not) families; the encoder-decoder audio
-family raises NotImplementedError, naming its slice.
+interleaved with dense ones or not) families as a `Model`, and the audio
+family (a config with `enc_layers > 0`) as an `EncDecModel`: a
+bidirectional encoder over stub source embeddings and a causal decoder
+that cross-attends to it, whose decode cache holds each decoder layer's
+self-attention K/V and its cross K/V (`cross`, written once from the
+encoder's output by `build_cross_cache`).
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import utils
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import sharding as shd
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import params as prm
@@ -60,7 +65,28 @@ F32_LEAVES = ("scale", "qnorm", "knorm", "wa", "ba", "wx", "bx", "lam",
 AUX_LOSSES = ("load_balance", "router_z")
 MOE_AUX_WEIGHT = 0.01
 
-PORTED_FAMILIES = ("dense", "vlm", "hybrid", "ssm", "moe")
+PORTED_FAMILIES = ("dense", "vlm", "hybrid", "ssm", "moe", "audio")
+
+
+def _run_groups(body, x, stacked, n: int, *args) -> tuple:
+    """`body(x, *args, *group leaves) -> (x, aux)` over `n` stacked groups
+    in order, each under `checkpoint` when there is more than one and
+    gradients are on (the reference's `jax.checkpoint` of its scan body).
+    `args` (tensors) and the leaves go in as inputs, so their gradients
+    flow through the recomputation.  Returns (x, each group's aux)."""
+    leaves, _ = utils.tree_flatten(stacked)
+    layers = [w.unbind(0) for w in leaves]
+    remat = n > 1 and torch.is_grad_enabled()
+    auxs = []
+    for i in range(n):
+        gleaves = [layer[i] for layer in layers]
+        if remat:
+            x, aux = checkpoint(body, x, *args, *gleaves,
+                                use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, aux = body(x, *args, *gleaves)
+        auxs.append(aux)
+    return x, auxs
 
 
 class Model(torch.nn.Module):
@@ -128,9 +154,7 @@ class Model(torch.nn.Module):
         S = x.shape[1]
         positions = torch.arange(S, device=x.device)
         table = L.rope_table(positions, cfg.hd, cfg.rope_theta, x.device)
-        leaves, treedef = utils.tree_flatten(params["groups"])
-        layers = [w.unbind(0) for w in leaves]
-
+        _, treedef = utils.tree_flatten(params["groups"])
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
 
         def block(p, t, x, aux):
@@ -148,17 +172,8 @@ class Model(torch.nn.Module):
                 x, aux = block(gp[f"b{j}_{t}"], t, x, aux)
             return x, aux
 
-        remat = self.n_groups > 1 and torch.is_grad_enabled()
-        auxs = []
-        for i in range(self.n_groups):
-            gleaves = [layer[i] for layer in layers]
-            if remat:
-                x, aux = checkpoint(group_body, x, *gleaves,
-                                    use_reentrant=False,
-                                    preserve_rng_state=False)
-            else:
-                x, aux = group_body(x, *gleaves)
-            auxs.append(aux)
+        x, auxs = _run_groups(group_body, x, params["groups"],
+                              self.n_groups)
         aux_total = sum(auxs, zero)
         for i, t in enumerate(self.tail):
             x, aux_total = block(params[f"tail{i}_{t}"], t, x, aux_total)
@@ -265,7 +280,7 @@ class Model(torch.nn.Module):
         specs = {"groups": {bk: specs_of(bk, leaves, True)
                             for bk, leaves in cache["groups"].items()}}
         for key, leaves in cache.items():
-            if key != "groups":
+            if key.startswith("tail"):
                 specs[key] = specs_of(key, leaves, False)
         return specs
 
@@ -293,12 +308,139 @@ class Model(torch.nn.Module):
         return logits, new_cache
 
 
+class EncDecModel(Model):
+    """Encoder-decoder (the seamless-m4t backbone): stub-embedded source
+    -> bidirectional encoder; token target -> causal decoder with cross
+    attention to the encoder's output.  `loss` is the decoder-only
+    model's (next-token CE and the z-term; no aux, no stub prefix)."""
+
+    def __init__(self, cfg: ModelConfig, mesh=None):
+        super().__init__(cfg, mesh)
+        self.enc_pattern = ("enc",)
+        self.n_enc_groups = cfg.enc_layers
+        self.pattern = ("dec_x",)
+        self.n_groups = cfg.n_layers
+        self.tail = ()
+
+    def param_defs(self) -> PyTree:
+        cfg = self.cfg
+        return {
+            "embed": L.embed_defs(cfg),
+            "enc_groups": prm.stacked({"b0_enc": B.block_defs(cfg, "enc")},
+                                      self.n_enc_groups),
+            "enc_norm": L.rmsnorm_defs(cfg.d_model, cfg),
+            "groups": prm.stacked({"b0_dec_x": B.block_defs(cfg, "dec_x")},
+                                  self.n_groups),
+            "final_norm": L.rmsnorm_defs(cfg.d_model, cfg),
+        }
+
+    def _stack(self, params, key, btype, x, n, enc_out=None):
+        """`n` stacked groups of one `btype` block over x, rope from the
+        positions 0..S-1; dec_x blocks cross-attend to `enc_out`."""
+        cfg = self.cfg
+        positions = torch.arange(x.shape[1], device=x.device)
+        table = L.rope_table(positions, cfg.hd, cfg.rope_theta, x.device)
+        _, treedef = utils.tree_flatten(params)
+        cross = () if enc_out is None else (enc_out,)
+
+        def body(x, *rest):
+            gp = utils.tree_unflatten(treedef, rest[len(cross):])
+            x, _ = B.apply_train(gp[key], btype, x, cfg,
+                                 positions=positions, rope_table=table,
+                                 enc_out=rest[0] if cross else None)
+            return x, None
+        return _run_groups(body, x, params, n, *cross)[0]
+
+    def encode(self, params, src_embeds) -> torch.Tensor:
+        """The source (B, S_src, D), cast to the compute dtype, through
+        the encoder stack and `enc_norm`."""
+        x = src_embeds.to(L.cdt(self.cfg))
+        x = self._stack(params["enc_groups"], "b0_enc", "enc", x,
+                        self.n_enc_groups)
+        return L.apply_rmsnorm(params["enc_norm"], x)
+
+    def hidden(self, params, batch) -> tuple:
+        enc_out = self.encode(params, batch["src_embeds"])
+        x = L.apply_embed(params["embed"], batch["tokens"], self.cfg)
+        x = self._stack(params["groups"], "b0_dec_x", "dec_x", x,
+                        self.n_groups, enc_out)
+        x = L.apply_rmsnorm(params["final_norm"], x)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def _cache_defs(self, batch: int, max_len: int, device=None) -> PyTree:
+        """The stacked self-attention cache and the cross K/V, (n_layers,
+        batch, max_len, n_kv, hd) in the compute dtype, zeros until a
+        prefill writes them."""
+        cfg = self.cfg
+        cache = super()._cache_defs(batch, max_len, device)
+        shape = (self.n_groups, batch, max_len, cfg.n_kv, cfg.hd)
+        cache["cross"] = {
+            n: torch.zeros(shape, dtype=L.cdt(cfg), device=device)
+            for n in ("k", "v")}
+        return cache
+
+    def cache_specs(self, batch: int, max_len: int, mesh=None) -> PyTree:
+        """The self cache's specs, and the cross K/V's: KV heads on
+        `model` when they divide it, else the source sequence."""
+        mesh = mesh or self.mesh
+        specs = super().cache_specs(batch, max_len, mesh)
+        tp = shd.axis_sizes(mesh).get("model", 1)
+        axes = ("layers",) + tuple(B.cache_logical_axes(self.cfg, "dec_x",
+                                                        tp)["k"])
+        shape = (self.n_groups, batch, max_len, self.cfg.n_kv, self.cfg.hd)
+        specs["cross"] = {n: shd.spec_for(mesh, axes, shape,
+                                          self.cfg.logical_overrides)
+                          for n in ("k", "v")}
+        return specs
+
+    def build_cross_cache(self, params, enc_out) -> dict:
+        """Each decoder layer's cross K/V of the encoder's output (the
+        prefill step): {"k", "v"} (n_layers, B, S_src, n_kv, hd), projected
+        a layer at a time into one buffer."""
+        xattn = params["groups"]["b0_dec_x"]["xattn"]
+        out = None
+        for i in range(self.n_groups):
+            k, v = attn_mod.project_kv(
+                utils.tree_map(lambda w: w[i], xattn), enc_out, self.cfg,
+                None, use_rope=False)
+            if out is None:
+                out = {n: t.new_empty((self.n_groups,) + tuple(t.shape))
+                       for n, t in (("k", k), ("v", v))}
+            out["k"][i], out["v"][i] = k, v
+        return out
+
+    def decode_step(self, params, token, cache, pos) -> tuple:
+        """token: (B,) ints; pos: an int.  Returns (logits (B, V) f32, new
+        cache).  The self cache is a fresh copy; the cross leaves are
+        returned as given, as the reference returns them: a step never
+        writes them, and no consumer writes a returned cache in place."""
+        cfg = self.cfg
+        pos = int(pos)
+        x = L.apply_embed(params["embed"], token[:, None], cfg)
+        at = B.decode_positions(pos, cfg, x.device)
+        groups = utils.tree_map(torch.clone, cache["groups"])
+        self_c, cross = groups["b0_dec_x"], cache["cross"]
+        for i in range(self.n_groups):
+            gp = utils.tree_map(lambda w: w[i],
+                                params["groups"]["b0_dec_x"])
+            x, _ = B.apply_decode(
+                gp, "dec_x", x, {n: leaf[i] for n, leaf in self_c.items()},
+                pos, cfg, at,
+                cross_cache={n: leaf[i] for n, leaf in cross.items()})
+        x = L.apply_rmsnorm(params["final_norm"], x)
+        logits = L.apply_unembed(params["embed"], x, cfg)[:, 0]
+        return logits, {"groups": groups, "cross": cross}
+
+
 def build_model(cfg: ModelConfig, mesh=None) -> Model:
-    """The model of `cfg`'s family; a family whose blocks are not ported
-    raises NotImplementedError and never falls back to another."""
+    """The model of `cfg`'s family: an `EncDecModel` when the config has
+    an encoder (`enc_layers > 0`), else the decoder-only `Model`; a family
+    the port does not know raises NotImplementedError and never falls
+    back to another."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; it "
-            "comes with slice S8c (the port builds "
-            f"{', '.join(PORTED_FAMILIES)} models)")
+            f"{cfg.name}: the {cfg.family!r} family is not ported (the "
+            f"port builds {', '.join(PORTED_FAMILIES)} models)")
+    if cfg.enc_layers > 0:
+        return EncDecModel(cfg, mesh)
     return Model(cfg, mesh)

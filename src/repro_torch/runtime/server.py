@@ -22,7 +22,11 @@ two copies of the cache a token.  The decode step builds the new cache in
 a fresh copy, so a pool-held cache is never written.
 
 Weights are cast to the compute dtype once, in `start`: the reference
-casts them inside every step, to the same bits.  The server runs on the
+casts them inside every step, to the same bits.  An encoder-decoder's
+cache opens with zero cross K/V, as the reference's: `start` encodes no
+source.  A caller writes them with one commit of the cache (bulk, on the
+synchronous engine); a step's footprint declares a time slot of them,
+which the step never writes (the rule above).  The server runs on the
 card unless the caller passes `device="cpu"`.
 """
 from __future__ import annotations

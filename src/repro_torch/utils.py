@@ -19,6 +19,7 @@ import dataclasses
 import math
 from typing import Any, Sequence
 
+import numpy as np
 import torch
 
 PyTree = Any
@@ -117,6 +118,12 @@ _U8_DTYPES = (torch.int8, torch.uint8)
 def _check(dtype) -> None:
     if dtype not in _U32_DTYPES + _U16_DTYPES + _U8_DTYPES:
         raise ValueError(f"unsupported dtype for word view: {dtype}")
+
+
+def words_per_elem(dtype) -> float:
+    """u32 words per element of `dtype` (fractional below 32 bits)."""
+    _check(dtype)
+    return dtype.itemsize / 4
 
 
 def num_words(shape: Sequence[int], dtype) -> int:
@@ -263,6 +270,63 @@ def tree_map(fn, tree: PyTree, *rest: PyTree) -> PyTree:
     leaves, treedef = tree_flatten(tree)
     others = [tree_flatten(t)[0] for t in rest]
     return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])
+
+
+def _host(x):
+    """A leaf as a numpy array on the host (bf16 as its 16-bit pattern)."""
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x)
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        x = x.view(torch.int16)
+    return x.numpy()
+
+
+def _dtype(x) -> str:
+    return str(x.dtype).replace("torch.", "")
+
+
+def tree_bytes(tree: PyTree) -> int:
+    """Total payload bytes of a pytree of tensors (meta ones included) or
+    arrays."""
+    return sum(math.prod(x.shape) * (x.element_size()
+                                     if isinstance(x, torch.Tensor)
+                                     else x.dtype.itemsize)
+               for x in tree_leaves(tree))
+
+
+def tree_equal_bits(a: PyTree, b: PyTree) -> bool:
+    """Bit-exact equality of two pytrees (on the host): the same leaf
+    count, and each pair of the same shape, dtype and bytes."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        if tuple(x.shape) != tuple(y.shape) or _dtype(x) != _dtype(y):
+            return False
+        if _host(x).tobytes() != _host(y).tobytes():
+            return False
+    return True
+
+
+def _paths(tree: PyTree, path: str = "") -> list:
+    """(key path, leaf) pairs in `tree_flatten`'s order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _paths(tree[k],
+                                                        f"{path}[{k!r}]")]
+    if type(tree) in (list, tuple):
+        return [p for i, t in enumerate(tree) for p in _paths(t,
+                                                             f"{path}[{i}]")]
+    return [] if tree is None else [(path, tree)]
+
+
+def fingerprint(tree: PyTree) -> int:
+    """A structural fingerprint for layout-compatibility checks: equal
+    for trees of the same key paths, shapes and dtypes, different when
+    any of them differs (a hash of strings: its value changes from one
+    process to the next)."""
+    return hash(tuple((path, tuple(x.shape), _dtype(x))
+                      for path, x in _paths(tree)))
 
 
 def abstract(tree: PyTree) -> PyTree:

@@ -371,3 +371,17 @@ def compile_cache(tmp_path_factory):
     yield
     for k, v in zip(_CACHE_KEYS, saved):
         jax.config.update(k, v)
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """For a module's tests, torch's CPU ops on one thread.  Under several
+    pytest workers sharing the cores, torch's intra-op threads wait on
+    each other, and a port server's r = 3, window 4 generation at
+    reduced width runs many times slower than on one thread (alone the
+    two are alike).  The setting comes back after the module.  Use with `pytestmark =
+    pytest.mark.usefixtures("one_thread")`."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)

@@ -40,6 +40,9 @@ from repro_torch.runtime import failure
 from tests._torch_ref import (assert_prot_same, jax_mesh, jax_specs,
                               port_specs, small_state_np, to_jax, to_torch,
                               zone_mesh)
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 E = ChaosEvent.make
 ROOT = pathlib.Path(__file__).resolve().parents[1]

@@ -29,6 +29,9 @@ from repro_torch.models import api
 from repro_torch.models.transformer import build_model
 from repro_torch.optim import build_optimizer
 from tests import _torch_ref as tr
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 CFG = dict(name="t_ckpt", family="dense", n_layers=2, d_model=32, n_heads=4,
            n_kv=2, d_ff=64, vocab=128, qk_norm=True)

@@ -8,6 +8,9 @@ import torch
 from repro.core import checksum as ref_ck
 from repro_torch.core import checksum as ck
 from tests._torch_ref import as_words, rand_u32, words
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.mark.parametrize("nb,bw", [(1, 64), (5, 64), (13, 1024)])

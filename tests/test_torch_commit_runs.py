@@ -31,6 +31,9 @@ from repro_torch.kernels import commit_fused as cf
 from repro_torch.kernels import fletcher as fl
 from repro_torch.kernels import ops
 from tests._torch_ref import as_words, check_outputs, rand_u32, words
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 K = fl.RUN_PAGES
 NS = [1, K - 1, K, K + 1, 2 * K + 3, 16]

@@ -27,6 +27,9 @@ from tests._torch_ref import (assert_prot_same, epoch_fields, jax_mesh,
                               jax_specs, key_words, port_specs,
                               small_state_np, stacked, state_like, to_jax,
                               to_torch, zone_mesh)
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 MESH_PAIRS = [(a, b) for a in ("mesh42", "mesh81", "mesh_pod")
               for b in ("mesh42", "mesh81", "mesh_pod") if a != b]

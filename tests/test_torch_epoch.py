@@ -17,6 +17,9 @@ from repro_torch.core import layout
 from repro_torch.core.scrub import Scrubber
 from tests._torch_ref import (EpochPair, epoch_fields, patched, state_like,
                               to_jax)
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _bulk_steps(ep, n, seed0=0):

@@ -13,6 +13,9 @@ from repro_torch.kernels import _build, ops
 from repro_torch.kernels import commit_fused as port_cf
 from repro_torch.kernels import xor_parity as port_xor
 from tests._torch_ref import as_words, check_outputs, rand_u32
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _accum_inputs(shape, seed):

@@ -23,6 +23,9 @@ from repro_torch.core import gf
 from repro_torch.dist.sharding import ZoneMesh
 from repro_torch.kernels import ops
 from tests._torch_ref import GF_SHAPES, as_words, rand_u32, words
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 SPECIAL = (0, 1, gf.POLY, 0xFFFFFFFF, 0x80000000, 0x80000001)
 

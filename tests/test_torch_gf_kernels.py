@@ -18,6 +18,9 @@ from repro_torch.dist.sharding import ZoneMesh
 from repro_torch.kernels import ops
 from tests._torch_ref import (GF_SHAPES, as_words, check_outputs, eq_words,
                               rand_u32, sweep_inputs, sweep_pages)
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.mark.parametrize("n,bw", GF_SHAPES)

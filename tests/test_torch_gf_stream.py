@@ -9,6 +9,9 @@ from repro.kernels import gf_parity as ref_gp
 from repro.kernels import ref
 from repro_torch.kernels import ops
 from tests._torch_ref import GF_SHAPES, check_outputs, sweep_inputs
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.mark.parametrize("n,bw", GF_SHAPES)

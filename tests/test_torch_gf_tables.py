@@ -20,6 +20,9 @@ from repro.kernels import ref
 from repro_torch.core import gf
 from repro_torch.kernels import gf_parity as gfk
 from tests._torch_ref import as_words, rand_u32, words
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 NAMED = {"zero": 0, "one": 1, "g": 2, "g^31": ref_gf.pow_g_int(31),
          "bit31": 0x80000000, "all_ones": 0xFFFFFFFF}

@@ -11,6 +11,9 @@ import torch
 
 from repro_torch import P, Pool, ProtectConfig, ZoneMesh
 from repro_torch.core.txn import Protector
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -136,35 +139,38 @@ def test_default_device_is_the_card(monkeypatch):
     "seamless-m4t-large-v2", "chameleon-34b", "recurrentgemma-2b",
     "xlstm-1.3b", "minitron-8b", "qwen2-0.5b", "glm4-9b", "qwen3-0.6b"])
 def test_build_model_holds_to_its_families(arch):
-    """The dense, vlm, hybrid, ssm and moe families build, each its own
-    pattern (the hybrid with its unstacked tail; xlstm 7 x mlstm + slstm;
-    moonshot ("moe",), maverick ("dense", "moe")); the encoder-decoder
-    audio family, whose blocks are not ported, raises NotImplementedError
-    naming its slice, for the published and the reduced config alike, and
-    no other family stands in."""
+    """Every family builds, each its own pattern (the hybrid with its
+    unstacked tail; xlstm 7 x mlstm + slstm; moonshot ("moe",), maverick
+    ("dense", "moe")); the audio family an `EncDecModel` of ("dec_x",)
+    behind its ("enc",) stack, 24 + 24 groups published; for the
+    published and the reduced config alike, and no other family stands
+    in.  No block type is held back for a later slice."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import blocks
-    from repro_torch.models.transformer import Model, build_model
+    from repro_torch.models.transformer import (EncDecModel, Model,
+                                                build_model)
     want = {"xlstm-1.3b": ("mlstm",) * 7 + ("slstm",),
             "moonshot-v1-16b-a3b": ("moe",),
             "llama4-maverick-400b-a17b": ("dense", "moe")}
     for reduced in (False, True):
         cfg = get_config(arch, reduced=reduced)
-        if cfg.family in ("dense", "vlm", "hybrid", "ssm", "moe"):
-            model = build_model(cfg)
-            assert type(model) is Model and model.pattern == cfg.pattern
-            assert model.tail == cfg.tail_pattern
-            if cfg.family in ("ssm", "moe") and not reduced:
-                assert model.pattern == want[arch] and model.tail == ()
-            assert cfg.family in ("hybrid", "ssm", "moe") or \
-                model.pattern == ("dense",)
+        model = build_model(cfg)
+        if cfg.family == "audio":
+            assert type(model) is EncDecModel and cfg.enc_layers > 0
+            assert model.pattern == ("dec_x",) and model.tail == ()
+            assert model.enc_pattern == ("enc",)
+            assert (model.n_enc_groups, model.n_groups) == (
+                (2, 2) if reduced else (24, 24))
             continue
-        with pytest.raises(NotImplementedError, match="S8c"):
-            build_model(cfg)
-    for btype in blocks.LATER:
-        with pytest.raises(NotImplementedError, match="S8c"):
-            blocks.block_defs(cfg, btype)
-    assert blocks.LATER == ("enc", "dec_x")
+        assert type(model) is Model and model.pattern == cfg.pattern
+        assert model.tail == cfg.tail_pattern
+        if cfg.family in ("ssm", "moe") and not reduced:
+            assert model.pattern == want[arch] and model.tail == ()
+        assert cfg.family in ("hybrid", "ssm", "moe") or \
+            model.pattern == ("dense",)
+    for btype in ("enc", "dec_x"):
+        assert blocks.block_defs(cfg, btype)["attn"]
+    assert not hasattr(blocks, "LATER")
 
 
 def test_model_plane_defaults_to_the_card(monkeypatch):

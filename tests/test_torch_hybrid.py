@@ -36,6 +36,9 @@ from repro_torch.models import api, blocks, rglru
 from repro_torch.models import params as prm
 from repro_torch.models.transformer import build_model
 from tests import _torch_ref as tr
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ARCH = "recurrentgemma-2b"
 F32_RTOL = 1e-5

@@ -42,6 +42,9 @@ from tests.test_torch_hybrid import (ARCH, BF16_RTOL, DTYPES, F32_RTOL, GRAD,
                                      same_grads)
 
 import chip_smoke
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 STEP_RTOL = 2 ** -5
 MODEL_F32 = 1e-4

@@ -37,6 +37,9 @@ from repro_torch.configs.base import ProtectConfig
 from repro_torch.core import layout
 from repro_torch.runtime.server import Server
 from tests import _torch_ref as tr
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 BATCH, MAX_LEN = 8, 24
 PROMPT, NEW = 6, 24            # to position 29: the ring of 24 wraps

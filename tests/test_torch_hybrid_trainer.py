@@ -14,6 +14,9 @@ import pytest
 from repro.runtime import failure as ref_failure
 from repro_torch.runtime import failure
 from tests.test_torch_trainer import Lockstep
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 T_HYB = dict(name="t_hyb", family="hybrid",

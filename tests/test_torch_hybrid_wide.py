@@ -7,6 +7,9 @@ each file runs in about a minute.
 import pytest
 
 from tests.test_torch_hybrid_runtime import check_server, served  # noqa: F401
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.mark.parametrize("window", [1, 4])

@@ -14,6 +14,9 @@ from repro_torch.kernels import commit_fused as port_cf
 from repro_torch.kernels import fletcher as port_fl
 from repro_torch.kernels import gf_parity as port_gf
 from tests._torch_ref import as_words, rand_u32, words
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 GEOMS = [(n, bw) for bw in (64, 1024) for n in (1, 3, 8, 13)]
 

@@ -19,6 +19,9 @@ from repro_torch.dist import sharding
 from tests._torch_ref import (MESHES, as_words, jax_mesh, jax_specs,
                               port_specs, rand_u32, small_state_np, to_jax,
                               to_torch, words, zone_mesh)
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 MESH_NAMES = list(MESHES)
 

@@ -40,6 +40,9 @@ from repro_torch.models.transformer import build_model
 from tests import _torch_ref as tr
 
 import chip_smoke
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 F32_RTOL = 1e-5
 BF16_RTOL = 2 ** -7

@@ -34,9 +34,9 @@ from repro_torch.models import moe
 from tests import _torch_ref as tr
 from tests.test_torch_hybrid import (BF16_RTOL, DTYPES, F32_RTOL, both, close,
                                      rand)
-from tests._torch_ref import compile_cache  # noqa: F401
+from tests._torch_ref import compile_cache, one_thread  # noqa: F401
 
-pytestmark = pytest.mark.usefixtures("compile_cache")
+pytestmark = pytest.mark.usefixtures("compile_cache", "one_thread")
 
 COMMON = dict(n_layers=4, d_model=64, n_heads=4, n_kv=2, d_ff=128, vocab=256,
               param_dtype="float32", compute_dtype="float32")

@@ -15,9 +15,9 @@ from tests import _torch_ref as tr
 from tests.test_torch_hybrid import (DTYPES, F32_RTOL, GRAD, close, rand,
                                      same_grads)
 from tests.test_torch_moe import cfgs, ffn_params
-from tests._torch_ref import compile_cache  # noqa: F401
+from tests._torch_ref import compile_cache, one_thread  # noqa: F401
 
-pytestmark = pytest.mark.usefixtures("compile_cache")
+pytestmark = pytest.mark.usefixtures("compile_cache", "one_thread")
 
 
 @pytest.fixture(autouse=True)

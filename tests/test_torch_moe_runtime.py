@@ -33,9 +33,9 @@ from tests import _torch_ref as tr
 from tests.test_torch_moe import COMMON, FAMILIES
 from tests.test_torch_ssm_runtime import Served, StateLockstep
 from tests.test_torch_trainer import TRAIN
-from tests._torch_ref import compile_cache  # noqa: F401
+from tests._torch_ref import compile_cache, one_thread  # noqa: F401
 
-pytestmark = pytest.mark.usefixtures("compile_cache")
+pytestmark = pytest.mark.usefixtures("compile_cache", "one_thread")
 
 ARCHS = ("moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b")
 

@@ -21,6 +21,9 @@ from repro_torch.runtime import failure
 from tests._torch_ref import (Pair, as_words, assert_prot_same, jax_mesh,
                               jax_specs, port_specs, state_like, to_jax,
                               to_torch, words, zone_mesh)
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _verdicts(out):

@@ -28,6 +28,9 @@ from repro_torch.core import redolog
 from repro_torch.data import synthetic
 from repro_torch.dist.sharding import P
 from repro_torch.optim import optimizers as opt
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 F32_RTOL = 1e-6
 BF16_RTOL = 2 ** -8

@@ -27,6 +27,9 @@ from repro_torch.runtime import failure
 from tests._torch_ref import (assert_prot_same, jax_mesh, jax_specs,
                               key_words, port_specs, small_state_np,
                               state_like, to_jax, to_torch, zone_mesh)
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 MESH = "mesh42"
 

@@ -19,6 +19,9 @@ from repro_torch import Fault, Pool, ProtectConfig
 from repro_torch.runtime import failure
 from tests._torch_ref import (assert_prot_same, jax_mesh, jax_specs,
                               port_specs, to_jax, to_torch, zone_mesh)
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 SPECS = {"w_fsdp": ("data", "model"), "w_tp": (None, "model"), "scale": ()}
 

@@ -12,6 +12,9 @@ from repro_torch import convert
 from repro_torch.runtime import failure
 from tests._torch_ref import (Pair, patched, ref_fields, state_like,
                               to_jax)
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _all_paths(pr, seed0=0, *, canary=True):

@@ -31,6 +31,9 @@ from repro_torch.core.scrub import Scrubber
 from repro_torch.runtime import failure
 from repro_torch.runtime.server import Server
 from tests import _torch_ref as tr
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 T_SRV = dict(name="t_srv", family="dense", n_layers=2, d_model=32,
              n_heads=4, n_kv=2, d_ff=64, vocab=128, param_dtype="float32",

@@ -40,9 +40,9 @@ from tests import _torch_ref as tr
 from tests.test_torch_hybrid import (BF16_RTOL, _spec_pairs, both, close,
                                      ref_params, same_grads)
 from tests.test_torch_xlstm import ARCH, STATE_BF16_RTOL, cfgs
-from tests._torch_ref import compile_cache  # noqa: F401
+from tests._torch_ref import compile_cache, one_thread  # noqa: F401
 
-pytestmark = pytest.mark.usefixtures("compile_cache")
+pytestmark = pytest.mark.usefixtures("compile_cache", "one_thread")
 
 MODEL_F32 = 1e-4
 STEP_RTOL = 2 ** -5

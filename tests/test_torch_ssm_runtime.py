@@ -38,9 +38,9 @@ from repro_torch.runtime.server import Server
 from tests import _torch_ref as tr
 from tests.test_torch_hybrid_runtime import record, replay, same_pool
 from tests.test_torch_trainer import Lockstep
-from tests._torch_ref import compile_cache  # noqa: F401
+from tests._torch_ref import compile_cache, one_thread  # noqa: F401
 
-pytestmark = pytest.mark.usefixtures("compile_cache")
+pytestmark = pytest.mark.usefixtures("compile_cache", "one_thread")
 
 ARCH = "xlstm-1.3b"
 BATCH, MAX_LEN = 8, 24

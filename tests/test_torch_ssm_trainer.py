@@ -10,9 +10,9 @@ import pytest
 from repro.runtime import failure as ref_failure
 from repro_torch.runtime import failure
 from tests.test_torch_ssm_runtime import ARCH, T_XL, StateLockstep
-from tests._torch_ref import compile_cache  # noqa: F401
+from tests._torch_ref import compile_cache, one_thread  # noqa: F401
 
-pytestmark = pytest.mark.usefixtures("compile_cache")
+pytestmark = pytest.mark.usefixtures("compile_cache", "one_thread")
 
 
 def test_trainer_steps_keep_the_pool_byte_equal():

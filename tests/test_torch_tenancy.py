@@ -35,6 +35,9 @@ from tests._torch_ref import (as_words, assert_prot_same, eq_words,
                               epoch_fields, jax_mesh, jax_specs, key_words,
                               port_specs, rand_u32, small_state_np,
                               state_like, to_jax, to_torch, zone_mesh)
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 MESH = "mesh42"
 

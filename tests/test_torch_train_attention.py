@@ -15,6 +15,9 @@ import torch
 
 from repro.models import attention as ref_attn
 from repro_torch.models import attention
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 F32_RTOL = 1e-5
 BF16_RTOL = 2 ** -7

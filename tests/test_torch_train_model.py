@@ -39,6 +39,9 @@ from repro_torch.models.transformer import build_model
 from repro_torch.optim import build_optimizer
 
 import chip_smoke
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 F32_RTOL = {"loss": 1e-6, "grad": 2e-5, "cos": 1 - 1e-9}
 BF16_RTOL = {"loss": 1e-4, "grad": 2 ** -5, "cos": 0.999}

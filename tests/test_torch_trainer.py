@@ -40,6 +40,9 @@ from repro_torch.launch import train as launch_train
 from repro_torch.runtime import failure
 from repro_torch.runtime.trainer import Trainer
 from tests import _torch_ref as tr
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 T_TRAIN = dict(name="t_train", family="dense", n_layers=2, d_model=32,
                n_heads=4, n_kv=2, d_ff=64, vocab=128, param_dtype="float32",

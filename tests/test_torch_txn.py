@@ -14,6 +14,9 @@ from repro.runtime import failure as ref_failure
 from repro_torch.runtime import failure
 from tests._torch_ref import Pair, assert_prot_same, patched, state_like, \
     to_jax
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.mark.parametrize("mesh_name", ["mesh42", "mesh_pod"])

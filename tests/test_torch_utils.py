@@ -9,6 +9,9 @@ import torch
 from repro import utils as ref_utils
 from repro_torch import convert, utils
 from tests._torch_ref import words
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 DTYPES = ["float32", "int32", "uint32", "bfloat16", "float16", "int16",
           "uint16", "int8", "uint8"]

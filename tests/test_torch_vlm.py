@@ -32,6 +32,9 @@ from repro_torch.models.transformer import Model, build_model
 from tests import _torch_ref as tr
 
 import chip_smoke
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ARCH = "chameleon-34b"
 DTYPES = ("float32", "bfloat16")

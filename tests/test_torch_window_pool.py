@@ -20,6 +20,9 @@ from tests._torch_ref import (epoch_fields, jax_mesh, jax_specs, key_words,
                               port_specs, to_jax, to_torch, zone_mesh)
 from tests.test_torch_pool import (SPECS, Pools, _doubled, _quickstart_state,
                                    _report)
+from tests._torch_ref import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 class WindowPools(Pools):

@@ -32,9 +32,9 @@ from repro_torch.models import xlstm
 from tests import _torch_ref as tr
 from tests.test_torch_hybrid import (BF16_RTOL, DTYPES, F32_RTOL, both, close,
                                      rand, ref_params)
-from tests._torch_ref import compile_cache  # noqa: F401
+from tests._torch_ref import compile_cache, one_thread  # noqa: F401
 
-pytestmark = pytest.mark.usefixtures("compile_cache")
+pytestmark = pytest.mark.usefixtures("compile_cache", "one_thread")
 
 ARCH = "xlstm-1.3b"
 STATE_BF16_RTOL = 2 ** -6

@@ -19,9 +19,9 @@ from tests import _torch_ref as tr
 from tests.test_torch_hybrid import (DTYPES, F32_RTOL, GRAD, both, close,
                                      rand, ref_params, same_grads)
 from tests.test_torch_xlstm import (STATE_BF16_RTOL, cfgs, op_by_op, rtol)
-from tests._torch_ref import compile_cache  # noqa: F401
+from tests._torch_ref import compile_cache, one_thread  # noqa: F401
 
-pytestmark = pytest.mark.usefixtures("compile_cache")
+pytestmark = pytest.mark.usefixtures("compile_cache", "one_thread")
 
 
 @pytest.fixture(autouse=True)
