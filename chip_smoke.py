@@ -279,14 +279,32 @@
    (650,551,296 parameters; both stacks checkpointed), seq 4096 source
    and target x batch 2, (4, 2), AdamW with f32 moments (a 7.81 GB
    state): the phases of xt.
-19. After each phase the invariants are recomputed apart from the engine:
+19. The examples on the card (ex): examples/torch_quickstart.py in full,
+   then the --smoke passes of torch_serve_protected (its faulted
+   generation equal to its clean one), torch_train_fault_tolerant (at
+   r = 1 and at --redundancy 3: a scribble, a rank loss or three, a canary
+   abort, a crash and its replay) and torch_elastic_rescale, each on the
+   card with its own asserts.
+20. The dry run (dr): (a) `repro_torch.launch.dryrun` traces qwen3-0.6b's
+   train_4k, prefill_32k and decode_32k cells at full size on the 16 x 16
+   mesh on meta tensors, in a process of its own started with the run
+   (the CPU's work beside the card's), each record printed; (b) one
+   protected serving step at sv's shapes (batch 16, max_len 2048, (4, 2),
+   block_words 256) run on the card under the cost mode and traced on
+   meta: flops, bytes, launches and the kernels' records equal, and the
+   card's allocation growth over the step at least the meta peak.
+21. The cross-pod compressed mean (cm): qwen3-0.6b's gradients at full
+   width (2.38 GB f32, random from SEED) on a (2, 4, 2) pod mesh with the
+   parameters' specs, on the card; the embedding's and the stacked
+   attention's leaves byte-equal to the same call on the CPU.
+22. After each phase the invariants are recomputed apart from the engine:
    every syndrome plane k = XOR over ranks i of g^(k·i)·row_i, built rank by
    rank with the plain GF multiply; cksums = Fletcher terms of the rows;
    digest = combine(cksums); row = flatten(state).  Inside a window: the
    checksums and digest are the live rows'; the stack is the epoch start's;
    the bulk engine's accumulator is row_start ^ row_now, and the patch
    engine's row is pinned at the epoch start, its live row the live rows.
-20. Each path's kernel launches (every count zeroed just before the path,
+23. Each path's kernel launches (every count zeroed just before the path,
    read just after); every entry point of the path must have run.  Peak
    device memory of each path; the host ms of each async dispatch.
 
@@ -294,6 +312,7 @@ Every phase raises on failure.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 import collections
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -303,6 +322,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -329,18 +349,6 @@ WP_PAGES = 33                  # w_tp's pages a rank, the wp path's dirty set
 FLUSH_SLOTS = WP_PAGES + 1     # pages its flush gathers (+ one fill slot)
 SEED = 0
 
-# Integer ops a word of each function, for its operation bound.  Fletcher
-# (A, B) of a word: an add, a multiply, an add (3); the XOR delta adds 1.
-# The GF(2^32) product by a constant c in its cheapest known form, the
-# byte-table multiply: c·x = T0[x & 255] ^ T1[(x >> 8) & 255] ^ ... with
-# four 256-entry tables of c·(b << 8j), so 4 lookups and 3 XORs (7) a word
-# for each weighted plane (plane 0 is the raw delta, g^0 = 1).  The byte
-# selects are not counted, so this is a floor.  Even timed at the shared
-# memory's 32 lanes an SM a clock, the lookups of an r = 3 sweep take a
-# sixth of its bytes bound: the bytes bind every GF function.
-GF_TABLE_OPS = 7
-
-
 # The cost of the 32-step multiply, reported beside the bound and not a
 # bound: 32 steps of acc ^= cur & bit mask; cur = (cur << 1) ^ (sign mask &
 # POLY).  Compiled into a sweep it forms the doubling chain cur = x·g^i
@@ -355,67 +363,45 @@ def clmul_ops(planes):
 
 
 
-def no_gf(r):
-    return 0
-
-
-def weighted(r):
-    return r - 1
-
-
 CUDA = "src/repro_torch/kernels/csrc/"
-KERNELS = {   # entry point: (CUDA source, TPU kernel replaced, ops a word
-    #                besides the GF multiply, weighted planes(r))
+KERNELS = {   # entry point: (CUDA source, TPU kernel replaced)
     "fletcher_blocks": (CUDA + "fletcher.cu",
-                        "src/repro/kernels/fletcher.py:38", 3, no_gf),
+                        "src/repro/kernels/fletcher.py:38"),
     "fletcher_stream": (CUDA + "fletcher.cu",
-                        "src/repro/kernels/fletcher.py:82", 3, no_gf),
+                        "src/repro/kernels/fletcher.py:82"),
     "fused_commit": (CUDA + "commit_fused.cu",
-                     "src/repro/kernels/commit_fused.py:83", 4, no_gf),
+                     "src/repro/kernels/commit_fused.py:83"),
     "fused_verify_commit": (CUDA + "commit_fused.cu",
-                            "src/repro/kernels/commit_fused.py:103", 7,
-                            no_gf),
+                            "src/repro/kernels/commit_fused.py:103"),
     "fused_commit_old_terms": (CUDA + "commit_fused.cu",
-                               "src/repro/kernels/commit_fused.py:103", 7,
-                               no_gf),
+                               "src/repro/kernels/commit_fused.py:103"),
     "fused_verify_commit_stream": (CUDA + "commit_fused.cu",
-                                   "src/repro/kernels/commit_fused.py:393",
-                                   7, no_gf),
+                                   "src/repro/kernels/commit_fused.py:393"),
     "fused_commit_stream": (CUDA + "commit_fused.cu",
-                            "src/repro/kernels/commit_fused.py:377", 4,
-                            no_gf),
+                            "src/repro/kernels/commit_fused.py:377"),
     "fused_commit_old_terms_stream": (CUDA + "commit_fused.cu",
-                                      "src/repro/kernels/commit_fused.py:393",
-                                      7, no_gf),
-    "gf_scale": (CUDA + "gf_parity.cu", "src/repro/kernels/gf_parity.py:83",
-                 0, lambda r: 1),
+                                      "src/repro/kernels/commit_fused.py:393"),
+    "gf_scale": (CUDA + "gf_parity.cu", "src/repro/kernels/gf_parity.py:83"),
     "sdelta_stack": (CUDA + "gf_parity.cu",
-                     "src/repro/kernels/gf_parity.py:224", 0, weighted),
+                     "src/repro/kernels/gf_parity.py:224"),
     "fused_commit_s": (CUDA + "gf_parity.cu",
-                       "src/repro/kernels/gf_parity.py:151", 4, weighted),
+                       "src/repro/kernels/gf_parity.py:151"),
     "fused_verify_commit_s": (CUDA + "gf_parity.cu",
-                              "src/repro/kernels/gf_parity.py:151", 7,
-                              weighted),
+                              "src/repro/kernels/gf_parity.py:151"),
     "fused_commit_old_terms_s": (CUDA + "gf_parity.cu",
-                                 "src/repro/kernels/gf_parity.py:151", 7,
-                                 weighted),
+                                 "src/repro/kernels/gf_parity.py:151"),
     "fused_commit_s_stream": (CUDA + "gf_parity.cu",
-                              "src/repro/kernels/gf_parity.py:311", 4,
-                              weighted),
+                              "src/repro/kernels/gf_parity.py:311"),
     "fused_verify_commit_s_stream": (CUDA + "gf_parity.cu",
-                                     "src/repro/kernels/gf_parity.py:311", 7,
-                                     weighted),
-    # acc ^ old ^ new (2) + the Fletcher terms of old and of new (3 + 3)
+                                     "src/repro/kernels/gf_parity.py:311"),
     "fused_accum_commit": (CUDA + "commit_fused.cu",
-                           "src/repro/kernels/commit_fused.py:185", 8,
-                           no_gf),
+                           "src/repro/kernels/commit_fused.py:185"),
     "fused_accum_commit_stream": (CUDA + "commit_fused.cu",
-                                  "src/repro/kernels/commit_fused.py:436", 8,
-                                  no_gf),
-    "xor_delta": (CUDA + "xor_parity.cu", "src/repro/kernels/xor_parity.py:41",
-                  1, no_gf),
-    "xor_accum": (CUDA + "xor_parity.cu", "src/repro/kernels/xor_parity.py:41",
-                  1, no_gf),
+                                  "src/repro/kernels/commit_fused.py:436"),
+    "xor_delta": (CUDA + "xor_parity.cu",
+                  "src/repro/kernels/xor_parity.py:41"),
+    "xor_accum": (CUDA + "xor_parity.cu",
+                  "src/repro/kernels/xor_parity.py:41"),
 }
 # the one PyTorch call that computes the same function, where there is one
 # (timed beside the kernel as its yardstick; the port never calls it)
@@ -553,38 +539,6 @@ def entry_calls(old, new, stored, coeffs, scale_x):
     }
 
 
-def io_bytes(name, n_pages, ranks, r, scale_words):
-    """Bytes the function must move: each input read once, each output
-    written once (terms 8 B a page, bad 1 B a page, digest 8 B a rank, the
-    coefficient table 4 B a rank a plane)."""
-    page = BW * 4
-    if name == "gf_scale":
-        return 2 * scale_words * 4
-    if name.startswith("xor"):
-        return 3 * n_pages * page                         # a, b, out
-    if "accum" in name:
-        # acc, old, new read; acc' written; old and new terms written
-        return (4 * n_pages * page + 2 * n_pages * 8
-                + (ranks * 8 if name.endswith("stream") else 0))
-    if name == "sdelta_stack":
-        return n_pages * page * (1 + r) + ranks * r * 4
-    syndrome = name.endswith("_s") or name.endswith("_s_stream")
-    reads = n_pages * page * (1 if name.startswith("fletcher") else 2)
-    writes = n_pages * 8                                  # new terms
-    if name.startswith("fused"):
-        writes += n_pages * page * (r if syndrome else 1)  # delta planes
-    if syndrome:
-        reads += ranks * r * 4                            # coefficients
-    if "verify" in name:
-        reads += n_pages * 8                              # stored terms
-        writes += n_pages                                 # bad
-    if "old_terms" in name:
-        writes += n_pages * 8                             # old terms
-    if name.endswith("stream"):
-        writes += ranks * 8                               # digest
-    return reads + writes
-
-
 def max_abs_err(got, want):
     err = 0
     check(len(got) == len(want), f"{len(got)} outputs vs {len(want)}")
@@ -691,6 +645,7 @@ def coeff_table(lead, r, dev):
 
 
 def kernels_vs_plain(dev):
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import ops
     from repro_torch.kernels.fletcher import fletcher_pages_plain
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -726,12 +681,13 @@ def kernels_vs_plain(dev):
                       f"plain (err {err})")
                 if main:
                     n_pages = old.numel() // BW
-                    nbytes = io_bytes(name, n_pages, G, r, scale_x.numel())
                     words = (scale_x.numel() if name == "gf_scale"
                              else old.numel())
-                    base, planes = KERNELS[name][2], KERNELS[name][3](r)
-                    ops_n = (base + GF_TABLE_OPS * planes) * words
-                    algo_n = (base + clmul_ops(planes)) * words
+                    nbytes = kcost.io_bytes(name, words, n_pages, G, r)
+                    planes = kcost.weighted_planes(name, r)
+                    ops_n = kcost.int_ops(name, words, r)
+                    algo_n = ((kcost.BASE_OPS[name] + clmul_ops(planes))
+                              * words)
                     bound_b = nbytes / HBM_BYTES_PER_S * 1e3
                     bound_o = ops_n / INT32_OPS_PER_S * 1e3
                     bound = max(bound_b, bound_o)
@@ -1002,6 +958,7 @@ def at_patch_shape(pages, dev):
     time of back-to-back launches over an L2-cold ring of input sets
     (device_ms)."""
     from repro_torch.kernels import commit_fused as cf
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import gf_parity as gfk
     from repro_torch.kernels import ops
     from repro_torch.kernels.fletcher import fletcher_pages_plain
@@ -1033,7 +990,7 @@ def at_patch_shape(pages, dev):
             lambda o, n, s: ops.fused_commit_old_terms(o, n),
             lambda o, n, s: cf.commit_pages_plain(o, n, old_terms=True))}
     for name, (kernel, plain) in calls.items():
-        nbytes = io_bytes(name, n_pages, G, R, 0)
+        nbytes = kcost.io_bytes(name, n_pages * BW, n_pages, G, R)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         syndrome = name.endswith("_s")
         row = dict(
@@ -4431,11 +4388,199 @@ def encdec_training_path(dev):
         RT_LOSS_AT, lambda: hybrid_params(cfg, dev), PATH_ET))
 
 
+# -- the tooling: the examples, the dry run, the compressed mean -------------
+
+PATH_EX = ("fletcher_blocks", "fletcher_stream", "fused_commit",
+           "sdelta_stack", "gf_scale")
+EXAMPLES = (("quickstart", "torch_quickstart", []),
+            ("serve", "torch_serve_protected", ["--smoke"]),
+            ("train", "torch_train_fault_tolerant", ["--smoke"]),
+            ("train_r3", "torch_train_fault_tolerant",
+             ["--smoke", "--redundancy", "3"]),
+            ("elastic", "torch_elastic_rescale", ["--smoke"]))
+DR_ARCH = "qwen3-0.6b"           # the dry run's cells, at full size
+DR_TIMEOUT_S = 900               # the meta trace's process, at most
+DR_POS = 32                      # dr b's decode position (sv's after prefill)
+CM_MESH = (2, 4, 2)              # pod x data x model
+
+
+def example(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(HERE, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_path(dev):
+    """The four examples' main(), each on the card with its own asserts;
+    the train example's checkpoints in a directory removed after."""
+    import tempfile
+    run = PathRun(dev, "ex")
+    for tag, name, argv in EXAMPLES:
+        with tempfile.TemporaryDirectory() as ckpt:
+            extra = (["--ckpt-dir", ckpt] if name.startswith("torch_train")
+                     else [])
+            run.phase(tag, lambda: example(name).main(
+                argv + extra + ["--device", dev.type]), inv=nothing)
+    return run.end(PATH_EX)
+
+
+def dryrun_start(out_dir):
+    """The dry run's cells of DR_ARCH on meta, in a process of its own."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    out = os.path.join(out_dir, "dryrun.json")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         DR_ARCH, "--mesh", "single", "--out", out], env=env, cwd=out_dir,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, out, time.perf_counter()
+
+
+def sv_step_costs(dev):
+    """dr b: one protected serving step at sv's shapes on the card under
+    the cost mode, and the same step traced on meta."""
+    from repro_torch import ProtectConfig, utils
+    from repro_torch.launch import cost, dryrun
+    from repro_torch.pool import Pool
+    from repro_torch.models.transformer import build_model
+    cfg, mesh, params, prompt = sv_model(dev)
+    model = build_model(cfg, mesh)
+    cache_abs = model.init_cache(SV_BATCH, SV_MAX_LEN, device="meta")
+    specs = model.cache_specs(SV_BATCH, SV_MAX_LEN, mesh)
+    # a cold pool a device: the layout, the programs, the zone views
+    pool, meta_pool = (Pool(mesh, cache_abs, specs,
+                            ProtectConfig(block_words=SV_BW), device=d)
+                       for d in (dev, "meta"))
+    params = model.compute_params(params)
+    token = prompt[:, 0]
+    prot = pool.protector.init(pool.to_zone(
+        model.init_cache(SV_BATCH, SV_MAX_LEN, dev)))
+    step = dryrun.protected_serve_step(model, pool, SV_MAX_LEN, DR_POS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    with cost.CostMode() as card:
+        prot2, tok, ok = step(params, token, prot)
+        torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    growth = torch.cuda.max_memory_allocated(dev) - base
+    check(bool(ok) and 0 <= int(tok.min()) and int(tok.max()) < cfg.vocab,
+          f"dr b: the step on the card: ok {bool(ok)}, tokens {tok}")
+    del prot2, tok, ok
+    # the same step warm, without and with the cost mode: what counting
+    # costs the host when it is on
+    warm = {}
+    for tag, mode in (("off", None), ("on", cost.CostMode)):
+        with (mode() if mode else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            step(params, token, prot)
+            torch.cuda.synchronize()
+        warm[tag] = (time.perf_counter() - t0) * 1e3
+    del prot
+    meta_args = (utils.tree_map(lambda p: torch.empty(
+        p.shape, dtype=p.dtype, device="meta"), params),
+        torch.empty_like(token, device="meta"),
+        meta_pool.protector.abstract_protected(cache_abs))
+    step = dryrun.protected_serve_step(model, meta_pool, SV_MAX_LEN, DR_POS)
+    t0 = time.perf_counter()
+    with cost.CostMode() as meta:
+        step(*meta_args)
+    meta_ms = (time.perf_counter() - t0) * 1e3
+    a, b = card.record(), meta.record()
+    emit(path="dr", phase="b_serve_step", arch=cfg.name, batch=SV_BATCH,
+         max_len=SV_MAX_LEN, mesh=list(SV_MESH), pos=DR_POS, card=a, meta=b,
+         card_ms=card_ms, warm_ms=warm["off"], warm_counted_ms=warm["on"],
+         meta_trace_ms=meta_ms, card_growth_bytes=growth,
+         growth_over_meta_peak=growth / b["peak_bytes"])
+    for k in ("flops", "mm_flops", "hbm_bytes", "ops", "launches",
+              "kernels", "wire_bytes", "wire_counts"):
+        check(a[k] == b[k], f"dr b: {k} on the card {a[k]} != on meta {b[k]}")
+    check(growth >= b["peak_bytes"] > 0, f"dr b: the card's growth {growth} "
+          f"under the meta peak {b['peak_bytes']}")
+
+
+def dryrun_path(dev, proc, out, t0):
+    """dr a: the meta cells' records (the process started with the run);
+    dr b: `sv_step_costs`."""
+    run = PathRun(dev, "dr")
+    try:
+        log, _ = proc.communicate(timeout=max(
+            1, DR_TIMEOUT_S - (time.perf_counter() - t0)))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    print(log, end="", flush=True)
+    check(proc.returncode == 0, f"dr a: the dry run exited {proc.returncode}")
+    with open(out) as f:
+        recs = json.load(f)
+    check([r["status"] for r in recs] == ["ok", "ok", "ok", "skip"],
+          f"dr a: {[(r['workload'], r['status']) for r in recs]}")
+    for r in recs:
+        emit(path="dr", phase="a_cell", record=r)
+    emit(path="dr", phase="a_wall", ms=(time.perf_counter() - t0) * 1e3,
+         note="the meta trace's process, beside the card's paths")
+    run.phase("b_serve_step_card_vs_meta", lambda: sv_step_costs(dev),
+              inv=nothing)
+    return run.end(("fused_commit",))
+
+
+def crosspod_path(dev):
+    """cm: the compressed mean of qwen3-0.6b's gradients at full width on
+    the card, its embedding's and stacked attention's leaves byte-equal
+    to the same call on the CPU."""
+    from repro_torch import ZoneMesh, utils
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import params as prm
+    from repro_torch.models.transformer import build_model
+    from repro_torch.optim.compress import (init_error_feedback,
+                                            make_crosspod_compressed_mean)
+    run = PathRun(dev, "cm")
+    cfg = get_config(SV_ARCH, reduced=SV_REDUCED)
+    mesh = ZoneMesh(CM_MESH, ("pod", "data", "model"))
+    model = build_model(cfg, mesh)
+    specs = model.param_specs(mesh)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    grads = prm._map(lambda d: torch.randn(
+        d.shape, device=dev, generator=gen) * 1e-3, model.param_defs())
+    ef = init_error_feedback(grads)
+    nbytes = sum(g.numel() * 4 for g in utils.tree_leaves(grads))
+    f = make_crosspod_compressed_mean(mesh, specs)
+    out, new_ef = run.phase("a_card", lambda: f(grads, ef), inv=nothing)[0]
+    check(all(bool(torch.isfinite(t).all()) for t in utils.tree_leaves(out)),
+          "cm: a non-finite mean")
+    subset = {"embed": grads["embed"], "attn": grads["groups"]["b0_dense"][
+        "attn"]}
+    sub_specs = {"embed": specs["embed"], "attn": specs["groups"][
+        "b0_dense"]["attn"]}
+    host = utils.tree_map(lambda t: t.cpu(), subset)
+    t0 = time.perf_counter()
+    want, want_ef = make_crosspod_compressed_mean(mesh, sub_specs)(
+        host, init_error_feedback(host))
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    got = {"embed": out["embed"], "attn": out["groups"]["b0_dense"]["attn"]}
+    got_ef = {"embed": new_ef["embed"],
+              "attn": new_ef["groups"]["b0_dense"]["attn"]}
+    pairs = list(zip(utils.tree_leaves(got) + utils.tree_leaves(got_ef),
+                     utils.tree_leaves(want) + utils.tree_leaves(want_ef)))
+    equal = all(torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+                for a, b in pairs)
+    emit(path="cm", phase="b_card_vs_cpu", mesh=list(CM_MESH),
+         grad_bytes=nbytes, leaves_checked=len(pairs) // 2,
+         bytes_checked=sum(b.numel() * 4 for _, b in pairs) // 2,
+         cpu_ms=cpu_ms, equal=equal)
+    check(equal, "cm: the card's mean or error feedback != the CPU's")
+    return run.end(())
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import _build
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4443,10 +4588,30 @@ def main():
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
 
-    t0 = time.perf_counter()
-    _build.build()
-    emit(phase="build", ms=(time.perf_counter() - t0) * 1e3,
-         sources=list(_build.SOURCES))
+    scratch = tempfile.TemporaryDirectory()
+    dr = dryrun_start(scratch.name)
+    try:
+        t0 = time.perf_counter()
+        _build.build()
+        emit(phase="build", ms=(time.perf_counter() - t0) * 1e3,
+             sources=list(_build.SOURCES))
+        rows = run_paths(dev, dr)
+    finally:
+        if dr[0].poll() is None:
+            dr[0].kill()
+            dr[0].wait()
+        scratch.cleanup()
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def run_paths(dev, dr):
+    """The kernels against their plain versions, every path, and the
+    kernels line's rows."""
+    from repro_torch.kernels import ops
 
     drivers = {"r1": main_path, "r3": main_path_r3,
                "w3": window_path_w3, "w1f": window_path_w1f,
@@ -4459,7 +4624,10 @@ def main():
                "rt": hybrid_training_path, "vl": vlm_path,
                "xs": xlstm_serving_path, "xt": xlstm_training_path,
                "mo": moe_serving_path, "mt": moe_step_path,
-               "es": encdec_serving_path, "et": encdec_training_path}
+               "es": encdec_serving_path, "et": encdec_training_path,
+               "ex": examples_path,
+               "dr": lambda d: dryrun_path(d, *dr),
+               "cm": crosspod_path}
     timing = kernels_vs_plain(dev)
     paths = {name: fn(dev) for name, fn in drivers.items()}
     rows = []
@@ -4485,11 +4653,7 @@ def main():
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"],
             library_device_ms=t["library_device_ms"]))
-    print(json.dumps({"kernels": rows}), flush=True)
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    return rows
 
 
 if __name__ == "__main__":

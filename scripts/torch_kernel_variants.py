@@ -77,6 +77,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
+from repro_torch.kernels import cost as kcost  # noqa: E402
 
 CSRC = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc")
 # the bodies of xor_parity.cu's load(p) and store(p, v) for each hint
@@ -314,7 +315,8 @@ def commit_runs(tmp, pages, stream, dev, ctl, quick):
             print(json.dumps({
                 "kernel": "commit_pages", "entry": entry,
                 "shape": list(shape), "ring": len(sets),
-                "bound_ms": cs.io_bytes(entry, n_pages, cs.G, 1, 0)
+                "bound_ms": kcost.io_bytes(entry, n_pages * bw, n_pages,
+                                           cs.G, 1)
                 / cs.HBM_BYTES_PER_S * 1e3,
                 "variants": [{"variant": k, "ms": v}
                              for k, v in ms.items()]}), flush=True)
@@ -405,7 +407,8 @@ def syndrome_runs(tmp, pages, stream, dev, ctl, quick):
             print(json.dumps({
                 "kernel": "syndrome_pages", "entry": entry, "r": r,
                 "shape": list(shape), "ring": len(sets),
-                "bound_ms": cs.io_bytes(entry, n_pages, cs.G, r, 0)
+                "bound_ms": kcost.io_bytes(entry, n_pages * bw, n_pages,
+                                           cs.G, r)
                 / cs.HBM_BYTES_PER_S * 1e3,
                 "variants": [{"variant": k, "ms": v}
                              for k, v in ms.items()]}), flush=True)
@@ -449,7 +452,8 @@ def fletcher_runs(tmp, pages, stream, dev, ctl, quick):
             print(json.dumps({
                 "kernel": "fletcher_pages", "entry": entry,
                 "shape": list(shape), "ring": len(sets),
-                "bound_ms": cs.io_bytes(entry, n_pages, cs.G, 1, 0)
+                "bound_ms": kcost.io_bytes(entry, n_pages * bw, n_pages,
+                                           cs.G, 1)
                 / cs.HBM_BYTES_PER_S * 1e3,
                 "variants": [{"variant": k, "ms": v}
                              for k, v in ms.items()]}), flush=True)

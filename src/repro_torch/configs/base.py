@@ -3,7 +3,8 @@ model's architecture numbers, `TrainConfig` the optimizer and step
 settings (copied field for field, `remat`, `z_loss` and
 `grad_compression` included, though the reference reads none of them),
 `ProtectConfig` the single protection knob, validated as the reference
-validates it.
+validates it.  `WORKLOADS` are the dry run's input-shape cells and
+`workload_skips` names the cells an architecture cannot run.
 
 Every architecture has a `repro_torch/configs/<id>.py` exporting `CONFIG`
 (the published configuration) and `reduced()` (a small same-family variant
@@ -89,6 +90,27 @@ class ModelConfig:
         at top_k of num_experts."""
         from repro_torch.models import api
         return api.count_params(self, active_only=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class Workload:
+    """One input-shape cell of the dry run."""
+    name: str                 # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str                 # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+WORKLOADS = {
+    "train_4k": Workload("train_4k", "train", 4096, 256),
+    "prefill_32k": Workload("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": Workload("decode_32k", "decode", 32768, 128),
+    "long_500k": Workload("long_500k", "decode", 524288, 1),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,3 +240,11 @@ class ProtectConfig:
                 f"ProtectConfig.straggler_threshold="
                 f"{self.straggler_threshold} — a positive ratio, or 0 to "
                 "disable straggler mitigation")
+
+
+def workload_skips(cfg: ModelConfig, wl: Workload) -> Optional[str]:
+    """Reason string if this (arch, workload) cell is skipped, else None."""
+    if wl.name == "long_500k" and not cfg.subquadratic:
+        return ("pure full-attention architecture: 524k-token decode requires "
+                "sub-quadratic attention (see DESIGN.md §4)")
+    return None

@@ -72,7 +72,8 @@ def patch_syndrome_delta(synd: torch.Tensor, sdelta_pages: torch.Tensor,
     bw = layout.block_words
     pps = layout.seg_words // bw
     g = synd.shape[dim]
-    patch = coll.xor_fold(sdelta_pages, dim).movedim(-2, 0)  # (k, *Mo, r, bw)
+    # (k, *Mo, r, bw)
+    patch = coll.xor_reduce(sdelta_pages, dim).movedim(-2, 0)
     owner = page_idx // pps
     local = page_idx % pps
     seg_pages = synd.reshape(*synd.shape[:-1], pps, bw).movedim(dim, 0)

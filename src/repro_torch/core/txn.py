@@ -44,7 +44,8 @@ from repro_torch.core import layout as layout_mod
 from repro_torch.core import parity as parity_mod
 from repro_torch.core import redolog
 from repro_torch.dist import collectives as coll
-from repro_torch.dist.sharding import ZoneMesh
+from repro_torch.dist import sharding as shd
+from repro_torch.dist.sharding import P, ZoneMesh
 from repro_torch.kernels import ops as kops
 
 PyTree = Any
@@ -186,7 +187,7 @@ class Protector:
         self._programs: dict = {}
         self._coeff_tables: dict = {}
 
-    # -- zone helpers -----------------------------------------------------------
+    # -- zone helpers ---------------------------------------------------------
 
     @property
     def data_dim(self) -> int:
@@ -212,6 +213,7 @@ class Protector:
 
     def _zone_all(self, ok: torch.Tensor) -> torch.Tensor:
         """AND over each zone's ranks, back on every device (the `pmin`)."""
+        coll.note_all_reduce(ok, self.group_size, 4)
         return ok.all(dim=self.data_dim, keepdim=True).expand(self.mesh.shape)
 
     def _zone_clean(self, ok: torch.Tensor, bad: torch.Tensor) -> torch.Tensor:
@@ -224,7 +226,65 @@ class Protector:
         of a replicated output."""
         return x.reshape(-1, *x.shape[n_axes:])[0]
 
-    # -- streaming policy -------------------------------------------------------
+    # -- sharding helpers (the dry run's abstract inputs) ---------------------
+
+    def parity_sharding(self) -> tuple:
+        """(mesh, spec) of every zone-stacked protection field: the
+        reference's `NamedSharding(mesh, P(*axis_names))` as the (mesh,
+        spec) pair dist/sharding.py places leaves by."""
+        return self.mesh, P(*self.mesh.axis_names)
+
+    def abstract_protected(self, abstract_state: PyTree) -> ProtectedState:
+        """A `ProtectedState` of `device="meta"` tensors (no bytes): the
+        global `abstract_state` zone-stacked by `state_specs`, as `init`
+        holds a state, and the reference's protection fields —
+        `(*mesh_dims, r, seg_words)` syndromes, `(*mesh_dims, n_blocks, 2)`
+        checksums, the digest, the row, the replica and the redo log —
+        present as the mode keeps them."""
+        lo, mode = self.layout, self.mode
+        zdims = tuple(self.mesh.shape)
+
+        def words(*shape):
+            return torch.empty(zdims + shape, dtype=utils.WORD, device="meta")
+
+        def zone(leaves):
+            return utils.tree_map(
+                lambda x, spec: shd.shard(
+                    torch.empty(x.shape, dtype=x.dtype, device="meta"), spec,
+                    self.mesh), leaves, self.state_specs)
+        kept = mode.has_parity or mode.has_cksums
+        return ProtectedState(
+            state=zone(abstract_state),
+            synd=(words(self.redundancy, lo.seg_words) if mode.has_parity
+                  else None),
+            cksums=words(lo.n_blocks, 2) if mode.has_cksums else None,
+            digest=words(2) if kept else None,
+            replica=zone(abstract_state) if mode.has_replica else None,
+            log=(redolog.make(self.log_capacity, "meta") if mode.has_log
+                 else None),
+            step=torch.empty((), dtype=utils.WORD, device="meta"),
+            row=words(lo.row_words) if kept else None)
+
+    def protected_specs(self) -> ProtectedState:
+        """The partition specs matching `abstract_protected`, the
+        reference's: the state's own, `P(*axis_names)` for the zone-stacked
+        protection fields, `P()` for the redo log and the step."""
+        mode = self.mode
+        z = P(*self.mesh.axis_names)
+        kept = mode.has_parity or mode.has_cksums
+        log = None
+        if mode.has_log:
+            log = redolog.RedoLog(*(P(),) * len(
+                dataclasses.fields(redolog.RedoLog)))
+        return ProtectedState(
+            state=self.state_specs,
+            synd=z if mode.has_parity else None,
+            cksums=z if mode.has_cksums else None,
+            digest=z if kept else None,
+            replica=self.state_specs if mode.has_replica else None,
+            log=log, step=P(), row=z if kept else None)
+
+    # -- streaming policy -----------------------------------------------------
 
     def stream_chunk(self) -> Optional[int]:
         """Pages per streamed chunk for full-row sweeps, or None when the
@@ -235,7 +295,7 @@ class Protector:
             threshold_words=self.stream_threshold_words,
             chunk_words=self.stream_chunk_words)
 
-    # -- init -------------------------------------------------------------------
+    # -- init -----------------------------------------------------------------
 
     def init(self, state: PyTree) -> ProtectedState:
         """Protect zone-stacked `state` (the tensors are held, not copied)."""
@@ -262,7 +322,7 @@ class Protector:
             step=torch.zeros((), dtype=utils.WORD, device=device),
             row=row if keep_row else None)
 
-    # -- commit -----------------------------------------------------------------
+    # -- commit ---------------------------------------------------------------
 
     def make_commit(self, dirty_pages: Optional[Sequence[int]] = None,
                     verify_old: bool = False):
@@ -398,6 +458,9 @@ class Protector:
                         synd = select(ok_dev, synd_n, prot.synd)
                     if mode.has_cksums:
                         cksums = select(ok_dev, ck_n, prot.cksums)
+                # the reference's log takes the digest replicated: an
+                # all-reduce over every device of the mesh
+                coll.note_all_reduce(digest, digest[..., 0].numel())
                 digest_for_log = self._first(digest, n_axes)
             ok = self._first(ok_dev, n_axes)
             # paper ordering: the log record persists before the object
@@ -443,7 +506,7 @@ class Protector:
                                                    verify_old=verify_old)
         return self._programs[key]
 
-    # -- scrub ------------------------------------------------------------------
+    # -- scrub ----------------------------------------------------------------
 
     def scrub(self, prot: ProtectedState) -> dict:
         """One flatten of the live state feeds the checksum verify, the
@@ -497,7 +560,7 @@ class Protector:
             out["row_cache_ok"] = (row == prot.row).all()
         return out
 
-    # -- recovery ---------------------------------------------------------------
+    # -- recovery -------------------------------------------------------------
 
     def _verified(self, row_out: torch.Tensor, prot: ProtectedState):
         """Post-repair verdict: no bad page in the zone at coordinate 0."""
@@ -599,7 +662,7 @@ class Protector:
             prot, state=layout_mod.unflatten_row(lo, row_out),
             row=row_out), self._verified(row_out, prot)
 
-    # -- the reference's program factories -------------------------------------
+    # -- the reference's program factories ------------------------------------
     # The reference builds each scrub and recovery as a program to jit; here
     # the direct methods are that program, and a factory hands it back with
     # the reference's signature.
@@ -635,7 +698,7 @@ class Protector:
                 np.asarray(bad_page).reshape(n_pages))
         return repair
 
-    # -- introspection ----------------------------------------------------------
+    # -- introspection --------------------------------------------------------
 
     def overhead_report(self) -> dict:
         rep = self.layout.overhead_report()

@@ -6,6 +6,17 @@ collective reduction in XLA or NCCL).  With the whole zone on one device
 (dist/sharding.py), a collective over the zone axis is a fold over the
 data dim of the stacked tensor; `dim` names that dim
 (`ZoneMesh.data_dim`).  Every operand is an int32 word tensor.
+
+Each collective reports its wire bytes to the active cost counter
+(kernels/cost.py) as the reference's would move them if each zone rank
+were its own card, by launch/hlo_analysis.py's volume conventions with G
+the folded dim's length, summed over the ranks of the operand:
+
+    all-gather          (G-1)/G * result bytes
+    all-reduce          (G-1)/G * operand bytes, twice (the reference's
+                        XOR all-reduce: an all-to-all, then an all-gather)
+    all-to-all          (G-1)/G * operand bytes (the XOR reduce-scatter)
+    collective-permute  operand bytes a round
 """
 from __future__ import annotations
 
@@ -14,7 +25,22 @@ from typing import Optional
 import torch
 
 from repro_torch import utils
+from repro_torch.kernels import cost as kcost
 from repro_torch.kernels import ops as kops
+
+
+def _wire(kind: str, x: torch.Tensor, g: int, scale: int = 1) -> None:
+    """Report `(G-1)/G` of `scale` times x's bytes (every rank's)."""
+    kcost.wire(kind, (g - 1) / g * scale * x.numel() * x.element_size())
+
+
+def note_all_reduce(x: torch.Tensor, g: int, itemsize: int = 0) -> None:
+    """Report the reference's all-reduce of x over groups of g ranks (x
+    holds every rank's payload, each element `itemsize` bytes on the wire:
+    a bool verdict is the reference's int32).  The value itself is formed
+    where it is used."""
+    size = itemsize or x.element_size()
+    kcost.wire("all-reduce", 2 * (g - 1) / g * x.numel() * size)
 
 
 def xor_fold(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -35,6 +61,7 @@ def xor_reduce_scatter(row: torch.Tensor, dim: int) -> torch.Tensor:
     g, n = row.shape[dim], row.shape[-1]
     if n % g:
         raise ValueError(f"row of {n} words does not split into {g} segments")
+    _wire("all-to-all", row, g)
     segs = row.reshape(*row.shape[:-1], g, n // g)
     return xor_fold(segs, dim).movedim(-2, dim)
 
@@ -42,15 +69,26 @@ def xor_reduce_scatter(row: torch.Tensor, dim: int) -> torch.Tensor:
 def all_gather_row(seg: torch.Tensor, dim: int) -> torch.Tensor:
     """`(*M, s)` segments -> `(*M, G * s)`: every rank of a zone receives
     the concatenation of its zone's segments in rank order."""
+    _wire("all-gather", seg, seg.shape[dim], seg.shape[dim])
     full = seg.movedim(dim, -2)
     full = full.reshape(*full.shape[:-2], -1).unsqueeze(dim)
     return full.expand(*seg.shape[:-1], full.shape[-1])
 
 
+def xor_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """XOR of x across each zone, once a zone (the dim folded away): the
+    value the reference's XOR all-reduce delivers to every rank, reported
+    as that all-reduce (its payload unpadded)."""
+    g = x.shape[dim]
+    _wire("all-to-all", x, g)
+    _wire("all-gather", x, g)
+    return xor_fold(x, dim)
+
+
 def xor_all_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
     """XOR of x across each zone, delivered to every rank (same shape).
     Returns a broadcast view: read it, do not write into it."""
-    return xor_fold(x, dim).unsqueeze(dim).expand_as(x)
+    return xor_reduce(x, dim).unsqueeze(dim).expand_as(x)
 
 
 # The weighted planes of a row take r times its bytes, and their fold half
@@ -76,6 +114,7 @@ def syndrome_reduce_scatter(row: torch.Tensor, dim: int,
     g, n = row.shape[dim], row.shape[-1]
     if n % g:
         raise ValueError(f"row of {n} words does not split into {g} segments")
+    _wire("all-to-all", row, g, r)
     segs = row.reshape(*row.shape[:-1], g, n // g)
     return torch.stack([
         xor_fold(kops.syndrome_scale(segs[..., i, :].contiguous(), coeffs),
@@ -94,6 +133,7 @@ def meta_all_gather(x: torch.Tensor, dim: int, n_axes: int) -> torch.Tensor:
     `(*M, G, *s)`, where every device of a zone holds the stacked table of
     its zone's G values in rank order (out[..., i, ...] is rank i's).
     `n_axes` is the number of leading mesh dims."""
+    _wire("all-gather", x, x.shape[dim], x.shape[dim])
     return x.movedim(dim, n_axes - 1).unsqueeze(dim).expand(
         *x.shape[:n_axes], x.shape[dim], *x.shape[n_axes:])
 
@@ -117,4 +157,6 @@ def xor_tree_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
     g = x.shape[dim]
     if g & (g - 1):
         raise ValueError(f"tree reduce needs a power-of-two zone, got {g}")
-    return xor_all_reduce(x, dim)
+    kcost.wire("collective-permute",
+               (g.bit_length() - 1) * x.numel() * x.element_size())
+    return xor_fold(x, dim).unsqueeze(dim).expand_as(x)

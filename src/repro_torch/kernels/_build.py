@@ -135,8 +135,9 @@ def reset_launches() -> None:
 def check_pages(x, name: str, pages: bool = True) -> None:
     """Raise unless `x` is what the kernels take: a contiguous, 16-byte
     aligned CUDA int32 tensor of `(..., n, bw)` pages with bw % 4 == 0 (or,
-    with `pages=False`, of `(..., m)` words with m % 4 == 0)."""
-    if x.device.type != "cuda":
+    with `pages=False`, of `(..., m)` words with m % 4 == 0).  A meta
+    tensor, which holds no bytes, passes for a CUDA one (the dry run)."""
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"{name}: expected a CUDA tensor, got {x.device}")
     if x.dtype != torch.int32:
         raise ValueError(f"{name}: expected int32 words, got {x.dtype}")

@@ -112,14 +112,12 @@ def _lib():
     return fn
 
 
-def commit_pages_cuda(old: torch.Tensor, new: torch.Tensor,
+def commit_pages_meta(old: torch.Tensor, new: torch.Tensor,
                       stored: Optional[torch.Tensor] = None, *,
                       old_terms: bool = False, digest: bool, name: str,
                       acc: Optional[torch.Tensor] = None) -> tuple:
-    """Launch `commit_pages` once over every rank's pages, in the mode that
-    `stored`, `old_terms` or `acc` names (at most one); same returns as
-    `commit_pages_plain` (the accumulator's successor a fresh tensor).
-    Counts one launch under `name`."""
+    """The kernel's checks and outputs, allocated as its wrapper allocates
+    them, with no launch: on meta tensors, its shapes (the dry run)."""
     _build.check_pages(old, name)
     _build.check_pages(new, name)
     if old.shape != new.shape or old.device != new.device:
@@ -146,6 +144,22 @@ def commit_pages_cuda(old: torch.Tensor, new: torch.Tensor,
             if mode == VERIFY else torch.empty_like(terms)
             if mode != COMMIT else None)
     dig = torch.zeros(*lead, 2, dtype=torch.int32, device=dev) if digest else None
+    return delta, terms, side, dig
+
+
+def commit_pages_cuda(old: torch.Tensor, new: torch.Tensor,
+                      stored: Optional[torch.Tensor] = None, *,
+                      old_terms: bool = False, digest: bool, name: str,
+                      acc: Optional[torch.Tensor] = None) -> tuple:
+    """Launch `commit_pages` once over every rank's pages, in the mode that
+    `stored`, `old_terms` or `acc` names (at most one); same returns as
+    `commit_pages_plain` (the accumulator's successor a fresh tensor).
+    Counts one launch under `name`."""
+    delta, terms, side, dig = commit_pages_meta(
+        old, new, stored, old_terms=old_terms, digest=digest, name=name,
+        acc=acc)
+    mode = _mode(stored, old_terms, acc)
+    bw, n, dev = new.shape[-1], new.shape[-2], new.device
     err = _lib()(old.data_ptr(), new.data_ptr(),
                  stored.data_ptr() if mode == VERIFY else None,
                  acc.data_ptr() if mode == ACCUM else None, delta.data_ptr(),

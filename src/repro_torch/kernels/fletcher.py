@@ -73,6 +73,18 @@ def _lib():
     return fn
 
 
+def fletcher_pages_meta(blocks: torch.Tensor, *, digest: bool,
+                        name: str) -> tuple:
+    """The kernel's checks and outputs, allocated as its wrapper allocates
+    them, with no launch: on meta tensors, its shapes (the dry run)."""
+    _build.check_pages(blocks, name)
+    *lead, n, bw = blocks.shape
+    terms = torch.empty(*lead, n, 2, dtype=torch.int32, device=blocks.device)
+    dig = (torch.zeros(*lead, 2, dtype=torch.int32, device=blocks.device)
+           if digest else None)
+    return terms, dig
+
+
 def fletcher_pages_cuda(blocks: torch.Tensor, *, digest: bool,
                         name: str) -> tuple:
     """Launch `fletcher_pages<digest>` once over every rank's pages.
@@ -80,11 +92,8 @@ def fletcher_pages_cuda(blocks: torch.Tensor, *, digest: bool,
     Returns (terms `(*lead, n, 2)`, digest `(*lead, 2)` or None) and counts
     one launch under `name`.
     """
-    _build.check_pages(blocks, name)
+    terms, dig = fletcher_pages_meta(blocks, digest=digest, name=name)
     *lead, n, bw = blocks.shape
-    terms = torch.empty(*lead, n, 2, dtype=torch.int32, device=blocks.device)
-    dig = (torch.zeros(*lead, 2, dtype=torch.int32, device=blocks.device)
-           if digest else None)
     err = _lib()(blocks.data_ptr(), terms.data_ptr(),
                  dig.data_ptr() if digest else None, blocks.numel() // bw, bw, n,
                  int(digest), _build.stream_handle(blocks.device))

@@ -144,13 +144,12 @@ def _check_coeffs(coeffs: torch.Tensor, lead, device, name: str) -> int:
     return r
 
 
-def syndrome_pages_cuda(old: torch.Tensor, new: torch.Tensor,
+def syndrome_pages_meta(old: torch.Tensor, new: torch.Tensor,
                         coeffs: torch.Tensor,
                         stored: Optional[torch.Tensor] = None, *,
                         digest: bool, name: str) -> tuple:
-    """Launch `syndrome_pages<r, stored is not None, digest>` once over every
-    rank's pages; same returns as `syndrome_pages_plain`.  Counts one launch
-    under `name`."""
+    """The kernel's checks and outputs, allocated as its wrapper allocates
+    them, with no launch: on meta tensors, its shapes (the dry run)."""
     _build.check_pages(old, name)
     _build.check_pages(new, name)
     if old.shape != new.shape or old.device != new.device:
@@ -168,6 +167,22 @@ def syndrome_pages_cuda(old: torch.Tensor, new: torch.Tensor,
     terms = torch.empty(*lead, n, 2, dtype=torch.int32, device=dev)
     mism = torch.empty_like(terms) if verify else None
     dig = torch.zeros(*lead, 2, dtype=torch.int32, device=dev) if digest else None
+    return sdelta, terms, mism, dig
+
+
+def syndrome_pages_cuda(old: torch.Tensor, new: torch.Tensor,
+                        coeffs: torch.Tensor,
+                        stored: Optional[torch.Tensor] = None, *,
+                        digest: bool, name: str) -> tuple:
+    """Launch `syndrome_pages<r, stored is not None, digest>` once over every
+    rank's pages; same returns as `syndrome_pages_plain`.  Counts one launch
+    under `name`."""
+    sdelta, terms, mism, dig = syndrome_pages_meta(
+        old, new, coeffs, stored, digest=digest, name=name)
+    verify = stored is not None
+    *lead, n, bw = new.shape
+    r = coeffs.shape[-1]
+    dev = new.device
     fn = _fn("syndrome_pages_launch", [ctypes.c_void_p] * 8 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
@@ -194,22 +209,34 @@ def _weight_words(x, coeffs, scalar, lead, m, r, raw0, out, name):
     return out
 
 
+def sdelta_stack_meta(x: torch.Tensor, coeffs: torch.Tensor, *,
+                      name: str) -> torch.Tensor:
+    """The kernel's checks and output with no launch (the dry run)."""
+    _build.check_pages(x, name, pages=False)
+    *lead, m = x.shape
+    r = _check_coeffs(coeffs, lead, x.device, name)
+    return torch.empty(*lead, r, m, dtype=torch.int32, device=x.device)
+
+
 def sdelta_stack_cuda(x: torch.Tensor, coeffs: torch.Tensor, *,
                       name: str) -> torch.Tensor:
     """Launch `weight_words<r, RAW0=true>`: `(*lead, m)` -> `(*lead, r, m)`
     from one read of x.  Counts one launch under `name`."""
-    _build.check_pages(x, name, pages=False)
-    *lead, m = x.shape
-    r = _check_coeffs(coeffs, lead, x.device, name)
-    out = torch.empty(*lead, r, m, dtype=torch.int32, device=x.device)
+    out = sdelta_stack_meta(x, coeffs, name=name)
+    m, r = x.shape[-1], coeffs.shape[-1]
     return _weight_words(x, coeffs, 0, x.numel() // m, m, r, True, out, name)
+
+
+def gf_scale_meta(x: torch.Tensor, coeff: int, *, name: str) -> torch.Tensor:
+    """The kernel's checks and output with no launch (the dry run)."""
+    _build.check_pages(x, name, pages=False)
+    return torch.empty_like(x)
 
 
 def gf_scale_cuda(x: torch.Tensor, coeff: int, *, name: str) -> torch.Tensor:
     """Launch `weight_words<1, RAW0=false>` over every word of x (any
     contiguous shape with a multiple of 4 words a row).  Counts one launch
     under `name`."""
-    _build.check_pages(x, name, pages=False)
-    out = torch.empty_like(x)
+    out = gf_scale_meta(x, coeff, name=name)
     return _weight_words(x, None, int(coeff) & gf.MASK, 1, x.numel(), 1,
                          False, out, name)

@@ -2,8 +2,11 @@
 
 A CUDA tensor launches the hand-written Hopper kernel, and anything the
 kernel cannot take raises — there is no fallback.  A CPU tensor takes the
-kernel's plain PyTorch version (the tests run here).  Any other device
-raises.
+kernel's plain PyTorch version (the tests run here).  A meta tensor (the
+dry run) takes the kernel's checks and its outputs' shapes, never the
+plain version.  Any other device raises.  Every call reports its bytes
+and integer ops to the active cost counter, if there is one
+(kernels/cost.py), on each route alike.
 
 Pages come as `(*lead, n, bw)` int32 words; each leading index is one
 rank of the zone-stacked state, and one launch covers all of them (every
@@ -46,6 +49,7 @@ import torch
 
 from repro_torch import utils
 from repro_torch.kernels import commit_fused as _cf
+from repro_torch.kernels import cost as _cost
 from repro_torch.kernels import fletcher as _fl
 from repro_torch.kernels import gf_parity as _gf
 from repro_torch.kernels import xor_parity as _xor
@@ -68,6 +72,16 @@ def _on_card(x: torch.Tensor) -> bool:
     raise ValueError(f"no protection kernel for device {x.device}")
 
 
+def _run(name: str, x: torch.Tensor, card, plain, meta, r: int = 1,
+         pages: bool = True):
+    """One entry point's call on x's device: `meta()` on meta, else
+    `card()` or `plain()`; reported to the active cost counter."""
+    with _cost.launch(name, x, r, pages):
+        if x.is_meta:
+            return meta()
+        return card() if _on_card(x) else plain()
+
+
 def _bad(mism: torch.Tensor) -> torch.Tensor:
     """A page is bad where its old terms ^ stored are not all zero."""
     return (mism != 0).any(dim=-1)
@@ -75,19 +89,21 @@ def _bad(mism: torch.Tensor) -> torch.Tensor:
 
 def fletcher_blocks(blocks: torch.Tensor) -> torch.Tensor:
     """`(*lead, n, bw)` -> `(*lead, n, 2)` per-page terms."""
-    if _on_card(blocks):
-        return _fl.fletcher_pages_cuda(blocks, digest=False,
-                                       name="fletcher_blocks")[0]
-    return _fl.fletcher_pages_plain(blocks)
+    kw = dict(digest=False, name="fletcher_blocks")
+    return _run("fletcher_blocks", blocks,
+                lambda: _fl.fletcher_pages_cuda(blocks, **kw)[0],
+                lambda: _fl.fletcher_pages_plain(blocks),
+                lambda: _fl.fletcher_pages_meta(blocks, **kw)[0])
 
 
 def fletcher_stream(blocks: torch.Tensor, *, chunk_blocks: int = 8) -> tuple:
     """(terms, per-rank `(*lead, 2)` row digest).  `chunk_blocks` sized the
     reference's VMEM chunks and changes nothing here."""
-    if _on_card(blocks):
-        return _fl.fletcher_pages_cuda(blocks, digest=True,
-                                       name="fletcher_stream")
-    return _fl.fletcher_stream_plain(blocks)
+    kw = dict(digest=True, name="fletcher_stream")
+    return _run("fletcher_stream", blocks,
+                lambda: _fl.fletcher_pages_cuda(blocks, **kw),
+                lambda: _fl.fletcher_stream_plain(blocks),
+                lambda: _fl.fletcher_pages_meta(blocks, **kw))
 
 
 def _sweep(name, old, new, stored=None, *, old_terms=False, digest=False,
@@ -95,9 +111,12 @@ def _sweep(name, old, new, stored=None, *, old_terms=False, digest=False,
     """One commit_pages sweep: (delta, new terms, bad | old terms | None,
     digest | None), in the mode `stored`, `old_terms` or `acc` names."""
     kw = dict(old_terms=old_terms, digest=digest, acc=acc)
-    if _on_card(new):
-        return _cf.commit_pages_cuda(old, new, stored, name=name, **kw)
-    return _cf.commit_pages_plain(old, new, stored, **kw)
+    return _run(name, new,
+                lambda: _cf.commit_pages_cuda(old, new, stored, name=name,
+                                              **kw),
+                lambda: _cf.commit_pages_plain(old, new, stored, **kw),
+                lambda: _cf.commit_pages_meta(old, new, stored, name=name,
+                                              **kw))
 
 
 def fused_commit(old: torch.Tensor, new: torch.Tensor) -> tuple:
@@ -163,9 +182,9 @@ def fused_accum_commit_stream(acc: torch.Tensor, old: torch.Tensor,
 
 
 def _xor2(a: torch.Tensor, b: torch.Tensor, name: str) -> torch.Tensor:
-    if _on_card(a):
-        return _xor.xor_words_cuda(a, b, name=name)
-    return _xor.xor_words_plain(a, b)
+    return _run(name, a, lambda: _xor.xor_words_cuda(a, b, name=name),
+                lambda: _xor.xor_words_plain(a, b),
+                lambda: _xor.xor_words_meta(a, b, name=name), pages=False)
 
 
 def xor_delta(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
@@ -182,9 +201,11 @@ def xor_accum(parity: torch.Tensor, patch: torch.Tensor) -> torch.Tensor:
 
 def gf_scale(x: torch.Tensor, coeff: int) -> torch.Tensor:
     """Element-wise y = coeff · x in GF(2^32), coeff a host u32."""
-    if _on_card(x):
-        return _gf.gf_scale_cuda(x, coeff, name="gf_scale")
-    return _gf.gf_scale_plain(x, coeff)
+    return _run("gf_scale", x,
+                lambda: _gf.gf_scale_cuda(x, coeff, name="gf_scale"),
+                lambda: _gf.gf_scale_plain(x, coeff),
+                lambda: _gf.gf_scale_meta(x, coeff, name="gf_scale"),
+                pages=False)
 
 
 def syndrome_scale(x: torch.Tensor,
@@ -195,16 +216,23 @@ def syndrome_scale(x: torch.Tensor,
     a view."""
     if coeffs is None:
         return x.unsqueeze(-2)
-    if _on_card(x):
-        return _gf.sdelta_stack_cuda(x, coeffs, name="sdelta_stack")
-    return _gf.sdelta_stack_plain(x, coeffs)
+    return _run("sdelta_stack", x,
+                lambda: _gf.sdelta_stack_cuda(x, coeffs, name="sdelta_stack"),
+                lambda: _gf.sdelta_stack_plain(x, coeffs),
+                lambda: _gf.sdelta_stack_meta(x, coeffs, name="sdelta_stack"),
+                r=coeffs.shape[-1], pages=False)
 
 
 def _s_sweep(old, new, coeffs, stored, digest, name):
-    if _on_card(new):
-        return _gf.syndrome_pages_cuda(old, new, coeffs, stored,
-                                       digest=digest, name=name)
-    return _gf.syndrome_pages_plain(old, new, coeffs, stored, digest)
+    kw = dict(digest=digest, name=name)
+    return _run(name, new,
+                lambda: _gf.syndrome_pages_cuda(old, new, coeffs, stored,
+                                                **kw),
+                lambda: _gf.syndrome_pages_plain(old, new, coeffs, stored,
+                                                 digest),
+                lambda: _gf.syndrome_pages_meta(old, new, coeffs, stored,
+                                                **kw),
+                r=coeffs.shape[-1])
 
 
 def fused_commit_s(old: torch.Tensor, new: torch.Tensor,

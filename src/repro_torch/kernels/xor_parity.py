@@ -46,17 +46,24 @@ def _lib():
     return fn
 
 
+def xor_words_meta(a: torch.Tensor, b: torch.Tensor, *,
+                   name: str) -> torch.Tensor:
+    """The kernel's checks and output with no launch: on meta tensors, its
+    shape (the dry run)."""
+    check_operands(a, b, name)
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f"{name}: words must be contiguous")
+    if a.device.type not in ("cuda", "meta"):
+        raise ValueError(f"{name}: expected a CUDA tensor, got {a.device}")
+    return torch.empty_like(a)
+
+
 def xor_words_cuda(a: torch.Tensor, b: torch.Tensor, *,
                    name: str) -> torch.Tensor:
     """Launch `xor_words` once: a fresh tensor of a ^ b.  Counts one launch
     under `name`."""
-    check_operands(a, b, name)
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError(f"{name}: words must be contiguous")
+    out = xor_words_meta(a, b, name=name)
     dev = a.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got {dev}")
-    out = torch.empty_like(a)
     err = _lib()(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(),
                  _build.stream_handle(dev))
     _build.check(err, name)

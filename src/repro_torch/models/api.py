@@ -7,8 +7,10 @@ A train state is {"params", "opt", "step"}: f32 parameters (cast to the
 compute dtype inside each step, so gradients reach the f32 leaves through
 the casts), the optimizer's moments, and the step counter as a 0-d int32
 tensor.  A train step reads nothing back to the host: loss, gradient
-norm, learning rate and step stay on the device.  The reference's dry-run
-input specs (`input_specs`, `Workload`) belong to the tooling slice.
+norm, learning rate and step stay on the device.  The dry run's inputs
+of a workload cell (`batch_abstract`, `decode_abstract`) are
+`device="meta"` tensors, the port's stand-in for the reference's
+ShapeDtypeStructs: shapes and dtypes, no bytes.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch import utils
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, Workload
 from repro_torch.dist import sharding as shd
 from repro_torch.dist.sharding import P
 from repro_torch.models import layers as L
@@ -41,6 +43,27 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     return total
 
 
+# ---------------------------------------------------------------------------
+# input specs per workload (dry-run stand-ins)
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=prm.torch_dtype(dtype),
+                       device="meta")
+
+
+def batch_abstract(cfg: ModelConfig, wl: Workload) -> dict:
+    """The batch of a train or prefill workload, as meta tensors."""
+    B, S = wl.global_batch, wl.seq_len
+    batch = {"tokens": _meta((B, S - cfg.mm_positions), "int32")}
+    if cfg.mm_positions:
+        batch["mm_embeds"] = _meta((B, cfg.mm_positions, cfg.d_model),
+                                   cfg.compute_dtype)
+    if cfg.enc_layers:
+        batch["src_embeds"] = _meta((B, S, cfg.d_model), cfg.compute_dtype)
+    return batch
+
+
 def batch_specs(cfg: ModelConfig, mesh, global_batch: int = 1 << 30) -> dict:
     rules = cfg.logical_overrides
     B = global_batch
@@ -52,6 +75,25 @@ def batch_specs(cfg: ModelConfig, mesh, global_batch: int = 1 << 30) -> dict:
         specs["src_embeds"] = shd.spec_for(
             mesh, ("batch", None, None), (B, 1, 1), rules)
     return specs
+
+
+def decode_abstract(cfg: ModelConfig, wl: Workload, model: Model) -> dict:
+    """(token, cache, pos) of a decode workload, as meta tensors.  The
+    port's decode step takes `pos` on the host (a Python int, as the
+    server passes it): the meta `pos` gives its shape and dtype only."""
+    B, T = wl.global_batch, wl.seq_len
+    return {"token": _meta((B,), "int32"),
+            "cache": model._cache_defs(B, T, device="meta"),
+            "pos": _meta((), "int32")}
+
+
+def decode_specs(cfg: ModelConfig, wl: Workload, model: Model, mesh) -> dict:
+    return {
+        "token": shd.spec_for(mesh, ("batch",), (wl.global_batch,),
+                              cfg.logical_overrides),
+        "cache": model.cache_specs(wl.global_batch, wl.seq_len, mesh),
+        "pos": P(),
+    }
 
 
 # ---------------------------------------------------------------------------

@@ -175,7 +175,11 @@ def apply_moe(p: dict, x: torch.Tensor, cfg, mesh=None) -> tuple:
 
     # aux: Switch-style load balance + router z-loss, over every group
     me = probs.reshape(T, E).mean(dim=0)
-    assign = torch.bincount(flat_expert.reshape(-1), minlength=E).float() \
+    # the experts' counts (bincount's, whose length a meta trace cannot
+    # know: the ids are below E, so E counts)
+    ids = flat_expert.reshape(-1)
+    assign = torch.zeros(E, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, ids.long(), torch.ones_like(ids, dtype=torch.int64)).float() \
         / (T * k)
     aux = {
         "load_balance": E * torch.sum(me * assign),

@@ -436,7 +436,11 @@ class Pool(EngineHost):
         axes, the copy at mesh coordinate 0)."""
         if self.prot is None:
             return None
-        leaves, treedef = utils.tree_flatten(self.prot.state)
+        return self.global_view(self.prot.state)
+
+    def global_view(self, zone_state: PyTree) -> PyTree:
+        """Zone-stacked leaves of this pool's layout -> global tensors."""
+        leaves, treedef = utils.tree_flatten(zone_state)
         return utils.tree_unflatten(treedef, [
             sharding.unshard(x, spec, self.mesh)
             for x, spec in zip(leaves, self._spec_leaves)])

@@ -4,6 +4,8 @@ kernels run in interpret mode AND against kernels/ref.py, byte for byte,
 on the same seeded words; the zone-stacked call against one reference
 call per rank; the wrappers' refusals.  The CUDA kernels are held against
 these plain versions on the card (test_torch_cuda.py, chip_smoke.py)."""
+import types
+
 import jax.numpy as jnp
 import pytest
 import torch
@@ -83,7 +85,8 @@ def test_xor_delta_and_accum_plain_vs_pallas_and_ref(shape):
 def test_epoch_wrappers_refuse_what_they_cannot_launch():
     """Shapes and dtypes are checked on every path; the CUDA wrappers also
     refuse a non-contiguous operand and a CPU tensor, before any build or
-    launch; no other device has a kernel."""
+    launch; a meta tensor gets the outputs' shapes; no other device has a
+    kernel."""
     x = torch.zeros(2, 64, dtype=torch.int32)
     with pytest.raises(ValueError, match="one shape"):
         ops.xor_delta(x, torch.zeros(2, 32, dtype=torch.int32))
@@ -98,10 +101,17 @@ def test_epoch_wrappers_refuse_what_they_cannot_launch():
     with pytest.raises(ValueError, match="CUDA tensor"):
         port_cf.commit_pages_cuda(x, x, digest=False,
                                   name="fused_accum_commit", acc=x)
+    # meta (the dry run): the kernel's checks and its outputs' shapes
     meta = torch.zeros(2, 64, dtype=torch.int32, device="meta")
+    out = ops.xor_delta(meta, meta)
+    assert out.is_meta and out.shape == (2, 64)
+    acc, old_t, new_t, dig = ops.fused_accum_commit_stream(meta, meta, meta)
+    assert acc.shape == (2, 64) and old_t.shape == new_t.shape == (2, 2)
+    assert dig.shape == (2,) and all(t.is_meta for t in (acc, old_t, dig))
+    with pytest.raises(ValueError, match="one shape"):
+        ops.xor_delta(meta, torch.zeros(2, 32, dtype=torch.int32,
+                                        device="meta"))
     with pytest.raises(ValueError, match="no protection kernel"):
-        ops.xor_delta(meta, meta)
-    with pytest.raises(ValueError, match="no protection kernel"):
-        ops.fused_accum_commit_stream(meta, meta, meta)
+        ops._on_card(types.SimpleNamespace(device=torch.device("xpu")))
     assert "xor_parity" in _build.SOURCES
     assert len(ops.ENTRY_POINTS) == len(set(ops.ENTRY_POINTS)) == 19

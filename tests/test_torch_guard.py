@@ -1,4 +1,5 @@
-"""Guards on the port's boundary: the package and chip_smoke.py import
+"""Guards on the port's boundary: the package, chip_smoke.py, the port's
+scripts (scripts/torch_*.py) and examples (examples/torch_*.py) import
 neither JAX nor the reference; every configuration the reference accepts
 opens a pool (none is refused or downgraded), and rescale runs; a
 multi-rank loss beyond the redundancy is refused; and the pool's default
@@ -16,13 +17,10 @@ from tests._torch_ref import one_thread  # noqa: F401
 pytestmark = pytest.mark.usefixtures("one_thread")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_warm_commits.py",
-    ROOT / "scripts" / "torch_sass_counts.py",
-    ROOT / "scripts" / "torch_dispatch_profile.py",
-    ROOT / "scripts" / "torch_serve_profile.py",
-    ROOT / "scripts" / "torch_train_profile.py",
-    ROOT / "scripts" / "torch_train_check_faults.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+              + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "scripts").glob("torch_*.py"))
+              + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _imports(path):

@@ -3,6 +3,8 @@ reference's Pallas kernels run in interpret mode AND against kernels/ref.py,
 byte for byte, on the same seeded pages; the zone-stacked batched call
 against one reference call per rank.  The CUDA kernels themselves are
 held against these plain versions on the card (test_torch_cuda.py)."""
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -156,9 +158,13 @@ def test_cuda_wrappers_refuse_what_they_cannot_launch():
     with pytest.raises(ValueError, match="CUDA tensor"):
         port_cf.commit_pages_cuda(x, x, old_terms=True, digest=False,
                                   name="fused_commit_old_terms")
+    meta = ops.fletcher_blocks(torch.zeros(2, 64, dtype=torch.int32,
+                                           device="meta"))
+    assert meta.is_meta and meta.shape == (2, 2) and meta.dtype == torch.int32
+    with pytest.raises(ValueError, match="int32 words"):
+        ops.fletcher_blocks(torch.zeros(2, 64, device="meta"))
     with pytest.raises(ValueError, match="no protection kernel"):
-        ops.fletcher_blocks(torch.zeros(2, 64, dtype=torch.int32,
-                                        device="meta"))
+        ops._on_card(types.SimpleNamespace(device=torch.device("xpu")))
 
 
 def test_gf_cuda_wrappers_refuse_what_they_cannot_launch():
@@ -171,8 +177,11 @@ def test_gf_cuda_wrappers_refuse_what_they_cannot_launch():
         port_gf.sdelta_stack_cuda(x, co, name="sdelta_stack")
     with pytest.raises(ValueError, match="CUDA tensor"):
         port_gf.gf_scale_cuda(x, 3, name="gf_scale")
-    with pytest.raises(ValueError, match="no protection kernel"):
-        ops.gf_scale(torch.zeros(2, 64, dtype=torch.int32, device="meta"), 3)
+    meta = ops.gf_scale(torch.zeros(2, 64, dtype=torch.int32,
+                                    device="meta"), 3)
+    assert meta.is_meta and meta.shape == (2, 64)
+    with pytest.raises(ValueError, match="int32 words"):
+        ops.gf_scale(torch.zeros(2, 64, device="meta"), 3)
 
 
 def test_library_path_hashes_every_included_header(tmp_path, monkeypatch):
