@@ -50,6 +50,29 @@
    and without verify, the patch on an mlp r = 3 pool, the pre-check, the
    loss of ranks 5, 37 and 99 at once recovered by `Fault.multi_loss`
    (the rebuilt rows must equal a copy taken before the loss), a scrub.
+4a. The multi-process zone (zp): the same zone split over four worker
+   processes on the one card (`repro_torch.dist.procs.spawn_zone`, a gloo
+   group, each worker its own CUDA context holding 25 ranks, 266 MB of
+   rows; the exchanges staged through host buffers), each worker building
+   the whole state from SEED and keeping its block.  r = 1 (mlpc):
+   a open, b a bulk transaction with verify, c a bulk commit, d two
+   16-page patches (with and without verify) whose pages have parity
+   owners on every process (pages 100-103, 780-783, 1560-1563,
+   2340-2343: owners 3, 30, 60, 90), e a clean scrub, f the loss of rank
+   57 (process 2) recovered, g a scribble on rank 88 (process 3) found by
+   the scrub and repaired, h a canary smashed on process 1 only: every
+   process aborts, nothing changes.  r = 3: i open, j a bulk commit, k
+   the loss of ranks 7, 42 and 93 (processes 0, 1, 3) recovered, l a
+   word flipped on rank 20 (process 0) found by the pre-check on every
+   process and repaired, m a four-rank loss refused by the budget.  After
+   every phase each worker's per-rank SHA-256 of row, syndromes,
+   checksums, digest and every state leaf, and of the redo log and step,
+   equals the one-process pool's at the same phase (run first, in this
+   process, its launches not counted).  Each phase prints the slowest
+   worker's wall, each worker's wall, staged bytes, sent bytes and the
+   ms of its staging, the launches summed over the workers, and each
+   worker's peak memory.  The workers time-slice the card: their kernel
+   times are not the kernel table's.
 5. The deferred-epoch engine (window > 1) on the same zone:
    w3 — the bulk engine, streamed, mlpc r = 3, window 4: open, three
         in-window commits, the fourth (the boundary flush), a commit, a
@@ -1039,11 +1062,12 @@ def invariants(pool, tag):
           f"{tag}: digest != combine(terms)")
 
 
-def zone_state(dev):
+def zone_state(dev, group=None):
     """The main path's zone: the quickstart's three kinds of leaf at
-    G = 100 ranks of 2600 pages, random from SEED."""
+    G = 100 ranks of 2600 pages, random from SEED (the state global; the
+    mesh split over `group`'s processes if one is given)."""
     from repro_torch import P, ZoneMesh
-    mesh = ZoneMesh((G, 1), ("data", "model"))
+    mesh = ZoneMesh((G, 1), ("data", "model"), group=group)
     specs = {"w_fsdp": P("data", "model"), "w_tp": P(None, "model"),
              "scale": P()}
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1058,27 +1082,28 @@ def zone_state(dev):
 
 def bumped(st, words=None):
     """A new state: every leaf changed (bulk), or w_fsdp + 1 on the given
-    slice of each rank's local words only (patch)."""
+    slice (or tuple of slices) of each rank's local words only (patch)."""
     w = st["w_fsdp"].clone()
     if words is None:
         w += 1.0
         return {"w_fsdp": w, "w_tp": (st["w_tp"] * 2).to(torch.bfloat16),
                 "scale": st["scale"] + 1}
-    w.view(G, -1)[:, words] += 1.0        # rank r's shard is row block r
+    for run in words if isinstance(words, tuple) else (words,):
+        w.view(G, -1)[:, run] += 1.0      # rank r's shard is row block r
     return {"w_fsdp": w, "w_tp": st["w_tp"], "scale": st["scale"]}
 
 
-def patch_pages(lo):
-    """16 whole pages of w_fsdp, pages 100..115 of every rank's row (the
-    leaf starts at its slot's offset, after the sorted-first `scale`):
-    (slice of each rank's local w_fsdp words, dirty page list)."""
+def patch_pages(lo, first=100, n=16):
+    """n whole pages of w_fsdp, pages first..first+n-1 of every rank's row
+    (the leaf starts at its slot's offset, after the sorted-first
+    `scale`): (slice of each rank's local w_fsdp words, dirty page list)."""
     from repro_torch.core import layout
-    slot = lo.slots[layout.leaves_for_pages(lo, [100])[0]]
-    start = 100 * BW - slot.offset
+    slot = lo.slots[layout.leaves_for_pages(lo, [first])[0]]
+    start = first * BW - slot.offset
     dirty = [int(p) for p in layout.range_pages(lo, slot.offset + start,
-                                                 16 * BW)]
-    check(dirty == list(range(100, 116)), f"dirty pages {dirty}")
-    return slice(start, start + 16 * BW), dirty
+                                                 n * BW)]
+    check(dirty == list(range(first, first + n)), f"dirty pages {dirty}")
+    return slice(start, start + n * BW), dirty
 
 
 class PathRun:
@@ -1351,6 +1376,252 @@ def main_path_r3(dev):
               f"scrub {report}")
     run.phase("H_scrub", scrub, pool)
     return run.end(PATH_R3)
+
+
+# -- 4a. the multi-process zone ------------------------------------------------
+
+ZP_WORLD = 4                          # worker processes on the one card
+ZP_RUNS = (100, 780, 1560, 2340)      # 4-page runs, one owner on each process
+ZP_LOST = 57                          # process 2
+ZP_SCRIBBLED = 88                     # process 3
+ZP_MULTI_LOST = (7, 42, 93)           # processes 0, 1, 3
+ZP_FLIPPED = 20                       # process 0: the pre-check's word
+ZP_SMASHED = 1                        # the process whose canary is smashed
+ZP_TIMEOUT_S = 600                    # the workers' spawn, at most
+PATH_ZP = ("fletcher_blocks", "fletcher_stream", "fused_commit",
+           "fused_verify_commit", "fused_verify_commit_stream",
+           "sdelta_stack", "gf_scale")
+
+
+def zp_patch(lo):
+    """The d phase's 16 pages of w_fsdp, four runs of four whose parity
+    owners are one on each process (ranks 3, 30, 60 and 90): (the slices
+    of each rank's local w_fsdp words, the dirty page list)."""
+    from repro_torch.core import layout
+    runs = [patch_pages(lo, first, 4) for first in ZP_RUNS]
+    dirty = [p for _, pages in runs for p in pages]
+    pps, block = lo.n_blocks // G, G // ZP_WORLD
+    check(len(layout.leaves_for_pages(lo, dirty)) == 1 and
+          sorted({p // pps // block for p in dirty}) ==
+          list(range(ZP_WORLD)), f"zp dirty pages {dirty}")
+    return tuple(run for run, _ in runs), dirty
+
+
+def zp_phases(dev, group, smashed):
+    """zp's phases on this process's block (the whole zone without a
+    group): yields (phase, pool) after each; `smashed`: whether this
+    process's canary is the smashed one."""
+    from repro_torch import Fault
+    from repro_torch.runtime import failure
+
+    mesh, specs, cur = zone_state(dev, group)
+    pool = open_pool(cur, specs, mesh, dev, mode="mlpc")
+    yield "a_open", pool
+    new = bumped(cur)
+    with pool.transaction(data_cursor=1) as tx:
+        tx.stage(new, verify_old=True)
+    check(tx.ok, "zp b: the verified bulk transaction did not commit")
+    cur = new
+    yield "b_bulk_verify", pool
+    new = bumped(cur)
+    check(bool(pool.commit(new, data_cursor=2)), "zp c: bulk failed")
+    cur = new
+    yield "c_bulk", pool
+    slices, dirty = zp_patch(pool.protector.layout)
+    new = bumped(cur, words=slices)
+    with pool.transaction(data_cursor=3) as tx:
+        tx.stage(new, dirty_pages=dirty, verify_old=True)
+    check(tx.ok, "zp d: the verified patch did not commit")
+    cur = bumped(new, words=slices)
+    check(bool(pool.commit(cur, dirty_pages=dirty, data_cursor=4)),
+          "zp d: the patch failed")
+    yield "d_patch_16_pages", pool
+    report = pool.scrub()
+    check(not report.suspect and report.synd_ok == [True], f"zp e {report}")
+    yield "e_scrub", pool
+    pool.inject(lambda p, prot: failure.inject_rank_loss(p, prot, ZP_LOST))
+    rep = pool.recover(Fault.rank_loss(ZP_LOST))
+    check(rep.verified and rep.reverified, f"zp f {rep}")
+    yield "f_rank_loss_recover", pool
+    pool.inject(lambda p, prot: failure.inject_scribble(
+        p, prot, ZP_SCRIBBLED, [12345]))
+    report = pool.scrub()
+    check(report.bad_locations == [(ZP_SCRIBBLED, 12)] and report.repaired
+          and report.repair_ok, f"zp g {report}")
+    yield "g_scribble_repair", pool
+    prot = pool.prot
+    kept = (prot.row, prot.synd, prot.cksums, prot.digest, prot.step,
+            prot.log.mark)
+    with pool.transaction() as tx:
+        if smashed:
+            tx.watch(failure.smashed_canary_buffer(4096, device=dev))
+        tx.stage({k: torch.zeros_like(v) for k, v in cur.items()})
+    check(tx.aborted and not tx.ok, "zp h: the canary did not abort")
+    now = pool.prot
+    check(all(torch.equal(a, b) for a, b in zip(kept, (
+        now.row, now.synd, now.cksums, now.digest, now.step, now.log.mark))),
+          "zp h: an abort changed protected state")
+    yield "h_canary_abort", pool
+    del pool, prot, kept, now
+    torch.cuda.empty_cache()
+
+    pool = open_pool(cur, specs, mesh, dev, mode="mlpc", redundancy=R)
+    yield "i_open_r3", pool
+    new = bumped(cur)
+    check(bool(pool.commit(new, data_cursor=5)), "zp j: bulk failed")
+    cur = new
+    yield "j_bulk", pool
+    pool.inject(lambda p, prot: failure.inject_multi_rank_loss(
+        p, prot, ZP_MULTI_LOST))
+    rep = pool.recover(Fault.multi_loss(*ZP_MULTI_LOST))
+    check(rep.verified and rep.reverified and rep.synd_ok == [True] * R,
+          f"zp k {rep}")
+    yield "k_multi_loss_recover", pool
+    pool.inject(lambda p, prot: failure.inject_scribble(
+        p, prot, ZP_FLIPPED, [777]))
+    report = pool.precheck()
+    check(report.suspect and report.bad_count == 1, f"zp l {report}")
+    rep = pool.recover(Fault.scribble(ZP_FLIPPED, [0]))
+    check(rep.verified and rep.reverified, f"zp l {rep}")
+    yield "l_precheck_flip", pool
+    lost = tuple(sorted(ZP_MULTI_LOST + (ZP_LOST,)))
+    try:
+        pool.recover(Fault.multi_loss(*lost))
+        refused = False
+    except RuntimeError as err:
+        refused = "syndrome budget exhausted" in str(err)
+    check(refused, "zp m: a four-rank loss was not refused")
+    yield "m_over_budget", pool
+
+
+def zp_hashes(pool, group):
+    """{field: {global rank: SHA-256 of its bytes}} of row, synd, cksums,
+    digest and every state leaf; {"log": ..., "step": ...} whole."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+    prot, dd = pool.prot, pool.mesh.data_dim
+    off = pool.mesh.data_offset
+    fields = {"row": prot.row, "synd": prot.synd, "cksums": prot.cksums,
+              "digest": prot.digest}
+    fields.update({f"state.{k}": v for k, v in prot.state.items()})
+    jobs = []
+    for name, t in fields.items():
+        host = t.detach().movedim(dd, 0).contiguous().cpu()
+        host = host.reshape(host.shape[0], -1).view(torch.uint8).numpy()
+        jobs += [(name, off + i, host[i]) for i in range(host.shape[0])]
+    with ThreadPoolExecutor(8) as ex:      # hashlib lets go of the GIL
+        sums = list(ex.map(lambda j: hashlib.sha256(j[2]).hexdigest(), jobs))
+    out = collections.defaultdict(dict)
+    for (name, rank, _), h in zip(jobs, sums):
+        out[name][rank] = h
+    log = b"".join(getattr(prot.log, f.name).cpu().numpy().tobytes()
+                   for f in dataclasses.fields(prot.log))
+    out["log"] = hashlib.sha256(log).hexdigest()
+    out["step"] = int(prot.step) & 0xFFFFFFFF
+    return dict(out)
+
+
+def zp_run(dev, group, smashed):
+    """Drive zp's phases; each phase's line: wall ms (synchronized, from a
+    barrier of the workers; the hashing after the clock), launches, the
+    exchanges' staged and sent bytes and ms, the peak memory, and the
+    hashes."""
+    from repro_torch.kernels import _build
+    stats = group.stats if group is not None else {}
+    lines, phases = [], zp_phases(dev, group, smashed)
+    while True:
+        launched, ex = dict(_build.LAUNCHES), dict(stats)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        if group is not None:
+            group.barrier()       # no worker's clock waits on another's hashing
+        t0 = time.perf_counter()
+        step = next(phases, None)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if step is None:
+            return lines
+        tag, pool = step
+        del step
+        lines.append(dict(
+            phase=tag, ms=ms, launches={
+                k: v - launched.get(k, 0) for k, v in _build.LAUNCHES.items()
+                if v - launched.get(k, 0)},
+            exchange={k: v - ex[k] for k, v in stats.items()},
+            max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+            hashes=zp_hashes(pool, group)))
+        del pool
+
+
+def zp_worker(group):
+    """One zp worker on the card: its launches counted from zero."""
+    from repro_torch.kernels import _build
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    _build.reset_launches()
+    lines = zp_run(dev, group, group.rank == ZP_SMASHED)
+    return {"lines": lines, "launches": dict(_build.LAUNCHES),
+            "peak": torch.cuda.max_memory_reserved(dev)}
+
+
+def procs_path(dev):
+    """zp: the one-process run, then four workers, phase by phase
+    byte-equal by per-rank hashes.  Returns the workers' summed
+    launches."""
+    from repro_torch.dist import procs
+    from repro_torch.kernels import _build
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    saved = dict(_build.LAUNCHES)
+    one = zp_run(dev, None, True)          # a comparison: launches uncounted
+    _build.LAUNCHES.clear()
+    _build.LAUNCHES.update(saved)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    emit(path="zp", phase="spawn", world=ZP_WORLD, mem_free=free,
+         mem_total=total)
+    t0 = time.perf_counter()
+    workers = procs.spawn_zone(zp_worker, ZP_WORLD, timeout=ZP_TIMEOUT_S)
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = collections.Counter()
+    for w in workers:
+        counts.update(w["launches"])
+    for i, want in enumerate(one):
+        got = [w["lines"][i] for w in workers]
+        tag = want["phase"]
+        check(all(g["phase"] == tag for g in got), f"zp phases {tag}")
+        for name, by_rank in want["hashes"].items():
+            if name in ("log", "step"):
+                check(all(g["hashes"][name] == by_rank for g in got),
+                      f"zp {tag}: {name} differs from one process")
+                continue
+            merged = {}
+            for g in got:
+                merged.update(g["hashes"][name])
+            check(merged == by_rank, f"zp {tag}: {name} differs from one "
+                  "process at ranks " + str(sorted(
+                      r for r in by_rank if merged.get(r) != by_rank[r])))
+        launched = collections.Counter()
+        for g in got:
+            launched.update(g["launches"])
+        emit(path="zp", phase=tag, ms=max(g["ms"] for g in got),
+             ms_by_worker=[g["ms"] for g in got],
+             one_process_ms=want["ms"], launches=dict(launched),
+             staged_bytes=[g["exchange"]["staged_bytes"] for g in got],
+             sent_bytes=[g["exchange"]["sent_bytes"] for g in got],
+             staged_ms=[g["exchange"]["ms"] for g in got],
+             copy_ms=[g["exchange"]["copy_ms"] for g in got],
+             exchanges=[g["exchange"]["exchanges"] for g in got],
+             max_memory_allocated=[g["max_memory_allocated"] for g in got],
+             equal_ranks=G)
+    missing = [k for k in PATH_ZP if not counts.get(k)]
+    check(not missing, f"zp: entry points never launched: {missing}")
+    emit(path="zp", phase="memory", spawn_ms=wall,
+         max_memory_reserved_by_worker=[w["peak"] for w in workers],
+         launches=dict(counts))
+    return dict(counts)
 
 
 # -- 5. the deferred-epoch engine ---------------------------------------------
@@ -4613,7 +4884,7 @@ def run_paths(dev, dr):
     kernels line's rows."""
     from repro_torch.kernels import ops
 
-    drivers = {"r1": main_path, "r3": main_path_r3,
+    drivers = {"r1": main_path, "r3": main_path_r3, "zp": procs_path,
                "w3": window_path_w3, "w1f": window_path_w1f,
                "wp": window_path_wp, "q3": async_path_q3,
                "qw": async_path_qw,

@@ -57,6 +57,7 @@ from repro_torch.core import redolog
 from repro_torch.core.txn import (ProtectedState, Protector, _check_like,
                                   device_bool, tree_select)
 from repro_torch.dist import collectives as coll
+from repro_torch.dist import procs
 from repro_torch.kernels import ops as kops
 
 
@@ -148,6 +149,8 @@ class DeferredProtector:
                  dirty_leaf_idx: Optional[Sequence[int]] = None,
                  replicate_meta: bool = False):
         mode = protector.mode
+        procs.refuse_split(protector.mesh, "the deferred engine (window > 1)",
+                           "S7b")
         if not (mode.has_parity or mode.has_cksums):
             raise ValueError(
                 "deferred epochs batch parity/checksum work; mode "

@@ -211,11 +211,14 @@ def rank_syndrome_coeffs(group_size: int, r: int, mesh,
                          device) -> torch.Tensor:
     """Every device's syndrome coefficients, zone-stacked: `(*mesh_dims, r)`
     int32, entry `[..., k]` = g^(k·i) for the device at data coordinate i
-    — the reference's `syndrome_array(G, r)[axis_index]` on each device."""
-    table = torch.from_numpy(syndrome_array(group_size, r).view(np.int32))
+    — the reference's `syndrome_array(G, r)[axis_index]` on each device.
+    On a split mesh, the rows of this process's global ranks i."""
+    table = syndrome_array(group_size, r).view(np.int32)
+    lo = mesh.data_offset
+    table = torch.from_numpy(table[lo:lo + mesh.local_group_size].copy())
     shape = [1] * len(mesh.shape) + [r]
-    shape[mesh.data_dim] = group_size
-    return table.reshape(shape).expand(*mesh.shape, r).to(
+    shape[mesh.data_dim] = mesh.local_group_size
+    return table.reshape(shape).expand(*mesh.local_dims, r).to(
         device).contiguous()
 
 

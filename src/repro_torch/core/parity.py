@@ -20,6 +20,12 @@ None at r = 1.
 The single-parity forms (`patch_parity`, `patch_parity_delta`,
 `hybrid_update`, `verify_parity`) are the r = 1 views of the stack
 functions, kept as the reference keeps them.
+
+On a zone split over processes (dist/procs.py) the functions the
+synchronous engine calls take the mesh's `group`: the rows hold this
+process's block of G / W ranks, ranks and page owners are global, a
+lost rank or a page owner held by another process is left to it, and
+every verdict is ANDed across the processes.
 """
 from __future__ import annotations
 
@@ -44,22 +50,32 @@ def gather_pages(row: torch.Tensor, page_idx: torch.Tensor,
     return page_view(row, block_words)[..., page_idx, :]
 
 
+def _held_ranks(ranks, g_local: int, group=None) -> list:
+    """The local data indices of those global `ranks` this process holds
+    (all of them, unchecked, without a group)."""
+    if group is None:
+        return [int(a) for a in ranks]
+    off = group.rank * g_local
+    return [int(a) - off for a in ranks if 0 <= int(a) - off < g_local]
+
+
 def build_syndromes(row: torch.Tensor, dim: int,
-                    coeffs: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    coeffs: Optional[torch.Tensor] = None,
+                    group=None) -> torch.Tensor:
     """Full stack build: `(*M, n)` rows -> `(*M, r, n // G)`."""
-    return coll.syndrome_reduce_scatter(row, dim, coeffs)
+    return coll.syndrome_reduce_scatter(row, dim, coeffs, group)
 
 
 def apply_sdelta(synd: torch.Tensor, sdelta_rows: torch.Tensor,
-                 dim: int) -> torch.Tensor:
+                 dim: int, group=None) -> torch.Tensor:
     """Bulk stack delta: synd ^= reduce-scatter of the `(*M, r, n)`
     pre-weighted deltas the fused commit sweep emits."""
-    return coll.syndrome_apply_delta(synd, sdelta_rows, dim)
+    return coll.syndrome_apply_delta(synd, sdelta_rows, dim, group)
 
 
 def patch_syndrome_delta(synd: torch.Tensor, sdelta_pages: torch.Tensor,
                          page_idx: torch.Tensor, layout: ZoneLayout,
-                         dim: int) -> torch.Tensor:
+                         dim: int, group=None) -> torch.Tensor:
     """Incremental stack patch for the dirty pages' deltas.
 
     `synd`: `(*M, r, seg)`; `sdelta_pages`: `(*M, r, k, bw)`; `page_idx`:
@@ -67,14 +83,19 @@ def patch_syndrome_delta(synd: torch.Tensor, sdelta_pages: torch.Tensor,
     `n_blocks` is the out-of-range sentinel and is dropped (the reference's
     scatter `mode="drop"`), however often it repeats.  The deltas
     XOR-reduce across each zone; page p lands in the segment of rank
-    p // pages_per_seg.  Returns a new stack; `synd` is not modified.
+    p // pages_per_seg, on the process that holds that rank.  Returns a
+    new stack; `synd` is not modified.
     """
     bw = layout.block_words
     pps = layout.seg_words // bw
     g = synd.shape[dim]
     # (k, *Mo, r, bw)
-    patch = coll.xor_reduce(sdelta_pages, dim).movedim(-2, 0)
+    patch = coll.xor_reduce(sdelta_pages, dim, group).movedim(-2, 0)
     owner = page_idx // pps
+    if group is not None:
+        # owners held by another process go to the scratch slot as well
+        owner = owner - group.rank * g
+        owner = torch.where((owner >= 0) & (owner < g), owner, g)
     local = page_idx % pps
     seg_pages = synd.reshape(*synd.shape[:-1], pps, bw).movedim(dim, 0)
     # (G + 1, *Mo, r, pps, bw): pages[owner[j], ..., local[j], :] is page
@@ -126,12 +147,14 @@ def hybrid_update(row_old: torch.Tensor, row_new: torch.Tensor,
 
 
 def verify_syndromes(row: torch.Tensor, synd: torch.Tensor, dim: int,
-                     coeffs: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     coeffs: Optional[torch.Tensor] = None,
+                     group=None) -> torch.Tensor:
     """Zone invariant per syndrome: `(*M_other, r)` bool, one verdict per
     zone and syndrome, True iff every rank's stored segment of S_k matches
     the rows."""
-    fresh = coll.syndrome_reduce_scatter(row, dim, coeffs)
-    return (fresh == synd).all(dim=-1).all(dim=dim)
+    fresh = coll.syndrome_reduce_scatter(row, dim, coeffs, group)
+    ok = (fresh == synd).all(dim=-1).all(dim=dim)
+    return ok if group is None else group.all_and(ok)
 
 
 def verify_parity(row: torch.Tensor, parity_seg: torch.Tensor,
@@ -142,21 +165,28 @@ def verify_parity(row: torch.Tensor, parity_seg: torch.Tensor,
     return (fresh == parity_seg).all(dim=-1).all(dim=dim)
 
 
+def _without(row: torch.Tensor, ranks, dim: int, group) -> torch.Tensor:
+    """`row` with the held ones of the global `ranks` zero-filled."""
+    held = _held_ranks(ranks, row.shape[dim], group)
+    return row.index_fill(dim, torch.tensor(held, dtype=torch.long,
+                                            device=row.device), 0)
+
+
 def reconstruct_row(row: torch.Tensor, parity_seg: torch.Tensor,
-                    lost_rank: int, dim: int) -> torch.Tensor:
+                    lost_rank: int, dim: int, group=None) -> torch.Tensor:
     """Rebuild the lost rank's row from the survivors and the parity.
 
     `row`: `(*M, n)`; `parity_seg`: `(*M, n // G)`.  Every rank of a zone
     receives the same rebuilt row (a broadcast view over `dim`).
     """
-    lost = torch.tensor([int(lost_rank)], device=row.device)
-    contrib = row.index_fill(dim, lost, 0)
-    lost_seg = coll.xor_reduce_scatter(contrib, dim) ^ parity_seg
-    return coll.all_gather_row(lost_seg, dim)
+    contrib = _without(row, [lost_rank], dim, group)
+    lost_seg = coll.xor_reduce_scatter(contrib, dim, group) ^ parity_seg
+    return coll.all_gather_row(lost_seg, dim, group)
 
 
 def reconstruct_e(row: torch.Tensor, synd: torch.Tensor, lost_ranks,
-                  dim: int, coeffs: Optional[torch.Tensor]) -> tuple:
+                  dim: int, coeffs: Optional[torch.Tensor],
+                  group=None) -> tuple:
     """Rebuild e <= r lost ranks' rows in every zone from the stack.
 
     `row`: `(*M, n)`; `synd`: `(*M, r, n // G)`; `lost_ranks`: distinct
@@ -173,10 +203,10 @@ def reconstruct_e(row: torch.Tensor, synd: torch.Tensor, lost_ranks,
     if e > synd.shape[-2]:
         raise ValueError(f"{e} erasures need {e} syndromes; the stack holds "
                          f"{synd.shape[-2]}")
-    lost = torch.tensor(ranks, device=row.device)
-    contrib = row.index_fill(dim, lost, 0)
+    contrib = _without(row, ranks, dim, group)
     survivors = coll.syndrome_reduce_scatter(
-        contrib, dim, None if e == 1 else coeffs[..., :e].contiguous())
+        contrib, dim, None if e == 1 else coeffs[..., :e].contiguous(),
+        group)
     deficits = (synd[..., :e, :] ^ survivors).movedim(-2, 0).contiguous()
-    return tuple(coll.all_gather_row(seg, dim)
+    return tuple(coll.all_gather_row(seg, dim, group)
                  for seg in gf.solve_e(deficits, ranks))

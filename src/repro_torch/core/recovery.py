@@ -12,7 +12,8 @@ Three entry points, all funneling into the Protector's reconstruction ops:
     repairs them in place.
 
 Recovery is idempotent (pure reconstruction from surviving rows + the
-stack).
+stack).  Reports name global ranks: on a zone split over processes each
+process reports the zone's recovery.
 """
 from __future__ import annotations
 

@@ -171,9 +171,14 @@ class Scrubber:
         bad_locations = []
         if "bad_pages" in out:
             # (*mesh_dims, n_blocks) -> (G, n_blocks): a page is bad if
-            # any non-data mesh coordinate flags it
+            # any non-data mesh coordinate flags it; a split zone's
+            # processes gather their blocks, so each reports the zone's
+            # list in global ranks
             bad = out["bad_pages"].movedim(self.protector.data_dim, 0)
             bad = bad.reshape(bad.shape[0], -1, bad.shape[-1]).any(dim=1)
+            group = self.protector.group
+            if group is not None:
+                bad = group.gather_dim(bad, 0)
             ranks, pages = torch.nonzero(bad, as_tuple=True)
             bad_locations = list(zip(ranks.tolist(), pages.tolist()))
         synd_ok = ([bool(v) for v in out["synd_ok"].tolist()]

@@ -21,6 +21,14 @@ device, `(*mesh_dims)`, and every zone-stacked field selects per device.
 The scalar verdict, step and redo log are what the reference's host sees:
 the values of the device at mesh coordinate 0.
 
+On a zone split over processes (`ZoneMesh(..., group=)`, dist/procs.py)
+each process holds its block of G / W data ranks, `(*mesh.local_dims,
+...)`, and runs this engine on it: ranks are global, the zone's AND is
+taken across the processes, the canary verdict is agreed before a commit
+branches on it, and every process ends with the same verdicts, step and
+redo log as the one-process engine — its fields are that engine's, block
+for block.
+
 Protection-mode ladder (paper Table 2):
   NONE   ~ Pangolin baseline (micro-buffering + canary only)
   ML     ~ + metadata/redo-log replication
@@ -32,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import math
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -193,12 +202,20 @@ class Protector:
     def data_dim(self) -> int:
         return self.mesh.data_dim
 
+    @property
+    def group(self):
+        """The process group of a split zone (None on one process)."""
+        return self.mesh.group
+
     def rank_index(self, device) -> torch.Tensor:
-        """`(*mesh_dims)` int64: each device's rank along the zone axis."""
+        """`(*mesh_dims)` int64: each device's (global) rank along the zone
+        axis."""
         shape = [1] * len(self.mesh.shape)
-        shape[self.data_dim] = self.group_size
-        return torch.arange(self.group_size, device=device).reshape(
-            shape).expand(self.mesh.shape)
+        shape[self.data_dim] = self.mesh.local_group_size
+        lo = self.mesh.data_offset
+        return torch.arange(lo, lo + self.mesh.local_group_size,
+                            device=device).reshape(shape).expand(
+                                self.mesh.local_dims)
 
     def coeffs(self, device) -> Optional[torch.Tensor]:
         """Every device's syndrome coefficients, `(*mesh_dims, r)` int32 on
@@ -214,7 +231,19 @@ class Protector:
     def _zone_all(self, ok: torch.Tensor) -> torch.Tensor:
         """AND over each zone's ranks, back on every device (the `pmin`)."""
         coll.note_all_reduce(ok, self.group_size, 4)
-        return ok.all(dim=self.data_dim, keepdim=True).expand(self.mesh.shape)
+        ok = ok.all(dim=self.data_dim, keepdim=True)
+        if self.group is not None:
+            ok = self.group.all_and(ok)
+        return ok.expand(self.mesh.local_dims)
+
+    def _all(self, ok: torch.Tensor) -> torch.Tensor:
+        """A 0-d AND over every device of the mesh, all processes'."""
+        ok = ok.all()
+        return ok if self.group is None else self.group.all_and(ok)
+
+    def zone_any(self, x: torch.Tensor) -> bool:
+        """Host OR of a bool tensor over every device of the mesh."""
+        return not bool(self._all(~x))
 
     def _zone_clean(self, ok: torch.Tensor, bad: torch.Tensor) -> torch.Tensor:
         """AND `no page is bad` into ok, agreed across each zone."""
@@ -222,9 +251,17 @@ class Protector:
 
     @staticmethod
     def _first(x: torch.Tensor, n_axes: int) -> torch.Tensor:
-        """The value at mesh coordinate 0 — what the reference's host sees
-        of a replicated output."""
+        """The value at this process's first mesh coordinate — mesh
+        coordinate 0, what the reference's host sees of a replicated
+        output, on one process."""
         return x.reshape(-1, *x.shape[n_axes:])[0]
+
+    def _first_of_zone(self, x: torch.Tensor, n_axes: int) -> torch.Tensor:
+        """The value at mesh coordinate 0, which the first process holds,
+        on every process."""
+        first = self._first(x, n_axes)
+        return first if self.group is None else self.group.all_gather(
+            first)[0]
 
     # -- sharding helpers (the dry run's abstract inputs) ---------------------
 
@@ -305,7 +342,7 @@ class Protector:
         synd = cksums = dig = None
         if mode.has_parity:
             synd = parity_mod.build_syndromes(row, self.data_dim,
-                                              self.coeffs(device))
+                                              self.coeffs(device), self.group)
         if mode.has_cksums:
             cksums = ck.block_checksums(row, lo.block_words)
             dig = ck.combine(cksums, lo.block_words)
@@ -367,7 +404,7 @@ class Protector:
                                                 dirty_leaves)
             else:
                 row_new = layout_mod.flatten_row(lo, state_new)
-            ok = torch.ones(self.mesh.shape, dtype=torch.bool,
+            ok = torch.ones(self.mesh.local_dims, dtype=torch.bool,
                             device=row_new.device)
             coeffs = self.coeffs(row_new.device)
             synd, cksums, digest = prot.synd, prot.cksums, prot.digest
@@ -395,7 +432,7 @@ class Protector:
                                               idx, lo.n_blocks, bw)
                 if mode.has_parity:
                     synd = parity_mod.patch_syndrome_delta(
-                        prot.synd, sdelta, idx, lo, dd)
+                        prot.synd, sdelta, idx, lo, dd, self.group)
             else:
                 pages_new = parity_mod.page_view(row_new, bw)
                 dig_new = None
@@ -414,8 +451,9 @@ class Protector:
                     ok = self._zone_clean(ok, bad)
                     if mode.has_parity:
                         synd = parity_mod.apply_sdelta(
-                            prot.synd, sdelta.reshape(*self.mesh.shape, r, -1),
-                            dd)
+                            prot.synd,
+                            sdelta.reshape(*self.mesh.local_dims, r, -1), dd,
+                            self.group)
                 else:
                     # without verify the old row is not read at all
                     if scb is None:
@@ -424,7 +462,8 @@ class Protector:
                         fresh, dig_new = kops.fletcher_stream(
                             pages_new, chunk_blocks=scb)
                     if mode.has_parity:
-                        synd = parity_mod.build_syndromes(row_new, dd, coeffs)
+                        synd = parity_mod.build_syndromes(row_new, dd, coeffs,
+                                                          self.group)
                 if mode.has_cksums:
                     cksums = fresh
                 digest = ck.combine(fresh, bw) if dig_new is None else dig_new
@@ -436,11 +475,15 @@ class Protector:
             """`state_new` is zone-stacked like `prot.state`.  `rng_key`:
             the step's two RNG key words (default (0, 0), the words of
             the reference's PRNGKey(0)).  Returns (successor, ok) with
-            `ok` a 0-d bool tensor (no host sync)."""
+            `ok` a 0-d bool tensor (no host sync).  On a split zone the
+            processes agree on the canary first: one smashed canary aborts
+            the commit on every process."""
             _check_like(state_new, prot.state)
+            if self.group is not None:
+                canary_ok = self.group.agree(canary_ok)
             step = prot.step + 1
             device = prot.step.device
-            ok_dev = torch.full(self.mesh.shape, bool(canary_ok),
+            ok_dev = torch.full(self.mesh.local_dims, bool(canary_ok),
                                 device=device)
             row, synd, cksums, digest = (prot.row, prot.synd, prot.cksums,
                                          prot.digest)
@@ -460,8 +503,8 @@ class Protector:
                         cksums = select(ok_dev, ck_n, prot.cksums)
                 # the reference's log takes the digest replicated: an
                 # all-reduce over every device of the mesh
-                coll.note_all_reduce(digest, digest[..., 0].numel())
-                digest_for_log = self._first(digest, n_axes)
+                coll.note_all_reduce(digest, math.prod(self.mesh.shape))
+                digest_for_log = self._first_of_zone(digest, n_axes)
             ok = self._first(ok_dev, n_axes)
             # paper ordering: the log record persists before the object
             # writes; the commit mark follows the protected update
@@ -511,9 +554,10 @@ class Protector:
     def scrub(self, prot: ProtectedState) -> dict:
         """One flatten of the live state feeds the checksum verify, the
         parity invariant and the row-cache check.  Outputs: `bad_pages`
-        `(*mesh_dims, n_blocks)` bool, `synd_ok` `(r,)` bool (zone at mesh
-        coordinate 0, as the reference's host sees it), `row_cache_ok`
-        0-d bool over every device."""
+        `(*mesh_dims, n_blocks)` bool (this process's ranks on a split
+        zone), `synd_ok` `(r,)` bool (zone at mesh coordinate 0, as the
+        reference's host sees it), `row_cache_ok` 0-d bool over every
+        device."""
         lo, mode = self.layout, self.mode
         row = layout_mod.flatten_row(lo, prot.state)
         out = {}
@@ -522,10 +566,11 @@ class Protector:
                                                 lo.block_words)
         if mode.has_parity:
             ok = parity_mod.verify_syndromes(row, prot.synd, self.data_dim,
-                                             self.coeffs(row.device))
+                                             self.coeffs(row.device),
+                                             self.group)
             out["synd_ok"] = ok.reshape(-1, ok.shape[-1])[0]
         if mode.has_parity or mode.has_cksums:
-            out["row_cache_ok"] = (row == prot.row).all()
+            out["row_cache_ok"] = self._all(row == prot.row)
         return out
 
     def local_scrub(self, prot: ProtectedState) -> dict:
@@ -539,25 +584,28 @@ class Protector:
         corruption."""
         lo, mode, r, g = self.layout, self.mode, self.redundancy, \
             self.group_size
-        dd, shape = self.data_dim, self.mesh.shape
+        dd, shape, group = self.data_dim, self.mesh.local_dims, self.group
         row = layout_mod.flatten_row(lo, prot.state)
         out = {}
         if mode.has_cksums:
             bad = ck.verify_blocks(row, prot.cksums, lo.block_words)
-            out["bad_count"] = bad.sum()
+            out["bad_count"] = (bad.sum() if group is None else
+                                group.all_gather(bad.sum()).sum())
         if mode.has_parity:
             weighted = kops.syndrome_scale(row, self.coeffs(row.device))
             segs = weighted.reshape(*shape, r, g, -1)
             folds = coll.xor_fold(segs, dim=-1)              # (*M, r, G)
-            want = coll.xor_all_reduce(folds, dd)            # (*M, r, G)
+            want = coll.xor_all_reduce(folds, dd, group)     # (*M, r, G)
             me = self.rank_index(row.device)
             want_me = torch.take_along_dim(
                 want, me[..., None, None].expand(*shape, r, 1), dim=-1)
             mine = coll.xor_fold(prot.synd, dim=-1)          # (*M, r)
             ok = (mine == want_me[..., 0]).all(dim=dd)       # per zone
+            if group is not None:
+                ok = group.all_and(ok)
             out["synd_ok"] = ok.reshape(-1, r)[0]
         if mode.has_parity or mode.has_cksums:
-            out["row_cache_ok"] = (row == prot.row).all()
+            out["row_cache_ok"] = self._all(row == prot.row)
         return out
 
     # -- recovery -------------------------------------------------------------
@@ -568,6 +616,8 @@ class Protector:
             return torch.ones((), dtype=torch.bool, device=row_out.device)
         bad = ck.verify_blocks(row_out, prot.cksums, self.layout.block_words)
         ok = ~bad.any(dim=-1).any(dim=self.data_dim)
+        if self.group is not None:
+            ok = self.group.all_and(ok)
         return ok.reshape(-1)[0]
 
     def recover_rank(self, prot: ProtectedState, lost_rank: int) -> tuple:
@@ -577,7 +627,7 @@ class Protector:
         lo, dd = self.layout, self.data_dim
         row = layout_mod.flatten_row(lo, prot.state)
         rebuilt = parity_mod.reconstruct_row(row, prot.synd[..., 0, :],
-                                             lost_rank, dd)
+                                             lost_rank, dd, self.group)
         lost = self.rank_index(row.device) == int(lost_rank)
         row_out = select(lost, rebuilt, row)
         return dataclasses.replace(
@@ -614,7 +664,7 @@ class Protector:
         self.check_budget(ranks)
         row = layout_mod.flatten_row(lo, prot.state)
         rebuilt = parity_mod.reconstruct_e(row, prot.synd, ranks, dd,
-                                           self.coeffs(row.device))
+                                           self.coeffs(row.device), self.group)
         me = self.rank_index(row.device)
         row_out = row
         for a, row_a in zip(ranks, rebuilt):
@@ -649,11 +699,13 @@ class Protector:
         mine_bad = (ranks == me)[..., None]                   # (*M, k, 1)
         contents = pages[..., pages_idx, :]                   # (*M, k, bw)
         others = coll.xor_all_reduce(
-            torch.where(mine_bad, 0, contents), dd)
+            torch.where(mine_bad, 0, contents), dd, self.group)
         owner = (pages_idx // pps == me)[..., None]
-        seg_pages = prot.synd[..., 0, :].reshape(*self.mesh.shape, pps, bw)
+        seg_pages = prot.synd[..., 0, :].reshape(*self.mesh.local_dims, pps,
+                                                 bw)
         par_pages = coll.xor_all_reduce(
-            torch.where(owner, seg_pages[..., pages_idx % pps, :], 0), dd)
+            torch.where(owner, seg_pages[..., pages_idx % pps, :], 0), dd,
+            self.group)
         fixed = torch.where(mine_bad, others ^ par_pages, contents)
         out = pages.clone()
         out[..., pages_idx, :] = fixed

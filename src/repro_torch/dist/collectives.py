@@ -17,6 +17,15 @@ the folded dim's length, summed over the ranks of the operand:
                         XOR all-reduce: an all-to-all, then an all-gather)
     all-to-all          (G-1)/G * operand bytes (the XOR reduce-scatter)
     collective-permute  operand bytes a round
+
+On a zone split over processes (dist/procs.py) each collective takes the
+mesh's `group`: the operand holds this process's G / W ranks, the fold
+runs over them first, and one exchange between the processes finishes
+it — the reduce-scatter sends each process its block of the G partial
+segments (an all-to-all of one row's words), the all-gather and the XOR
+all-reduce gather one block or one partial from each process.  The wire
+counts above stay the reference's, over the ranks this process holds,
+with G the whole zone's.
 """
 from __future__ import annotations
 
@@ -55,40 +64,61 @@ def xor_fold(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     return x[0]
 
 
-def xor_reduce_scatter(row: torch.Tensor, dim: int) -> torch.Tensor:
+def _zone_size(x: torch.Tensor, dim: int, group=None) -> int:
+    """G, the whole zone's ranks, of an operand holding this process's
+    block along `dim`."""
+    return x.shape[dim] * (1 if group is None else group.world)
+
+
+def _scatter_partial(partial: torch.Tensor, dim: int,
+                     group=None) -> torch.Tensor:
+    """`partial` holds along `dim` this process's XOR partial of each of
+    the G segments; each process receives its block of G / W segments
+    from every process and folds them (the one-process fold's bits)."""
+    if group is None:
+        return partial
+    blocks = partial.unflatten(dim, (group.world, -1)).movedim(dim, 0)
+    return xor_fold(group.all_to_all(blocks.contiguous()), 0)
+
+
+def xor_reduce_scatter(row: torch.Tensor, dim: int,
+                       group=None) -> torch.Tensor:
     """`(*M, n)` rows -> `(*M, n // G)`: rank i along `dim` keeps segment
     i of the XOR of the G rows of its zone."""
-    g, n = row.shape[dim], row.shape[-1]
+    g, n = _zone_size(row, dim, group), row.shape[-1]
     if n % g:
         raise ValueError(f"row of {n} words does not split into {g} segments")
     _wire("all-to-all", row, g)
     segs = row.reshape(*row.shape[:-1], g, n // g)
-    return xor_fold(segs, dim).movedim(-2, dim)
+    return _scatter_partial(xor_fold(segs, dim).movedim(-2, dim), dim, group)
 
 
-def all_gather_row(seg: torch.Tensor, dim: int) -> torch.Tensor:
+def all_gather_row(seg: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     """`(*M, s)` segments -> `(*M, G * s)`: every rank of a zone receives
     the concatenation of its zone's segments in rank order."""
-    _wire("all-gather", seg, seg.shape[dim], seg.shape[dim])
-    full = seg.movedim(dim, -2)
+    g = _zone_size(seg, dim, group)
+    _wire("all-gather", seg, g, g)
+    whole = seg if group is None else group.gather_dim(seg, dim)
+    full = whole.movedim(dim, -2)
     full = full.reshape(*full.shape[:-2], -1).unsqueeze(dim)
     return full.expand(*seg.shape[:-1], full.shape[-1])
 
 
-def xor_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
+def xor_reduce(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     """XOR of x across each zone, once a zone (the dim folded away): the
     value the reference's XOR all-reduce delivers to every rank, reported
     as that all-reduce (its payload unpadded)."""
-    g = x.shape[dim]
+    g = _zone_size(x, dim, group)
     _wire("all-to-all", x, g)
     _wire("all-gather", x, g)
-    return xor_fold(x, dim)
+    out = xor_fold(x, dim)
+    return out if group is None else xor_fold(group.all_gather(out), 0)
 
 
-def xor_all_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
+def xor_all_reduce(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     """XOR of x across each zone, delivered to every rank (same shape).
     Returns a broadcast view: read it, do not write into it."""
-    return xor_reduce(x, dim).unsqueeze(dim).expand_as(x)
+    return xor_reduce(x, dim, group).unsqueeze(dim).expand_as(x)
 
 
 # The weighted planes of a row take r times its bytes, and their fold half
@@ -98,8 +128,8 @@ WEIGHTED_BYTES = 1 << 32
 
 
 def syndrome_reduce_scatter(row: torch.Tensor, dim: int,
-                            coeffs: Optional[torch.Tensor] = None
-                            ) -> torch.Tensor:
+                            coeffs: Optional[torch.Tensor] = None,
+                            group=None) -> torch.Tensor:
     """`(*M, n)` rows -> the `(*M, r, n // G)` syndrome stack: rank i keeps
     segment i of every S_k = XOR_j g^(k·j)·row_j.  `coeffs` is the
     `(*M, r)` table of each rank's g^(k·j) (`gf.rank_syndrome_coeffs`), or
@@ -110,22 +140,23 @@ def syndrome_reduce_scatter(row: torch.Tensor, dim: int,
     same bytes."""
     r = 1 if coeffs is None else coeffs.shape[-1]
     if r * row.numel() * row.element_size() <= WEIGHTED_BYTES:
-        return xor_reduce_scatter(kops.syndrome_scale(row, coeffs), dim)
-    g, n = row.shape[dim], row.shape[-1]
+        return xor_reduce_scatter(kops.syndrome_scale(row, coeffs), dim,
+                                  group)
+    g, n = _zone_size(row, dim, group), row.shape[-1]
     if n % g:
         raise ValueError(f"row of {n} words does not split into {g} segments")
     _wire("all-to-all", row, g, r)
     segs = row.reshape(*row.shape[:-1], g, n // g)
-    return torch.stack([
+    return _scatter_partial(torch.stack([
         xor_fold(kops.syndrome_scale(segs[..., i, :].contiguous(), coeffs),
-                 dim) for i in range(g)], dim=dim)
+                 dim) for i in range(g)], dim=dim), dim, group)
 
 
 def syndrome_apply_delta(synd: torch.Tensor, sdelta: torch.Tensor,
-                         dim: int) -> torch.Tensor:
+                         dim: int, group=None) -> torch.Tensor:
     """Bulk stack delta: `synd ^ reduce-scatter(sdelta)`, plane by plane.
     `synd`: `(*M, r, s)`; `sdelta`: `(*M, r, n)` pre-weighted delta rows."""
-    return synd ^ xor_reduce_scatter(sdelta, dim)
+    return synd ^ xor_reduce_scatter(sdelta, dim, group)
 
 
 def meta_all_gather(x: torch.Tensor, dim: int, n_axes: int) -> torch.Tensor:

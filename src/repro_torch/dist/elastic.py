@@ -26,7 +26,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch import utils
-from repro_torch.dist import sharding
+from repro_torch.dist import procs, sharding
 
 PyTree = Any
 
@@ -34,6 +34,8 @@ PyTree = Any
 def reshard_state(state: PyTree, specs: PyTree, old_mesh, new_mesh) -> PyTree:
     """Zone-stacked leaves on `old_mesh` -> zone-stacked on `new_mesh`
     (bit-exact; along replicated axes the copy at coordinate 0 moves)."""
+    for mesh in (old_mesh, new_mesh):
+        procs.refuse_split(mesh, "a reshard", "S7c")
     leaves, treedef = utils.tree_flatten(state)
     return utils.tree_unflatten(treedef, [
         sharding.shard(sharding.unshard(x, spec, old_mesh), spec, new_mesh)

@@ -12,6 +12,14 @@ exactly what each device holds.
 `shard` / `unshard` move between a global tensor and its stacked form;
 `local_shape` is the spec-to-shard rule (`NamedSharding.shard_shape`).
 
+A mesh given a process group (`ZoneMesh(..., group=)`, dist/procs.py) is
+split over its W processes along the data axis: process p holds data
+coordinates `[p·G/W, (p+1)·G/W)` and every coordinate of the other axes,
+so its stacked leaves are `(*local_dims, *local_shape)`, the reference's
+layout with G/W in the data dim.  `shard` keeps the process's block;
+`unshard` gathers the blocks first.  Without a group (or with one
+process) one device holds the whole zone, as above.
+
 Model and cache code names tensor dimensions logically ("embed", "heads",
 "batch", ...); `spec_for` maps the names onto mesh axes with the
 reference's divisibility fallback (dist/sharding.py there): each name has
@@ -26,6 +34,8 @@ import math
 from typing import Optional, Sequence
 
 import torch
+
+from repro_torch.dist import procs
 
 
 class P(tuple):
@@ -45,10 +55,12 @@ class ZoneMesh:
 
     The zone (parity group) runs along `data_axis`; every other mesh
     coordinate holds an independent zone of G = size(data_axis) ranks.
+    `group` (a `procs.ZoneGroup`, or a gloo process group) splits the data
+    axis over its processes in contiguous blocks; W must divide G.
     """
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
-                 data_axis: str = "data"):
+                 data_axis: str = "data", group=None):
         self.shape = tuple(int(s) for s in shape)
         self.axis_names = tuple(axis_names)
         if len(self.shape) != len(self.axis_names):
@@ -58,6 +70,43 @@ class ZoneMesh:
             raise ValueError(f"data axis {data_axis!r} not in mesh axes "
                              f"{self.axis_names}")
         self.data_axis = data_axis
+        if group is not None:
+            if not isinstance(group, procs.ZoneGroup):
+                group = procs.ZoneGroup(group)
+            if self.group_size % group.world:
+                raise ValueError(
+                    f"{group.world} processes do not split a zone of "
+                    f"{self.group_size} data ranks into equal blocks")
+            if group.world == 1:
+                group = None
+        self.group = group
+
+    @property
+    def world(self) -> int:
+        """Processes the zone is split over (1 without a group)."""
+        return 1 if self.group is None else self.group.world
+
+    @property
+    def proc_rank(self) -> int:
+        return 0 if self.group is None else self.group.rank
+
+    @property
+    def local_group_size(self) -> int:
+        """Data ranks this process holds, G / W."""
+        return self.group_size // self.world
+
+    @property
+    def data_offset(self) -> int:
+        """The global data coordinate of this process's first rank."""
+        return self.proc_rank * self.local_group_size
+
+    @property
+    def local_dims(self) -> tuple:
+        """The leading dims of this process's stacked tensors: the mesh
+        shape with G / W in the data dim."""
+        dims = list(self.shape)
+        dims[self.data_dim] = self.local_group_size
+        return tuple(dims)
 
     def axis_size(self, name: str) -> int:
         return self.shape[self.axis_names.index(name)]
@@ -72,8 +121,9 @@ class ZoneMesh:
         return self.axis_size(self.data_axis)
 
     def __repr__(self) -> str:
+        split = "" if self.group is None else f", group={self.group!r}"
         return (f"ZoneMesh({self.shape}, {self.axis_names}, "
-                f"data_axis={self.data_axis!r})")
+                f"data_axis={self.data_axis!r}{split})")
 
 
 def _entries(spec, ndim: int) -> list:
@@ -101,7 +151,8 @@ def local_shape(global_shape: Sequence[int], spec, mesh: ZoneMesh) -> tuple:
 
 
 def shard(x: torch.Tensor, spec, mesh: ZoneMesh) -> torch.Tensor:
-    """Global tensor -> zone-stacked `(*mesh.shape, *local_shape)`."""
+    """Global tensor -> zone-stacked `(*mesh.local_dims, *local_shape)`:
+    on a split mesh only this process's block of data ranks is copied."""
     entries = _entries(spec, x.dim())
     dims, axis_pos, local_pos = [], {}, []
     for n, axes in zip(x.shape, entries):
@@ -118,12 +169,19 @@ def shard(x: torch.Tensor, spec, mesh: ZoneMesh) -> torch.Tensor:
             axis_pos[a] = y.dim() - 1
         perm.append(axis_pos[a])
     y = y.permute(perm + local_pos)
-    return y.expand(*mesh.shape, *y.shape[len(mesh.shape):]).contiguous()
+    y = y.expand(*mesh.shape, *y.shape[len(mesh.shape):])
+    if mesh.group is not None:
+        y = y.narrow(mesh.data_dim, mesh.data_offset, mesh.local_group_size)
+    return y.contiguous()
 
 
 def unshard(y: torch.Tensor, spec, mesh: ZoneMesh) -> torch.Tensor:
     """Zone-stacked -> global tensor.  Along replicated axes the copy at
-    coordinate 0 is taken — the one `np.asarray` of a jax.Array shows."""
+    coordinate 0 is taken — the one `np.asarray` of a jax.Array shows.  On
+    a split mesh the processes' blocks are gathered first (a collective:
+    every process calls it)."""
+    if mesh.group is not None:
+        y = mesh.group.gather_dim(y, mesh.data_dim)
     n_mesh = len(mesh.shape)
     local = tuple(y.shape[n_mesh:])
     entries = _entries(spec, len(local))

@@ -9,7 +9,8 @@ to a step's record.  The hand kernels launch through ctypes, where no
 dispatch mode sees them, so each entry point of kernels/ops.py reports
 itself here (`launch`), on every route — the card, the CPU's plain version
 and the meta route alike; the zone collectives of dist/collectives.py
-report their wire bytes (`wire`).  With no counter active both cost a
+report their wire bytes (`wire`), and a split zone's processes the
+bytes they exchange (`EXCHANGE`).  With no counter active both cost a
 list lookup.
 """
 from __future__ import annotations
@@ -125,10 +126,16 @@ def launch(name: str, x, r: int = 1, pages: bool = True):
         int_ops(name, words, r))
 
 
+# The bytes a process of a split zone actually sent to the others
+# (dist/procs.py), a kind of its own beside the reference-convention
+# counts, which stay those of every rank a device.
+EXCHANGE = "process-exchange"
+
+
 def wire(kind: str, nbytes: float) -> None:
     """Report `nbytes` of a zone collective of `kind` (hlo_analysis's
     names: all-gather, all-reduce, reduce-scatter, all-to-all,
     collective-permute), summed over every rank of the zone-stacked
-    operand."""
+    operand; or, as `EXCHANGE`, the bytes a process sent."""
     if _COUNTERS:
         _COUNTERS[-1].wire(kind, nbytes)

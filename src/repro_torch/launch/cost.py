@@ -182,8 +182,10 @@ class CostMode(TorchDispatchMode):
             self._paused -= 1
 
     def wire(self, kind: str, nbytes: float) -> None:
-        self.wire_bytes[kind] += nbytes
-        self.wire_counts[kind] += 1
+        # a kind outside COLLECTIVES (a split zone's process exchange)
+        # gets its entry when it first reports
+        self.wire_bytes[kind] = self.wire_bytes.get(kind, 0.0) + nbytes
+        self.wire_counts[kind] = self.wire_counts.get(kind, 0) + 1
 
     # -- the dispatch ---------------------------------------------------------
 

@@ -56,6 +56,13 @@ in the trace to the recovery or repairing scrub that resolves it.
 
 A state given as `device="meta"` tensors (`utils.abstract`) opens a *cold*
 pool: the layout exists, `pool.init(state)` attaches real state.
+
+A mesh split over processes (`ZoneMesh(..., group=)`, dist/procs.py) opens
+one pool a process: each calls the same methods with the same global
+arguments, holds its block of data ranks, and sees the one-process pool's
+verdicts, reports and (gathered) `state`.  A split pool runs the
+synchronous engine only: window > 1, pipeline_depth > 1, a staged canary
+and `rescale` are refused (slices S7b, S7c).
 """
 from __future__ import annotations
 
@@ -75,7 +82,7 @@ from repro_torch.core.pipeline import CommitRing, CommitTicket
 from repro_torch.core.scrub import ScrubReport, Scrubber
 from repro_torch.core.txn import (Mode, ProtectedState, Protector,
                                   device_bool, tree_select)
-from repro_torch.dist import elastic, sharding
+from repro_torch.dist import elastic, procs, sharding
 from repro_torch.dist.straggler import StragglerPolicy
 from repro_torch.kernels import ops as kops
 from repro_torch.obs import health as obs_health
@@ -230,6 +237,10 @@ class Transaction:
         if self._staged is None:
             return False                  # nothing staged: a no-op tx
         canary_ok = (not self._aborted) and self.canary_ok
+        group = self._pool.mesh.group
+        if group is not None:
+            # one process's smashed canary aborts the zone's transaction
+            canary_ok = group.agree(canary_ok)
         self._ok = self._pool.commit(
             self._staged, data_cursor=self._data_cursor,
             rng_key=self._rng_key, canary_ok=canary_ok, **self._commit_kw)
@@ -268,6 +279,12 @@ class Pool(EngineHost):
                  tracer: Optional[Tracer] = None,
                  protector: Optional[Protector] = None):
         self.config = config if config is not None else ProtectConfig()
+        if self.config.window > 1:
+            procs.refuse_split(mesh, "the deferred engine (window > 1)",
+                               "S7b")
+        if self.config.pipeline_depth > 1:
+            procs.refuse_split(mesh, "the async commit ring "
+                               "(pipeline_depth > 1)", "S7b")
         self.device = utils.resolve_device(device)
         self.mesh = mesh
         # the global shapes and dtypes, all that a rescale rebuilds from
@@ -433,7 +450,8 @@ class Pool(EngineHost):
     @property
     def state(self) -> Optional[PyTree]:
         """The live protected state as global tensors (along replicated
-        axes, the copy at mesh coordinate 0)."""
+        axes, the copy at mesh coordinate 0); on a split zone gathered
+        from every process (each must read it)."""
         if self.prot is None:
             return None
         return self.global_view(self.prot.state)
@@ -545,6 +563,8 @@ class Pool(EngineHost):
             raise RuntimeError("Pool.commit before init()")
         zone = self.to_zone(state_new)
         staged = isinstance(canary_ok, torch.Tensor)
+        if staged:
+            procs.refuse_split(self.mesh, "a staged canary", "S7b")
         if self._engine is not None:
             if verify_old:
                 raise ValueError("verify_old is a synchronous-engine "
@@ -994,7 +1014,7 @@ class Pool(EngineHost):
             rep.synd_ok = [bool(v) for v in out["synd_ok"].tolist()]
             ok = ok and all(rep.synd_ok)
         if "bad_pages" in out:
-            ok = ok and not bool(out["bad_pages"].any())
+            ok = ok and not self.protector.zone_any(out["bad_pages"])
         if "row_cache_ok" in out:
             ok = ok and bool(out["row_cache_ok"])
         rep.reverified = ok
@@ -1014,6 +1034,8 @@ class Pool(EngineHost):
         device, publishing into its metrics and tracer."""
         if self.prot is None:
             raise RuntimeError("Pool.rescale before init()")
+        for mesh in (self.mesh, new_mesh):
+            procs.refuse_split(mesh, "Pool.rescale", "S7c")
         self.flush()
         with self.tracer.span("rescale") as span:
             if into is None:

@@ -12,7 +12,9 @@
     overran (caught at commit, before state is touched).
 
 Every injector returns a new ProtectedState; the tensors it was given are
-not modified.
+not modified.  Ranks are global: on a zone split over processes every
+process calls the injector alike, and only the one holding a victim rank
+changes its block.
 """
 from __future__ import annotations
 

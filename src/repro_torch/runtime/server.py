@@ -41,6 +41,7 @@ import torch
 from repro_torch import obs, utils
 from repro_torch.configs.base import ModelConfig, ProtectConfig
 from repro_torch.core import layout as layout_mod
+from repro_torch.dist import procs
 from repro_torch.models import api
 from repro_torch.models.transformer import build_model
 from repro_torch.pool import Pool, PoolHost
@@ -67,6 +68,7 @@ class Server(PoolHost):
                  metrics_dir: Optional[str] = None,
                  trace_dir: Optional[str] = None,
                  metrics_every: int = 100, device=None):
+        procs.refuse_split(mesh, "runtime.Server", "S7c")
         self.cfg = cfg
         self.mesh = mesh
         self.batch = batch

@@ -45,6 +45,7 @@ from repro_torch import obs, utils
 from repro_torch.configs.base import ModelConfig, ProtectConfig, TrainConfig
 from repro_torch.core import redolog
 from repro_torch.data.synthetic import batch_for
+from repro_torch.dist import procs
 from repro_torch.models import api
 from repro_torch.models.transformer import build_model
 from repro_torch.optim import build_optimizer
@@ -59,6 +60,7 @@ class Trainer(PoolHost):
                  metrics_dir: Optional[str] = None,
                  trace_dir: Optional[str] = None,
                  metrics_every: int = 25, device=None):
+        procs.refuse_split(mesh, "runtime.Trainer", "S7c")
         self.cfg = cfg
         self.train_cfg = train_cfg
         self.mesh = mesh

@@ -57,6 +57,7 @@ from repro_torch.core.epoch import EpochState
 from repro_torch.core.pipeline import CommitRing, CommitTicket
 from repro_torch.core.txn import _check_like, select
 from repro_torch.dist import collectives as coll
+from repro_torch.dist import procs
 from repro_torch.kernels import ops as kops
 from repro_torch.obs import health as obs_health
 from repro_torch.obs.metrics import MetricsRegistry
@@ -442,6 +443,7 @@ class PoolGroup:
                  tracer: Optional[Tracer] = None):
         if capacity < 0:
             raise ValueError(f"capacity={capacity}: 0 (unbounded) or more")
+        procs.refuse_split(mesh, "PoolGroup", "S7c")
         self.mesh = mesh
         self.device = utils.resolve_device(device)
         self.capacity = int(capacity)          # 0 = unbounded
