@@ -73,6 +73,32 @@
    ms of its staging, the launches summed over the workers, and each
    worker's peak memory.  The workers time-slice the card: their kernel
    times are not the kernel table's.
+4b. The deferred engines and the async ring on the split zone (zw), the
+   same four workers, each phase held as zp's phases are (the open
+   window's accumulator, live row, dirty mask, pending count, size and
+   attempts hashed too):
+   W — w3's engine (mlpc r = 3, window 4, streamed): a open, b three
+        in-window commits, c the fourth and the flush, d a commit, e a
+        staged abort mid-window whose guard page is smashed on process 1
+        only (the canary agreed on the device: every process aborts), f a
+        commit, g the loss of ranks 5, 37 and 99 recovered, its window
+        bound from the mirrored meta (2 pending, digests verified), h a
+        clean scrub that regrows the window;
+   P — the patch engine (mlp r = 3, window 8) on w_fsdp and w_tp, four
+        pages a commit past the leaves' own two: a open, b seven commits
+        naming their words (512 words of each rank's w_fsdp shard, whose
+        XOR deltas differ by rank, and 2048 of w_tp; the third also names
+        two words past w_tp), c the eighth and the flush (xor_delta);
+   Q — q3's ring (mlpc r = 3, depth 4): a open and the warm-up (a
+        verified, a staged abort smashed on process 1, a patch), b eight
+        bulk commit_async (the third verified, the fifth a staged abort),
+        c poll and drain, e sixteen 16-page patches whose pages have an
+        owner on every process, g the loss of ranks 5, 37 and 99 with
+        three tickets in flight.
+   A split dispatch blocks (its exchanges stage through the host), so
+   the ring's lines print each worker's dispatch ms; no dispatch runs
+   under the sync-debug mode here.  The one-process run drops the
+   synchronous comparison pools of w3, wp and q3: it is the comparison.
 5. The deferred-epoch engine (window > 1) on the same zone:
    w3 — the bulk engine, streamed, mlpc r = 3, window 4: open, three
         in-window commits, the fourth (the boundary flush), a commit, a
@@ -1496,7 +1522,9 @@ def zp_phases(dev, group, smashed):
 
 def zp_hashes(pool, group):
     """{field: {global rank: SHA-256 of its bytes}} of row, synd, cksums,
-    digest and every state leaf; {"log": ..., "step": ...} whole."""
+    digest, every state leaf and an open window's acc, live row and dirty
+    mask; {"log": ..., "step": ...} whole, and a window's pending count,
+    its size and its attempts since the flush."""
     import hashlib
     from concurrent.futures import ThreadPoolExecutor
     prot, dd = pool.prot, pool.mesh.data_dim
@@ -1504,8 +1532,14 @@ def zp_hashes(pool, group):
     fields = {"row": prot.row, "synd": prot.synd, "cksums": prot.cksums,
               "digest": prot.digest}
     fields.update({f"state.{k}": v for k, v in prot.state.items()})
+    est = pool._est
+    if est is not None:
+        fields.update({f"window.{k}": getattr(est, k)
+                       for k in ("acc", "live", "dirty")})
     jobs = []
     for name, t in fields.items():
+        if t is None:
+            continue
         host = t.detach().movedim(dd, 0).contiguous().cpu()
         host = host.reshape(host.shape[0], -1).view(torch.uint8).numpy()
         jobs += [(name, off + i, host[i]) for i in range(host.shape[0])]
@@ -1518,17 +1552,22 @@ def zp_hashes(pool, group):
                    for f in dataclasses.fields(prot.log))
     out["log"] = hashlib.sha256(log).hexdigest()
     out["step"] = int(prot.step) & 0xFFFFFFFF
+    if est is not None:
+        out["window.pending"] = int(est.pending) & 0xFFFFFFFF
+        out["window.cadence"] = (pool.engine.window, pool.engine._since)
     return dict(out)
 
 
-def zp_run(dev, group, smashed):
-    """Drive zp's phases; each phase's line: wall ms (synchronized, from a
-    barrier of the workers; the hashing after the clock), launches, the
-    exchanges' staged and sent bytes and ms, the peak memory, and the
-    hashes."""
+def zp_run(dev, group, smashed, phases=None):
+    """Drive a split path's phases (zp's by default); each phase's line:
+    wall ms (synchronized, from a barrier of the workers; the hashing
+    after the clock), launches, the exchanges' staged and sent bytes and
+    ms, the peak memory, the hashes, and what the phase reported (a
+    phase yields (tag, pool) or (tag, pool, {key: value}))."""
     from repro_torch.kernels import _build
     stats = group.stats if group is not None else {}
-    lines, phases = [], zp_phases(dev, group, smashed)
+    lines = []
+    phases = (phases or zp_phases)(dev, group, smashed)
     while True:
         launched, ex = dict(_build.LAUNCHES), dict(stats)
         torch.cuda.synchronize()
@@ -1541,10 +1580,10 @@ def zp_run(dev, group, smashed):
         ms = (time.perf_counter() - t0) * 1e3
         if step is None:
             return lines
-        tag, pool = step
+        tag, pool, extra = (*step, {})[:3]
         del step
         lines.append(dict(
-            phase=tag, ms=ms, launches={
+            phase=tag, ms=ms, extra=extra, launches={
                 k: v - launched.get(k, 0) for k, v in _build.LAUNCHES.items()
                 if v - launched.get(k, 0)},
             exchange={k: v - ex[k] for k, v in stats.items()},
@@ -1553,60 +1592,68 @@ def zp_run(dev, group, smashed):
         del pool
 
 
-def zp_worker(group):
-    """One zp worker on the card: its launches counted from zero."""
+def zp_worker(group, phases=None):
+    """One worker of a split path on the card (zp's phases by default):
+    its launches counted from zero."""
     from repro_torch.kernels import _build
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     _build.reset_launches()
-    lines = zp_run(dev, group, group.rank == ZP_SMASHED)
+    lines = zp_run(dev, group, group.rank == ZP_SMASHED, phases)
     return {"lines": lines, "launches": dict(_build.LAUNCHES),
             "peak": torch.cuda.max_memory_reserved(dev)}
 
 
-def procs_path(dev):
-    """zp: the one-process run, then four workers, phase by phase
-    byte-equal by per-rank hashes.  Returns the workers' summed
-    launches."""
+def split_path(dev, tag, phases, must_launch, launches=None):
+    """A split path: the one-process run, then ZP_WORLD workers, phase by
+    phase byte-equal by per-rank hashes; `launches` ({phase: {entry
+    point: count}}) is what each worker and the one process must launch
+    in a phase.  Returns the workers' summed launches."""
     from repro_torch.dist import procs
     from repro_torch.kernels import _build
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     saved = dict(_build.LAUNCHES)
-    one = zp_run(dev, None, True)          # a comparison: launches uncounted
+    one = zp_run(dev, None, True, phases)  # a comparison: launches uncounted
     _build.LAUNCHES.clear()
     _build.LAUNCHES.update(saved)
     gc.collect()
     torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info(dev)
-    emit(path="zp", phase="spawn", world=ZP_WORLD, mem_free=free,
+    emit(path=tag, phase="spawn", world=ZP_WORLD, mem_free=free,
          mem_total=total)
     t0 = time.perf_counter()
-    workers = procs.spawn_zone(zp_worker, ZP_WORLD, timeout=ZP_TIMEOUT_S)
+    workers = procs.spawn_zone(zp_worker, ZP_WORLD, phases,
+                               timeout=ZP_TIMEOUT_S)
     wall = (time.perf_counter() - t0) * 1e3
     counts = collections.Counter()
     for w in workers:
         counts.update(w["launches"])
     for i, want in enumerate(one):
         got = [w["lines"][i] for w in workers]
-        tag = want["phase"]
-        check(all(g["phase"] == tag for g in got), f"zp phases {tag}")
+        phase = want["phase"]
+        check(all(g["phase"] == phase for g in got), f"{tag} phases {phase}")
         for name, by_rank in want["hashes"].items():
-            if name in ("log", "step"):
+            if not isinstance(by_rank, dict):
                 check(all(g["hashes"][name] == by_rank for g in got),
-                      f"zp {tag}: {name} differs from one process")
+                      f"{tag} {phase}: {name} differs from one process")
                 continue
             merged = {}
             for g in got:
                 merged.update(g["hashes"][name])
-            check(merged == by_rank, f"zp {tag}: {name} differs from one "
-                  "process at ranks " + str(sorted(
+            check(merged == by_rank, f"{tag} {phase}: {name} differs from "
+                  "one process at ranks " + str(sorted(
                       r for r in by_rank if merged.get(r) != by_rank[r])))
+        want_l = (launches or {}).get(phase)
+        if want_l is not None:
+            check(all(x["launches"] == want_l for x in got + [want]),
+                  f"{tag} {phase}: launches {[x['launches'] for x in got]}"
+                  f", one process {want['launches']}, want {want_l}")
         launched = collections.Counter()
         for g in got:
             launched.update(g["launches"])
-        emit(path="zp", phase=tag, ms=max(g["ms"] for g in got),
+        emit(path=tag, phase=phase, ms=max(g["ms"] for g in got),
              ms_by_worker=[g["ms"] for g in got],
              one_process_ms=want["ms"], launches=dict(launched),
              staged_bytes=[g["exchange"]["staged_bytes"] for g in got],
@@ -1615,13 +1662,198 @@ def procs_path(dev):
              copy_ms=[g["exchange"]["copy_ms"] for g in got],
              exchanges=[g["exchange"]["exchanges"] for g in got],
              max_memory_allocated=[g["max_memory_allocated"] for g in got],
-             equal_ranks=G)
-    missing = [k for k in PATH_ZP if not counts.get(k)]
-    check(not missing, f"zp: entry points never launched: {missing}")
-    emit(path="zp", phase="memory", spawn_ms=wall,
+             equal_ranks=G,
+             **{k: [g["extra"][k] for g in got] for k in want["extra"]},
+             **{f"one_process_{k}": v for k, v in want["extra"].items()})
+    missing = [k for k in must_launch if not counts.get(k)]
+    check(not missing, f"{tag}: entry points never launched: {missing}")
+    emit(path=tag, phase="memory", spawn_ms=wall,
          max_memory_reserved_by_worker=[w["peak"] for w in workers],
          launches=dict(counts))
     return dict(counts)
+
+
+def procs_path(dev):
+    """zp: the sync engine split over four workers."""
+    return split_path(dev, "zp", zp_phases, PATH_ZP)
+
+
+# -- 6b. the deferred engine and the ring on the split zone -----------------
+
+ZW_CAPACITY = 4                       # zw's patch engine: pages a commit, + 2
+PATH_ZW = ("fused_accum_commit_stream", "sdelta_stack", "fletcher_blocks",
+           "gf_scale", "xor_delta", "fletcher_stream",
+           "fused_verify_commit_s_stream", "fused_commit_s")
+# what each process launches in a phase (and the one-process run)
+ZW_LAUNCHES = {
+    "W_a_open_window_4": {"fletcher_blocks": 1, "sdelta_stack": 1},
+    **{f"W_b_commit_{i}": {"fused_accum_commit_stream": 1}
+       for i in (1, 2, 3)},
+    "W_c_commit_4_flush": {"fused_accum_commit_stream": 1,
+                           "sdelta_stack": 1},
+    "W_d_commit_5": {"fused_accum_commit_stream": 1},
+    # the staged abort runs the all-clear step too, then selects
+    "W_e_staged_abort_mid_window": {"fused_accum_commit_stream": 1},
+    "W_f_commit_6": {"fused_accum_commit_stream": 1},
+    "P_b_7_commits": {},
+    "P_c_commit_8_flush": {"xor_delta": 1, "sdelta_stack": 1},
+}
+
+
+def zw_patched(st, i, n_words):
+    """zw's i-th patch commit: on every rank 512 words of its w_fsdp shard
+    (random values, so the XOR deltas differ by rank) and rows 4i..4i+3 of
+    w_tp, + 1.0; (the state, its dirty_words for leaves 1 and 2 — commit 3
+    names w_tp words past the leaf too)."""
+    start = 4096 * i + 100
+    w = st["w_fsdp"].clone()
+    w.view(G, -1)[:, start:start + 512] += 1.0
+    tp = st["w_tp"].clone()
+    tp[4 * i:4 * i + 4] += 1.0
+    tp_words = torch.arange(4 * i * BW // 2, (4 * i + 4) * BW // 2)
+    if i == 3:
+        tp_words = torch.cat([tp_words, torch.tensor([n_words,
+                                                      n_words + 5000])])
+    return ({"w_fsdp": w, "w_tp": tp, "scale": st["scale"]},
+            (torch.arange(start, start + 512), tp_words))
+
+
+def zw_phases(dev, group, smashed):
+    """zw's phases on this process's block (the whole zone without a
+    group): w3's bulk engine (W_a-W_h, its canary abort staged), wp's
+    patch engine on w_fsdp and w_tp (P_a-P_c) and q3's ring (Q_a-Q_g).
+    Yields (phase, pool[, extra]); `smashed`: whether this process's
+    staged canaries are the smashed ones."""
+    from repro_torch import Fault
+    from repro_torch.core import microbuffer
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import failure
+
+    def canary():
+        # a guard page checked on the device: smashed on one process only
+        guards = ([microbuffer.check(failure.smashed_canary_buffer(
+            4096, device=dev))] if smashed else [])
+        return ops.stage_verdict(guards, device=dev)
+
+    def dispatch(pool, state, **kw):
+        t0 = time.perf_counter()
+        ticket = pool.commit_async(state, **kw)
+        return ticket, (time.perf_counter() - t0) * 1e3
+
+    mesh, specs, cur = zone_state(dev, group)
+    cfg = dict(mode="mlpc", redundancy=R)
+    pool = open_pool(cur, specs, mesh, dev, window=4, **cfg)
+    check(pool.engine.window == 4 and not pool.engine.patch and
+          pool.protector.stream_chunk() is not None, "zw W_a: engine")
+    yield "W_a_open_window_4", pool
+    for i in (1, 2, 3, 4, 5):
+        cur = bumped(cur)
+        check(bool(pool.commit(cur, data_cursor=i)), f"zw commit {i}")
+        yield {4: "W_c_commit_4_flush", 5: "W_d_commit_5"}.get(
+            i, f"W_b_commit_{i}"), pool
+    check(pool.engine._since == 1, "zw W_d: the flush")
+    zeros = {k: torch.zeros_like(v) for k, v in cur.items()}
+    verdict = canary()
+    ticket, ms = dispatch(pool, zeros, data_cursor=6, canary_ok=verdict)
+    check(ticket.result() is False and pool.engine._since == 2,
+          "zw W_e: the staged canary did not abort")
+    del zeros, ticket
+    yield "W_e_staged_abort_mid_window", pool, {"dispatch_ms": ms}
+    cur = bumped(cur)
+    check(bool(pool.commit(cur, data_cursor=6)), "zw W_f")
+    yield "W_f_commit_6", pool
+    pool.inject(lambda p, prot: failure.inject_multi_rank_loss(
+        p, prot, MULTI_LOST))
+    rep = pool.recover(Fault.multi_loss(*MULTI_LOST))
+    check(rep.verified and rep.reverified and rep.synd_ok == [True] * R
+          and rep.window_bound == {"pending": 2, "dirty_pages": None,
+                                   "digest_verified": True}
+          and pool.engine.window == 1, f"zw W_g {rep}")
+    yield "W_g_multi_loss_recover", pool
+    report = pool.scrub()
+    check(not report.suspect and report.synd_ok == [True] * R and
+          pool.engine.window == 2, f"zw W_h {report}")
+    yield "W_h_scrub", pool
+    del pool, rep, report
+    torch.cuda.empty_cache()
+
+    pool = open_pool(cur, specs, mesh, dev, window=8, pool_kw={
+        "dirty_leaf_idx": [1, 2], "dirty_capacity": ZW_CAPACITY},
+        mode="mlp", redundancy=R)
+    eng, n_words = pool.engine, pool.protector.layout.slots[2].n_words
+    check(eng.flush_patch and eng.flush_capacity == 8 * (ZW_CAPACITY + 2),
+          f"zw P_a: engine {eng.flush_patch} {eng.flush_capacity}")
+    yield "P_a_open_window_8", pool
+    ms = []
+    for i in range(1, 8):
+        cur, words = zw_patched(cur, i, n_words)
+        t0 = time.perf_counter()
+        check(bool(pool.commit(cur, dirty_words=words, data_cursor=i)),
+              f"zw P_b {i}")
+        ms.append((time.perf_counter() - t0) * 1e3)
+    yield "P_b_7_commits", pool, {"commit_ms": ms}
+    cur, words = zw_patched(cur, 8, n_words)
+    check(bool(pool.commit(cur, dirty_words=words, data_cursor=8)) and
+          eng._since == 0, "zw P_c")
+    yield "P_c_commit_8_flush", pool
+    del pool, eng
+    torch.cuda.empty_cache()
+
+    pool = open_pool(cur, specs, mesh, dev, pipeline_depth=4, **cfg)
+    yield "Q_a_open_depth_4", pool
+    slices, dirty = zp_patch(pool.protector.layout)
+    states = [cur, bumped(cur)]
+    states.append(bumped(states[-1], words=slices))
+    got = [pool.commit_async(st, **kw).result() for st, kw in (
+        (states[1], dict(data_cursor=1, verify_old=True)),
+        (states[1], dict(data_cursor=2, canary_ok=canary())),
+        (states[2], dict(data_cursor=3, dirty_pages=dirty)))]
+    pool.drain()
+    check(got == [True, False, True], f"zw Q_a verdicts {got}")
+    yield "Q_a_warm_up", pool
+    states = states[2:]
+    for _ in range(8):
+        states.append(bumped(states[-1]))
+    tickets, ms = [], []
+    for i in range(8):
+        kw = (dict(verify_old=True) if i == 2 else
+              dict(canary_ok=canary()) if i == 4 else {})
+        ticket, t = dispatch(pool, states[i + 1], data_cursor=i + 1, **kw)
+        tickets.append(ticket)
+        ms.append(t)
+    yield "Q_b_8_bulk_commit_async", pool, {"dispatch_ms": ms}
+    polled, drained = len(pool.poll()), len(pool.drain())
+    verdicts = [t.result() for t in tickets]
+    check(verdicts == [i != 4 for i in range(8)], f"zw Q_c {verdicts}")
+    yield "Q_c_poll_drain", pool, {"polled": polled, "drained": drained}
+    cur = states[-1]
+    del states, tickets
+    tickets, ms = [], []
+    for i in range(16):
+        cur = bumped(cur, words=slices)
+        ticket, t = dispatch(pool, cur, data_cursor=9 + i, dirty_pages=dirty)
+        tickets.append(ticket)
+        ms.append(t)
+    pool.drain()
+    check(all(t.result() for t in tickets), "zw Q_e: a patch failed")
+    yield "Q_e_16_patch_depth_4", pool, {"dispatch_ms": ms}
+    tickets = []
+    for i in range(3):
+        cur = bumped(cur)
+        tickets.append(pool.commit_async(cur, data_cursor=25 + i))
+    check(pool.in_flight == 3, f"zw Q_g in flight {pool.in_flight}")
+    pool.inject(lambda p, prot: failure.inject_multi_rank_loss(
+        p, prot, MULTI_LOST))
+    rep = pool.recover(Fault.multi_loss(*MULTI_LOST))
+    check(rep.verified and rep.reverified and rep.synd_ok == [True] * R
+          and pool.in_flight == 0 and all(t.result() for t in tickets),
+          f"zw Q_g {rep}")
+    yield "Q_g_loss_with_3_in_flight", pool
+
+
+def window_procs_path(dev):
+    """zw: the deferred engines and the ring split over four workers."""
+    return split_path(dev, "zw", zw_phases, PATH_ZW, ZW_LAUNCHES)
 
 
 # -- 5. the deferred-epoch engine ---------------------------------------------
@@ -4885,6 +5117,7 @@ def run_paths(dev, dr):
     from repro_torch.kernels import ops
 
     drivers = {"r1": main_path, "r3": main_path_r3, "zp": procs_path,
+               "zw": window_procs_path,
                "w3": window_path_w3, "w1f": window_path_w1f,
                "wp": window_path_wp, "q3": async_path_q3,
                "qw": async_path_qw,

@@ -40,6 +40,19 @@ place but the patch engine's live row, which a window owns alone), and
 the per-device dirty masks,
 accumulators and digests carry the mesh dims in front.  Nothing in a
 commit or a flush waits for the device.
+
+On a zone split over processes (`ZoneMesh(..., group=)`, dist/procs.py)
+each process runs the engine on its block of data ranks, `(*mesh.local_dims,
+...)`.  An in-window bulk commit exchanges no row: its delta folds into
+the block's accumulator, and only the flush pays the reduce-scatter.  The
+log's digest is mesh coordinate 0's on every process (one small
+all-gather, which the window-meta mirror rides when it is on: the mirror
+gathers the whole zone's digests, so a lost process's rows survive on the
+others).  A staged canary is agreed across the processes before anything
+selects on it; a host-known canary is a global argument, the same on every
+process (a `Transaction` agrees it).  The host cadence (`_since`, the
+window, the boundary flush) reads only values every process holds alike,
+so every process flushes at the same commit.
 """
 from __future__ import annotations
 
@@ -57,7 +70,6 @@ from repro_torch.core import redolog
 from repro_torch.core.txn import (ProtectedState, Protector, _check_like,
                                   device_bool, tree_select)
 from repro_torch.dist import collectives as coll
-from repro_torch.dist import procs
 from repro_torch.kernels import ops as kops
 
 
@@ -149,8 +161,6 @@ class DeferredProtector:
                  dirty_leaf_idx: Optional[Sequence[int]] = None,
                  replicate_meta: bool = False):
         mode = protector.mode
-        procs.refuse_split(protector.mesh, "the deferred engine (window > 1)",
-                           "S7b")
         if not (mode.has_parity or mode.has_cksums):
             raise ValueError(
                 "deferred epochs batch parity/checksum work; mode "
@@ -165,6 +175,9 @@ class DeferredProtector:
         self.metrics = None           # the Pool assigns its registry here
         self.replicate_meta = bool(replicate_meta)
         self._meta: Optional[tuple] = None
+        # on a split zone: (this step's digest, the zone's digest table)
+        # gathered for the log, which the mirror reuses for that digest
+        self._gathered: Optional[tuple] = None
         lo = protector.layout
         self.patch = dirty_leaf_idx is not None
         self.dirty_leaf_idx = (tuple(int(i) for i in dirty_leaf_idx)
@@ -210,7 +223,7 @@ class DeferredProtector:
         """Wrap a state whose redundancy is current (after
         `Protector.init`, a flush or a recovery) in an empty window."""
         self._since = 0
-        lo, shape = self.p.layout, self.p.mesh.shape
+        lo, shape = self.p.layout, self.p.mesh.local_dims
         dev = prot.step.device
         return EpochState(
             prot=prot,
@@ -247,7 +260,11 @@ class DeferredProtector:
         """Feed scrub pressure or failure suspicion back into the window:
         any error collapses it to 1 (the synchronous cadence), every clean
         signal doubles it back toward the ceiling.  Returns the new window;
-        it takes effect at the next commit."""
+        it takes effect at the next commit.  On a split zone each signal
+        must be one that every process holds alike (an agreed scrub
+        report, a recovery, the straggler policy's global durations, a
+        global canary), or the processes' windows part and one flushes
+        alone, waiting in an exchange its peers never enter."""
         before = self.window
         if suspect:
             self.window = 1
@@ -285,20 +302,52 @@ class DeferredProtector:
         """Mirror the window's bookkeeping (a few hundred bytes a commit):
         every rank's row digest, the step, the pending count and the dirty
         mask, so the survivors of a mid-window loss can bound the window.
-        Detached copies, queued on the stream (`coll.make_meta_mirror`)."""
-        self._meta = coll.make_meta_mirror()(
-            (est.prot.digest, est.prot.step, est.pending, est.dirty))
+        Detached copies, queued on the stream (`coll.make_meta_mirror`).
+        On a split zone the digests and the dirty mask are the whole
+        zone's, gathered from every process; the digest table that the
+        step gathered for the log is reused while it is still the window's
+        digest (an arrival hook or a staged select may replace it)."""
+        p = self.p
+        mirror = coll.make_meta_mirror(p.data_dim, p.group)
+        gathered, self._gathered = self._gathered, None
+        if gathered is not None and gathered[0] is est.prot.digest:
+            self._meta = (gathered[1], *mirror(
+                (est.prot.step, est.pending, est.dirty)))
+        else:
+            self._meta = mirror(
+                (est.prot.digest, est.prot.step, est.pending, est.dirty))
 
     def verify_window_bound(self, est: EpochState) -> Optional[bool]:
         """After flush (+ recovery): do the live rows' digests equal the
         mirrored ones?  True means the survivors' metadata bounds the pool
-        exactly, with no checkpoint + log replay."""
+        exactly, with no checkpoint + log replay.  On a split zone each
+        process compares its block with its block of the mirror, and the
+        verdict is agreed."""
         if self._meta is None:
             return None
-        lo = self.p.layout
+        p, lo = self.p, self.p.layout
         dig = ck.digest(layout_mod.flatten_row(lo, est.prot.state),
                         lo.block_words)
-        return bool(torch.equal(dig, self._meta[0]))
+        want = self._meta[0]
+        if p.group is None:
+            return bool(torch.equal(dig, want))
+        mesh = p.mesh
+        want = want.narrow(p.data_dim, mesh.data_offset,
+                           mesh.local_group_size)
+        return p.group.agree(torch.equal(dig, want))
+
+    def _log_digest(self, digest: torch.Tensor) -> torch.Tensor:
+        """The digest the redo log takes: mesh coordinate 0's, on every
+        process.  On a split zone with the meta mirror on, the whole
+        zone's table is gathered (the mirror's exchange, kept for it);
+        without it, only coordinate 0's 8 bytes."""
+        p = self.p
+        n_axes = len(p.mesh.shape)
+        if p.group is None or not self.replicate_meta:
+            return p._first_of_zone(digest, n_axes)
+        table = p.group.gather_dim(digest, p.data_dim)
+        self._gathered = (digest, table)
+        return p._first(table, n_axes)
 
     # -- in-window commit ------------------------------------------------------
 
@@ -400,7 +449,7 @@ class DeferredProtector:
                 log = redolog.append(
                     log, step, data_cursor,
                     (0, 0) if rng_key is None else rng_key,
-                    digest.reshape(-1, 2)[0])
+                    self._log_digest(digest))
                 log = redolog.commit_mark(log, step)
             new_prot = ProtectedState(
                 state=state_new, synd=prot.synd, cksums=cksums,
@@ -419,12 +468,18 @@ class DeferredProtector:
         every output is selected against the previous (prot, dirty,
         pending, acc) on the canary, so a False canary leaves the window,
         the redo log included, exactly as the host-known abort does; the
-        live row's writes select on it in place."""
+        live row's writes select on it in place.  On a split zone the
+        canary is agreed first (the AND across the processes, the
+        reference's `pmin`): one process's smashed canary aborts the
+        commit on every process."""
         inner = self._step
+        group = self.p.group
 
         def commit(prot: ProtectedState, dirty, pending, acc, live,
                    state_new, dirty_words, data_cursor, rng_key, canary):
             v = device_bool(canary, prot.step.device)
+            if group is not None:
+                v = group.all_and(v)
             new = inner(prot, dirty, pending, acc, live, state_new,
                         dirty_words, data_cursor, rng_key, True, keep=v)
             return (*tree_select(v, new[:4], (prot, dirty, pending, acc)),
@@ -444,12 +499,14 @@ class DeferredProtector:
         mode, bw, dd = p.mode, lo.block_words, p.data_dim
         nb, kf = lo.n_blocks, self.flush_capacity
         fpatch, patch = self.flush_patch, self.patch
-        shape = p.mesh.shape
+        shape, group = p.mesh.local_dims, p.group
 
         def _patch_pages(base, row, synd, cksums, dirty, coeffs):
             """The window's dirty pages, at most kf (`dirty_slots`), the
             fill slots at the sentinel nb.  Every device's mask is the same
-            (the word indices are replicated), so the union is each one's."""
+            (the word indices are replicated), so the union is each one's;
+            on a split zone every process's is the same too, and the union
+            needs no exchange."""
             sidx, valid = dirty_slots(dirty.reshape(-1, nb).any(dim=0), kf)
             g = sidx.clamp(max=nb - 1)
             old_p = parity_mod.gather_pages(base, g, bw)      # (*M, kf, bw)
@@ -471,7 +528,7 @@ class DeferredProtector:
                 # fill slots go to the sentinel, not the clamped page: a
                 # clamped fill would collide with a dirty last page
                 synd = parity_mod.patch_syndrome_delta(synd, sdelta_p, sidx,
-                                                       lo, dd)
+                                                       lo, dd, group)
             return synd, cksums
 
         def flush(est: EpochState) -> EpochState:
@@ -488,7 +545,8 @@ class DeferredProtector:
                 # past the hybrid threshold: rebuild from the spliced row,
                 # equal to the patched stack by XOR linearity
                 if mode.has_parity:
-                    synd = parity_mod.build_syndromes(row, dd, coeffs)
+                    synd = parity_mod.build_syndromes(row, dd, coeffs,
+                                                      group)
                 if mode.has_cksums:
                     cksums = kops.fletcher_blocks(
                         parity_mod.page_view(row, bw))
@@ -497,7 +555,8 @@ class DeferredProtector:
                 # the stack rebuilt from the current row; the checksums are
                 # already fresh from the accumulate steps
                 if mode.has_parity:
-                    synd = synd ^ parity_mod.build_syndromes(acc, dd, coeffs)
+                    synd = synd ^ parity_mod.build_syndromes(acc, dd, coeffs,
+                                                             group)
                 acc = torch.zeros_like(acc)
             dirty = (torch.zeros_like(est.dirty) if est.dirty is not None
                      else None)

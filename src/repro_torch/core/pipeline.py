@@ -15,6 +15,15 @@ after the commit was enqueued: `event.query()` reads it without waiting.
 A verdict on the CPU or a host bool is always ready; any other object
 answers through its own `is_ready()` (the tests' stand-ins).  `result()`
 reads the verdict, with `.item()` for a tensor.
+
+On a zone split over processes (dist/procs.py) the ticket needs no
+exchange.  A split commit's exchanges synchronize the stream (each stages
+its operand through the host), and a staged canary adds one more, its
+agreement; so a dispatch blocks until its commit is done, and the pool
+hands the ring a ticket that has `landed`: no event, ready at once on
+every process, so that `poll` resolves the same tickets everywhere.  The
+ring's overlap of dispatch and device work is lost there; exchanges that
+stay on the device (NCCL, slice S7d) would bring it back.
 """
 from __future__ import annotations
 
@@ -51,19 +60,23 @@ class CommitTicket:
     """
 
     __slots__ = ("seq", "ok", "event", "dispatched_at", "resolved_at",
-                 "span_id", "extras", "staged", "voided", "_verdict",
-                 "_on_resolve")
+                 "span_id", "extras", "staged", "landed", "voided",
+                 "_verdict", "_on_resolve")
 
     def __init__(self, seq: int, ok: Any, *,
                  dispatched_at: Optional[float] = None,
                  span_id: Optional[int] = None,
                  extras: Optional[dict] = None,
                  staged: bool = False,
+                 landed: bool = False,
                  on_resolve: Optional[Callable[["CommitTicket"], None]]
                  = None):
         self.seq = int(seq)
         self.ok = ok
-        self.event = _device_event(ok)
+        # landed: the verdict's stream was synchronized at dispatch (a
+        # split zone), so it is ready and needs no event
+        self.landed = bool(landed)
+        self.event = None if self.landed else _device_event(ok)
         self.dispatched_at = (time.perf_counter() if dispatched_at is None
                               else float(dispatched_at))
         self.resolved_at: Optional[float] = None
@@ -91,6 +104,8 @@ class CommitTicket:
         return (self.resolved_at - self.dispatched_at) * 1e3
 
     def _landed(self) -> bool:
+        if self.landed:
+            return True
         if self.event is not None:
             return self.event.query()
         fn = getattr(self.ok, "is_ready", None)

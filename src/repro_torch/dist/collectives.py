@@ -159,35 +159,53 @@ def syndrome_apply_delta(synd: torch.Tensor, sdelta: torch.Tensor,
     return synd ^ xor_reduce_scatter(sdelta, dim, group)
 
 
-def meta_all_gather(x: torch.Tensor, dim: int, n_axes: int) -> torch.Tensor:
+def meta_all_gather(x: torch.Tensor, dim: int, n_axes: int,
+                    group=None) -> torch.Tensor:
     """Replicate small per-rank metadata across the zone: `(*M, *s)` ->
     `(*M, G, *s)`, where every device of a zone holds the stacked table of
     its zone's G values in rank order (out[..., i, ...] is rank i's).
-    `n_axes` is the number of leading mesh dims."""
-    _wire("all-gather", x, x.shape[dim], x.shape[dim])
-    return x.movedim(dim, n_axes - 1).unsqueeze(dim).expand(
-        *x.shape[:n_axes], x.shape[dim], *x.shape[n_axes:])
+    `n_axes` is the number of leading mesh dims.  On a split zone `x`
+    holds this process's block and the table is gathered from every
+    process (one all-gather)."""
+    g = _zone_size(x, dim, group)
+    _wire("all-gather", x, g, g)
+    whole = x if group is None else group.gather_dim(x, dim)
+    return whole.movedim(dim, n_axes - 1).unsqueeze(dim).expand(
+        *x.shape[:n_axes], g, *x.shape[n_axes:])
 
 
-def make_meta_mirror():
+def make_meta_mirror(dim: int = 0, group=None):
     """The window-meta mirror: a function that takes a tuple of tensors
     (None entries pass through) and returns detached copies.  The reference
     reshards its tuple to every device so that a lost rank's copy survives
     on the others; with the zone on one device a copy is that mirror — it
     must be a copy, not a view, because the window's tensors are replaced
     every commit.  The copies are queued on the device's stream: no host
-    sync."""
-    return lambda tree: utils.tree_map(
-        lambda t: t.detach().clone(), tree)
+    sync.  On a split zone a zone-stacked entry (one with dims) is
+    gathered along the data dim `dim` from every process, so each holds
+    the whole zone's table and a lost process's rows survive on the
+    others; a 0-d entry (a step, a count) is the same everywhere and is
+    copied."""
+    def mirror(t):
+        t = t.detach()
+        if group is None or t.dim() == 0:
+            return t.clone()
+        return group.gather_dim(t, dim)
+    return lambda tree: utils.tree_map(mirror, tree)
 
 
-def xor_tree_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
+def xor_tree_reduce(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     """The reference's recursive-doubling XOR all-reduce (power-of-two
     zones only, as there): on one device it is the XOR fold over the data
-    dim, delivered to every rank (a broadcast view, as `xor_all_reduce`)."""
-    g = x.shape[dim]
+    dim, delivered to every rank (a broadcast view, as `xor_all_reduce`).
+    On a split zone the block folds locally, then one all-gather of the
+    processes' partials finishes it."""
+    g = _zone_size(x, dim, group)
     if g & (g - 1):
         raise ValueError(f"tree reduce needs a power-of-two zone, got {g}")
     kcost.wire("collective-permute",
                (g.bit_length() - 1) * x.numel() * x.element_size())
-    return xor_fold(x, dim).unsqueeze(dim).expand_as(x)
+    out = xor_fold(x, dim)
+    if group is not None:
+        out = xor_fold(group.all_gather(out), 0)
+    return out.unsqueeze(dim).expand_as(x)

@@ -26,9 +26,13 @@ back on the device, and of those the ms of the two copies (`copy_ms`;
 the rest is gloo's).  The sent bytes also go to the active cost counter
 (kernels/cost.py) as the kind `process-exchange`.
 
-Only gloo groups are zone groups: an NCCL group is refused (NCCL, one card
-a process, is slice S7d), as is a split zone on any path that this slice
-does not cover (`refuse_split`).
+A split zone runs the synchronous engine behind `Pool`, the deferred
+engine (window > 1, bulk and patch) and the async commit ring
+(pipeline_depth > 1, staged canaries).  Only gloo groups are zone groups:
+an NCCL group is refused (NCCL, one card a process, is slice S7d), as is
+a split zone on any path that the backend does not cover yet
+(`refuse_split`: `PoolGroup`, rescale / reshard, `Server` and `Trainer`,
+slice S7c).
 """
 from __future__ import annotations
 
@@ -162,8 +166,8 @@ def refuse_split(mesh, what: str, later: str) -> None:
     if getattr(mesh, "group", None) is not None:
         raise NotImplementedError(
             f"{what} on a zone split over {mesh.group.world} processes comes "
-            f"in slice {later}; this backend covers the synchronous engine "
-            "behind Pool (window 1, pipeline_depth 1)")
+            f"in slice {later}; this backend covers a Pool's engines (the "
+            "synchronous and the deferred one) and its async commit ring")
 
 
 class ZoneError(RuntimeError):

@@ -59,10 +59,17 @@ pool: the layout exists, `pool.init(state)` attaches real state.
 
 A mesh split over processes (`ZoneMesh(..., group=)`, dist/procs.py) opens
 one pool a process: each calls the same methods with the same global
-arguments, holds its block of data ranks, and sees the one-process pool's
-verdicts, reports and (gathered) `state`.  A split pool runs the
-synchronous engine only: window > 1, pipeline_depth > 1, a staged canary
-and `rescale` are refused (slices S7b, S7c).
+arguments (`canary_ok`, `dirty_words`, `observe_commit_times`' durations
+included), holds its block of data ranks, and sees the one-process pool's
+verdicts, reports and (gathered) `state`.  It runs both engines and the
+async ring; a staged canary is agreed across the processes before the
+commit selects on it.  The host cadence — the window, its boundary flush
+and the scrub cadence — reads only values every process holds alike (the
+global arguments, agreed verdicts and scrub reports), so no process
+flushes or scrubs alone.  A split commit waits for its exchanges, so a
+dispatch blocks and every ticket has landed when `commit_async` returns:
+`poll` resolves the same tickets on every process.  `rescale` is refused
+(slice S7c).
 """
 from __future__ import annotations
 
@@ -279,12 +286,6 @@ class Pool(EngineHost):
                  tracer: Optional[Tracer] = None,
                  protector: Optional[Protector] = None):
         self.config = config if config is not None else ProtectConfig()
-        if self.config.window > 1:
-            procs.refuse_split(mesh, "the deferred engine (window > 1)",
-                               "S7b")
-        if self.config.pipeline_depth > 1:
-            procs.refuse_split(mesh, "the async commit ring "
-                               "(pipeline_depth > 1)", "S7b")
         self.device = utils.resolve_device(device)
         self.mesh = mesh
         # the global shapes and dtypes, all that a rescale rebuilds from
@@ -563,8 +564,6 @@ class Pool(EngineHost):
             raise RuntimeError("Pool.commit before init()")
         zone = self.to_zone(state_new)
         staged = isinstance(canary_ok, torch.Tensor)
-        if staged:
-            procs.refuse_split(self.mesh, "a staged canary", "S7b")
         if self._engine is not None:
             if verify_old:
                 raise ValueError("verify_old is a synchronous-engine "
@@ -591,11 +590,13 @@ class Pool(EngineHost):
             # on the canary: a False canary leaves the old state, the redo
             # log included.  (A host-known abort appends its record
             # unmarked; the reference's staged abort does not, and the port
-            # keeps both.)
+            # keeps both.)  A split zone selects on the agreed canary.
             prot_new, ok_c = program(self._prot, zone,
                                      data_cursor=data_cursor,
                                      rng_key=rng_key, canary_ok=True)
             v = device_bool(canary_ok, ok_c.device)
+            if self.mesh.group is not None:
+                v = self.mesh.group.all_and(v)
             self._prot = tree_select(v, prot_new, self._prot)
             ok = v & ok_c
         if self._arrival_fn is not None:
@@ -622,13 +623,22 @@ class Pool(EngineHost):
         device bool (`tx.canary_device()`, `ops.stage_verdict`): the
         staged form, whose abort select rides in the commit and whose
         abort bookkeeping (abort counter, scrub clean streak) waits for
-        resolution.  Routing matches `commit`."""
+        resolution.  Routing matches `commit`.
+
+        On a split zone the dispatch blocks: the commit's exchanges
+        synchronize the stream, and the stream is synchronized once more
+        at its end, so the ticket has landed on every process at once and
+        `poll` resolves the same tickets on each with no exchange (the
+        staged bookkeeping at resolution then stays in step)."""
         t0 = time.perf_counter()
         staged = isinstance(canary_ok, torch.Tensor)
         if not staged:
             canary_ok = bool(canary_ok)
         ok = self._enqueue(state_new, dirty_pages, dirty_words, data_cursor,
                            rng_key, canary_ok, verify_old)
+        split = self.mesh.group is not None
+        if split and ok.is_cuda:
+            torch.cuda.current_stream(ok.device).synchronize()
         seq = self._ticket_seq
         self._ticket_seq += 1
         span_id = self.tracer.emit("commit_dispatch", seq=seq, staged=staged)
@@ -636,7 +646,8 @@ class Pool(EngineHost):
                           (time.perf_counter() - t0) * 1e3)
         return self._ring.submit(CommitTicket(
             seq, ok, dispatched_at=t0, span_id=span_id, extras=extras,
-            staged=staged, on_resolve=self._on_ticket_resolved))
+            staged=staged, landed=split,
+            on_resolve=self._on_ticket_resolved))
 
     def _on_ticket_resolved(self, ticket: CommitTicket) -> None:
         """Fires once a ticket: the resolve latency (with its span id as

@@ -156,7 +156,8 @@ def _refused(fn):
 
 def refusal_worker(group):
     """What a zone split over `group` refuses: {case: (error type,
-    message), or None where nothing was raised}."""
+    message), or None where nothing was raised (the deferred engine, the
+    ring and a staged canary, which run there)}."""
     from repro_torch.configs.base import ModelConfig, TrainConfig
     from repro_torch.core.epoch import DeferredProtector
     from repro_torch.dist import elastic

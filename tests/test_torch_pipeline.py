@@ -118,6 +118,19 @@ def test_ring_polls_out_of_dispatch_order():
     assert ring.poll() == [t0] and len(ring) == 0
 
 
+def test_landed_tickets_poll_in_dispatch_order():
+    """A ticket whose commit was waited for at dispatch (a split zone's)
+    has landed: ready with no event, whatever its verdict object says, so
+    every process's poll resolves the same tickets."""
+    ring = CommitRing(4)
+    slow = _FakeScalar(False, ready=False)
+    t0 = ring.submit(CommitTicket(0, slow, landed=True, staged=True))
+    t1 = ring.submit(CommitTicket(1, _FakeScalar(True, ready=False)))
+    assert t0.landed and t0.event is None and t0.ready()
+    assert ring.poll() == [t0] and t0.result() is False
+    assert not t1.ready() and len(ring) == 1
+
+
 def test_ring_backpressure_drain_and_void_all():
     depths = []
     ring = CommitRing(2, on_depth=depths.append)
