@@ -99,6 +99,32 @@
    the ring's lines print each worker's dispatch ms; no dispatch runs
    under the sync-debug mode here.  The one-process run drops the
    synchronous comparison pools of w3, wp and q3: it is the comparison.
+4c. The hosts of a pool on the split zone, each phase held as zp's are
+   (each prints its wall, one-process and spawn to join, and each
+   worker's peak):
+   zg — two workers, 50 + 50 ranks: a PoolGroup of tg's four tenants
+        (mlpc r = 3): admission, a bulk wave, a verified wave, a wave
+        with t2's canary failing, a word of t1 scribbled on rank 77
+        (process 1) found by `scrub_tick` and recovered under
+        quarantine, t3's loss of ranks 5, 37 and 99 recovered beside an
+        async wave of the others, t0 evicted (its global state's hash
+        equal everywhere); the four at window 2, a wave and the flushing
+        one; then el's rescale walk, 100 x 1 -> 50 x 2 -> 100 x 1 over
+        the same two processes, sync and window 4, each rescaled pool
+        equal to a split pool freshly opened over its state;
+   zs — four workers, one data rank and four batch rows each: sv's
+        server (qwen3-0.6b, batch 16, max_len 2048, (4, 2)) through a
+        8-token prompt, 4 tokens, rank 2 (process 2) lost and
+        recovered, 4 tokens more, a scrub; then r = 3 / window 4 and
+        pipeline_depth 2 runs of 4 + 4 tokens; the tokens gathered in
+        rank order equal to one process's;
+   zt — two workers: tr's trainer at microbatches 2 (qwen3-0.6b, seq
+        1024 x batch 8, (4, 2)) against one process at microbatches 2:
+        the init, step 1, step 2 with verify_old, rank 3 (process 1)
+        lost and recovered, step 3 with a failed canary, step 3, a
+        scrub; each step's loss and verdict equal.
+   The workers time-slice the card: their kernel times are not the
+   kernel table's.
 5. The deferred-epoch engine (window > 1) on the same zone:
    w3 — the bulk engine, streamed, mlpc r = 3, window 4: open, three
         in-window commits, the fourth (the boundary flush), a commit, a
@@ -194,26 +220,27 @@
    synthetic stream) on the (4, 2) zone mesh at ProtectConfig's default
    block_words, its 7.15 GB train state in a Pool:
    a — start: the state made on the card from SEED, the pool opened;
-   b — sixteen steps at mlpc r = 1, window 1, depth 1, scrub every 8:
-        1-8 bulk commits, 9-16 with verify_old; the ms a step split into
+   b — six steps (sixteen until PR 27) at mlpc r = 1, window 1, depth
+        1, scrub every 6: 1-3 bulk commits, 4-6 with verify_old; the ms a
+        step split into
         the train step, the zone copies (`pool.state`, `Pool.to_zone`),
         the commit and the scrub, tokens/s, each step's loss; the loss
         falls;
-   c — the same sixteen steps unprotected (mode none): the losses and the
+   c — the same six steps unprotected (mode none): the losses and the
         final state bit-equal to b's (the train step gives the same bits
         on every run);
-   d — rank 1 lost after step 4 and recovered (the row equal to a copy
+   d — rank 1 lost after step 1 and recovered (the row equal to a copy
         taken before the loss, and the state to the row), a word of rank
-        0's shard scribbled after step 6, scrubbed and repaired, on to
-        step 16: b's losses, b's digest after every step, b's final state;
-   e — step 5 with a failed canary: not committed, the cursor rolled back,
-        the row unchanged; the next step is b's step 5;
-   f — a checkpoint at step 8 (async save, then wait), on to step 12, the
-        trainer dropped; a fresh one restores and replays 9-12 from the
+        0's shard scribbled after step 2, scrubbed and repaired, on to
+        step 6: b's losses, b's digest after every step, b's final state;
+   e — step 3 with a failed canary: not committed, the cursor rolled back,
+        the row unchanged; the next step is b's step 3;
+   f — a checkpoint at step 4 (async save, then wait), on to step 6, the
+        trainer dropped; a fresh one restores and replays 5-6 from the
         surviving redo log, each to its logged digest, to b's state at
-        step 12; the ms of save, wait and restore;
+        step 6; the ms of save, wait and restore;
    g — r = 3, window 4, pipeline_depth 4 through `run` on the ring, ranks
-        0, 1 and 3 lost after step 10 and recovered: b's losses and final
+        0, 1 and 3 lost after step 5 and recovered: b's losses and final
         state; flushed, equal to a pool freshly opened over it;
    h — straggler_threshold 2.0, replica 1 at 10x: dropped, the loss-masked
         step commits with b's loss re-weighted (w / w: the reference's
@@ -268,9 +295,10 @@
 11. The hybrid trained (rt): the same model at full width, one group of
    depth (3 layers, 886,115,840 parameters, the attention as rg's),
    AdamW with bf16 moments (a 7.09 GB state), seq 4096 (twice the window)
-   x batch 2 on (4, 2): a start; b 2 bulk and 2 verify_old steps; c the
-   same unprotected, losses and state bit-equal; d rank 1 lost after step
-   2 and recovered, b's losses, digests and state; i the trained bf16
+   x batch 2 on (4, 2): a start; b 1 bulk and 1 verify_old step (2 and 2
+   until PR 27); c the same unprotected, losses and state bit-equal; d
+   rank 1 lost after step 1 and recovered, b's losses, digests and state;
+   i the trained bf16
    step (its loss b's step 1) against a plain f32 one: loss within
    TR_LOSS_RTOL, every gradient at a cosine of TR_GRAD_COS.
 12. The vlm (vl): chameleon-34b at full width (d_model 8192, GQA 64 / 8,
@@ -294,9 +322,9 @@
    held against its plain version at its first launch in d-f.
 14. The ssm trained (xt): the same model at one group (7 mLSTM + 1
    sLSTM, 495,882,296 parameters), seq 4096 (16 chunks of 256) x batch
-   2 on (4, 2), AdamW with bf16 moments: a start; b 2 bulk and 2
-   verify_old steps; c unprotected, losses and state bit-equal; d a
-   rank loss; i the bf16 step against a plain f32 one whose mLSTM runs
+   2 on (4, 2), AdamW with bf16 moments: a start; b 1 bulk and 1
+   verify_old step (2 and 2 until PR 27); c unprotected,
+   losses and state bit-equal; d a rank loss; i the bf16 step against a plain f32 one whose mLSTM runs
    in chunks of 64 (so the chunk algebra is held too).
 15. The moe served (mo): moonshot-v1-16b-a3b at its published width (d
    2048, 16 heads of 128, 64 experts of 1408, top-6 + shared, vocab
@@ -372,6 +400,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import torch
@@ -1520,34 +1549,66 @@ def zp_phases(dev, group, smashed):
     yield "m_over_budget", pool
 
 
-def zp_hashes(pool, group):
+HASH_CHUNK = 1 << 26                  # bytes of a rank hashed by one thread
+_PINNED: list = [None]                # the host staging of `host_bytes`
+
+
+def host_bytes(t):
+    """A tensor's bytes on the host as a flat uint8 numpy array.  A card
+    tensor is copied into one page-locked buffer kept for the process (a
+    pageable copy runs at a fraction of the link's rate); the array is a
+    view of that buffer, valid until the next call."""
+    t = t.contiguous().reshape(-1).view(torch.uint8)
+    if not t.is_cuda:
+        return t.numpy()
+    buf = _PINNED[0]
+    if buf is None or buf.numel() < t.numel():
+        _PINNED[0] = buf = None
+        buf = _PINNED[0] = torch.empty(t.numel(), dtype=torch.uint8,
+                                       pin_memory=True)
+    out = buf[:t.numel()]
+    out.copy_(t)
+    return out.numpy()
+
+
+def zp_hashes(pool, group, state=True):
     """{field: {global rank: SHA-256 of its bytes}} of row, synd, cksums,
-    digest, every state leaf and an open window's acc, live row and dirty
-    mask; {"log": ..., "step": ...} whole, and a window's pending count,
-    its size and its attempts since the flush."""
+    digest, every state leaf (unless not `state`) and an open window's
+    acc, live row and dirty mask; {"log": ..., "step": ...} whole, and a
+    window's pending count, its size and its attempts since the flush.
+    A dict of pools (a group's tenants) gives each pool's under its name."""
+    if isinstance(pool, dict):
+        return {f"{name}.{k}": v for name, p in pool.items()
+                for k, v in zp_hashes(p, group, state).items()}
     import hashlib
     from concurrent.futures import ThreadPoolExecutor
     prot, dd = pool.prot, pool.mesh.data_dim
     off = pool.mesh.data_offset
     fields = {"row": prot.row, "synd": prot.synd, "cksums": prot.cksums,
               "digest": prot.digest}
-    fields.update({f"state.{k}": v for k, v in prot.state.items()})
+    if state:
+        fields.update({f"state.{k}": v for k, v in
+                       utils_flat(prot.state).items()})
     est = pool._est
     if est is not None:
         fields.update({f"window.{k}": getattr(est, k)
                        for k in ("acc", "live", "dirty")})
-    jobs = []
-    for name, t in fields.items():
-        if t is None:
-            continue
-        host = t.detach().movedim(dd, 0).contiguous().cpu()
-        host = host.reshape(host.shape[0], -1).view(torch.uint8).numpy()
-        jobs += [(name, off + i, host[i]) for i in range(host.shape[0])]
-    with ThreadPoolExecutor(8) as ex:      # hashlib lets go of the GIL
-        sums = list(ex.map(lambda j: hashlib.sha256(j[2]).hexdigest(), jobs))
     out = collections.defaultdict(dict)
-    for (name, rank, _), h in zip(jobs, sums):
-        out[name][rank] = h
+    with ThreadPoolExecutor(8) as ex:      # hashlib lets go of the GIL
+        for name, t in fields.items():
+            if t is None:
+                continue
+            host = host_bytes(t.detach().movedim(dd, 0))
+            host = host.reshape(t.shape[dd], -1)
+            # a rank's hash: SHA-256 of its HASH_CHUNK pieces' SHA-256s,
+            # so that one large rank spreads over the threads
+            jobs = [(i, c) for i in range(host.shape[0])
+                    for c in range(0, max(host.shape[1], 1), HASH_CHUNK)]
+            sums = list(ex.map(lambda j: hashlib.sha256(
+                host[j[0], j[1]:j[1] + HASH_CHUNK]).digest(), jobs))
+            for i in range(host.shape[0]):
+                out[name][off + i] = hashlib.sha256(b"".join(
+                    h for (r, _), h in zip(jobs, sums) if r == i)).hexdigest()
     log = b"".join(getattr(prot.log, f.name).cpu().numpy().tobytes()
                    for f in dataclasses.fields(prot.log))
     out["log"] = hashlib.sha256(log).hexdigest()
@@ -1558,74 +1619,121 @@ def zp_hashes(pool, group):
     return dict(out)
 
 
+def on_card(dev):
+    return torch.device(dev).type == "cuda"
+
+
+def sync(dev):
+    if on_card(dev):
+        torch.cuda.synchronize(dev)
+
+
+def utils_flat(tree):
+    """{dotted path: leaf} of a nested dict of tensors."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update({f"{k}.{kk}": vv for kk, vv in utils_flat(v).items()})
+        else:
+            out[k] = v
+    return out
+
+
 def zp_run(dev, group, smashed, phases=None):
     """Drive a split path's phases (zp's by default); each phase's line:
     wall ms (synchronized, from a barrier of the workers; the hashing
     after the clock), launches, the exchanges' staged and sent bytes and
     ms, the peak memory, the hashes, and what the phase reported (a
-    phase yields (tag, pool) or (tag, pool, {key: value}))."""
+    phase yields (tag, pool) or (tag, pool, {key: value}); a pool may be
+    a dict of pools; an extra `hash_state=False` leaves the state leaves
+    out of that phase's hashes, the row standing for them, `hash=False`
+    hashes nothing: a phase that only checks)."""
     from repro_torch.kernels import _build
     stats = group.stats if group is not None else {}
+    card = on_card(dev)
     lines = []
     phases = (phases or zp_phases)(dev, group, smashed)
     while True:
         launched, ex = dict(_build.LAUNCHES), dict(stats)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
+        sync(dev)
+        if card:
+            torch.cuda.reset_peak_memory_stats(dev)
         if group is not None:
             group.barrier()       # no worker's clock waits on another's hashing
         t0 = time.perf_counter()
         step = next(phases, None)
-        torch.cuda.synchronize()
+        sync(dev)
         ms = (time.perf_counter() - t0) * 1e3
         if step is None:
             return lines
         tag, pool, extra = (*step, {})[:3]
         del step
+        extra = dict(extra)
+        state = extra.pop("hash_state", True)
+        hashed = extra.pop("hash", True)
         lines.append(dict(
             phase=tag, ms=ms, extra=extra, launches={
                 k: v - launched.get(k, 0) for k, v in _build.LAUNCHES.items()
                 if v - launched.get(k, 0)},
             exchange={k: v - ex[k] for k, v in stats.items()},
-            max_memory_allocated=torch.cuda.max_memory_allocated(dev),
-            hashes=zp_hashes(pool, group)))
+            max_memory_allocated=(torch.cuda.max_memory_allocated(dev)
+                                  if card else 0),
+            hashes=zp_hashes(pool, group, state) if hashed else {}))
         del pool
 
 
-def zp_worker(group, phases=None):
+# constant overrides a CPU rehearsal of a split path hands its workers
+# (spawned processes import this file afresh)
+REHEARSAL: dict = {}
+SPLIT_RUNS: dict = {}                 # tag: the one-process run's lines
+
+
+def zp_worker(group, phases=None, dev="cuda", overrides=None):
     """One worker of a split path on the card (zp's phases by default):
     its launches counted from zero."""
     from repro_torch.kernels import _build
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
+    globals().update(overrides or {})
+    dev = torch.device(dev, 0) if dev == "cuda" else torch.device(dev)
+    if on_card(dev):
+        torch.cuda.set_device(dev)
     _build.reset_launches()
     lines = zp_run(dev, group, group.rank == ZP_SMASHED, phases)
     return {"lines": lines, "launches": dict(_build.LAUNCHES),
-            "peak": torch.cuda.max_memory_reserved(dev)}
+            "peak": (torch.cuda.max_memory_reserved(dev) if on_card(dev)
+                     else 0)}
 
 
-def split_path(dev, tag, phases, must_launch, launches=None):
-    """A split path: the one-process run, then ZP_WORLD workers, phase by
-    phase byte-equal by per-rank hashes; `launches` ({phase: {entry
+def split_path(dev, tag, phases, must_launch, launches=None,
+               world=ZP_WORLD):
+    """A split path: the one-process run, then `world` workers, phase by
+    phase byte-equal by per-rank hashes, and an extra whose key starts
+    with "same_" equal to the one process's; `launches` ({phase: {entry
     point: count}}) is what each worker and the one process must launch
     in a phase.  Returns the workers' summed launches."""
     from repro_torch.dist import procs
     from repro_torch.kernels import _build
+    card = on_card(dev)
     gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    sync(dev)
+    if card:
+        torch.cuda.empty_cache()
     saved = dict(_build.LAUNCHES)
+    t0 = time.perf_counter()
     one = zp_run(dev, None, True, phases)  # a comparison: launches uncounted
+    one_wall = (time.perf_counter() - t0) * 1e3
     _build.LAUNCHES.clear()
     _build.LAUNCHES.update(saved)
     gc.collect()
-    torch.cuda.empty_cache()
-    free, total = torch.cuda.mem_get_info(dev)
-    emit(path=tag, phase="spawn", world=ZP_WORLD, mem_free=free,
-         mem_total=total)
+    free = total = 0
+    if card:
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info(dev)
+    emit(path=tag, phase="spawn", world=world, mem_free=free,
+         mem_total=total, one_process_wall_ms=one_wall)
     t0 = time.perf_counter()
-    workers = procs.spawn_zone(zp_worker, ZP_WORLD, phases,
-                               timeout=ZP_TIMEOUT_S)
+    SPLIT_RUNS[tag] = one
+    workers = procs.spawn_zone(zp_worker, world, phases, dev.type,
+                               REHEARSAL, timeout=ZP_TIMEOUT_S)
     wall = (time.perf_counter() - t0) * 1e3
     counts = collections.Counter()
     for w in workers:
@@ -1634,6 +1742,11 @@ def split_path(dev, tag, phases, must_launch, launches=None):
         got = [w["lines"][i] for w in workers]
         phase = want["phase"]
         check(all(g["phase"] == phase for g in got), f"{tag} phases {phase}")
+        for k, v in want["extra"].items():
+            if k.startswith("same_"):
+                check(all(g["extra"][k] == v for g in got),
+                      f"{tag} {phase}: {k} {[g['extra'][k] for g in got]}"
+                      f", one process {v}")
         for name, by_rank in want["hashes"].items():
             if not isinstance(by_rank, dict):
                 check(all(g["hashes"][name] == by_rank for g in got),
@@ -1662,11 +1775,17 @@ def split_path(dev, tag, phases, must_launch, launches=None):
              copy_ms=[g["exchange"]["copy_ms"] for g in got],
              exchanges=[g["exchange"]["exchanges"] for g in got],
              max_memory_allocated=[g["max_memory_allocated"] for g in got],
-             equal_ranks=G,
-             **{k: [g["extra"][k] for g in got] for k in want["extra"]},
-             **{f"one_process_{k}": v for k, v in want["extra"].items()})
+             equal_ranks=len(next((v for v in want["hashes"].values()
+                                   if isinstance(v, dict)), {})),
+             **{k: [g["extra"][k] for g in got] for k in want["extra"]
+                if not k.startswith("same_")},
+             **{f"one_process_{k}": v for k, v in want["extra"].items()
+                if not k.startswith("same_")},
+             equal_host_values=[k for k in want["extra"]
+                                if k.startswith("same_")])
     missing = [k for k in must_launch if not counts.get(k)]
-    check(not missing, f"{tag}: entry points never launched: {missing}")
+    check(not missing or not card,
+          f"{tag}: entry points never launched: {missing}")
     emit(path=tag, phase="memory", spawn_ms=wall,
          max_memory_reserved_by_worker=[w["peak"] for w in workers],
          launches=dict(counts))
@@ -1854,6 +1973,416 @@ def zw_phases(dev, group, smashed):
 def window_procs_path(dev):
     """zw: the deferred engines and the ring split over four workers."""
     return split_path(dev, "zw", zw_phases, PATH_ZW, ZW_LAUNCHES)
+
+
+# -- 6c. the hosts of a pool on the split zone: PoolGroup, rescale, Server,
+# -- Trainer -------------------------------------------------------------------
+
+ZG_WORLD = 2                          # zg: 50 + 50 data ranks at 100 x 1
+ZG_SCRIBBLED = 77                     # process 1's rank: t1's scribble
+ZG_WORD = 4321
+PATH_ZG = ("fletcher_blocks", "sdelta_stack", "fused_verify_commit_s",
+           "gf_scale", "fused_accum_commit", "fused_accum_commit_stream",
+           "fletcher_stream")
+ZS_WORLD = 4                          # zs: one data rank and 4 rows each
+ZS_PROMPT, ZS_NEW = 8, 8              # tokens of the r = 1 generation
+ZS_EVENT = 4                          # generated tokens before the loss
+ZS_LOST = 2                           # process 2's data rank
+ZS_SHORT = 4                          # the window-4 / depth-2 runs' tokens
+PATH_ZS = ("fletcher_blocks", "fused_commit", "fused_commit_s",
+           "sdelta_stack")
+ZT_WORLD = 2                          # zt: two data ranks each
+ZT_MICROBATCHES = 2                   # the one process's too
+ZT_LAYERS = None                      # the depth (None: the config's)
+ZT_LOST = 3                           # process 1's data rank
+PATH_ZT = ("fletcher_blocks", "fletcher_stream",
+           "fused_verify_commit_stream")
+
+
+def sha(tree) -> str:
+    """SHA-256 of a tensor tree's bytes, leaf by leaf in order."""
+    import hashlib
+    h = hashlib.sha256()
+    for k, v in sorted(utils_flat(tree).items()):
+        v = v.detach().contiguous().cpu().reshape(-1)
+        h.update(k.encode())
+        h.update(v.view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def same_as_fresh_open(pool, state, tag):
+    """The pool holds what a pool freshly opened over the global `state`
+    on its mesh holds (row, syndromes, checksums, digest, state)."""
+    from repro_torch import Pool
+    fresh = Pool.open(state, pool.state_specs, mesh=pool.mesh,
+                      config=pool.config, device=pool.device)
+    for k in ("row", "synd", "cksums", "digest"):
+        check(torch.equal(getattr(pool.prot, k), getattr(fresh.prot, k)),
+              f"{tag}: {k} != a fresh pool's")
+    for k, v in pool.prot.state.items():
+        check(torch.equal(v, fresh.prot.state[k]),
+              f"{tag}: state.{k} != a fresh pool's")
+
+
+def zg_phases(dev, group, smashed):
+    """zg: tg's four tenants (mlpc r = 3, G = 100) through a bulk wave, a
+    verified wave, a wave with t2's canary failing, a scribble on
+    process 1's rank of t1 found by `scrub_tick` and recovered under
+    quarantine, t3's three-rank loss recovered beside an async wave of
+    the others, t0's eviction; the four at window 2 through a wave and
+    the flushing one; then el's rescale walk (100 x 1 -> 50 x 2 -> 100 x
+    1, sync and window 4), each rescaled pool against a fresh one."""
+    from repro_torch import Fault, ProtectConfig, ZoneMesh
+    from repro_torch.runtime import failure
+    from repro_torch.tenancy import PoolGroup
+
+    mesh, specs, base = zone_state(dev, group)
+    tids = [f"t{t}" for t in range(TENANTS)]
+    cur = dict(zip(tids, tenant_states(base, TENANTS)))
+    del base
+
+    def pools(grp):
+        return {tid: grp[tid].pool for tid in grp.tenants}
+
+    def wave(grp, **kw):
+        ups = {t: bumped(cur[t]) for t in grp.tenants}
+        oks = {t: bool(v) for t, v in grp.commit(ups, **kw).items()}
+        for t, ok in oks.items():
+            if ok:
+                cur[t] = ups[t]
+        return {"same_oks": oks, "hash_state": False}
+
+    grp = PoolGroup(mesh, device=dev, full_scrub_every=1)
+    for tid in tids:
+        grp.admit(tid, cur[tid], specs,
+                  config=ProtectConfig(mode="mlpc", redundancy=R))
+    yield "a_admit_4", pools(grp)
+    yield "b_bulk_wave", pools(grp), wave(grp)
+    yield "c_verify_wave", pools(grp), wave(grp, verify_old=True)
+    out = wave(grp, canary_ok={t: t != "t2" for t in tids})
+    check(not out["same_oks"]["t2"], "zg d: t2's canary did not abort")
+    yield "d_canary_fails_t2", pools(grp), out
+    grp["t1"].pool.inject(lambda p, prot: failure.inject_scribble(
+        p, prot, ZG_SCRIBBLED, [ZG_WORD]))
+    found, recovered = [], []
+    for tid, kind, rep in grp.scrub_tick():
+        locs = sorted(tuple(int(v) for v in loc) for loc in rep.bad_locations)
+        found.append((tid, kind, locs))
+        if locs:                          # an agreed finding: every process
+            rec = grp.recover(tid, Fault.scribble(
+                locs[0][0], sorted({pg for _, pg in locs})))
+            check(rec.verified and rec.reverified, f"zg e {rec}")
+            recovered.append(tid)
+    check(recovered == ["t1"] and grp.quarantined == (),
+          f"zg e: found {found}")
+    yield "e_scrub_tick_scribble_recover", pools(grp), {
+        "same_found": found, "same_recovered": recovered,
+        "hash_state": False}
+    victim = grp["t3"].pool
+    victim.inject(lambda p, prot: failure.inject_multi_rank_loss(
+        p, prot, MULTI_LOST))
+    ups = {t: bumped(cur[t]) for t in tids if t != "t3"}
+    ticket = grp.commit_async(ups)
+    rep = grp.recover("t3", Fault.multi_loss(*MULTI_LOST))
+    grp.drain()
+    check(rep.verified and rep.reverified and bool(ticket.result()),
+          f"zg f {rep}")
+    cur.update(ups)
+    del ups, ticket
+    yield "f_recover_t3_beside_a_wave", pools(grp), {"hash_state": False}
+    evicted = grp.evict("t0")
+    check(all(torch.equal(evicted[k], cur["t0"][k]) for k in evicted),
+          "zg g: the evicted state is not t0's")
+    yield "g_evict_t0", pools(grp), {"same_evicted": sha(evicted)}
+    del grp, evicted
+    gc.collect()
+    if on_card(dev):
+        torch.cuda.empty_cache()
+
+    grp = PoolGroup(mesh, device=dev)
+    for tid in tids:
+        grp.admit(tid, cur[tid], specs,
+                  config=ProtectConfig(mode="mlpc", redundancy=R, window=2))
+    yield "h_admit_4_window_2", pools(grp)
+    yield "i_window_wave_1", pools(grp), wave(grp)
+    yield "j_window_wave_2_flush", pools(grp), wave(grp)
+    del grp
+    gc.collect()
+    if on_card(dev):
+        torch.cuda.empty_cache()
+
+    state = cur["t1"]
+    for tag, cfg in (("sync", dict(mode="mlpc", redundancy=R)),
+                     ("w3", dict(mode="mlpc", redundancy=R, window=4))):
+        pool = open_pool(state, specs, mesh, dev, **cfg)
+        yield f"k_{tag}_open", pool, {"hash_state": False}
+        for i, shape in enumerate((*EL_SHAPES, None), start=1):
+            new = bumped(state)
+            check(bool(pool.commit(new, data_cursor=i)), "zg: commit failed")
+            state = new
+            yield f"l_{tag}_commit_{i}", pool, {"hash_state": shape is None}
+            if shape is None:
+                break
+            moved = pool.rescale(ZoneMesh(shape, ("data", "model"),
+                                          group=group))
+            check(moved.protector.group_size == shape[0] and moved.step == i,
+                  f"zg {tag}: G {moved.protector.group_size}")
+            yield f"m_{tag}_rescale_{shape[0]}x{shape[1]}", moved
+            same_as_fresh_open(moved, state, f"zg {tag} rescale {i}")
+            yield f"n_{tag}_{i}_same_as_fresh", moved, {"hash": False}
+            pool = moved
+        del pool, moved
+        gc.collect()
+
+
+def batch_dims(specs) -> list:
+    """Each cache leaf's batch dim: the one its spec puts on `data` (None
+    for a leaf with none)."""
+    from repro_torch import utils
+    return [next((i for i, e in enumerate(spec)
+                  if e == "data" or (isinstance(e, tuple) and "data" in e)),
+                 None) for spec in utils.tree_leaves(specs)]
+
+
+def by_blocks(decode, specs, world):
+    """A decode step taken `world` blocks of rows at a time, each block's
+    cache a contiguous tensor of its rows, as a server split over `world`
+    processes takes it (the same products at the same M): the outputs put
+    back together in rank order."""
+    from repro_torch import utils
+    dims = batch_dims(specs)
+
+    def step(params, tokens, cache, pos):
+        n = tokens.shape[0] // world
+        leaves, treedef = utils.tree_flatten(cache)
+        parts = [decode(params, tokens[i * n:(i + 1) * n],
+                        utils.tree_unflatten(treedef, [
+                            x if d is None else
+                            x.narrow(d, i * n, n).contiguous()
+                            for x, d in zip(leaves, dims)]), pos)
+                 for i in range(world)]
+        new = [torch.cat([utils.tree_leaves(q[2])[j] for q in parts], dim=d)
+               if d is not None else utils.tree_leaves(parts[0][2])[j]
+               for j, d in enumerate(dims)]
+        return (torch.cat([q[0] for q in parts]),
+                torch.cat([q[1] for q in parts]),
+                utils.tree_unflatten(treedef, new))
+    return step
+
+
+def zs_server(dev, cfg, mesh, params, **pcfg):
+    """sv's server on `mesh`.  On one process its decode goes by blocks of
+    rows (`by_blocks`), as the split server's does: the card's bf16
+    decode of B / W rows is not the same bits as of B (PERF.md §7), so
+    the one-process pool is fed the caches the split pools are, and every
+    field is held byte-equal given them."""
+    srv = sv_server(dev, cfg, mesh, params, **pcfg)
+    if mesh.group is None:
+        srv._decode = by_blocks(srv._decode, srv._cache_specs, ZS_WORLD)
+    return srv
+
+
+def zs_phases(dev, group, smashed):
+    """zs: sv's server (qwen3-0.6b at full width, batch 16, max_len 2048,
+    (4, 2)) with each process decoding its block's rows: start, a
+    ZS_PROMPT-token prompt, ZS_EVENT tokens, rank ZS_LOST (process 2)
+    lost and recovered, the rest of ZS_NEW, a scrub; then a run at
+    r = 3, window 4 and one at pipeline_depth 2, ZS_SHORT + ZS_SHORT
+    tokens each.  The tokens are gathered in rank order."""
+    from repro_torch import Fault, ZoneMesh
+    from repro_torch.dist import sharding
+    from repro_torch.runtime import failure
+
+    cfg, _, params, prompt = sv_model(dev)
+    mesh = ZoneMesh(SV_MESH, ("data", "model"), group=group)
+    srv = zs_server(dev, cfg, mesh, params)
+    yield "a_start", srv.pool, {"hash_state": False}
+    rows = srv.block_rows(prompt)
+
+    def tokens(out):
+        toks = sharding.gather_global(torch.stack(out, dim=1),
+                                      srv._row_spec, mesh)
+        return toks.cpu().tolist()
+    for t in range(ZS_PROMPT):
+        tok = srv.step(rows[:, t])
+    out = [tok]
+    yield f"b_prefill_{ZS_PROMPT}", srv.pool, {"hash_state": False}
+    for _ in range(ZS_EVENT):
+        tok = srv.step(tok)
+        out.append(tok)
+    yield f"c_decode_{ZS_EVENT}", srv.pool, {"hash_state": False}
+    srv.pool.inject(lambda p, prot: failure.inject_rank_loss(
+        p, prot, ZS_LOST))
+    rep = srv.pool.recover(Fault.rank_loss(ZS_LOST))
+    check(rep.verified and rep.reverified, f"zs d {rep}")
+    yield "d_rank_loss_recover", srv.pool, {"hash_state": False}
+    while len(out) < ZS_NEW:
+        tok = srv.step(tok)
+        out.append(tok)
+    yield f"e_decode_to_{ZS_NEW}", srv.pool, {"hash_state": False,
+                                              "same_tokens": tokens(out)}
+    report = srv.pool.scrub()
+    check(report.checked and not report.suspect, f"zs f {report}")
+    yield "f_scrub", srv.pool, {"same_tokens": tokens(out)}
+    del srv
+    gc.collect()
+    if on_card(dev):
+        torch.cuda.empty_cache()
+    for tag, pcfg in (("g_r3_window_4", dict(redundancy=R, window=4)),
+                      ("h_depth_2", dict(pipeline_depth=2))):
+        srv = zs_server(dev, cfg, mesh, params, **pcfg)
+        rows = srv.block_rows(prompt)
+        for t in range(ZS_SHORT):
+            tok = srv.step(rows[:, t])
+        out = [tok]
+        for _ in range(ZS_SHORT - 1):
+            tok = srv.step(tok)
+            out.append(tok)
+        srv.pool.drain()
+        yield tag, srv.pool, {"hash_state": False,
+                              "same_tokens": tokens(out)}
+        srv.flush()
+        yield f"{tag}_flushed", srv.pool
+        del srv
+        gc.collect()
+        if on_card(dev):
+            torch.cuda.empty_cache()
+
+
+def zt_trainer(dev, mesh):
+    """tr's trainer at ZT_MICROBATCHES (and ZT_LAYERS) on `mesh`."""
+    from repro_torch import ProtectConfig
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.runtime.trainer import Trainer
+    cfg, _ = tr_model()
+    if ZT_LAYERS is not None:
+        cfg = dataclasses.replace(cfg, n_layers=ZT_LAYERS)
+    t = Trainer(cfg, TrainConfig(learning_rate=TR_LR, warmup_steps=TR_WARMUP,
+                                 total_steps=TR_TOTAL,
+                                 microbatches=ZT_MICROBATCHES),
+                ProtectConfig(mode="mlpc", scrub_period=TR_SCRUB), mesh,
+                seq_len=TR_SEQ, global_batch=TR_BATCH, seed=SEED, device=dev)
+    t.initialize()
+    return t
+
+
+def zt_phases(dev, group, smashed):
+    """zt: tr's trainer (qwen3-0.6b at full width, seq 1024 x batch 8,
+    (4, 2)) at microbatches ZT_MICROBATCHES, each process its
+    microbatches: the init, step 1, step 2 with verify_old, rank ZT_LOST
+    (process 1) lost and recovered, step 3 with a failed canary (aborted
+    everywhere), step 3, a scrub."""
+    from repro_torch import Fault, ZoneMesh
+    from repro_torch.runtime import failure
+
+    mesh = ZoneMesh(TR_MESH, ("data", "model"), group=group)
+    t = zt_trainer(dev, mesh)
+    yield "a_init", t.pool, {"hash_state": False}
+
+    def step(**kw):
+        out = t.step(**kw)
+        return {"same_step": [out["step"], out["loss"], out["committed"]],
+                "hash_state": False}
+    yield "b_step_1", t.pool, step()
+    t.verify_old = True
+    yield "c_step_2_verify_old", t.pool, step()
+    t.verify_old = False
+    t.pool.inject(lambda p, prot: failure.inject_rank_loss(p, prot, ZT_LOST))
+    rep = t.pool.recover(Fault.rank_loss(ZT_LOST))
+    check(rep.verified and rep.reverified, f"zt d {rep}")
+    yield "d_rank_loss_recover", t.pool, {"hash_state": False}
+    out = step(canary_ok=False)
+    check(out["same_step"][2] is False and t.cursor == 2,
+          f"zt e: {out}, cursor {t.cursor}")
+    yield "e_step_3_canary_fails", t.pool, out
+    yield "f_step_3", t.pool, step()
+    report = t.pool.scrub()
+    check(report.checked and not report.suspect, f"zt g {report}")
+    yield "g_scrub", t.pool
+
+
+def group_procs_path(dev):
+    """zg: PoolGroup and the rescale walk split over two workers."""
+    return split_path(dev, "zg", zg_phases, PATH_ZG, world=ZG_WORLD)
+
+
+def zs_op_bits(dev, cfg):
+    """Which of the decode's ops give other bits on B / W rows than on B
+    (the card picks a reduction's or a product's split by shape): each
+    op at SV_BATCH rows against the same op a block of rows at a time."""
+    from repro_torch.models import layers as L
+    gen = torch.Generator(dev).manual_seed(SEED + 2)
+    b, n = SV_BATCH, SV_BATCH // ZS_WORLD
+    x = torch.randn(b, cfg.d_model, device=dev, generator=gen).to(
+        torch.bfloat16)
+    w = torch.randn(cfg.d_model, cfg.d_ff, device=dev, generator=gen).to(
+        torch.bfloat16)
+    scale = torch.randn(cfg.d_model, device=dev, generator=gen)
+    g, hd, t = cfg.n_heads // cfg.n_kv, cfg.hd, SV_MAX_LEN
+    q = torch.randn(b, cfg.n_kv, g, hd, device=dev, generator=gen)
+    kt = torch.randn(b, cfg.n_kv, hd, t, device=dev, generator=gen)
+    pr = torch.softmax(torch.randn(b, cfg.n_kv, g, t, device=dev,
+                                   generator=gen), -1)
+    vt = torch.randn(b, cfg.n_kv, t, hd, device=dev, generator=gen)
+    heads = torch.randn(b, 1, cfg.n_heads, hd, device=dev, generator=gen)
+    # (name, the op, its arguments), each batch-leading
+    ops = (("matmul", lambda v: v[:, None] @ w, (x,)),
+           ("rmsnorm", lambda v: L.apply_rmsnorm({"scale": scale}, v), (x,)),
+           ("headnorm", lambda v: v.pow(2).mean(-1), (heads,)),
+           ("softmax", lambda v: torch.softmax(v, -1), (pr,)),
+           ("attn_scores", lambda a, c: torch.matmul(a, c), (q, kt)),
+           ("attn_values", lambda a, c: torch.matmul(a, c), (pr, vt)))
+    out = {}
+    for name, fn, args in ops:
+        whole = fn(*args)
+        rows = torch.cat([fn(*(a[i:i + n] for a in args))
+                          for i in range(0, b, n)])
+        out[name] = bool(torch.equal(whole, rows))
+    return out
+
+
+def server_procs_path(dev):
+    """zs: sv's server split over four workers, against one process
+    decoding by blocks of rows (`zs_server`); then the decode itself:
+    the whole-batch server's tokens against the split ones (the share
+    of equal tokens), the split decode teacher-forced a block of rows at
+    a time against the f32 forward (sv h's bound), and which op gives
+    other bits by rows."""
+    import numpy as np
+    counts = split_path(dev, "zs", zs_phases, PATH_ZS, world=ZS_WORLD)
+    one = {ln["phase"]: ln for ln in SPLIT_RUNS["zs"]}
+    toks = np.asarray(one[f"e_decode_to_{ZS_NEW}"]["extra"]["same_tokens"])
+    cfg, mesh, params, prompt = sv_model(dev)
+    srv = sv_server(dev, cfg, mesh, params, protect=False)
+    tok = None
+    for t in range(ZS_PROMPT):
+        tok = srv.step(prompt[:, t])
+    whole = [tok]
+    while len(whole) < ZS_NEW:
+        tok = srv.step(tok)
+        whole.append(tok)
+    whole = torch.stack(whole, 1).cpu().numpy()
+    del srv
+    gc.collect()
+    if on_card(dev):
+        torch.cuda.empty_cache()
+    n = SV_BATCH // ZS_WORLD
+    refs = [sv_reference(cfg, params, prompt[i:i + n, :ZS_PROMPT],
+                         toks[i:i + n], SV_MAX_LEN)
+            for i in range(0, SV_BATCH, n)]
+    emit(path="zs", phase="i_decode_by_rows",
+         rows_a_process=n, equal_token_share=float((whole == toks).mean()),
+         op_bits_equal_by_rows=zs_op_bits(dev, cfg),
+         rel_err_by_block=[r["rel_err"] for r in refs],
+         positions_over_bound=[r["positions_over_bound"] for r in refs],
+         argmax_agree_by_block=[r["argmax_agree"] for r in refs],
+         bound=SV_LOGIT_RTOL)
+    return counts
+
+
+def trainer_procs_path(dev):
+    """zt: tr's trainer split over two workers."""
+    return split_path(dev, "zt", zt_phases, PATH_ZT, world=ZT_WORLD)
 
 
 # -- 5. the deferred-epoch engine ---------------------------------------------
@@ -3500,15 +4029,15 @@ TR_ARCH = "qwen3-0.6b"           # trained at its published width
 TR_REDUCED = False               # True: the config's reduced() (a CPU rehearsal)
 TR_MESH = (4, 2)                 # the reference launcher's default mesh
 TR_SEQ, TR_BATCH = 1024, 8       # 8,192 tokens a step
-TR_STEPS = 16                    # steps of each full phase (b, c, d, g)
-TR_SCRUB = 8                     # scrub_period
+TR_STEPS = 6                     # steps of each full phase (b, c, d, g)
+TR_SCRUB = 6                     # scrub_period: b's last step scrubs
 TR_LR, TR_WARMUP, TR_TOTAL = 1e-3, 2, 100
 TR_LOST = 1                      # the rank tr d loses, after step TR_LOSS_AT
-TR_LOSS_AT, TR_SCRIBBLE_AT = 4, 6
-TR_ABORT_AT = 5                  # the step tr e runs with a failed canary
-TR_CKPT_AT, TR_CRASH_AT = 8, 12  # tr f: checkpoint, then crash after
-TR_MULTI_LOST = (0, 1, 3)        # the ranks tr g loses after step 10
-TR_MULTI_AT = 10
+TR_LOSS_AT, TR_SCRIBBLE_AT = 1, 2
+TR_ABORT_AT = 3                  # the step tr e runs with a failed canary
+TR_CKPT_AT, TR_CRASH_AT = 4, 6   # tr f: checkpoint, then crash after
+TR_MULTI_LOST = (0, 1, 3)        # the ranks tr g loses after TR_MULTI_AT
+TR_MULTI_AT = 5
 TR_SLOW = 1                      # the replica tr h slows 10x
 # tr i, the train step checked apart from the port (a plain f32 forward
 # and backward of the whole model, chip_smoke.plain_hidden): the bf16
@@ -3818,8 +4347,8 @@ def training_path(dev):
     del state
     invariants(t.pool, "a_start")
 
-    # b: sixteen steps at mlpc r = 1, window 1, depth 1: 1-8 bulk commits,
-    # 9-16 with verify-at-open
+    # b: TR_STEPS steps at mlpc r = 1, window 1, depth 1: the first half
+    # bulk commits, the second with verify-at-open
     ckpt = {}
 
     def b():
@@ -3846,8 +4375,9 @@ def training_path(dev):
     tr_free()
 
     with probe:
-        # d: rank 1 lost after step 4 and recovered; a word scribbled in
-        # rank 0's shard after step 6, scrubbed and repaired; on to 16
+        # d: rank 1 lost after TR_LOSS_AT and recovered; a word scribbled
+        # in rank 0's shard after TR_SCRIBBLE_AT, scrubbed and repaired; on
+        # to TR_STEPS
         def d():
             u = tr_trainer(dev, cfg, mesh)
             losses, digs = tr_steps(run, "d_to_loss", u, TR_LOSS_AT, probe)
@@ -3951,7 +4481,7 @@ def training_path(dev):
         tr_free()
 
         # g: r = 3, window 4, pipeline_depth 4 through `run` on the ring,
-        # ranks 0, 1 and 3 lost after step 10 and recovered
+        # ranks 0, 1 and 3 lost after TR_MULTI_AT and recovered
         def g():
             u = tr_trainer(dev, cfg, mesh, redundancy=3, window=4,
                            pipeline_depth=4)
@@ -4181,9 +4711,9 @@ RT_REDUCED = False
 RT_OVERRIDES: dict = {"moment_dtype": "bfloat16"}
 RT_MESH = (4, 2)
 RT_SEQ, RT_BATCH = 4096, 2       # twice the window: it masks in the step
-RT_STEPS = 4                     # steps of b, c, d
+RT_STEPS = 2                     # steps of b, c, d (4 until PR 27)
 RT_SCRUB = 2
-RT_LOST, RT_LOSS_AT = 1, 2       # rt d: rank 1 lost after step 2
+RT_LOST, RT_LOSS_AT = 1, 1       # rt d: rank 1 lost after step 1
 PATH_RT = ("fletcher_blocks", "fletcher_stream",
            "fused_verify_commit_stream")
 
@@ -4537,9 +5067,9 @@ XT_REDUCED = False
 XT_OVERRIDES: dict = {"moment_dtype": "bfloat16"}
 XT_MESH = (4, 2)
 XT_SEQ, XT_BATCH = 4096, 2       # train_4k's length: 16 chunks of 256
-XT_STEPS = 4
+XT_STEPS = 2                     # 4 until PR 27
 XT_SCRUB = 2
-XT_LOST, XT_LOSS_AT = 1, 2
+XT_LOST, XT_LOSS_AT = 1, 1
 XT_PLAIN_CHUNK = 64              # i's plain mLSTM: chunks of 64, not 256
 PATH_XT = ("fletcher_blocks", "fletcher_stream",
            "fused_verify_commit_stream")
@@ -4748,7 +5278,7 @@ ET_REDUCED = False               # each, so both stacks run checkpointed;
                                  # state, which fits (68.46 GB peak)
 ET_MESH = (4, 2)
 ET_SEQ, ET_BATCH = 4096, 2       # source and target lengths
-ET_STEPS = 4
+ET_STEPS = 2                     # 4 until PR 27
 ET_SCRUB = 2
 PATH_ET = ("fletcher_blocks", "fletcher_stream",
            "fused_verify_commit_stream")
@@ -4931,14 +5461,23 @@ def examples_path(dev):
 
 
 def dryrun_start(out_dir):
-    """The dry run's cells of DR_ARCH on meta, in a process of its own."""
+    """The dry run's cells of DR_ARCH on meta, in a process of its own; a
+    thread reads its output and notes when it exits."""
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
     out = os.path.join(out_dir, "dryrun.json")
+    t0 = time.perf_counter()
     proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
          DR_ARCH, "--mesh", "single", "--out", out], env=env, cwd=out_dir,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return proc, out, time.perf_counter()
+    done = {}
+
+    def collect():
+        done["log"], _ = proc.communicate()
+        done["end"] = time.perf_counter()
+    watch = threading.Thread(target=collect, daemon=True)
+    watch.start()
+    return proc, out, t0, (watch, done)
 
 
 def sv_step_costs(dev):
@@ -5005,18 +5544,19 @@ def sv_step_costs(dev):
           f"under the meta peak {b['peak_bytes']}")
 
 
-def dryrun_path(dev, proc, out, t0):
-    """dr a: the meta cells' records (the process started with the run);
-    dr b: `sv_step_costs`."""
+def dryrun_path(dev, proc, out, t0, watched):
+    """dr a: the meta cells' records (the process started with the run,
+    given DR_TIMEOUT_S from its start); dr b: `sv_step_costs`."""
     run = PathRun(dev, "dr")
+    watch, done = watched
     try:
-        log, _ = proc.communicate(timeout=max(
-            1, DR_TIMEOUT_S - (time.perf_counter() - t0)))
+        watch.join(timeout=max(1, DR_TIMEOUT_S - (time.perf_counter() - t0)))
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    print(log, end="", flush=True)
+    watch.join()
+    print(done.get("log", ""), end="", flush=True)
     check(proc.returncode == 0, f"dr a: the dry run exited {proc.returncode}")
     with open(out) as f:
         recs = json.load(f)
@@ -5024,8 +5564,12 @@ def dryrun_path(dev, proc, out, t0):
           f"dr a: {[(r['workload'], r['status']) for r in recs]}")
     for r in recs:
         emit(path="dr", phase="a_cell", record=r)
+    process_s = done["end"] - t0
     emit(path="dr", phase="a_wall", ms=(time.perf_counter() - t0) * 1e3,
-         note="the meta trace's process, beside the card's paths")
+         process_s=process_s, timeout_s=DR_TIMEOUT_S,
+         margin_s=DR_TIMEOUT_S - process_s,
+         note="ms: from the run's start to this path; process_s: the meta "
+              "trace's process, beside the card's paths, to its exit")
     run.phase("b_serve_step_card_vs_meta", lambda: sv_step_costs(dev),
               inv=nothing)
     return run.end(("fused_commit",))
@@ -5117,7 +5661,8 @@ def run_paths(dev, dr):
     from repro_torch.kernels import ops
 
     drivers = {"r1": main_path, "r3": main_path_r3, "zp": procs_path,
-               "zw": window_procs_path,
+               "zw": window_procs_path, "zg": group_procs_path,
+               "zs": server_procs_path, "zt": trainer_procs_path,
                "w3": window_path_w3, "w1f": window_path_w1f,
                "wp": window_path_wp, "q3": async_path_q3,
                "qw": async_path_qw,
@@ -5133,7 +5678,11 @@ def run_paths(dev, dr):
                "dr": lambda d: dryrun_path(d, *dr),
                "cm": crosspod_path}
     timing = kernels_vs_plain(dev)
-    paths = {name: fn(dev) for name, fn in drivers.items()}
+    paths = {}
+    for name, fn in drivers.items():
+        t0 = time.perf_counter()
+        paths[name] = fn(dev)
+        emit(path=name, phase="wall", ms=(time.perf_counter() - t0) * 1e3)
     rows = []
     for name in ops.ENTRY_POINTS:
         t = timing[name]

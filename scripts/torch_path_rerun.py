@@ -4,11 +4,15 @@ one GPU.
     python3 scripts/torch_path_rerun.py path hybrid_serving_path [--root DIR]
     python3 scripts/torch_path_rerun.py xt-f32-batch1
     python3 scripts/torch_path_rerun.py xt-lr
+    python3 scripts/torch_path_rerun.py decode-bits
 
-`path FN` builds the kernels and runs chip_smoke's path function `FN` (its
-phase lines as chip_smoke prints them).  `--root DIR` takes chip_smoke.py
-and src/ from the checkout at DIR, e.g. an unpacked older commit: run the
-two commits in turn, in one call, to compare them on one card.
+`path FN [FN ...]` builds the kernels and runs chip_smoke's path
+functions `FN` in turn (their phase lines as chip_smoke prints them; a
+path that raises prints its error as a line and the next one runs; the
+script then exits 1, naming the paths that failed).  `--root DIR` takes
+chip_smoke.py and src/ from the checkout at DIR, e.g. an unpacked older
+commit: run the two commits in turn, in one call, to compare them on one
+card.
 
 `xt-f32-batch1`: xt's path (xlstm-1.3b at one group, seq 4096, (4, 2),
 protected) at batch 1 with the config's f32 AdamW moments, in place of
@@ -19,6 +23,12 @@ as a line of its own, with the memory held when it struck.
 weights at each (moment dtype, learning rate) in XT_LR_RUNS, warmup 2 as
 chip_smoke's trainers: each run's losses.  At lr 0 the weights stay put,
 so the losses move with the batches alone.
+
+`decode-bits`: sv's decode step (qwen3-0.6b at full width, batch 16,
+bf16) against the same step taken four rows at a time, as a server split
+over four processes takes it: whether the logits and the new cache are
+the same bits (chip_smoke's `by_blocks`), and which of the decode's ops
+give other bits by rows (chip_smoke's `zs_op_bits`).
 
 Prints the card's name and power limit first, then one JSON line a phase
 or a run.
@@ -90,10 +100,38 @@ def xt_lr(cs, dev):
         torch.cuda.reset_peak_memory_stats()
 
 
+def decode_bits(cs, dev):
+    from repro_torch import utils
+    from repro_torch.models import api
+    from repro_torch.models.transformer import build_model
+    cfg, mesh, params, prompt = cs.sv_model(dev)
+    model = build_model(cfg, mesh)
+    decode = api.make_decode_step(model)
+    blocks = cs.by_blocks(decode, model.cache_specs(
+        cs.SV_BATCH, cs.SV_MAX_LEN, mesh), cs.ZS_WORLD)
+    p = model.compute_params(params)
+    cache = model.init_cache(cs.SV_BATCH, cs.SV_MAX_LEN, dev)
+    out = {"batch": cs.SV_BATCH, "rows_a_block": cs.SV_BATCH // cs.ZS_WORLD}
+    for pos in range(4):
+        tok, logits, new = decode(p, prompt[:, pos], cache, pos)
+        btok, blogits, bnew = blocks(p, prompt[:, pos], cache, pos)
+        out[f"pos_{pos}"] = {
+            "logits_equal": bool(torch.equal(blogits, logits)),
+            "logits_max_abs_diff": float((blogits - logits).abs().max()),
+            "tokens_equal": bool(torch.equal(btok, tok)),
+            "cache_equal": all(torch.equal(a, b) for a, b in zip(
+                utils.tree_leaves(bnew), utils.tree_leaves(new),
+                strict=True))}
+        cache = new
+    out["op_bits_equal_by_rows"] = cs.zs_op_bits(dev, cfg)
+    cs.emit(path="decode_bits", **out)
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("what", choices=("path", "xt-f32-batch1", "xt-lr"))
-    ap.add_argument("fn", nargs="?", help="chip_smoke's path function")
+    ap.add_argument("what", choices=("path", "xt-f32-batch1", "xt-lr",
+                                     "decode-bits"))
+    ap.add_argument("fn", nargs="*", help="chip_smoke's path functions")
     ap.add_argument("--root", default=ROOT)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -107,9 +145,20 @@ def main():
     _build.build()
     dev = torch.device("cuda", 0)
     if args.what == "path":
-        launches = getattr(cs, args.fn)(dev)
-        print(json.dumps({"path_fn": args.fn, "root": args.root,
-                          "launches": launches}), flush=True)
+        failed = []
+        for fn in args.fn:
+            try:
+                launches = getattr(cs, fn)(dev)
+                print(json.dumps({"path_fn": fn, "root": args.root,
+                                  "launches": launches}), flush=True)
+            except Exception as err:  # noqa: BLE001 - the next path runs
+                failed.append(fn)
+                print(json.dumps({"path_fn": fn, "error": repr(err)[:4000]}),
+                      flush=True)
+        if failed:
+            sys.exit(f"torch_path_rerun: failed: {', '.join(failed)}")
+    elif args.what == "decode-bits":
+        decode_bits(cs, dev)
     elif args.what == "xt-f32-batch1":
         xt_f32_batch1(cs, dev)
     else:

@@ -13,6 +13,13 @@ One device holds every zone stacked `(*mesh_dims, *local)`
 `shard` on the new one, on the device: the same function as the
 reference's trip through host memory, without the trip.
 
+On a zone split over processes both meshes carry the same group (W
+divides both G): every process gathers the global state (the one copy
+`unshard` keeps) and keeps its block of the new mesh.  That moves every
+row, where only the rows that change owner must move; it is bit-exact.
+A move to another group, or to none, changes the process count and is
+refused (`procs.refuse_regroup`).
+
 The public entry point is `Pool.rescale(new_mesh)` (repro_torch/pool.py),
 which adds flush-before-rescale and the host step-counter carry on top of
 `reshard_state`; `rescale` / `rescale_windowed` below are the engine
@@ -33,9 +40,10 @@ PyTree = Any
 
 def reshard_state(state: PyTree, specs: PyTree, old_mesh, new_mesh) -> PyTree:
     """Zone-stacked leaves on `old_mesh` -> zone-stacked on `new_mesh`
-    (bit-exact; along replicated axes the copy at coordinate 0 moves)."""
-    for mesh in (old_mesh, new_mesh):
-        procs.refuse_split(mesh, "a reshard", "S7c")
+    (bit-exact; along replicated axes the copy at coordinate 0 moves).  On
+    a split zone every process calls it, and both meshes carry its
+    group."""
+    procs.refuse_regroup(old_mesh, new_mesh)
     leaves, treedef = utils.tree_flatten(state)
     return utils.tree_unflatten(treedef, [
         sharding.shard(sharding.unshard(x, spec, old_mesh), spec, new_mesh)

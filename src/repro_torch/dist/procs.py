@@ -28,11 +28,22 @@ the rest is gloo's).  The sent bytes also go to the active cost counter
 
 A split zone runs the synchronous engine behind `Pool`, the deferred
 engine (window > 1, bulk and patch) and the async commit ring
-(pipeline_depth > 1, staged canaries).  Only gloo groups are zone groups:
-an NCCL group is refused (NCCL, one card a process, is slice S7d), as is
-a split zone on any path that the backend does not cover yet
-(`refuse_split`: `PoolGroup`, rescale / reshard, `Server` and `Trainer`,
-slice S7c).
+(pipeline_depth > 1, staged canaries), and every host of a pool on it:
+`PoolGroup`, `Pool.rescale` / `elastic.reshard_state` between meshes
+split over the same group, `runtime.Server` (data-parallel decode, each
+process its block's rows of the batch) and `runtime.Trainer` (each
+process its microbatches, the gradients folded in microbatch order).
+Each reads and writes its process's block (`ZoneMesh.block_mesh`) and
+makes only the exchanges its engine makes.  What stays refused: a
+rescale that changes the process count (`refuse_regroup`: nothing makes
+a new group), a split server whose batch G does not divide, a split
+trainer whose microbatches W does not divide (runtime/), and an NCCL
+group (NCCL, one card a process, is slice S7d): only gloo groups are
+zone groups.
+
+Large exchanges go in pieces of at most `CHUNK_BYTES` a process
+(`in_pieces`), so the pageable host buffers that
+stage them stay small.
 """
 from __future__ import annotations
 
@@ -52,6 +63,7 @@ import torch.distributed as dist
 from repro_torch.kernels import cost as kcost
 
 GROUP_TIMEOUT_S = 120.0        # a collective that waits longer raises
+CHUNK_BYTES = 1 << 28          # a large exchange's piece, a process
 
 
 class ZoneGroup:
@@ -148,6 +160,19 @@ class ZoneGroup:
         dist.barrier(group=self.pg)
 
 
+def in_pieces(exchange, x: torch.Tensor) -> torch.Tensor:
+    """`exchange(x)` (a `ZoneGroup`'s `all_to_all` of `(W, n)` blocks, or
+    its `all_gather` of a 1-D `x`) in pieces of at most `CHUNK_BYTES` along
+    x's last dim, so that each staging buffer stays small: the same result,
+    the pieces concatenated along the result's last dim, more exchanges."""
+    n = x.shape[-1]
+    step = max(1, CHUNK_BYTES // x.element_size())
+    if n <= step:
+        return exchange(x)
+    return torch.cat([exchange(x[..., i:i + step].contiguous())
+                      for i in range(0, n, step)], dim=-1)
+
+
 def init_zone_group(rank: int, world: int, store_path: str,
                     timeout: float = GROUP_TIMEOUT_S) -> ZoneGroup:
     """Join a `world`-process gloo group through a `file://` store at
@@ -160,14 +185,19 @@ def init_zone_group(rank: int, world: int, store_path: str,
     return ZoneGroup(dist.group.WORLD)
 
 
-def refuse_split(mesh, what: str, later: str) -> None:
-    """Raise when `mesh` is split over processes: `what` runs on one
-    process only until slice `later` brings it across processes."""
-    if getattr(mesh, "group", None) is not None:
+def refuse_regroup(old_mesh, new_mesh) -> None:
+    """Raise when a move from `old_mesh` to `new_mesh` changes the split:
+    another process group, or none on one side, changes the process count,
+    and nothing here makes a new group."""
+    a = getattr(old_mesh, "group", None)
+    b = getattr(new_mesh, "group", None)
+    if (a is None) != (b is None) or (a is not None and a.pg is not b.pg):
+        wa = 1 if a is None else a.world
+        wb = 1 if b is None else b.world
         raise NotImplementedError(
-            f"{what} on a zone split over {mesh.group.world} processes comes "
-            f"in slice {later}; this backend covers a Pool's engines (the "
-            "synchronous and the deferred one) and its async commit ring")
+            f"a rescale from a zone split over {wa} process(es) to one "
+            f"split over {wb} changes the process count (or the group): a "
+            "split pool rescales only onto a mesh split over its own group")
 
 
 class ZoneError(RuntimeError):

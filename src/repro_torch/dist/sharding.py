@@ -17,8 +17,20 @@ split over its W processes along the data axis: process p holds data
 coordinates `[p·G/W, (p+1)·G/W)` and every coordinate of the other axes,
 so its stacked leaves are `(*local_dims, *local_shape)`, the reference's
 layout with G/W in the data dim.  `shard` keeps the process's block;
-`unshard` gathers the blocks first.  Without a group (or with one
-process) one device holds the whole zone, as above.
+`unshard` gathers the blocks (of the one copy it keeps along replicated
+axes) first.  Without a group (or with one process) one device holds the
+whole zone, as above.
+
+A process's block is itself a one-process zone of G/W data ranks with
+the other axes unchanged: `ZoneMesh.block_mesh`, a mesh of `local_dims`
+with no group.  The **block view** of a leaf is its global form on that
+mesh (`block_view`, `block_of`): for a leaf sharded over `data` the
+process's slice (the batch rows of a cache, the `embed` slice of an FSDP
+parameter), for a leaf replicated along `data` the whole leaf (this
+process's copy).  Reading and writing the block view makes no exchange;
+`gather_global` puts the data-sharded leaves of the global tensor back
+together from the processes' blocks.  At W = 1 the block mesh is the
+mesh, and the block view the global tensor.
 
 Model and cache code names tensor dimensions logically ("embed", "heads",
 "batch", ...); `spec_for` maps the names onto mesh axes with the
@@ -101,6 +113,14 @@ class ZoneMesh:
         return self.proc_rank * self.local_group_size
 
     @property
+    def block_mesh(self) -> "ZoneMesh":
+        """This process's block as a mesh of its own: `local_dims`, the same
+        axes, no group (the mesh itself on one process)."""
+        if self.group is None:
+            return self
+        return ZoneMesh(self.local_dims, self.axis_names, self.data_axis)
+
+    @property
     def local_dims(self) -> tuple:
         """The leading dims of this process's stacked tensors: the mesh
         shape with G / W in the data dim."""
@@ -175,25 +195,59 @@ def shard(x: torch.Tensor, spec, mesh: ZoneMesh) -> torch.Tensor:
     return y.contiguous()
 
 
-def unshard(y: torch.Tensor, spec, mesh: ZoneMesh) -> torch.Tensor:
+def unshard(y: torch.Tensor, spec, mesh: ZoneMesh, *,
+            local_copy: bool = False) -> torch.Tensor:
     """Zone-stacked -> global tensor.  Along replicated axes the copy at
     coordinate 0 is taken — the one `np.asarray` of a jax.Array shows.  On
-    a split mesh the processes' blocks are gathered first (a collective:
-    every process calls it)."""
-    if mesh.group is not None:
-        y = mesh.group.gather_dim(y, mesh.data_dim)
+    a split mesh the processes' blocks of that copy are gathered first (a
+    collective: every process calls it); a leaf replicated along `data`
+    takes process 0's copy, or with `local_copy` this process's own (no
+    exchange)."""
     n_mesh = len(mesh.shape)
     local = tuple(y.shape[n_mesh:])
     entries = _entries(spec, len(local))
     used = {a for axes in entries for a in axes}
-    idx = tuple(slice(None) if a in used else 0 for a in mesh.axis_names)
+    split = mesh.group is not None
+    idx = tuple(slice(None) if a in used or (split and a == mesh.data_axis)
+                else 0 for a in mesh.axis_names)
     y = y[idx]
+    if split:
+        dd = sum(1 for a in mesh.axis_names[:mesh.data_dim] if a in used)
+        if mesh.data_axis in used:
+            y = mesh.group.gather_dim(y.contiguous(), dd)
+        elif local_copy:
+            y = y.select(dd, 0)
+        else:
+            y = mesh.group.all_gather(y.select(dd, 0).contiguous())[0]
     kept = [a for a in mesh.axis_names if a in used]
     order, gshape = [], []
     for i, axes in enumerate(entries):
         order += [kept.index(a) for a in axes] + [len(kept) + i]
         gshape.append(local[i] * math.prod(mesh.axis_size(a) for a in axes))
     return y.permute(order).reshape(gshape)
+
+
+def block_view(y: torch.Tensor, spec, mesh: ZoneMesh) -> torch.Tensor:
+    """Zone-stacked `(*mesh.local_dims, ...)` -> this process's block view
+    (no exchange)."""
+    return unshard(y, spec, mesh.block_mesh)
+
+
+def block_of(x: torch.Tensor, spec, mesh: ZoneMesh) -> torch.Tensor:
+    """Global tensor -> this process's block view of it (no exchange)."""
+    if mesh.group is None:
+        return x
+    return block_view(shard(x, spec, mesh), spec, mesh)
+
+
+def gather_global(x: torch.Tensor, spec, mesh: ZoneMesh) -> torch.Tensor:
+    """A block view -> the global tensor: the data-sharded dims gathered
+    from every process (a collective when the spec uses `data`); a leaf
+    replicated along `data` is this process's copy, unchanged."""
+    if mesh.group is None or mesh.data_axis not in {
+            a for axes in _entries(spec, x.dim()) for a in axes}:
+        return x
+    return unshard(shard(x, spec, mesh.block_mesh), spec, mesh)
 
 
 # FSDP + TP defaults: batch/embed spread over the data dimension(s), the

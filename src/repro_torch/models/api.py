@@ -11,6 +11,16 @@ norm, learning rate and step stay on the device.  The dry run's inputs
 of a workload cell (`batch_abstract`, `decode_abstract`) are
 `device="meta"` tensors, the port's stand-in for the reference's
 ShapeDtypeStructs: shapes and dtypes, no bytes.
+
+`make_train_step(..., mesh=, state_specs=)` on a mesh split over W
+processes (dist/procs.py) builds the data-parallel step
+(`split_train_step`), byte-equal to the one-process step at the same
+`microbatches`, which W must divide: each process computes its
+microbatches' gradients against the whole parameters, the per-microbatch
+partials are exchanged so that each process folds its 1/W slice of every
+gradient in microbatch order from zeros (an all-to-all, then an
+all-gather of the folded slices), and each process updates its block of
+the parameters and moments.
 """
 from __future__ import annotations
 
@@ -21,6 +31,7 @@ import torch
 
 from repro_torch import utils
 from repro_torch.configs.base import ModelConfig, Workload
+from repro_torch.dist import procs
 from repro_torch.dist import sharding as shd
 from repro_torch.dist.sharding import P
 from repro_torch.models import layers as L
@@ -157,15 +168,21 @@ def make_loss_and_grads(model: Model):
     return loss_and_grads
 
 
-def make_train_step(model: Model, optimizer: Optimizer, train_cfg):
+def make_train_step(model: Model, optimizer: Optimizer, train_cfg,
+                    mesh=None, state_specs=None):
     """Returns train_step(state, batch) -> (new_state, metrics).
 
     Supports microbatch gradient accumulation (f32 gradients; the metrics
     are then only `loss` and `grad_norm`, as the reference's) and
     per-example loss masks (straggler mitigation drops slow replicas'
     examples via the mask).  Clip, then the optimizer update, then step + 1.
-    """
+    On a mesh split over processes it is `split_train_step`'s, which
+    takes and returns the state as this process's block of zone-stacked
+    leaves (`state_specs` places them)."""
     nmb = train_cfg.microbatches
+    if mesh is not None and mesh.group is not None:
+        return split_train_step(model, optimizer, train_cfg, mesh,
+                                state_specs)
     single = make_loss_and_grads(model)
 
     def train_step(state, batch):
@@ -176,9 +193,8 @@ def make_train_step(model: Model, optimizer: Optimizer, train_cfg):
                                       device=p.device), params)
             loss = torch.zeros((), device=state["step"].device)
             for i in range(nmb):
-                mb = {k: x.reshape((nmb, x.shape[0] // nmb) + x.shape[1:])[i]
-                      for k, x in batch.items()}
-                mb_loss, _, mb_grads = single(params, mb)
+                mb_loss, _, mb_grads = single(params,
+                                              microbatch(batch, nmb, i))
                 grads = utils.tree_map(torch.add, grads, mb_grads)
                 loss = loss + mb_loss
             grads = utils.tree_map(lambda g: g / nmb, grads)
@@ -193,6 +209,124 @@ def make_train_step(model: Model, optimizer: Optimizer, train_cfg):
                      "step": state["step"] + 1}
         metrics = dict(metrics, loss=loss, grad_norm=gnorm)
         return new_state, metrics
+
+    return train_step
+
+
+def microbatch(batch: dict, nmb: int, i: int) -> dict:
+    """Rows `[i·B/nmb, (i+1)·B/nmb)` of every batch leaf: microbatch i."""
+    return {k: x.reshape((nmb, x.shape[0] // nmb) + x.shape[1:])[i]
+            for k, x in batch.items()}
+
+
+def own_microbatches(nmb: int, world: int, rank: int) -> range:
+    """The microbatches process `rank` of `world` computes: those whose
+    rows lie in its block of the data-sharded batch."""
+    k = nmb // world
+    return range(rank * k, (rank + 1) * k)
+
+
+def fold(parts, nmb: int) -> torch.Tensor:
+    """The one-process accumulation of the `nmb` partials `parts[i]`, in
+    microbatch order from zeros, then / nmb (an elementwise fold: on a
+    slice it gives the whole's bits)."""
+    acc = torch.zeros(parts[0].shape, dtype=torch.float32,
+                      device=parts[0].device)
+    for i in range(nmb):
+        acc = acc + parts[i]
+    return acc / nmb
+
+
+def fold_split(partials: list, nmb: int, group) -> torch.Tensor:
+    """One gradient's fold across the processes: `partials` are this
+    process's microbatches' gradients of one leaf, in order.  Each process
+    receives every process's partials of its 1/W slice (an all-to-all),
+    folds them in global microbatch order and all-gathers the folded
+    slices: every process ends with the one-process fold, bit for bit.
+    The exchanges go in pieces (`procs.in_pieces`)."""
+    w = group.world
+    shape, n = partials[0].shape, partials[0].numel()
+    c = -(-n // w)
+    flat = torch.stack([g.reshape(-1) for g in partials])   # (k, n)
+    if c * w != n:
+        flat = torch.nn.functional.pad(flat, (0, c * w - n))
+    k = flat.shape[0]
+    send = flat.reshape(k, w, c).transpose(0, 1).reshape(w, k * c)
+    got = procs.in_pieces(group.all_to_all, send.contiguous())
+    # process p's k partials arrive in block p: global microbatch order
+    mine = fold(got.reshape(w * k, c), nmb)
+    whole = procs.in_pieces(group.all_gather, mine)        # (w, c)
+    return whole.reshape(-1)[:n].reshape(shape)
+
+
+def split_train_step(model: Model, optimizer: Optimizer, train_cfg, mesh,
+                     state_specs):
+    """The data-parallel train step of a mesh split over W processes:
+    train_step(zone_state, batch) -> (new block state, metrics), with
+    `zone_state` this process's zone-stacked leaves (`pool.prot.state`),
+    `batch` the global batch and the new state this process's block view
+    (`Pool.commit(..., block=True)`).  Byte-equal to the one-process step
+    at the same `microbatches`:
+
+      * the parameters are gathered whole (the data-sharded leaves only,
+        the one copy `unshard` keeps; the moments never are);
+      * process p computes the gradients of microbatches
+        `own_microbatches(nmb, W, p)`, each of the one-process
+        microbatch's shapes;
+      * `fold_split` folds every gradient in microbatch order;
+      * clip by the global norm of the whole gradients (equal everywhere),
+        then the optimizer's update of this process's block (AdamW is
+        elementwise);
+      * the loss: the per-microbatch losses gathered and folded in order.
+    """
+    nmb, group = train_cfg.microbatches, mesh.group
+    w = group.world
+    if nmb % w:
+        raise ValueError(
+            f"a trainer split over {w} processes takes whole microbatches "
+            f"a process: microbatches % W = {nmb} % {w} = {nmb % w}; the "
+            "one-process step's summation order is its microbatches'")
+    single = make_loss_and_grads(model)
+    spec_leaves = utils.tree_leaves(state_specs)
+    pspecs = state_specs["params"]
+
+    def train_step(zone_state, batch):
+        params = utils.tree_map(
+            lambda x, sp: shd.unshard(x, sp, mesh, local_copy=True),
+            zone_state["params"], pspecs)
+        mine = own_microbatches(nmb, w, group.rank)
+        losses, partials = [], []
+        for i in mine:
+            loss_i, _, g_i = single(params, microbatch(batch, nmb, i))
+            leaves, gdef = utils.tree_flatten(g_i)
+            losses.append(loss_i)
+            partials.append(leaves)
+            del g_i, leaves
+        del params
+        grads = utils.tree_unflatten(gdef, [
+            fold_split([p[j] for p in partials], nmb, group)
+            for j in range(len(partials[0]))])
+        del partials
+        all_losses = group.all_gather(torch.stack(losses)).reshape(-1)
+        loss = torch.zeros((), device=zone_state["step"].device)
+        for i in range(nmb):
+            loss = loss + all_losses[i]
+        loss = loss / nmb
+        grads, gnorm = clip_by_global_norm(grads, train_cfg.grad_clip)
+        grads = utils.tree_map(lambda g, sp: shd.block_of(g, sp, mesh),
+                               grads, pspecs)
+        # the block view is read only now: the whole parameters, the
+        # partials and the activations are gone
+        leaves, treedef = utils.tree_flatten(zone_state)
+        block = utils.tree_unflatten(treedef, [
+            shd.block_view(x, sp, mesh)
+            for x, sp in zip(leaves, spec_leaves)])
+        del leaves
+        new_params, new_opt = optimizer.update(
+            grads, block["opt"], block["params"], block["step"])
+        new_state = {"params": new_params, "opt": new_opt,
+                     "step": block["step"] + 1}
+        return new_state, {"loss": loss, "grad_norm": gnorm}
 
     return train_step
 

@@ -68,8 +68,16 @@ and the scrub cadence — reads only values every process holds alike (the
 global arguments, agreed verdicts and scrub reports), so no process
 flushes or scrubs alone.  A split commit waits for its exchanges, so a
 dispatch blocks and every ticket has landed when `commit_async` returns:
-`poll` resolves the same tickets on every process.  `rescale` is refused
-(slice S7c).
+`poll` resolves the same tickets on every process.
+
+A split pool also reads and writes its process's block alone, as tensors
+on `mesh.block_mesh` (dist/sharding.py): `pool.block_state` (no
+exchange) and `commit(..., block=True)` / `commit_async(..., block=True)`,
+which take the block view of the new state.
+That is how a server or a trainer split over processes drives its pool
+without gathering the whole state a step.  `rescale` moves a split pool
+to a mesh split over the same group (the state gathered and resharded);
+a rescale that changes the process count is refused.
 """
 from __future__ import annotations
 
@@ -422,14 +430,15 @@ class Pool(EngineHost):
             self.redundancy if self.mode.has_parity else 0)
         return self
 
-    def to_zone(self, state: PyTree) -> PyTree:
-        """Global tensors -> zone-stacked leaves on the pool's device."""
+    def to_zone(self, state: PyTree, *, block: bool = False) -> PyTree:
+        """Global tensors (with `block`, this process's block view) ->
+        zone-stacked leaves on the pool's device."""
         leaves, treedef = utils.tree_flatten(state)
         if len(leaves) != len(self._spec_leaves):
             raise ValueError(f"{len(leaves)} leaves for "
                              f"{len(self._spec_leaves)} specs")
-        out = [sharding.shard(torch.as_tensor(x).to(self.device), spec,
-                              self.mesh)
+        mesh = self.mesh.block_mesh if block else self.mesh
+        out = [sharding.shard(torch.as_tensor(x).to(self.device), spec, mesh)
                for x, spec in zip(leaves, self._spec_leaves)]
         return utils.tree_unflatten(treedef, out)
 
@@ -456,6 +465,18 @@ class Pool(EngineHost):
         if self.prot is None:
             return None
         return self.global_view(self.prot.state)
+
+    @property
+    def block_state(self) -> Optional[PyTree]:
+        """The live protected state as this process's block view (tensors
+        on `mesh.block_mesh`; no exchange): the global state on one
+        process."""
+        if self.prot is None:
+            return None
+        leaves, treedef = utils.tree_flatten(self.prot.state)
+        return utils.tree_unflatten(treedef, [
+            sharding.block_view(x, spec, self.mesh)
+            for x, spec in zip(leaves, self._spec_leaves)])
 
     def global_view(self, zone_state: PyTree) -> PyTree:
         """Zone-stacked leaves of this pool's layout -> global tensors."""
@@ -524,10 +545,11 @@ class Pool(EngineHost):
 
     def commit(self, state_new: PyTree, *, dirty_pages=None,
                dirty_words=None, data_cursor=0, rng_key=None,
-               canary_ok: bool = True,
-               verify_old: bool = False) -> torch.Tensor:
-        """One transactional update of global `state_new`; returns the
-        verdict as a 0-d bool tensor (read it to sync).
+               canary_ok: bool = True, verify_old: bool = False,
+               block: bool = False) -> torch.Tensor:
+        """One transactional update of global `state_new` (with `block`,
+        this process's block view of it); returns the verdict as a 0-d
+        bool tensor (read it to sync).
 
         The deferred engine takes `dirty_words` (per-leaf word indices of
         its `dirty_leaf_idx` leaves) and ignores `dirty_pages`; the
@@ -536,7 +558,7 @@ class Pool(EngineHost):
         t0 = time.perf_counter()
         canary_ok = bool(canary_ok)
         ok = self._enqueue(state_new, dirty_pages, dirty_words, data_cursor,
-                           rng_key, canary_ok, verify_old)
+                           rng_key, canary_ok, verify_old, block)
         self._note_commit(canary_ok, (time.perf_counter() - t0) * 1e3)
         return ok
 
@@ -557,12 +579,12 @@ class Pool(EngineHost):
             self._m_aborted.inc()
 
     def _enqueue(self, state_new, dirty_pages, dirty_words, data_cursor,
-                 rng_key, canary_ok, verify_old) -> torch.Tensor:
+                 rng_key, canary_ok, verify_old, block) -> torch.Tensor:
         """Enqueue one commit on the engine; returns its device verdict.
         `canary_ok` is a host bool, or a 0-d device bool (staged)."""
         if self.prot is None:
             raise RuntimeError("Pool.commit before init()")
-        zone = self.to_zone(state_new)
+        zone = self.to_zone(state_new, block=block)
         staged = isinstance(canary_ok, torch.Tensor)
         if self._engine is not None:
             if verify_old:
@@ -612,7 +634,8 @@ class Pool(EngineHost):
     def commit_async(self, state_new: PyTree, *, dirty_pages=None,
                      dirty_words=None, data_cursor=0, rng_key=None,
                      canary_ok=True, verify_old: bool = False,
-                     extras: Optional[dict] = None) -> CommitTicket:
+                     extras: Optional[dict] = None,
+                     block: bool = False) -> CommitTicket:
         """One transactional update as a future: enqueues the commit and
         returns a `CommitTicket` over its unread device verdict.  Up to
         `pipeline_depth` tickets stay in flight (past that the oldest is
@@ -623,7 +646,7 @@ class Pool(EngineHost):
         device bool (`tx.canary_device()`, `ops.stage_verdict`): the
         staged form, whose abort select rides in the commit and whose
         abort bookkeeping (abort counter, scrub clean streak) waits for
-        resolution.  Routing matches `commit`.
+        resolution.  Routing and `block` match `commit`.
 
         On a split zone the dispatch blocks: the commit's exchanges
         synchronize the stream, and the stream is synchronized once more
@@ -635,7 +658,7 @@ class Pool(EngineHost):
         if not staged:
             canary_ok = bool(canary_ok)
         ok = self._enqueue(state_new, dirty_pages, dirty_words, data_cursor,
-                           rng_key, canary_ok, verify_old)
+                           rng_key, canary_ok, verify_old, block)
         split = self.mesh.group is not None
         if split and ok.is_cuda:
             torch.cuda.current_stream(ok.device).synchronize()
@@ -1042,11 +1065,14 @@ class Pool(EngineHost):
         syndrome's coefficients g^(k·i), so no plane moves with the state).
         `into` is a cold pool already built for `new_mesh`; by default one
         is opened with this pool's config and open arguments, on its
-        device, publishing into its metrics and tracer."""
+        device, publishing into its metrics and tracer.
+
+        A split pool moves to a mesh split over the same process group
+        (every process calls it; W divides both G); a new mesh on another
+        group, or on none, changes the process count and is refused."""
         if self.prot is None:
             raise RuntimeError("Pool.rescale before init()")
-        for mesh in (self.mesh, new_mesh):
-            procs.refuse_split(mesh, "Pool.rescale", "S7c")
+        procs.refuse_regroup(self.mesh, new_mesh)
         self.flush()
         with self.tracer.span("rescale") as span:
             if into is None:

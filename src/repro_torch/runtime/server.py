@@ -16,10 +16,22 @@ is refused: it would declare one slot of a leaf rewritten whole.  At
 `pipeline_depth > 1` each commit goes through `commit_async` and resolves
 as its verdict lands; `generate` drains the ring before it returns.
 
-Each step reads the cache from the pool (`pool.state`, the global view)
-and hands the pool the step's new cache, which `Pool.commit` shards again:
-two copies of the cache a token.  The decode step builds the new cache in
-a fresh copy, so a pool-held cache is never written.
+Each step reads the cache from the pool (`pool.block_state`, the global
+view on one process) and hands the pool the step's new cache, which
+`Pool.commit` shards again: two copies of the cache a token.  The decode
+step builds the new cache in a fresh copy, so a pool-held cache is never
+written.
+
+On a mesh split over processes (dist/procs.py) the decode is data
+parallel: every process keeps the whole weights, decodes its block's
+rows of the batch (the cache's batch is sharded over `data`) against its
+block view of the cache, and commits its block; the footprint stays the
+global page or word list, whose owners the engines route.  `step` takes
+and returns the block's rows; `prefill` and `generate` take the global
+`(B, S)` prompt on every process, and `generate` gathers the tokens in
+rank order, so every process returns the whole `(B, n_new)` array.  A
+batch that G does not divide leaves the cache's batch unsplit (`spec_for`
+replicates it), so it cannot be decoded by blocks: refused.
 
 Weights are cast to the compute dtype once, in `start`: the reference
 casts them inside every step, to the same bits.  An encoder-decoder's
@@ -41,7 +53,7 @@ import torch
 from repro_torch import obs, utils
 from repro_torch.configs.base import ModelConfig, ProtectConfig
 from repro_torch.core import layout as layout_mod
-from repro_torch.dist import procs
+from repro_torch.dist import sharding
 from repro_torch.models import api
 from repro_torch.models.transformer import build_model
 from repro_torch.pool import Pool, PoolHost
@@ -68,14 +80,26 @@ class Server(PoolHost):
                  metrics_dir: Optional[str] = None,
                  trace_dir: Optional[str] = None,
                  metrics_every: int = 100, device=None):
-        procs.refuse_split(mesh, "runtime.Server", "S7c")
+        if mesh.group is not None and batch % mesh.group_size:
+            raise ValueError(
+                f"a server split over {mesh.world} processes decodes each "
+                f"process's block of the batch, but batch % G = {batch} % "
+                f"{mesh.group_size} = {batch % mesh.group_size}: the cache's "
+                "batch would not split over the data axis")
         self.cfg = cfg
         self.mesh = mesh
         self.batch = batch
         self.max_len = max_len
         self.device = utils.resolve_device(device)
         self.model = build_model(cfg, mesh)
-        self._decode = api.make_decode_step(self.model)
+        # a split server decodes its block: a one-process zone of its own
+        block = mesh.block_mesh
+        self._decode = api.make_decode_step(
+            self.model if block is mesh else build_model(cfg, block))
+        rows = sharding.spec_for(mesh, ("batch",), (batch,),
+                                 cfg.logical_overrides)
+        self._row_spec = sharding.P(rows[0] if rows else None)
+        self._cache_specs = self.model.cache_specs(batch, max_len, mesh)
         self.window = int(window if window is not None
                           else protect_cfg.window)
 
@@ -95,16 +119,16 @@ class Server(PoolHost):
         tracer = None
         if trace_dir:
             os.makedirs(trace_dir, exist_ok=True)
-            tracer = obs.Tracer(
-                os.path.join(trace_dir, "server.trace.jsonl"))
+            tracer = obs.Tracer(os.path.join(
+                trace_dir, "server.trace.jsonl" if mesh.world == 1
+                else f"server.p{mesh.proc_rank}.trace.jsonl"))
         self.pool: Optional[Pool] = None
         if self.protect_cache:
             cache_abs = self.model.init_cache(batch, max_len, device="meta")
-            cache_specs = self.model.cache_specs(batch, max_len, mesh)
             # the deferred engine spans every cache leaf, with the per-step
             # page capacity sized from the layout the pool builds
             self.pool = Pool(
-                mesh, cache_abs, cache_specs, protect_cfg,
+                mesh, cache_abs, self._cache_specs, protect_cfg,
                 device=self.device,
                 dirty_leaf_idx=(
                     None if self.window == 1
@@ -159,14 +183,23 @@ class Server(PoolHost):
         if self.pool is not None:
             self.pool.init(cache)
         else:
-            self.cache = cache
+            self.cache = utils.tree_map(
+                lambda x, spec: sharding.block_of(x, spec, self.mesh),
+                cache, self._cache_specs)
         self.pos = 0
 
+    def block_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This process's rows of a global batch-leading tensor (all of
+        them on one process)."""
+        return sharding.block_of(x, self._row_spec, self.mesh)
+
     def _current_cache(self):
-        return self.pool.state if self.pool is not None else self.cache
+        return (self.pool.block_state if self.pool is not None
+                else self.cache)
 
     def step(self, tokens: torch.Tensor) -> torch.Tensor:
-        """One decode step for the whole batch; returns the next tokens."""
+        """One decode step for this process's rows of the batch (the whole
+        batch on one process); returns their next tokens."""
         next_tok, _, new_cache = self._decode(
             self.params, tokens, self._current_cache(), self.pos)
         if self.pool is not None:
@@ -178,14 +211,14 @@ class Server(PoolHost):
                 # dispatch and move on; verdicts resolve as they land (the
                 # ring resolves the oldest past its depth) and `generate`
                 # drains at the end
-                self.pool.commit_async(new_cache, **fp)
+                self.pool.commit_async(new_cache, block=True, **fp)
                 self.pool.poll()
             else:
-                self.pool.commit(new_cache, **fp)
+                self.pool.commit(new_cache, block=True, **fp)
             self.pool.maybe_scrub()
             reg = self.pool.metrics
             reg.counter("server_steps_total").inc()
-            if (self.metrics_dir
+            if (self.metrics_dir and self.mesh.proc_rank == 0
                     and (self.pos + 1) % self.metrics_every == 0):
                 obs.write_metrics(reg, self.metrics_dir, prefix="server",
                                   stats=self.pool.stats())
@@ -197,8 +230,9 @@ class Server(PoolHost):
         return next_tok
 
     def prefill(self, prompt: torch.Tensor) -> torch.Tensor:
-        """Feed a prompt (B, S) through decode steps."""
-        prompt = torch.as_tensor(prompt).to(self.device)
+        """Feed a global prompt (B, S) through decode steps (this process's
+        rows of it); returns their last prediction."""
+        prompt = self.block_rows(torch.as_tensor(prompt).to(self.device))
         tok = prompt[:, 0]
         for t in range(prompt.shape[1]):
             tok = self.step(prompt[:, t])
@@ -206,7 +240,8 @@ class Server(PoolHost):
 
     def generate(self, prompt: torch.Tensor, n_new: int) -> np.ndarray:
         """Prefill `prompt`, then decode; returns the (B, n_new) tokens
-        (the first is prefill's last prediction)."""
+        (the first is prefill's last prediction), gathered in rank order
+        from every process of a split mesh."""
         tok = self.prefill(prompt)
         out = [tok]
         for _ in range(n_new - 1):
@@ -216,4 +251,6 @@ class Server(PoolHost):
             # a generation boundary is a pipeline boundary: every in-flight
             # commit verdict resolves before the tokens return
             self.pool.drain()
-        return torch.stack(out, dim=1).cpu().numpy()
+        toks = sharding.gather_global(torch.stack(out, dim=1),
+                                      self._row_spec, self.mesh)
+        return toks.cpu().numpy()

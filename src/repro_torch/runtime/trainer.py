@@ -18,6 +18,22 @@ deferred epochs whose redo log still persists per step);
 (`pool.state`, the global view) and hands the new state to
 `commit_async`, which shards it again (`Pool.to_zone`).
 
+On a mesh split over W processes (dist/procs.py) the step is data
+parallel and byte-equal to the one-process step at the same
+`TrainConfig.microbatches`, which W must divide
+(`api.split_train_step`): each process reads its block of the state
+(no gathered `pool.state`), gathers the parameters, computes its
+microbatches' gradients, folds every gradient in microbatch order with
+the others, updates its block and commits it (`block=True`).  Every
+process calls the same methods with the same arguments; the host cadence
+reads agreed values only (the verdict, the folded loss, the straggler's
+per-replica step times, which are process 0's: `agreed_times`).
+`save_checkpoint` gathers the global state on every process and process
+0 writes it, in the one-process format; `restore_from_checkpoint` reads
+it on every process after process 0's write has landed, so checkpoints
+move between a split and a one-process trainer both ways.  Replay runs
+on every process and checks the digest at mesh coordinate 0.
+
 `run` keeps up to `pipeline_depth` steps dispatched with unresolved
 verdicts (the commit ring; `overlap_commit` folds into depth 2); an
 explicit `step()` resolves at once.  The train step itself reads nothing
@@ -45,7 +61,6 @@ from repro_torch import obs, utils
 from repro_torch.configs.base import ModelConfig, ProtectConfig, TrainConfig
 from repro_torch.core import redolog
 from repro_torch.data.synthetic import batch_for
-from repro_torch.dist import procs
 from repro_torch.models import api
 from repro_torch.models.transformer import build_model
 from repro_torch.optim import build_optimizer
@@ -60,7 +75,6 @@ class Trainer(PoolHost):
                  metrics_dir: Optional[str] = None,
                  trace_dir: Optional[str] = None,
                  metrics_every: int = 25, device=None):
-        procs.refuse_split(mesh, "runtime.Trainer", "S7c")
         self.cfg = cfg
         self.train_cfg = train_cfg
         self.mesh = mesh
@@ -95,14 +109,15 @@ class Trainer(PoolHost):
         tracer = None
         if trace_dir:
             os.makedirs(trace_dir, exist_ok=True)
-            tracer = obs.Tracer(
-                os.path.join(trace_dir, "trainer.trace.jsonl"))
+            tracer = obs.Tracer(os.path.join(
+                trace_dir, "trainer.trace.jsonl" if mesh.world == 1
+                else f"trainer.p{mesh.proc_rank}.trace.jsonl"))
         self.pool = Pool(mesh, abstract_state, self.state_specs, protect_cfg,
                          device=self.device, on_freeze=self.freeze,
                          on_resume=self.resume, tracer=tracer)
 
-        self._train_step = api.make_train_step(self.model, self.optimizer,
-                                               train_cfg)
+        self._train_step = api.make_train_step(
+            self.model, self.optimizer, train_cfg, mesh, self.state_specs)
         self.checkpoint_dir = checkpoint_dir
         self._ckpt_mgr = None
         if checkpoint_dir:
@@ -163,10 +178,13 @@ class Trainer(PoolHost):
                 self.device)
         rng = utils.fold_in(utils.prng_key(self.seed), self.cursor)
         cursor_before = self.cursor
-        new_state, metrics = self._train_step(self.pool.state, batch)
+        split = self.mesh.group is not None
+        new_state, metrics = self._train_step(
+            self.pool.prot.state if split else self.pool.state, batch)
         ticket = self.pool.commit_async(new_state, data_cursor=self.cursor,
                                         rng_key=rng, canary_ok=canary_ok,
-                                        verify_old=self.verify_old)
+                                        verify_old=self.verify_old,
+                                        block=split)
         self.cursor += 1          # optimistic; rolled back on an abort
         return {"ticket": ticket, "loss": metrics["loss"],
                 "cursor_before": cursor_before, "t0": t0}
@@ -182,9 +200,9 @@ class Trainer(PoolHost):
                "committed": committed}
         if self.pool.straggler is not None:
             # one wall-clock measurement a step, dilated per replica
-            dt = time.perf_counter() - pending["t0"]
-            dropped = self.pool.observe_commit_times(
-                dt * self.replica_slowdown)
+            dropped = self.pool.observe_commit_times(self.agreed_times(
+                (time.perf_counter() - pending["t0"])
+                * self.replica_slowdown))
             if not dropped.all():
                 out["dropped_replicas"] = sorted(self.pool.dropped_replicas)
         self.history.append(out)
@@ -200,13 +218,23 @@ class Trainer(PoolHost):
         reg.gauge("trainer_loss").set(out["loss"])
         reg.histogram("trainer_step_wall_ms").observe(
             (time.perf_counter() - pending["t0"]) * 1e3)
-        if (self.metrics_dir
+        if (self.metrics_dir and self.mesh.proc_rank == 0
                 and self._host_step % self.metrics_every == 0):
             obs.write_metrics(reg, self.metrics_dir, prefix="trainer",
                               stats=self.pool.stats())
         for hook in list(self._step_hooks):
             hook(self, out)
         return out
+
+    def agreed_times(self, times: np.ndarray) -> np.ndarray:
+        """The per-replica step times the straggler policy reads: on a
+        split mesh process 0's (its clock and its `replica_slowdown`), so
+        that every process drops the same replicas and masks the same
+        rows."""
+        if self.mesh.group is None:
+            return times
+        return self.mesh.group.all_gather(torch.as_tensor(
+            times, dtype=torch.float64))[0].numpy()
 
     def add_step_hook(self, fn) -> None:
         """Register `fn(trainer, out_dict)`, fired after every resolved
@@ -263,11 +291,15 @@ class Trainer(PoolHost):
     def save_checkpoint(self, wait: bool = False) -> None:
         """Save the global state, the cursor and the redo log (the state is
         copied to the host before this returns; the write runs on the
-        manager's thread unless `wait`)."""
+        manager's thread unless `wait`).  On a split mesh every process
+        gathers the state (a collective) and process 0 writes it."""
         assert self._ckpt_mgr is not None and self.prot is not None
-        self._ckpt_mgr.save(self.pool.step, self.pool.state,
-                            extra={"cursor": self.cursor,
-                                   "log": self.prot.log})
+        state = self.pool.state
+        if self.mesh.proc_rank == 0:
+            self._ckpt_mgr.save(self.pool.step, state,
+                                extra={"cursor": self.cursor,
+                                       "log": self.prot.log})
+        del state
         if wait:
             self._ckpt_mgr.wait()
 
@@ -283,6 +315,8 @@ class Trainer(PoolHost):
         from repro_torch.checkpoint.manager import log_from_extra
         assert self._ckpt_mgr is not None
         self._ckpt_mgr.wait()
+        if self.mesh.group is not None:
+            self.mesh.group.barrier()      # process 0's write has landed
         step, state, extra = self._ckpt_mgr.restore_latest()
         prot = self.protector.init(self.pool.to_zone(state))
         self.prot = dataclasses.replace(prot, step=torch.full(
@@ -299,9 +333,11 @@ class Trainer(PoolHost):
                 self.cursor = int(utils.as_u64(rec["data_cursor"]))
                 out = self.step()
                 replayed.append(out["step"])
-                # the replayed step must reproduce the logged digest
+                # the replayed step must reproduce the logged digest (mesh
+                # coordinate 0's, on every process)
                 if self.prot.digest is not None:
-                    dig = self.prot.digest.reshape(-1, 2)[0]
+                    dig = self.protector._first_of_zone(
+                        self.prot.digest, len(self.mesh.shape))
                     if not torch.equal(dig, rec["digest"]):
                         raise RuntimeError(
                             f"replay digest mismatch at step {s}")

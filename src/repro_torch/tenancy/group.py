@@ -38,6 +38,20 @@ PyTorch compiles nothing, so the batched programs are plain functions.
 
 Telemetry: the group owns one `MetricsRegistry` and one `Tracer`; each
 tenant's pool publishes through `registry.labeled(tenant=tid)`.
+
+On a mesh split over processes (dist/procs.py) every process runs the
+same group with the same global arguments and holds its block of every
+tenant.  A wave stacks the tenants' local rows, `(T, *local_dims, ...)`;
+its collectives take the mesh's group; each tenant's zone agreement is
+ANDed across the processes, as the Protector's is; the canaries of a
+wave are agreed in one exchange before anything selects on them; and the
+redo log takes mesh coordinate 0's digest on every process (one
+all-gather a wave).  Every host decision reads agreed values only: the
+verdicts, the scrub and pre-check reports the scheduler escalates on,
+and the quarantine, which follows the caller's `recover` (a global
+argument), so every process stacks the same tenants in every wave.  A
+wave through the ring has landed when `commit_async` returns, as a split
+pool's ticket has.  `evict` returns the global state (a collective).
 """
 from __future__ import annotations
 
@@ -57,7 +71,6 @@ from repro_torch.core.epoch import EpochState
 from repro_torch.core.pipeline import CommitRing, CommitTicket
 from repro_torch.core.txn import _check_like, select
 from repro_torch.dist import collectives as coll
-from repro_torch.dist import procs
 from repro_torch.kernels import ops as kops
 from repro_torch.obs import health as obs_health
 from repro_torch.obs.metrics import MetricsRegistry
@@ -211,9 +224,10 @@ class Cohort:
 
     def _stack_rows(self, states: list, device) -> torch.Tensor:
         """`(T, *mesh_dims, row_words)`: each state's row flattened straight
-        into its slice (one copy a row, as a single pool's flatten)."""
+        into its slice (one copy a row, as a single pool's flatten); this
+        process's block of ranks on a split mesh."""
         lo = self.protector.layout
-        out = torch.empty(len(states), *self.protector.mesh.shape,
+        out = torch.empty(len(states), *self.protector.mesh.local_dims,
                           lo.row_words, dtype=utils.WORD, device=device)
         for i, st in enumerate(states):
             layout_mod.flatten_row(lo, st, out=out[i])
@@ -225,9 +239,33 @@ class Cohort:
 
     def _zone_all(self, ok: torch.Tensor) -> torch.Tensor:
         """Each tenant's zone agreement, over the data dim only (the
-        reference's per-tenant `pmin` over the data axis)."""
+        reference's per-tenant `pmin` over the data axis), ANDed across
+        the processes of a split mesh."""
         dd = 1 + self.protector.data_dim
-        return ok.all(dim=dd, keepdim=True).expand_as(ok)
+        agreed = ok.all(dim=dd, keepdim=True)
+        group = self.protector.group
+        if group is not None:
+            agreed = group.all_and(agreed)
+        return agreed.expand_as(ok)
+
+    def _agree(self, canaries: tuple) -> tuple:
+        """A wave's host canaries, ANDed across the processes of a split
+        mesh in one exchange (one smashed canary aborts its tenant
+        everywhere)."""
+        group = self.protector.group
+        if group is None:
+            return canaries
+        return tuple(bool(c) for c in group.all_and(
+            torch.tensor(canaries, dtype=torch.bool)).tolist())
+
+    def _log_digests(self, digest: torch.Tensor) -> torch.Tensor:
+        """`(T, 2)`: each tenant's digest at mesh coordinate 0, the one its
+        redo log takes, on every process of a split mesh (one all-gather
+        for the wave)."""
+        first = digest.reshape(digest.shape[0], -1, 2)[:, 0]
+        group = self.protector.group
+        return first if group is None else group.all_gather(
+            first.contiguous())[0]
 
     # -- batched synchronous commit -----------------------------------------
 
@@ -243,7 +281,8 @@ class Cohort:
         prots = [self.members[tid]._prot for tid in tids]
         dev = prots[0].step.device
         coeffs = p.coeffs(dev)
-        ok = torch.ones(len(tids), *p.mesh.shape, dtype=torch.bool,
+        group = p.group
+        ok = torch.ones(len(tids), *p.mesh.local_dims, dtype=torch.bool,
                         device=dev)
         for i, canary in enumerate(canaries):
             if not canary:
@@ -265,13 +304,14 @@ class Cohort:
             ok = self._zone_all(ok & ~bad.any(dim=-1))
             del bad
             if mode.has_parity:
-                synd_new = coll.syndrome_apply_delta(synd_old, sdelta, dd)
+                synd_new = coll.syndrome_apply_delta(synd_old, sdelta, dd,
+                                                     group)
         else:
             fresh = kops.fletcher_blocks_tb(self._pages(rows_new))
             if mode.has_parity:
                 # the stack of the new rows: a fold of their weighted planes
                 sdelta = kops.syndrome_scale_tb(rows_new, coeffs)
-                synd_new = coll.xor_reduce_scatter(sdelta, dd)
+                synd_new = coll.xor_reduce_scatter(sdelta, dd, group)
         if mode.has_parity:
             del sdelta
         row = select(ok, rows_new, rows_old)
@@ -296,10 +336,11 @@ class Cohort:
         states = [pool.to_zone(it[1]) for pool, it in zip(pools, items)]
         for st, pool in zip(states, pools):
             _check_like(st, pool._prot.state)
-        canaries = tuple(bool(it[2]) for it in items)
+        canaries = self._agree(tuple(bool(it[2]) for it in items))
         ok, row, digest, synd, cksums = self._sync_wave(
             tids, states, canaries, verify_old)
         mode = self.protector.mode
+        log_digest = self._log_digests(digest) if mode.has_log else None
         out = {}
         for i, (pool, it) in enumerate(zip(pools, items)):
             pr = pool._prot
@@ -310,7 +351,7 @@ class Cohort:
             if mode.has_log:
                 log = redolog.append(pr.log, step, it[3],
                                      (0, 0) if it[4] is None else it[4],
-                                     digest[i].reshape(-1, 2)[0])
+                                     log_digest[i])
                 marked = redolog.commit_mark(log, step)
                 log = dataclasses.replace(log, mark=torch.where(
                     ok_i, marked.mark, log.mark))
@@ -356,7 +397,7 @@ class Cohort:
             synd = coll.syndrome_apply_delta(
                 self._stacked("synd", tids),
                 kops.syndrome_scale_tb(acc, p.coeffs(acc.device)),
-                1 + p.data_dim)
+                1 + p.data_dim, p.group)
         return synd, torch.zeros_like(acc)
 
     def commit_deferred(self, items: list) -> dict:
@@ -370,7 +411,7 @@ class Cohort:
         tids = [it[0] for it in items]
         pools = [self.members[tid] for tid in tids]
         states = [pool.to_zone(it[1]) for pool, it in zip(pools, items)]
-        canaries = tuple(bool(it[2]) for it in items)
+        canaries = self._agree(tuple(bool(it[2]) for it in items))
         live = [i for i, c in enumerate(canaries) if c]
         mode = self.protector.mode
         oks = {}
@@ -380,6 +421,8 @@ class Cohort:
             live_tids = [tids[i] for i in live]
             rows, accs, new_ck, digests = self._step_wave(
                 live_tids, [states[i] for i in live])
+            log_digest = (self._log_digests(digests) if mode.has_log
+                          else None)
             for j, i in enumerate(live):
                 est, it = pools[i]._est, items[i]
                 pr = est.prot
@@ -389,7 +432,7 @@ class Cohort:
                     # the record persists per step, marked at once
                     log = redolog.append(
                         log, step, it[3], (0, 0) if it[4] is None else it[4],
-                        digests[j].reshape(-1, 2)[0])
+                        log_digest[j])
                     log = redolog.commit_mark(log, step)
                 pools[i]._est = EpochState(
                     prot=dataclasses.replace(pr, state=states[i], log=log,
@@ -433,7 +476,8 @@ class Cohort:
 class PoolGroup:
     """The multi-tenant front door: admit / commit / scrub_tick / recover /
     evict / rescale over a fleet of cohort-sharing pools on one device
-    (`device`, the card unless the caller asks for the CPU)."""
+    (`device`, the card unless the caller asks for the CPU), or on each
+    process of a mesh split over processes."""
 
     def __init__(self, mesh, *, capacity: int = 0,
                  evict_on_full: bool = True, scrub_page_budget: int = 0,
@@ -443,7 +487,6 @@ class PoolGroup:
                  tracer: Optional[Tracer] = None):
         if capacity < 0:
             raise ValueError(f"capacity={capacity}: 0 (unbounded) or more")
-        procs.refuse_split(mesh, "PoolGroup", "S7c")
         self.mesh = mesh
         self.device = utils.resolve_device(device)
         self.capacity = int(capacity)          # 0 = unbounded
@@ -552,7 +595,8 @@ class PoolGroup:
 
     def evict(self, tid: str) -> PyTree:
         """Remove a tenant, flushing its open window first; returns its
-        final (redundancy-current) global state for the caller to keep."""
+        final (redundancy-current) global state for the caller to keep (on
+        a split mesh a collective: every process evicts it)."""
         handle = self._tenants.pop(tid)
         handle.pool.flush()                    # flush-before-evict
         state = handle.pool.state
@@ -635,6 +679,11 @@ class PoolGroup:
         t0 = time.perf_counter()
         verdicts = self.commit(updates, **kw)
         ok = kops.stage_verdict(list(verdicts.values()), device=self.device)
+        split = self.mesh.group is not None
+        if split and ok.is_cuda:
+            # a split wave waited for its exchanges: once the stream is
+            # drained it has landed on every process alike
+            torch.cuda.current_stream(ok.device).synchronize()
         seq = self._ticket_seq
         self._ticket_seq += 1
         span = self.tracer.emit("wave_dispatch", seq=seq,
@@ -644,7 +693,7 @@ class PoolGroup:
             ex.update(extras)
         return self._ring.submit(CommitTicket(
             seq, ok, dispatched_at=t0, span_id=span, extras=ex,
-            on_resolve=self._on_wave_resolved))
+            landed=split, on_resolve=self._on_wave_resolved))
 
     def _on_wave_resolved(self, ticket: CommitTicket) -> None:
         self.metrics.histogram("group_wave_resolve_ms").observe(
@@ -693,7 +742,8 @@ class PoolGroup:
         are admitted cold into fresh cohorts built for the new zone
         geometry, and each pool moves through `Pool.rescale` (flush,
         bit-exact reshard, protection rebuilt).  The metrics and the trace
-        are shared, so tenant labels survive the move."""
+        are shared, so tenant labels survive the move.  A split group moves
+        to a mesh split over its own group (`Pool.rescale`)."""
         self.drain()                   # waves never survive a rescale
         new = PoolGroup(
             new_mesh, capacity=self.capacity,

@@ -155,9 +155,13 @@ def _refused(fn):
 
 
 def refusal_worker(group):
-    """What a zone split over `group` refuses: {case: (error type,
-    message), or None where nothing was raised (the deferred engine, the
-    ring and a staged canary, which run there)}."""
+    """What a zone split over `group` runs and refuses: {case: (error
+    type, message), or None where nothing was raised}.  The deferred
+    engine, the ring, a staged canary, PoolGroup, a rescale and a reshard
+    onto a mesh split over the same group, a Server whose batch G divides
+    and a Trainer whose microbatches W divides run there; a rescale that
+    changes the process count, a batch that G does not divide and
+    microbatches that W does not divide are refused."""
     from repro_torch.configs.base import ModelConfig, TrainConfig
     from repro_torch.core.epoch import DeferredProtector
     from repro_torch.dist import elastic
@@ -177,6 +181,15 @@ def refusal_worker(group):
     cfg = ModelConfig(name="t", family="dense", n_layers=2, d_model=32,
                       n_heads=4, n_kv=2, d_ff=64, vocab=128,
                       param_dtype="float32", compute_dtype="float32")
+    same = ZoneMesh((2, 2), axes, group=mesh.group)
+
+    def server(batch):
+        return Server(cfg, ProtectConfig(), mesh, batch=batch, max_len=8,
+                      device="cpu")
+
+    def trainer(microbatches):
+        return Trainer(cfg, TrainConfig(microbatches=microbatches),
+                       ProtectConfig(), mesh, device="cpu")
     return {
         "window": _refused(lambda: pool(window=4)),
         "pipeline_depth": _refused(lambda: pool(pipeline_depth=2)),
@@ -185,15 +198,15 @@ def refusal_worker(group):
         "deferred": _refused(lambda: DeferredProtector(sync.protector,
                                                        window=4)),
         "pool_group": _refused(lambda: PoolGroup(mesh, device="cpu")),
-        "rescale": _refused(lambda: sync.rescale(ZoneMesh((2, 2), axes))),
+        "rescale": _refused(lambda: sync.rescale(same)),
         "reshard": _refused(lambda: elastic.reshard_state(
-            sync.prot.state, specs, mesh, ZoneMesh((4, 1), axes))),
-        "server": _refused(lambda: Server(cfg, ProtectConfig(), mesh,
-                                          batch=2, max_len=8,
-                                          device="cpu")),
-        "trainer": _refused(lambda: Trainer(cfg, TrainConfig(),
-                                            ProtectConfig(), mesh,
-                                            device="cpu")),
+            sync.prot.state, specs, mesh, same)),
+        "server": _refused(lambda: server(4)),
+        "trainer": _refused(lambda: trainer(2)),
+        "rescale_regroup": _refused(lambda: sync.rescale(
+            ZoneMesh((2, 2), axes))),
+        "server_batch": _refused(lambda: server(2)),
+        "trainer_microbatches": _refused(lambda: trainer(1)),
         "indivisible": _refused(lambda: ZoneMesh((3, 1), axes,
                                                  group=group)),
     }

@@ -9,7 +9,7 @@ and repaired, a canary smashed on one process only, an over-budget loss
 and to the one-process port's, and its reports are theirs
 (tests/_torch_procs_ref.py).  Also: `spawn_zone` raises for a worker that
 raises, a collective that hangs past its timeout and a worker that
-outlives the spawn's; the refusals of a split mesh (slice S7c's paths);
+outlives the spawn's; what a split mesh runs and the refusals that stay;
 and the exchange's
 bytes in the cost counter, where one process reports none."""
 import pytest
@@ -51,22 +51,30 @@ def test_spawn_zone_raises_for_a_failed_or_hung_worker(kind, match):
 
 
 def test_split_mesh_refusals():
-    """On a split mesh, every path the backend does not cover raises,
-    naming the slice that brings it across processes; a W that does not
-    divide G is refused.  The deferred engine, the ring and a staged
-    canary run there."""
+    """On a split mesh the deferred engine, the ring, a staged canary,
+    PoolGroup, a rescale and a reshard onto a mesh split over the same
+    group, a Server and a Trainer run; what stays refused raises, each by
+    its message: a rescale that changes the process count, a batch that G
+    does not divide (`batch % G`), microbatches that W does not divide
+    (`microbatches % W`), and a W that does not divide G."""
     out = procs.spawn_zone(worker.refusal_worker, 2, timeout=120)
     for got in out:
         for what in ("window", "pipeline_depth", "staged_canary",
-                     "deferred"):
+                     "deferred", "pool_group", "rescale", "reshard",
+                     "server", "trainer"):
             assert got[what] is None, (what, got[what])
-        for what in ("pool_group", "rescale", "reshard", "server",
-                     "trainer"):
+        for what, kind, match in (
+                ("rescale_regroup", "NotImplementedError",
+                 "split over 2 process(es) to one split over 1 changes "
+                 "the process count"),
+                ("server_batch", "ValueError", "batch % G = 2 % 4 = 2"),
+                ("trainer_microbatches", "ValueError",
+                 "microbatches % W = 1 % 2 = 1"),
+                ("indivisible", "ValueError", "do not split a zone of 3")):
             assert got[what] is not None, what
-            assert got[what][0] == "NotImplementedError", (what, got[what])
-            assert "slice S7c" in got[what][1], (what, got[what])
-        assert got["indivisible"][0] == "ValueError"
-        assert "do not split a zone of 3" in got["indivisible"][1]
+            assert got[what][0] == kind, (what, got[what])
+            assert match in got[what][1], (what, got[what])
+            assert "S7c" not in got[what][1], (what, got[what])
 
 
 def test_nccl_is_refused(monkeypatch):

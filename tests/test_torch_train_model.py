@@ -133,7 +133,7 @@ def states(arch, dtype, optimizer="adamw"):
     return ref_cfg, cfg, (ro, rtc, rs), (po, ptc, ps)
 
 
-@pytest.mark.parametrize("microbatches", [1, 2])
+@pytest.mark.parametrize("microbatches", [1, 2, 4])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_train_steps_match_the_reference(dtype, microbatches):
     ref_cfg, cfg, (ro, rtc, rs), (po, ptc, ps) = states("qwen3-0.6b", dtype)

@@ -37,6 +37,7 @@ from repro_torch.chaos.schedule import ChaosEvent, FaultSchedule
 from repro_torch.configs.base import ModelConfig, ProtectConfig, TrainConfig
 from repro_torch.dist.straggler import StragglerPolicy
 from repro_torch.launch import train as launch_train
+from repro_torch.models import api
 from repro_torch.runtime import failure
 from repro_torch.runtime.trainer import Trainer
 from tests import _torch_ref as tr
@@ -65,16 +66,16 @@ class Lockstep:
     port's train step replaying the reference's."""
 
     def __init__(self, mode="mlpc", seed=0, ref_dir=None, port_dir=None,
-                 model=T_TRAIN, seq=SEQ, **pkw):
+                 model=T_TRAIN, seq=SEQ, train=TRAIN, **pkw):
         self.mesh, self.zmesh = tr.jax_mesh("mesh42"), tr.zone_mesh(
             "mesh42")
         kw = dict(seq_len=seq, global_batch=BATCH, seed=seed)
         self.ref = RefTrainer(
-            RefModelConfig(**model), RefTrainConfig(**TRAIN),
+            RefModelConfig(**model), RefTrainConfig(**train),
             RefProtectConfig(mode=mode, block_words=64, **pkw), self.mesh,
             checkpoint_dir=ref_dir, **kw)
         self.port = Trainer(
-            ModelConfig(**model), TrainConfig(**TRAIN),
+            ModelConfig(**model), TrainConfig(**train),
             ProtectConfig(mode=mode, block_words=64, **pkw), self.zmesh,
             checkpoint_dir=port_dir, device="cpu", **kw)
         self.ref.initialize()
@@ -168,6 +169,39 @@ def test_steps_keep_the_pool_byte_equal(mode):
         for a, b in zip(utils.tree_leaves(ls.port.prot.state),
                         utils.tree_leaves(ls.port.prot.replica)):
             assert torch.equal(a, b)
+
+
+def test_microbatches_two_keep_the_pool_byte_equal():
+    """At microbatches = 2, the split trainer's smallest: the port
+    trainer's own accumulated step (two microbatches' gradients folded in
+    f32) runs on the reference's input state and batch and agrees with the
+    reference's step (the loss within 1e-6, each new state leaf within
+    2e-5 of its largest magnitude: tests/test_torch_train_model.py's f32
+    tolerances); the reference's step, replayed through the port's pool,
+    keeps the pools byte-equal after every step."""
+    ls = Lockstep(train=dict(TRAIN, microbatches=2))
+    assert ls.port.train_cfg.microbatches == 2
+    own = api.make_train_step(ls.port.model, ls.port.optimizer,
+                              ls.port.train_cfg)
+
+    def close(got, want, rtol):
+        got, want = got.double(), want.double()
+        err = float((got - want).abs().max())
+        assert err <= rtol * max(float(want.abs().max()), 1e-30), err
+
+    def both(state, batch):
+        new, metrics = ls.replay(state, batch)
+        got, got_metrics = own(state, batch)
+        assert got_metrics.keys() == metrics.keys()
+        close(got_metrics["loss"], metrics["loss"], 1e-6)
+        for a, b in zip(utils.tree_leaves(got), utils.tree_leaves(new),
+                        strict=True):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            close(a, b, 2e-5)
+        return new, metrics
+    ls.port._train_step = both
+    for _ in range(3):
+        ls.step()
 
 
 def test_verify_old_and_the_scrub_cadence():
