@@ -1678,6 +1678,8 @@ def zp_run(dev, group, smashed, phases=None):
             exchange={k: v - ex[k] for k, v in stats.items()},
             max_memory_allocated=(torch.cuda.max_memory_allocated(dev)
                                   if card else 0),
+            max_memory_reserved=(torch.cuda.max_memory_reserved(dev)
+                                 if card else 0),
             hashes=zp_hashes(pool, group, state) if hashed else {}))
         del pool
 
@@ -1686,6 +1688,7 @@ def zp_run(dev, group, smashed, phases=None):
 # (spawned processes import this file afresh)
 REHEARSAL: dict = {}
 SPLIT_RUNS: dict = {}                 # tag: the one-process run's lines
+SPLIT_WORKERS: dict = {}              # tag: each worker's lines
 
 
 def zp_worker(group, phases=None, dev="cuda", overrides=None):
@@ -1704,12 +1707,13 @@ def zp_worker(group, phases=None, dev="cuda", overrides=None):
 
 
 def split_path(dev, tag, phases, must_launch, launches=None,
-               world=ZP_WORLD):
-    """A split path: the one-process run, then `world` workers, phase by
-    phase byte-equal by per-rank hashes, and an extra whose key starts
-    with "same_" equal to the one process's; `launches` ({phase: {entry
-    point: count}}) is what each worker and the one process must launch
-    in a phase.  Returns the workers' summed launches."""
+               world=ZP_WORLD, timeout=ZP_TIMEOUT_S):
+    """A split path: the one-process run, then `world` workers (spawned
+    with `timeout` seconds to finish), phase by phase byte-equal by
+    per-rank hashes, and an extra whose key starts with "same_" equal to
+    the one process's; `launches` ({phase: {entry point: count}}) is what
+    each worker and the one process must launch in a phase.  Returns the
+    workers' summed launches; their lines stay in `SPLIT_WORKERS[tag]`."""
     from repro_torch.dist import procs
     from repro_torch.kernels import _build
     card = on_card(dev)
@@ -1733,7 +1737,8 @@ def split_path(dev, tag, phases, must_launch, launches=None,
     t0 = time.perf_counter()
     SPLIT_RUNS[tag] = one
     workers = procs.spawn_zone(zp_worker, world, phases, dev.type,
-                               REHEARSAL, timeout=ZP_TIMEOUT_S)
+                               REHEARSAL, timeout=timeout)
+    SPLIT_WORKERS[tag] = [w["lines"] for w in workers]
     wall = (time.perf_counter() - t0) * 1e3
     counts = collections.Counter()
     for w in workers:
@@ -1775,6 +1780,7 @@ def split_path(dev, tag, phases, must_launch, launches=None,
              copy_ms=[g["exchange"]["copy_ms"] for g in got],
              exchanges=[g["exchange"]["exchanges"] for g in got],
              max_memory_allocated=[g["max_memory_allocated"] for g in got],
+             max_memory_reserved=[g["max_memory_reserved"] for g in got],
              equal_ranks=len(next((v for v in want["hashes"].values()
                                    if isinstance(v, dict)), {})),
              **{k: [g["extra"][k] for g in got] for k in want["extra"]
@@ -2383,6 +2389,118 @@ def server_procs_path(dev):
 def trainer_procs_path(dev):
     """zt: tr's trainer split over two workers."""
     return split_path(dev, "zt", zt_phases, PATH_ZT, world=ZT_WORLD)
+
+
+# -- 6d. the chaos campaign on the split zone ---------------------------------
+
+ZC_WORLD = 4                          # zc: 25 data ranks a worker at 100 x 1
+ZC_STORMS = 1                         # the storm cells zc runs (ch's quick
+                                      # two, cut to one to make room)
+ZC_TIMEOUT_S = 900                    # the workers' spawn, at most
+
+
+def zc_meshes():
+    """zc's meshes in its order: 100 x 1 first, so every scenario opens
+    over four workers; 50 x 2 fits two (a rescale there changes the
+    process count)."""
+    return (EL_SHAPES[1], EL_SHAPES[0])
+
+
+def zc_phases(dev, group, smashed):
+    """zc: ch's quick campaign, a phase a scenario (every one of SCENARIOS
+    and GROUP_SCENARIOS, then the first ZC_STORMS storm cells), on
+    `zc_meshes()` at CH_BYTES a workload (CH_TENANT_BYTES a tenant):
+    split over the world of `group`, or on one process.  Each phase's
+    pools are the scenario's final ones; its extras the golden verdict
+    (agreed, so alike on every process), the trace violations, the
+    recoveries' (kind, step, verified), the steps a process sat out as a
+    spare, the commit and recovery ms, and each rescale's ms and moved
+    bytes."""
+    from repro_torch.chaos import scenarios
+    del smashed
+    size = dict(quick=True, seed=SEED, meshes=zc_meshes(), device=dev,
+                group=group, final=lambda pools: pools)
+    jobs = [(name, functools.partial(
+        scenarios.run_scenario, name, n_bytes=(
+            CH_TENANT_BYTES if name == "multi_tenant_interference"
+            else CH_BYTES), **size))
+        for name in (*scenarios.SCENARIOS, *scenarios.GROUP_SCENARIOS)]
+    jobs += [(f"storm_r{r}_w{w}", functools.partial(
+        scenarios.run_storm_cell, r, w, n_bytes=CH_BYTES, **size))
+        for r, w in scenarios.STORM_CELLS[:ZC_STORMS]]
+    for name, job in jobs:
+        gc.collect()
+        if on_card(dev):
+            torch.cuda.empty_cache()
+        out = job()
+        recs = out["recoveries"]
+        pools = out.pop("final")
+        yield name, pools, {
+            "same_golden_exact": bool(out["golden_exact"]),
+            "trace_violations": out["trace"]["violations"],
+            "recoveries": [(r["kind"], r.get("step"), r.get("verified"))
+                           for r in recs],
+            "spare_steps": out.get("spare_steps", []),
+            "commit_ms": out["commit_ms"], "recovery_ms": out["recovery_ms"],
+            "rescale_ms": [r["ms"] for r in recs if r["kind"] == "rescale"],
+            "moved_bytes": [r.get("moved_bytes") for r in recs
+                            if r["kind"] == "rescale"]}
+        del out, pools
+
+
+def reckoned_moves(n_words, old_w, new_w, world):
+    """The bytes each of `world` processes sends when a P("data") f32
+    state of `n_words` moves from the first `old_w` processes to the first
+    `new_w`: the words it holds and will not hold."""
+    out = []
+    for p in range(world):
+        a, b = ((p * n_words // old_w, (p + 1) * n_words // old_w)
+                if p < old_w else (0, 0))
+        c, d = ((p * n_words // new_w, (p + 1) * n_words // new_w)
+                if p < new_w else (0, 0))
+        out.append(4 * ((b - a) - max(0, min(b, d) - max(a, c))))
+    return out
+
+
+def chaos_procs_path(dev):
+    """zc: ch's quick campaign split over four workers against one process
+    on the same meshes in the same order; every scenario golden-exact and
+    per-rank byte-equal at its end, each worker's recoveries one
+    process's (but for the steps it sat out), and the W-change rescales'
+    moved bytes those the interval intersections reckon."""
+    from repro_torch.chaos import workload
+    counts = split_path(dev, "zc", zc_phases, PATH_CH, world=ZC_WORLD,
+                        timeout=ZC_TIMEOUT_S)
+    one, workers = SPLIT_RUNS["zc"], SPLIT_WORKERS["zc"]
+    n = workload.n_words(CH_BYTES, zc_meshes()[0][0])
+    for i, want in enumerate(one):
+        tag, ext = want["phase"], want["extra"]
+        check(ext["same_golden_exact"] and not ext["trace_violations"],
+              f"zc {tag}: one process not golden ({ext})")
+        for rank, lines in enumerate(workers):
+            got = lines[i]["extra"]
+            check(not got["trace_violations"],
+                  f"zc {tag} p{rank}: {got['trace_violations']}")
+            sat = set(got["spare_steps"])
+            check(got["recoveries"] == [
+                r for r in ext["recoveries"]
+                if r[1] not in sat or r[0] == "rescale"],
+                f"zc {tag} p{rank}: recoveries {got['recoveries']}, one "
+                f"process {ext['recoveries']}")
+        if tag != "rescale_under_traffic":
+            continue
+        ws = [workload.fit_procs(m[0], ZC_WORLD) for m in zc_meshes()]
+        want_moves = [reckoned_moves(n, ws[0], ws[1], ZC_WORLD),
+                      reckoned_moves(n, ws[1], ws[0], ZC_WORLD)]
+        got_moves = [[lines[i]["extra"]["moved_bytes"][k] for lines in workers]
+                     for k in range(2)]
+        emit(path="zc", phase="rescale_moves", procs=ws,
+             moved_bytes=got_moves, reckoned_bytes=want_moves,
+             total_bytes=[sum(m) for m in got_moves],
+             rescale_ms=[lines[i]["extra"]["rescale_ms"] for lines in workers])
+        check(got_moves == want_moves, f"zc: moved {got_moves}, reckoned "
+              f"{want_moves}")
+    return counts
 
 
 # -- 5. the deferred-epoch engine ---------------------------------------------
@@ -5663,6 +5781,7 @@ def run_paths(dev, dr):
     drivers = {"r1": main_path, "r3": main_path_r3, "zp": procs_path,
                "zw": window_procs_path, "zg": group_procs_path,
                "zs": server_procs_path, "zt": trainer_procs_path,
+               "zc": chaos_procs_path,
                "w3": window_path_w3, "w1f": window_path_w1f,
                "wp": window_path_wp, "q3": async_path_q3,
                "qw": async_path_qw,

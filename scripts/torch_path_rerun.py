@@ -2,6 +2,7 @@
 one GPU.
 
     python3 scripts/torch_path_rerun.py path hybrid_serving_path [--root DIR]
+    python3 scripts/torch_path_rerun.py path chaos_procs_path
     python3 scripts/torch_path_rerun.py xt-f32-batch1
     python3 scripts/torch_path_rerun.py xt-lr
     python3 scripts/torch_path_rerun.py decode-bits
@@ -12,7 +13,8 @@ path that raises prints its error as a line and the next one runs; the
 script then exits 1, naming the paths that failed).  `--root DIR` takes
 chip_smoke.py and src/ from the checkout at DIR, e.g. an unpacked older
 commit: run the two commits in turn, in one call, to compare them on one
-card.
+card.  `path chaos_procs_path` is zc alone: ch's quick campaign over four
+worker processes against one process.
 
 `xt-f32-batch1`: xt's path (xlstm-1.3b at one group, seq 4096, (4, 2),
 protected) at batch 1 with the config's f32 AdamW moments, in place of

@@ -24,6 +24,14 @@ deterministically:
   * `attach_schedule` — the same schedules on a live runtime host through
     its step hook (runner.py).
 
+Every scenario also runs on a zone split over processes (`group=`, the
+`ZoneGroup` of a spawned world): each process holds its block of each
+workload, a rescale may change the process count (a process outside the
+new mesh sits the steps out as a spare and rejoins at the next rescale),
+and the golden verdict and the budget fallback are agreed across the
+processes.  What stays refused: a `PoolGroup` rescale that changes the
+process count, and restoring a split zone's snapshot onto another mesh.
+
 `python -m repro_torch.chaos --smoke` runs one short scenario end to end.
 """
 from repro_torch.chaos import scenarios

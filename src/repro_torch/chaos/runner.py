@@ -19,6 +19,16 @@ that raises the syndrome-budget-exhausted error falls back to the
 checkpoint tier: restore the last snapshot, re-protect, and
 deterministically replay the missed traffic — the scenario still must end
 bit-identical to golden.
+
+On a zone split over processes every process walks the whole schedule,
+spares included: a spare (a process outside the current mesh after a
+rescale that changed the process count) commits nothing and takes part
+only in the rescales and the golden verdict, the exchanges of the
+world's group.  Every host decision reads values that are alike on every
+process: the schedule, the synthetic straggler times, the combined
+faults, and the budget-exhausted error, which `Pool.recover` raises on
+every process of the zone or on none.  Records are each process's own
+(a spare's skip the steps it sat out, listed in `spare_steps`).
 """
 from __future__ import annotations
 
@@ -26,11 +36,10 @@ import time
 from typing import List, Optional
 
 import numpy as np
-import torch
 
-from repro_torch import utils
 from repro_torch.chaos.schedule import FAULT_KINDS, ChaosEvent, FaultSchedule
 from repro_torch.chaos.workload import PoolWorkload, sync
+from repro_torch.dist import procs
 from repro_torch.pool import Fault
 from repro_torch.runtime import failure
 
@@ -40,13 +49,6 @@ def _ms_summary(hist) -> dict:
     the registry's fixed buckets, clamped to the observed extrema)."""
     s = hist.summary()
     return {"n": s["n"], "p50_ms": s["p50"], "p99_ms": s["p99"]}
-
-
-def trees_equal(a, b) -> bool:
-    """Two pytrees of tensors equal leaf by leaf, byte for byte."""
-    la, lb = utils.tree_leaves(a), utils.tree_leaves(b)
-    return len(la) == len(lb) and all(
-        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
 
 
 def inject_event(protector, prot, event: ChaosEvent, seed: int):
@@ -113,11 +115,14 @@ class ScenarioRunner:
     def run(self, n_steps: int, *, golden: bool = True) -> dict:
         wl, pool = self.wl, self.wl.pool
         snap = wl.snapshot()
-        g0 = pool.protector.group_size
+        g0 = wl.mesh.group_size
         slowdown = np.ones(g0)
-        # every wall sample goes through the pool's registry (which
-        # survives rescale), and the record is distilled from it
-        reg = pool.metrics
+        # every wall sample goes through the workload's registry (which
+        # every pool of it shares, across rescales), and the record is
+        # distilled from it
+        reg = wl.metrics
+        root = procs.root_of(wl.mesh.group)
+        spare_steps: List[int] = []
         h_clean = reg.histogram("chaos_commit_ms", phase="clean")
         h_during = reg.histogram("chaos_commit_ms", phase="during")
         h_disturb = reg.histogram("chaos_disturbance_ms")
@@ -135,16 +140,20 @@ class ScenarioRunner:
                     if e.kind in FAULT_KINDS and not e.mid_window]
             for e in evs:
                 if e.kind == "rescale":
+                    moved = 0 if root is None else root.stats["moved_bytes"]
                     t0 = time.perf_counter()
-                    wl.rescale(e.kw["shape"])
+                    wl.rescale(e.kw["shape"], e.kw.get("procs"))
                     pool = wl.pool
                     sync(wl.device)
                     ms = (time.perf_counter() - t0) * 1e3
                     h_disturb.observe(ms)
-                    recoveries.append({"step": t, "kind": "rescale",
-                                       "ms": ms})
-                    if pool.protector.group_size != g0:
-                        g0 = pool.protector.group_size
+                    rec = {"step": t, "kind": "rescale", "ms": ms}
+                    if root is not None:      # the rows this process sent
+                        rec["moved_bytes"] = (root.stats["moved_bytes"]
+                                              - moved)
+                    recoveries.append(rec)
+                    if wl.mesh.group_size != g0:
+                        g0 = wl.mesh.group_size
                         slowdown = np.ones(g0)
                 elif e.kind == "straggler_start":
                     slowdown[int(e.kw.get("rank", 0))] = float(
@@ -154,6 +163,12 @@ class ScenarioRunner:
                 elif e.kind == "snapshot":
                     snap = wl.snapshot()
 
+            if pool is None:
+                # a spare: no block, so no traffic and no fault lands here
+                wl.traffic_step()
+                spare_steps.append(t)
+                t += 1
+                continue
             pend: list = []
             if mid:
                 def hook(prot, since, at_boundary, _mid=mid, _pend=pend,
@@ -213,15 +228,19 @@ class ScenarioRunner:
         out = {
             "steps": n_steps,
             "events": len(self.schedule),
-            "r": pool.redundancy,
+            "r": (pool.redundancy if pool is not None
+                  else self.wl.config.resolved_redundancy),
             "window": self.wl.config.window,
             "commit_ms": {"clean": _ms_summary(h_clean),
                           "during": _ms_summary(h_during)},
             "recovery_ms": _ms_summary(h_disturb),
             "recoveries": recoveries,
-            "stats": pool.stats(),
-            "health": pool.health().to_dict(),
+            "stats": pool.stats() if pool is not None else None,
+            "health": (pool.health().to_dict() if pool is not None
+                       else None),
         }
+        if root is not None:
+            out["spare_steps"] = spare_steps
         if window_trace:
             out["window_trace"] = {
                 "min_window": min(w for _, w, _d in window_trace),
@@ -231,8 +250,7 @@ class ScenarioRunner:
                 "final_dropped": window_trace[-1][2],
             }
         if golden:
-            out["golden_exact"] = trees_equal(wl.final_host(),
-                                              wl.golden(n_steps))
+            out["golden_exact"] = wl.golden_exact(n_steps)
         return out
 
 

@@ -12,7 +12,13 @@ The reference's meshes are (4, 2) and (8, 1), so both zone geometries
 (G = 4, G = 8) see traffic.  Every builder takes them as `meshes=(first,
 second)`, with its byte size (`n_bytes`) and its `device`, so that the same
 schedules run at another width: (50, 2) and (100, 1) over 1,064,960,000
-bytes on the card (chip_smoke.py).
+bytes on the card (chip_smoke.py).  With `group` (a `procs.ZoneGroup` of a
+spawned world) every scenario runs on a zone split over that world's
+processes, every process calling it alike: each mesh over as many of
+them as divide its G (`workload.fit_procs`), so a rescale between meshes
+whose G the world does not both divide changes the process count, as
+(100, 1) -> (50, 2) over four does.  `final` (a callable of {name: Pool})
+reads the scenario's final pools into the result, as `final`.
 """
 from __future__ import annotations
 
@@ -22,20 +28,20 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.chaos.runner import ScenarioRunner, trees_equal
+import torch
+
+from repro_torch.chaos.runner import ScenarioRunner
 from repro_torch.chaos.schedule import ChaosEvent, FaultSchedule
-from repro_torch.chaos.workload import (GAIN, PoolWorkload, fma,
-                                       initial_state, n_words, sync)
+from repro_torch.chaos.workload import (GAIN, PoolWorkload, agreed,
+                                       block_offset, fit_procs, fma,
+                                       initial_state, mesh_over, n_words,
+                                       sync, trees_equal)
 from repro_torch.configs.base import ProtectConfig
-from repro_torch.dist.sharding import P, ZoneMesh
+from repro_torch.dist.sharding import P
 from repro_torch.obs import Tracer, validate_events
 
 E = ChaosEvent.make
 MESHES = ((4, 2), (8, 1))
-
-
-def _mesh(shape) -> ZoneMesh:
-    return ZoneMesh(tuple(shape), ("data", "model"))
 
 
 def _cfg(**kw) -> ProtectConfig:
@@ -68,30 +74,36 @@ def _pct(xs, q):
 
 
 def rescale_under_traffic(quick: bool, seed: int, *, meshes=MESHES,
-                          n_bytes: int = 1 << 15, device=None):
+                          n_bytes: int = 1 << 15, device=None, group=None):
     """Elastic first -> second -> first mesh ((4, 2) -> (8, 1) -> (4, 2))
     while commits keep flowing, with a rank loss landing right after the
-    first rescale settles."""
+    first rescale settles.  On a split zone each mesh runs over as many
+    processes as divide its G: a rescale between them changes the
+    process count when the two differ."""
     n = 24 if quick else 60
-    wl = PoolWorkload(_mesh(meshes[0]), _cfg(), n_bytes=n_bytes, seed=seed,
-                      device=device)
+    wl = PoolWorkload(mesh_over(meshes[0], group), _cfg(), n_bytes=n_bytes,
+                      seed=seed, device=device)
+    over = [{}, {}]
+    if group is not None:
+        w = group.root.world
+        over = [{"procs": fit_procs(int(m[0]), w)} for m in meshes]
     sched = FaultSchedule([
-        E(n // 4, "rescale", shape=tuple(meshes[1])),
+        E(n // 4, "rescale", shape=tuple(meshes[1]), **over[1]),
         E(n // 4 + 2, "rank_loss"),
-        E(n // 2, "rescale", shape=tuple(meshes[0])),
+        E(n // 2, "rescale", shape=tuple(meshes[0]), **over[0]),
     ], seed=seed)
     return wl, sched, n
 
 
 def straggler(quick: bool, seed: int, *, meshes=MESHES,
-              n_bytes: int = 1 << 15, device=None):
+              n_bytes: int = 1 << 15, device=None, group=None):
     """One replica runs 6x slow mid-run: the policy drops it, the adaptive
     window collapses while degraded, and regrows after the replica
     heals."""
     from repro_torch.dist.straggler import StragglerPolicy
     n = 36 if quick else 80
     cfg = _cfg(window=8, straggler_threshold=2.0, window_growth_commits=4)
-    mesh = _mesh(meshes[0])
+    mesh = mesh_over(meshes[0], group)
     policy = StragglerPolicy(mesh.group_size, threshold=2.0, window=4)
     wl = PoolWorkload(mesh, cfg, n_bytes=n_bytes, seed=seed,
                       straggler_policy=policy, device=device)
@@ -103,13 +115,13 @@ def straggler(quick: bool, seed: int, *, meshes=MESHES,
 
 
 def midwindow_scribble_loss(quick: bool, seed: int, *, meshes=MESHES,
-                            n_bytes: int = 1 << 15, device=None):
+                            n_bytes: int = 1 << 15, device=None, group=None):
     """A scribble on one rank concurrent with another rank's loss, both
     landing INSIDE an open window — the overlap single parity cannot
     untangle; the r = 2 syndrome stack solves both as losses."""
     n = 20 if quick else 48
-    wl = PoolWorkload(_mesh(meshes[0]), _cfg(window=8), n_bytes=n_bytes,
-                      seed=seed, device=device)
+    wl = PoolWorkload(mesh_over(meshes[0], group), _cfg(window=8),
+                      n_bytes=n_bytes, seed=seed, device=device)
     sched = FaultSchedule([
         E(n // 2, "scribble", mid_window=True, rank=0, n_words=6),
         E(n // 2, "rank_loss", mid_window=True, rank=2),
@@ -118,13 +130,14 @@ def midwindow_scribble_loss(quick: bool, seed: int, *, meshes=MESHES,
 
 
 def budget_exhaust_rearm(quick: bool, seed: int, *, meshes=MESHES,
-                         n_bytes: int = 1 << 15, device=None):
+                         n_bytes: int = 1 << 15, device=None, group=None):
     """Back-to-back losses beyond the stack: e = 2 on an r = 1 pool raises
     the budget-exhausted error, the runner restores + replays from the
     snapshot tier, and a later single loss again recovers online."""
     n = 24 if quick else 48
-    wl = PoolWorkload(_mesh(meshes[0]), _cfg(redundancy=1, window=2),
-                      n_bytes=n_bytes, seed=seed, device=device)
+    wl = PoolWorkload(mesh_over(meshes[0], group),
+                      _cfg(redundancy=1, window=2), n_bytes=n_bytes,
+                      seed=seed, device=device)
     sched = FaultSchedule([
         E(n // 4, "snapshot"),
         E(n // 3, "multi_loss", e=2),           # e > r: exhausted
@@ -138,10 +151,11 @@ def crash_replay_storm(r: int, window: int):
     mid-window single loss, at syndrome height r and window W; r = 4 runs
     on the second mesh (r <= G - 1)."""
     def build(quick: bool, seed: int, *, meshes=MESHES,
-              n_bytes: int = 1 << 15, device=None):
+              n_bytes: int = 1 << 15, device=None, group=None):
         n = 16 if quick else 40
         shape = meshes[1] if r >= 4 else meshes[0]
-        wl = PoolWorkload(_mesh(shape), _cfg(redundancy=r, window=window),
+        wl = PoolWorkload(mesh_over(shape, group),
+                          _cfg(redundancy=r, window=window),
                           n_bytes=n_bytes, seed=seed, device=device)
         events = [E(n // 3, "rank_loss", mid_window=(window > 1))]
         if r >= 2:
@@ -153,7 +167,8 @@ def crash_replay_storm(r: int, window: int):
 def multi_tenant_interference(quick: bool, seed: int,
                               trace_dir: Optional[str] = None, *,
                               meshes=MESHES, n_bytes: int = 1 << 14,
-                              device=None) -> dict:
+                              device=None, group=None,
+                              final: Optional[Callable] = None) -> dict:
     """Interference under multi-tenancy: a PoolGroup of four same-cohort
     tenants commits batched waves while tenant 0 is scribbled, put through
     a quarantined recovery, and the shared scrub scheduler keeps
@@ -166,16 +181,21 @@ def multi_tenant_interference(quick: bool, seed: int,
 
     n = 24 if quick else 60
     n_t = 4
-    mesh = _mesh(meshes[0])
+    mesh = mesh_over(meshes[0], group)
     cfg = _cfg(window=1)                      # sync: one dispatch a wave
 
     def build_group(tracer=None):
+        """Four tenants admitted cold and initialised with this process's
+        block of their states."""
         grp = PoolGroup(mesh, scrub_page_budget=0, tracer=tracer,
                         device=device)
         words = n_words(n_bytes, mesh.group_size)
+        cold = {"w": torch.empty(words, dtype=torch.float32, device="meta")}
         for t in range(n_t):
-            state = {"w": initial_state(words, seed + 13 * t, grp.device)}
-            grp.admit(f"t{t}", state, {"w": P("data")}, config=cfg)
+            handle = grp.admit(f"t{t}", cold, {"w": P("data")}, config=cfg)
+            handle.pool.init({"w": initial_state(
+                words // mesh.world, seed + 13 * t, grp.device,
+                block_offset(mesh, words))}, block=True)
         return grp
 
     tracer = _tracer(trace_dir, "multi_tenant_interference")
@@ -185,10 +205,10 @@ def multi_tenant_interference(quick: bool, seed: int,
 
     def wave(g, i, interfere: bool) -> float:
         c = np.float32((i % 7) * 1e-6)
-        ups = {tid: {"w": fma(g[tid].pool.state["w"], GAIN, c)}
+        ups = {tid: {"w": fma(g[tid].pool.block_state["w"], GAIN, c)}
                for tid in tids}
         t0 = time.perf_counter()
-        g.commit(ups, data_cursor=i)
+        g.commit(ups, data_cursor=i, block=True)
         sync(g.device)
         wall = (time.perf_counter() - t0) * 1e3
         if interfere:
@@ -215,10 +235,13 @@ def multi_tenant_interference(quick: bool, seed: int,
                 "verified": bool(rep.verified),
                 "ms": (time.perf_counter() - t_r) * 1e3})
 
-    golden = all(trees_equal(grp[tid].pool.state, ref[tid].pool.state)
-                 for tid in tids)
+    golden = agreed(mesh, all(trees_equal(grp[tid].pool.block_state,
+                                           ref[tid].pool.block_state)
+                               for tid in tids))
     rec_ms = [r["ms"] for r in recoveries]
     return {
+        "final": (None if final is None else
+                  final({tid: grp[tid].pool for tid in tids})),
         "scenario": "multi_tenant_interference",
         "golden_exact": bool(golden),
         "steps": n,
@@ -244,7 +267,8 @@ def multi_tenant_interference(quick: bool, seed: int,
 def fault_with_inflight_commits(quick: bool, seed: int,
                                 trace_dir: Optional[str] = None, *,
                                 meshes=MESHES, n_bytes: int = 1 << 15,
-                                device=None) -> dict:
+                                device=None, group=None,
+                                final: Optional[Callable] = None) -> dict:
     """Faults landing while the commit ring holds unresolved tickets.
 
     A rank loss lands with k = 2 tickets in flight and a scribble with
@@ -260,19 +284,19 @@ def fault_with_inflight_commits(quick: bool, seed: int,
 
     n = 24 if quick else 60
     depth = 4
-    mesh = _mesh(meshes[0])
+    mesh = mesh_over(meshes[0], group)
     cfg = _cfg(window=4, pipeline_depth=depth)
     wl = PoolWorkload(mesh, cfg, n_bytes=n_bytes, seed=seed, device=device)
     ref = PoolWorkload(mesh, cfg, n_bytes=n_bytes, seed=seed, device=device)
     tracer = _tracer(trace_dir, "fault_with_inflight_commits")
-    wl.pool.set_tracer(tracer)
+    wl.set_tracer(tracer)
 
     def dispatch_async(w) -> tuple:
         """One commit of traffic through the ring, its verdict left
         unresolved (traffic_step's async twin: the same recurrence)."""
         new_state = w.next_state()
         t0 = time.perf_counter()
-        tkt = w.pool.commit_async(new_state, data_cursor=w.t)
+        tkt = w.pool.commit_async(new_state, data_cursor=w.t, block=True)
         wall = (time.perf_counter() - t0) * 1e3
         w.t += 1
         return tkt, wall
@@ -335,9 +359,11 @@ def fault_with_inflight_commits(quick: bool, seed: int,
     if not all(t.resolved and t.result() for t in tickets):
         raise AssertionError("a ticket did not resolve True")
 
-    golden = trees_equal(wl.pool.state, ref.pool.state)
+    golden = wl.agreed(trees_equal(wl.pool.block_state,
+                                   ref.pool.block_state))
     rec_ms = [r["ms"] for r in recoveries]
     return {
+        "final": None if final is None else final({"w": wl.pool}),
         "scenario": "fault_with_inflight_commits",
         "golden_exact": bool(golden),
         "steps": n,
@@ -377,31 +403,36 @@ STORM_CELLS: Tuple[Tuple[int, int], ...] = (
     (1, 1), (2, 16), (3, 16), (4, 16))
 
 
-def _run(wl, sched, n: int, name: str, trace_dir: Optional[str]) -> dict:
+def _run(wl, sched, n: int, name: str, trace_dir: Optional[str],
+         final: Optional[Callable] = None) -> dict:
     """Execute one built scenario, its pool tracing into `_tracer`."""
     tracer = _tracer(trace_dir, name)
-    wl.pool.set_tracer(tracer)
+    wl.set_tracer(tracer)
     out = ScenarioRunner(wl, sched).run(n)
     out["scenario"] = name
     out["trace"] = _trace_verdict(tracer)
+    if final is not None:
+        out["final"] = final({} if wl.pool is None else {"w": wl.pool})
     return out
 
 
 def run_scenario(name: str, *, quick: bool = True, seed: int = 0,
-                 trace_dir: Optional[str] = None, **size) -> dict:
-    """One named scenario; `size` (meshes, n_bytes, device) goes to its
-    builder."""
+                 trace_dir: Optional[str] = None,
+                 final: Optional[Callable] = None, **size) -> dict:
+    """One named scenario; `size` (meshes, n_bytes, device, group) goes
+    to the function that builds it."""
     if name in GROUP_SCENARIOS:
-        return GROUP_SCENARIOS[name](quick, seed, trace_dir, **size)
+        return GROUP_SCENARIOS[name](quick, seed, trace_dir, final=final,
+                                     **size)
     wl, sched, n = SCENARIOS[name](quick, seed, **size)
-    return _run(wl, sched, n, name, trace_dir)
+    return _run(wl, sched, n, name, trace_dir, final)
 
 
 def run_storm_cell(r: int, window: int, *, quick: bool = True,
                    seed: int = 0, trace_dir: Optional[str] = None,
-                   **size) -> dict:
+                   final: Optional[Callable] = None, **size) -> dict:
     wl, sched, n = crash_replay_storm(r, window)(quick, seed, **size)
-    return _run(wl, sched, n, f"storm_r{r}_w{window}", trace_dir)
+    return _run(wl, sched, n, f"storm_r{r}_w{window}", trace_dir, final)
 
 
 def check_results(results: list) -> None:

@@ -13,12 +13,21 @@ One device holds every zone stacked `(*mesh_dims, *local)`
 `shard` on the new one, on the device: the same function as the
 reference's trip through host memory, without the trip.
 
-On a zone split over processes both meshes carry the same group (W
-divides both G): every process gathers the global state (the one copy
-`unshard` keeps) and keeps its block of the new mesh.  That moves every
-row, where only the rows that change owner must move; it is bit-exact.
-A move to another group, or to none, changes the process count and is
-refused (`procs.refuse_regroup`).
+On a zone split over processes, every process of the world calls it.
+Over one group (W divides both G) every process gathers the global state
+(the one copy `unshard` keeps) and keeps its block of the new mesh: that
+moves every row, where only the rows that change owner must move, and it
+is bit-exact.  Between two subgroups of one world — a change of the
+process count, W -> W' — only those rows move (`move_blocks`): under
+P("data") process p of W holds the contiguous ranks [p·G/W, (p+1)·G/W)
+of each data-sharded leaf's global dim, so the move is a set of interval
+intersections, each sent point to point from its old owner to its new
+one; a leaf replicated along `data` goes from the old mesh's first
+process (its copy at data coordinate 0) to each newcomer, and a process
+of both meshes keeps its own copy.  A process
+outside the old mesh (a spare) passes no state; one outside the new mesh
+gets none back.  A move with no common parent group (a one-process zone
+and a split one) is refused (`procs.refuse_regroup`).
 
 The public entry point is `Pool.rescale(new_mesh)` (repro_torch/pool.py),
 which adds flush-before-rescale and the host step-counter carry on top of
@@ -28,6 +37,7 @@ forms it mirrors.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import torch
@@ -38,32 +48,180 @@ from repro_torch.dist import procs, sharding
 PyTree = Any
 
 
-def reshard_state(state: PyTree, specs: PyTree, old_mesh, new_mesh) -> PyTree:
+def reshard_state(state: PyTree, specs: PyTree, old_mesh, new_mesh,
+                  abstract: PyTree = None, device=None) -> PyTree:
     """Zone-stacked leaves on `old_mesh` -> zone-stacked on `new_mesh`
     (bit-exact; along replicated axes the copy at coordinate 0 moves).  On
-    a split zone every process calls it, and both meshes carry its
-    group."""
+    a split zone every process calls it: over one group, or between two
+    subgroups of one world (`move_blocks`, which takes `abstract`, the
+    global shapes and dtypes, and on a process that holds no old block
+    `device`, where its new block goes)."""
     procs.refuse_regroup(old_mesh, new_mesh)
+    if not procs.same_group(old_mesh.group, new_mesh.group):
+        return move_blocks(state, specs, old_mesh, new_mesh, abstract,
+                           device)
     leaves, treedef = utils.tree_flatten(state)
     return utils.tree_unflatten(treedef, [
         sharding.shard(sharding.unshard(x, spec, old_mesh), spec, new_mesh)
         for x, spec in zip(leaves, utils.tree_leaves(specs))])
 
 
+def _data_dim(spec, ndim: int, mesh) -> int:
+    """The dim a leaf's spec puts on the data axis (-1: replicated along
+    it); the data axis must lead that dim's axes, so that a process's
+    block is one contiguous range of it."""
+    for d, axes in enumerate(sharding._entries(spec, ndim)):
+        if mesh.data_axis in axes:
+            if axes[0] != mesh.data_axis:
+                raise NotImplementedError(
+                    f"spec {spec}: a move across process counts needs the "
+                    f"data axis first in its dim's axes {axes}")
+            return d
+    return -1
+
+
+def move_plan(shapes: list, specs: list, old_mesh, new_mesh) -> list:
+    """The pieces of a move between meshes over two process sets of one
+    world: [(src, dst, leaf, dim, lo, hi)], ranks of the world's group;
+    rows [lo, hi) of the leaf's global dim `dim` go from src's old block
+    to dst's new one (dim -1: the whole leaf, replicated along `data`,
+    which a newcomer gets from the old mesh's first process and a member
+    of both meshes keeps).
+    In leaf order, then old block order, so each new block's pieces come
+    in data order."""
+    olds, news = old_mesh.members, new_mesh.members
+    out = []
+    for i, (shape, spec) in enumerate(zip(shapes, specs)):
+        d = _data_dim(spec, len(shape), new_mesh)
+        if d < 0:                   # a member keeps its own copy
+            out += [(q if q in olds else olds[0], q, i, -1, 0, 0)
+                    for q in news]
+            continue
+        n = shape[d]
+        wo, wn = len(olds), len(news)
+        for k, src in enumerate(olds):
+            a, b = k * n // wo, (k + 1) * n // wo
+            for j, dst in enumerate(news):
+                lo, hi = max(a, j * n // wn), min(b, (j + 1) * n // wn)
+                if lo < hi:
+                    out.append((src, dst, i, d, lo, hi))
+    return out
+
+
+def _piece(shape, d, lo, hi) -> tuple:
+    return shape if d < 0 else (*shape[:d], hi - lo, *shape[d + 1:])
+
+
+def move_blocks(state: PyTree, specs: PyTree, old_mesh, new_mesh,
+                abstract: PyTree = None, device=None) -> PyTree:
+    """`reshard_state` between meshes over two process sets of one world:
+    every process of the world calls it, with `abstract` the global
+    state's shapes and dtypes (a spare of `old_mesh` with `state` None and
+    `device` its new block's device); returns this process's zone-stacked
+    block on `new_mesh`, or None on a spare of it.  Only the rows that
+    change owner move, point to point (`ZoneGroup.send_recv`, counted in
+    the world group's stats)."""
+    if abstract is None:
+        raise ValueError("a move across process sets needs the global "
+                         "state's shapes and dtypes (abstract)")
+    root = procs.root_of(old_mesh.group) or procs.root_of(new_mesh.group)
+    spec_leaves = utils.tree_leaves(specs)
+    leaves, treedef = utils.tree_flatten(abstract)
+    shapes = [tuple(x.shape) for x in leaves]
+    dtypes = [x.dtype for x in leaves]
+    me = root.rank
+    plan = move_plan(shapes, spec_leaves, old_mesh, new_mesh)
+    views = {}
+    if not old_mesh.is_spare:
+        k = old_mesh.proc_rank
+        for i, x in enumerate(utils.tree_leaves(state)):
+            device = x.device
+            d = _data_dim(spec_leaves[i], len(shapes[i]), old_mesh)
+            v = sharding.block_view(x, spec_leaves[i], old_mesh)
+            views[i] = (v, 0 if d < 0 else k * shapes[i][d]
+                        // old_mesh.world)
+    if device is None:
+        raise ValueError("a spare of the old mesh names the device of its "
+                         "new block")
+
+    def cut(src_i, d, lo, hi):
+        v, first = views[src_i]
+        return v if d < 0 else v.narrow(d, lo - first, hi - lo)
+    sends: dict = {}
+    for src, dst, i, d, lo, hi in plan:
+        if src == me and dst != me:
+            sends.setdefault(dst, []).append(
+                cut(i, d, lo, hi).contiguous().reshape(-1).view(torch.uint8))
+    sends = {q: torch.cat(ps) for q, ps in sends.items()}
+    recvs: dict = {}
+    for src, dst, i, d, lo, hi in plan:
+        if dst == me and src != me:
+            recvs[src] = recvs.get(src, 0) + math.prod(
+                _piece(shapes[i], d, lo, hi)) * dtypes[i].itemsize
+    got = root.send_recv(sends, recvs, device)
+    if new_mesh.is_spare:
+        return None
+    parts: dict = {}
+    at = {src: 0 for src in got}
+    for src, dst, i, d, lo, hi in plan:
+        if dst != me:
+            continue
+        if src == me:
+            piece = cut(i, d, lo, hi)
+        else:
+            shape = _piece(shapes[i], d, lo, hi)
+            nb = math.prod(shape) * dtypes[i].itemsize
+            buf = got[src][at[src]:at[src] + nb]
+            at[src] += nb
+            piece = buf.clone().view(dtypes[i]).reshape(shape)
+        parts.setdefault(i, []).append((d, piece))
+    out = []
+    for i, spec in enumerate(spec_leaves):
+        d = parts[i][0][0]
+        block = (parts[i][0][1] if d < 0 else
+                 torch.cat([p for _, p in parts[i]], dim=d))
+        out.append(sharding.shard(block.to(device), spec,
+                                  new_mesh.block_mesh))
+    return utils.tree_unflatten(treedef, out)
+
+
+def move(prot, specs: PyTree, old_mesh, new_mesh, make_protector: Callable,
+         abstract: PyTree = None, device=None):
+    """Move a protected job to `new_mesh`; returns (protector', prot'), or
+    (None, None) on a spare of `new_mesh`.  `prot` is None on a spare of
+    `old_mesh` (which names `abstract` and `device`, as `move_blocks`
+    takes them).  The state reshards bit-exactly (`reshard_state`);
+    parity, checksums, digest and the cached row are rebuilt from it by
+    `make_protector(new_mesh).init`; the step counter carries over as a
+    host value, sent from the old mesh's first process to every process
+    when the process set changes."""
+    state = None if prot is None else prot.state
+    step = None if prot is None else int(prot.step)
+    if procs.same_group(old_mesh.group, new_mesh.group):
+        if new_mesh.is_spare:               # a spare of both: nothing moves
+            return None, None
+        state = reshard_state(state, specs, old_mesh, new_mesh)
+    else:
+        state = reshard_state(state, specs, old_mesh, new_mesh, abstract,
+                              device)
+        root = procs.root_of(old_mesh.group) or procs.root_of(new_mesh.group)
+        step = root.broadcast_host(step or 0, old_mesh.members[0])
+    if new_mesh.is_spare:
+        return None, None
+    p_new = make_protector(new_mesh)
+    prot_new = p_new.init(state)
+    return p_new, dataclasses.replace(prot_new, step=torch.full(
+        (), step, dtype=utils.WORD, device=prot_new.step.device))
+
+
 def rescale(protector, prot, make_protector: Callable, new_mesh):
     """Move a protected job to `new_mesh`; returns (protector', prot').
 
     `make_protector(new_mesh)` builds the Protector for the new geometry
-    (same abstract state and mode, new mesh).  Parity, checksums, digest
-    and the cached row are rebuilt from the resharded state; the step
-    counter carries over as a host value."""
-    p_new = make_protector(new_mesh)
-    state = reshard_state(prot.state, protector.state_specs, protector.mesh,
-                          new_mesh)
-    prot_new = p_new.init(state)
-    step = int(prot.step)
-    return p_new, dataclasses.replace(prot_new, step=torch.full(
-        (), step, dtype=utils.WORD, device=prot_new.step.device))
+    (same abstract state and mode, new mesh); see `move` (a move across
+    process sets: `Pool.rescale`)."""
+    return move(prot, protector.state_specs, protector.mesh, new_mesh,
+                make_protector)
 
 
 def rescale_windowed(engine, est, make_protector: Callable, new_mesh):

@@ -21,22 +21,36 @@ result or outlived its timeout.
 `ZoneGroup.stats` counts what the exchanges cost this process: the bytes
 staged between device and host (both ways), the bytes it sent to other
 processes (`(W-1)/W` of an all-to-all's buffer, `W-1` copies of an
-all-gather's block), the wall ms from the staging copy to the result
-back on the device, and of those the ms of the two copies (`copy_ms`;
-the rest is gloo's).  The sent bytes also go to the active cost counter
-(kernels/cost.py) as the kind `process-exchange`.
+all-gather's block; `moved_bytes`: those a rescale's point-to-point
+moves sent), the wall ms from the staging copy to the result back on the
+device, and of those the ms of the two copies (`copy_ms`; the rest is
+gloo's).  A subgroup counts into its world's.  The sent bytes also go
+to the active cost counter (kernels/cost.py) as the kind
+`process-exchange`.
 
 A split zone runs the synchronous engine behind `Pool`, the deferred
 engine (window > 1, bulk and patch) and the async commit ring
 (pipeline_depth > 1, staged canaries), and every host of a pool on it:
-`PoolGroup`, `Pool.rescale` / `elastic.reshard_state` between meshes
-split over the same group, `runtime.Server` (data-parallel decode, each
-process its block's rows of the batch) and `runtime.Trainer` (each
-process its microbatches, the gradients folded in microbatch order).
-Each reads and writes its process's block (`ZoneMesh.block_mesh`) and
-makes only the exchanges its engine makes.  What stays refused: a
-rescale that changes the process count (`refuse_regroup`: nothing makes
-a new group), a split server whose batch G does not divide, a split
+`PoolGroup`, `runtime.Server` (data-parallel decode, each process its
+block's rows of the batch), `runtime.Trainer` (each process its
+microbatches, the gradients folded in microbatch order) and the chaos
+campaign (repro_torch/chaos).  Each reads and writes its process's block
+(`ZoneMesh.block_mesh`) and makes only the exchanges its engine makes.
+
+A zone group may be a subgroup of the spawned world: `group.sub(members)`
+(collective over the world: every process calls it, with the same
+members in the same order; each subgroup is made once and cached) gives
+the members their `ZoneGroup` and every other process None.  A mesh over
+a subgroup (`sharding.split_mesh`) holds no block on a process outside
+it, a *spare* (`Spare`, `ZoneMesh.is_spare`): reading its rank or making
+an exchange there raises.  `Pool.rescale` / `elastic.reshard_state`
+move a pool between two meshes of one world — the same group, or two
+subgroups of it, which changes the process count (`Pool.join` on a
+process that was a spare); the rows that change owner go point to point
+(`send_recv`).  What stays refused: a move between meshes with no common
+parent group (a one-process zone and a split one, `refuse_regroup`), a
+W that does not divide G (`ZoneMesh`), a `PoolGroup.rescale` that changes
+the process count, a split server whose batch G does not divide, a split
 trainer whose microbatches W does not divide (runtime/), and an NCCL
 group (NCCL, one card a process, is slice S7d): only gloo groups are
 zone groups.
@@ -56,6 +70,7 @@ import sys
 import tempfile
 import time
 import traceback
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -68,9 +83,13 @@ CHUNK_BYTES = 1 << 28          # a large exchange's piece, a process
 
 class ZoneGroup:
     """A gloo process group as the exchange layer of a split zone: `world`
-    processes, this one `rank`, and the exchanges on device tensors."""
+    processes, this one `rank`, and the exchanges on device tensors.  A
+    subgroup (`sub`) knows its `parent` and its `members` (their ranks in
+    the parent, in its own rank order) and counts into the parent's
+    `stats`: they are what this process's exchanges cost."""
 
-    def __init__(self, pg=None):
+    def __init__(self, pg=None, *, timeout: float = GROUP_TIMEOUT_S,
+                 parent: Optional["ZoneGroup"] = None, members=None):
         pg = dist.group.WORLD if pg is None else pg
         backend = dist.get_backend(pg)
         if backend != "gloo":
@@ -81,11 +100,112 @@ class ZoneGroup:
         self.pg = pg
         self.world = dist.get_world_size(pg)
         self.rank = dist.get_rank(pg)
-        self.stats = {"exchanges": 0, "staged_bytes": 0, "sent_bytes": 0,
-                      "ms": 0.0, "copy_ms": 0.0}
+        self.timeout = float(timeout)
+        self.parent = parent
+        self.members = (tuple(range(self.world)) if members is None
+                        else tuple(members))
+        self.stats = (parent.stats if parent is not None else
+                      {"exchanges": 0, "staged_bytes": 0, "sent_bytes": 0,
+                       "moved_bytes": 0, "ms": 0.0, "copy_ms": 0.0})
+        self._subs: dict = {}
 
     def __repr__(self) -> str:
-        return f"ZoneGroup(rank={self.rank}, world={self.world})"
+        sub = "" if self.parent is None else f", members={self.members}"
+        return f"ZoneGroup(rank={self.rank}, world={self.world}{sub})"
+
+    @property
+    def root(self) -> "ZoneGroup":
+        """The group every subgroup is made from (itself, for the world)."""
+        return self if self.parent is None else self.parent
+
+    def sub(self, members) -> Optional["ZoneGroup"]:
+        """The subgroup of `members` (ranks of this group, the world's):
+        its `ZoneGroup` on a member, None on any other process.  A
+        collective over the world: every process calls it with the same
+        members, subgroups in the same order (`torch.distributed.new_group`
+        is); each is made once and cached by its members.  All the ranks
+        give this group itself."""
+        if self.parent is not None:
+            raise ValueError("subgroups are made from the world's group, "
+                             f"not from a subgroup {self!r}")
+        members = tuple(sorted({int(m) for m in members}))
+        if not members or members[0] < 0 or members[-1] >= self.world:
+            raise ValueError(f"members {members} are not ranks of a group "
+                             f"of {self.world}")
+        if members == self.members:
+            return self
+        if members not in self._subs:
+            pg = dist.new_group(
+                [dist.get_global_rank(self.pg, m) for m in members],
+                timeout=datetime.timedelta(seconds=self.timeout),
+                backend="gloo")
+            self._subs[members] = (
+                ZoneGroup(pg, timeout=self.timeout, parent=self,
+                          members=members)
+                if self.rank in members else None)
+        return self._subs[members]
+
+    def broadcast_host(self, value: int, src: int) -> int:
+        """An int held by process `src` on every process (a host value
+        such as a step counter; not counted, like `barrier`)."""
+        t = torch.tensor([int(value)], dtype=torch.int64)
+        dist.broadcast(t, src=dist.get_global_rank(self.pg, src),
+                       group=self.pg)
+        return int(t)
+
+    def send_recv(self, sends: dict, recvs: dict, device) -> dict:
+        """Point-to-point exchanges of byte buffers over this group: `sends`
+        {rank: 1-D uint8 device tensor} goes to each rank, `recvs` {rank:
+        nbytes} comes from each; returns {rank: 1-D uint8 tensor on
+        `device`}.  Only the processes named take part (no collective);
+        each pair's buffer goes in pieces of at most `CHUNK_BYTES`, a round
+        a piece, so the host buffers that stage it stay small; the pairs'
+        walk is the same on every process, so no pair waits on one that
+        waits on it.  Counted as one exchange."""
+        if any(t.is_cuda for t in sends.values()):
+            torch.cuda.current_stream(device).synchronize()
+        t0 = time.perf_counter()
+        copy_s = 0.0
+        step = CHUNK_BYTES
+        sizes = [t.numel() for t in sends.values()] + list(recvs.values())
+        rounds = max([-(-n // step) for n in sizes] + [0])
+        got = {r: torch.empty(int(n), dtype=torch.uint8)
+               for r, n in recvs.items()}
+        glob = {r: dist.get_global_rank(self.pg, r)
+                for r in (*sends, *recvs)}
+        for i in range(rounds):
+            lo, hi = i * step, (i + 1) * step
+            works, held = [], []   # a staged piece lives to its wait
+            for r in sorted(recvs):
+                if lo < recvs[r]:
+                    works.append(dist.irecv(got[r][lo:hi], src=glob[r],
+                                            group=self.pg))
+            for r in sorted(sends):
+                piece = sends[r][lo:hi]
+                if piece.numel():
+                    c0 = time.perf_counter()
+                    host = piece.to("cpu", copy=True)
+                    copy_s += time.perf_counter() - c0
+                    held.append(host)
+                    works.append(dist.isend(host, dst=glob[r],
+                                            group=self.pg))
+            for w in works:
+                w.wait(datetime.timedelta(seconds=self.timeout))
+        c0 = time.perf_counter()
+        out = {r: t.to(device) for r, t in got.items()}
+        if torch.device(device).type == "cuda":
+            torch.cuda.current_stream(device).synchronize()
+        t1 = time.perf_counter()
+        sent = sum(t.numel() for t in sends.values())
+        st = self.stats
+        st["exchanges"] += 1
+        st["staged_bytes"] += sent + sum(int(n) for n in recvs.values())
+        st["sent_bytes"] += sent
+        st["moved_bytes"] += sent
+        st["ms"] += (t1 - t0) * 1e3
+        st["copy_ms"] += (copy_s + t1 - c0) * 1e3
+        kcost.wire(kcost.EXCHANGE, sent)
+        return out
 
     def _exchange(self, x: torch.Tensor, run, sent_bytes: int):
         """Stage `x` to the host, `run(host) -> host result`, and copy the
@@ -182,22 +302,84 @@ def init_zone_group(rank: int, world: int, store_path: str,
         "gloo", init_method=f"file://{store_path}", rank=int(rank),
         world_size=int(world),
         timeout=datetime.timedelta(seconds=float(timeout)))
-    return ZoneGroup(dist.group.WORLD)
+    return ZoneGroup(dist.group.WORLD, timeout=timeout)
+
+
+class SpareError(RuntimeError):
+    """A spare process was asked for its block, its rank or an exchange."""
+
+
+class Spare:
+    """A subgroup of `parent` (its `members`, ranks of the parent) as a
+    process outside it sees it: the group of a mesh on which this process
+    is a spare.  It has the subgroup's `world` and `members` and no rank:
+    reading `rank`, or any exchange, raises `SpareError`."""
+
+    pg = None
+
+    def __init__(self, parent: ZoneGroup, members):
+        self.parent = parent
+        self.members = tuple(members)
+        self.world = len(self.members)
+
+    @property
+    def root(self) -> ZoneGroup:
+        return self.parent
+
+    def __repr__(self) -> str:
+        return f"Spare(members={self.members}, of {self.parent!r})"
+
+    def _refuse(self, what: str) -> SpareError:
+        return SpareError(
+            f"process {self.parent.rank} is a spare of a mesh over "
+            f"processes {self.members}: it holds no block of that zone and "
+            f"makes none of its exchanges ({what})")
+
+    @property
+    def rank(self) -> int:
+        raise self._refuse("its rank")
+
+    def __getattr__(self, name):
+        if name.startswith("__"):
+            raise AttributeError(name)
+        raise self._refuse(name)
+
+
+def root_of(group) -> Optional[ZoneGroup]:
+    """The world's group a zone group (or a `Spare`) comes from; None for
+    a zone on one process."""
+    return None if group is None else group.root
+
+
+def same_group(a, b) -> bool:
+    """Two meshes' groups are one split (or both are one process)."""
+    if a is None or b is None:
+        return a is None and b is None
+    if isinstance(a, Spare) or isinstance(b, Spare):
+        return (isinstance(a, Spare) and isinstance(b, Spare)
+                and a.parent is b.parent and a.members == b.members)
+    return a.pg is b.pg
 
 
 def refuse_regroup(old_mesh, new_mesh) -> None:
-    """Raise when a move from `old_mesh` to `new_mesh` changes the split:
-    another process group, or none on one side, changes the process count,
-    and nothing here makes a new group."""
+    """Raise when a move from `old_mesh` to `new_mesh` has no common
+    parent group: a zone on one process and a split one, or splits of two
+    worlds.  A move over one group, or between two subgroups of one world
+    (the process count changes), is allowed; a W that does not divide G
+    is refused by `ZoneMesh` itself."""
     a = getattr(old_mesh, "group", None)
     b = getattr(new_mesh, "group", None)
-    if (a is None) != (b is None) or (a is not None and a.pg is not b.pg):
+    if same_group(a, b):
+        return
+    ra, rb = root_of(a), root_of(b)
+    if ra is None or rb is None or ra is not rb:
         wa = 1 if a is None else a.world
         wb = 1 if b is None else b.world
         raise NotImplementedError(
-            f"a rescale from a zone split over {wa} process(es) to one "
-            f"split over {wb} changes the process count (or the group): a "
-            "split pool rescales only onto a mesh split over its own group")
+            f"a rescale from a zone on {wa} process(es) to one on {wb} "
+            "whose meshes have no common parent group (a one-process zone "
+            "and a split one, or two worlds): a split pool rescales onto a "
+            "mesh over its own group or over another subgroup of its world")
 
 
 class ZoneError(RuntimeError):

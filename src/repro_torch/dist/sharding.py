@@ -32,6 +32,10 @@ process's copy).  Reading and writing the block view makes no exchange;
 together from the processes' blocks.  At W = 1 the block mesh is the
 mesh, and the block view the global tensor.
 
+A mesh may be split over a subgroup of the processes (`split_mesh`): a
+process outside it is a spare of that mesh (`ZoneMesh.is_spare`), holds
+no block, and refuses to read its rank, offset or block mesh.
+
 Model and cache code names tensor dimensions logically ("embed", "heads",
 "batch", ...); `spec_for` maps the names onto mesh axes with the
 reference's divisibility fallback (dist/sharding.py there): each name has
@@ -83,13 +87,13 @@ class ZoneMesh:
                              f"{self.axis_names}")
         self.data_axis = data_axis
         if group is not None:
-            if not isinstance(group, procs.ZoneGroup):
+            if not isinstance(group, (procs.ZoneGroup, procs.Spare)):
                 group = procs.ZoneGroup(group)
             if self.group_size % group.world:
                 raise ValueError(
                     f"{group.world} processes do not split a zone of "
                     f"{self.group_size} data ranks into equal blocks")
-            if group.world == 1:
+            if group.world == 1 and group.parent is None:
                 group = None
         self.group = group
 
@@ -99,7 +103,20 @@ class ZoneMesh:
         return 1 if self.group is None else self.group.world
 
     @property
+    def is_spare(self) -> bool:
+        """This process is outside the mesh's group: it holds no block
+        (`procs.Spare`)."""
+        return isinstance(self.group, procs.Spare)
+
+    @property
+    def members(self) -> Optional[tuple]:
+        """The ranks, in the world's group, of the processes holding the
+        zone's blocks in order (None on one process)."""
+        return None if self.group is None else self.group.members
+
+    @property
     def proc_rank(self) -> int:
+        """This process's block, in data order (raises on a spare)."""
         return 0 if self.group is None else self.group.rank
 
     @property
@@ -118,6 +135,8 @@ class ZoneMesh:
         axes, no group (the mesh itself on one process)."""
         if self.group is None:
             return self
+        if self.is_spare:
+            raise self.group._refuse("its block")
         return ZoneMesh(self.local_dims, self.axis_names, self.data_axis)
 
     @property
@@ -144,6 +163,21 @@ class ZoneMesh:
         split = "" if self.group is None else f", group={self.group!r}"
         return (f"ZoneMesh({self.shape}, {self.axis_names}, "
                 f"data_axis={self.data_axis!r}{split})")
+
+
+def split_mesh(shape: Sequence[int], axis_names: Sequence[str], parent,
+               members=None, data_axis: str = "data") -> ZoneMesh:
+    """A mesh split over `members` (ranks of the world's group `parent`;
+    all of them by default) in rank order: on a member the mesh over their
+    subgroup, on any other process a spare mesh (`ZoneMesh.is_spare`).  A
+    collective the first time a set of members is named (`ZoneGroup.sub`):
+    every process of `parent` calls it alike."""
+    members = (tuple(range(parent.world)) if members is None
+               else tuple(sorted(int(m) for m in members)))
+    group = parent.sub(members)
+    if group is None:
+        group = procs.Spare(parent, members)
+    return ZoneMesh(shape, axis_names, data_axis, group=group)
 
 
 def _entries(spec, ndim: int) -> list:

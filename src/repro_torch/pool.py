@@ -76,8 +76,13 @@ exchange) and `commit(..., block=True)` / `commit_async(..., block=True)`,
 which take the block view of the new state.
 That is how a server or a trainer split over processes drives its pool
 without gathering the whole state a step.  `rescale` moves a split pool
-to a mesh split over the same group (the state gathered and resharded);
-a rescale that changes the process count is refused.
+to a mesh split over the same group (the state gathered and resharded)
+or over another subgroup of its world (`sharding.split_mesh`), which
+changes the process count: only the rows that change owner move, a
+process that was a spare of the old mesh takes part through `Pool.join`,
+and one that leaves gets None.  A move between a one-process zone and a
+split one is refused.  A multi-rank loss over the syndrome budget is
+refused on every process or on none (the verdict is agreed).
 """
 from __future__ import annotations
 
@@ -293,6 +298,11 @@ class Pool(EngineHost):
                  metrics: Optional[MetricsRegistry] = None,
                  tracer: Optional[Tracer] = None,
                  protector: Optional[Protector] = None):
+        if mesh.is_spare:
+            raise procs.SpareError(
+                f"a pool on {mesh!r}: this process is a spare of the mesh "
+                "and holds no block (Pool.join takes part in a rescale "
+                "onto a mesh it is a member of)")
         self.config = config if config is not None else ProtectConfig()
         self.device = utils.resolve_device(device)
         self.mesh = mesh
@@ -414,14 +424,15 @@ class Pool(EngineHost):
         pool = cls(mesh, state, specs, config, **kw)
         return pool if utils.is_abstract(state) else pool.init(state)
 
-    def init(self, state: PyTree) -> "Pool":
-        """Build parity/checksums/row for `state` (fresh protection).  Also
-        the re-arm point after a budget-exhausted storm: it clears the
-        health flags and restores the full syndrome budget.  Commits still
-        in flight are superseded: their tickets are voided (verdict False,
+    def init(self, state: PyTree, *, block: bool = False) -> "Pool":
+        """Build parity/checksums/row for global `state` (with `block`,
+        this process's block view of it; fresh protection).  Also the
+        re-arm point after a budget-exhausted storm: it clears the health
+        flags and restores the full syndrome budget.  Commits still in
+        flight are superseded: their tickets are voided (verdict False,
         the device not consulted)."""
         self._ring.void_all()
-        self.prot = self.protector.init(self.to_zone(state))
+        self.prot = self.protector.init(self.to_zone(state, block=block))
         self._budget_exhausted = False
         self._unrepaired_pages = 0
         self._last_reverify_ok = None
@@ -966,15 +977,14 @@ class Pool(EngineHost):
                               faults=fault_ids) as span:
             if fault.kind == "multi_loss":
                 # refuse an over-budget solve up front, before anything is
-                # touched
-                try:
-                    self.protector.check_budget(fault.ranks)
-                except RuntimeError:
+                # touched, on every process of a split zone or on none
+                over = self._over_budget(fault.ranks)
+                if over is not None:
                     self._budget_exhausted = True
                     self.metrics.counter(
                         "pool_budget_exhausted_total").inc()
                     self.metrics.gauge("pool_budget_remaining").set(0)
-                    raise
+                    raise over
             # the survivors' copy of the window metadata, captured before
             # the flush changes the window
             meta = (self._engine.window_meta
@@ -1021,6 +1031,26 @@ class Pool(EngineHost):
             span.annotate(**ev)
             return rep
 
+    def _over_budget(self, ranks) -> Optional[RuntimeError]:
+        """The budget-exhausted error of a loss of `ranks`, or None: the
+        verdict agreed across a split zone's processes, so that no process
+        falls back to its checkpoint tier while another waits in the
+        solve's exchanges."""
+        try:
+            self.protector.check_budget(ranks)
+            err = None
+        except RuntimeError as e:
+            err = e
+        group = self.mesh.group
+        if group is not None and not group.agree(err is None) and (
+                err is None):
+            err = RuntimeError(
+                f"syndrome budget exhausted: another process of the zone "
+                f"refused the simultaneous loss of ranks {list(ranks)} "
+                f"(redundancy={self.redundancy}); restore from the "
+                "checkpoint tier and re-arm (pool.init)")
+        return err
+
     def _publish_recovery(self, rep: recovery_mod.RecoveryReport) -> None:
         self._suspect = True                  # until the next clean scrub
         self._n_recoveries += 1
@@ -1057,7 +1087,7 @@ class Pool(EngineHost):
     # -- rescale ------------------------------------------------------------------
 
     def rescale(self, new_mesh: sharding.ZoneMesh, *,
-                into: Optional["Pool"] = None) -> "Pool":
+                into: Optional["Pool"] = None) -> Optional["Pool"]:
         """Move the pool to `new_mesh` (elastic resize); returns the new
         pool.  The open window lands first (flush-before-rescale); then the
         state reshards bit-exactly and protection is rebuilt for the new
@@ -1067,23 +1097,61 @@ class Pool(EngineHost):
         is opened with this pool's config and open arguments, on its
         device, publishing into its metrics and tracer.
 
-        A split pool moves to a mesh split over the same process group
-        (every process calls it; W divides both G); a new mesh on another
-        group, or on none, changes the process count and is refused."""
+        A split pool moves to a mesh over the same process group (W divides
+        both G) or over another subgroup of its world
+        (`sharding.split_mesh`): every process of the world calls this, or
+        `Pool.join` where it holds no pool of the old mesh; only the rows
+        that change owner move, and the step counter is sent to the
+        newcomers.  On a process that leaves (a spare of `new_mesh`) it
+        returns None, and this pool is not used again.  A move between a
+        one-process zone and a split one is refused."""
         if self.prot is None:
             raise RuntimeError("Pool.rescale before init()")
         procs.refuse_regroup(self.mesh, new_mesh)
         self.flush()
         with self.tracer.span("rescale") as span:
-            if into is None:
+            if into is None and not new_mesh.is_spare:
                 into = Pool(new_mesh, self.abstract_state, self.state_specs,
                             self.config, **self._open_kw)
-            _, into.prot = elastic.rescale(
-                self.protector, self.prot, lambda _m: into.protector,
-                new_mesh)
+            _, prot = elastic.move(
+                self.prot, self.state_specs, self.mesh, new_mesh,
+                lambda _m: into.protector, self.abstract_state, self.device)
             span.annotate(groups=(self.protector.group_size,
-                                  into.protector.group_size))
+                                  new_mesh.group_size))
         self.metrics.counter("pool_rescales_total").inc()
+        if into is None:
+            return None
+        into.prot = prot
+        return into
+
+    @classmethod
+    def join(cls, old_mesh: sharding.ZoneMesh, new_mesh: sharding.ZoneMesh,
+             abstract_state: PyTree, state_specs: PyTree,
+             config: Optional[ProtectConfig] = None, **kw) -> Optional["Pool"]:
+        """`rescale`'s counterpart on a process that is a spare of
+        `old_mesh` (it holds no pool there): take part in the move of the
+        old mesh's pools onto `new_mesh` and return this process's pool of
+        it (opened with `config` and `Pool`'s keywords), or None where it
+        is a spare of `new_mesh` too.  Every process of the world calls
+        `rescale` or this, in the same order."""
+        if not old_mesh.is_spare:
+            raise ValueError("a process that holds a pool of the old mesh "
+                             "moves it with pool.rescale")
+        procs.refuse_regroup(old_mesh, new_mesh)
+        into = (None if new_mesh.is_spare else
+                cls(new_mesh, abstract_state, state_specs, config, **kw))
+        device = (into.device if into is not None
+                  else utils.resolve_device(kw.get("device")))
+        _, prot = elastic.move(None, state_specs, old_mesh, new_mesh,
+                               lambda _m: into.protector,
+                               utils.abstract(abstract_state), device)
+        if into is None:
+            return None
+        with into.tracer.span("rescale") as span:
+            into.prot = prot
+            span.annotate(groups=(old_mesh.group_size, new_mesh.group_size),
+                          joined=True)
+        into.metrics.counter("pool_rescales_total").inc()
         return into
 
     # -- freeze/resume hooks ----------------------------------------------------

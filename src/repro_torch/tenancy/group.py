@@ -71,6 +71,7 @@ from repro_torch.core.epoch import EpochState
 from repro_torch.core.pipeline import CommitRing, CommitTicket
 from repro_torch.core.txn import _check_like, select
 from repro_torch.dist import collectives as coll
+from repro_torch.dist import procs
 from repro_torch.kernels import ops as kops
 from repro_torch.obs import health as obs_health
 from repro_torch.obs.metrics import MetricsRegistry
@@ -323,17 +324,20 @@ class Cohort:
         cksums = select(ok, fresh, cks_old) if mode.has_cksums else None
         return ok, row, digest, synd, cksums
 
-    def commit_sync(self, items: list, *, verify_old: bool = False) -> dict:
+    def commit_sync(self, items: list, *, verify_old: bool = False,
+                    block: bool = False) -> dict:
         """Batched commit for synchronous-engine tenants.
 
         `items`: [(tid, state_new, canary_ok, data_cursor, rng_key)] in
-        roster order.  Returns {tid: 0-d device verdict}.  A canary-aborted
-        tenant keeps its state and gets its redo record appended unmarked,
-        as `Protector.commit` does."""
+        roster order (with `block`, block views of the new states).
+        Returns {tid: 0-d device verdict}.  A canary-aborted tenant keeps
+        its state and gets its redo record appended unmarked, as
+        `Protector.commit` does."""
         t0 = time.perf_counter()
         tids = [it[0] for it in items]
         pools = [self.members[tid] for tid in tids]
-        states = [pool.to_zone(it[1]) for pool, it in zip(pools, items)]
+        states = [pool.to_zone(it[1], block=block)
+                  for pool, it in zip(pools, items)]
         for st, pool in zip(states, pools):
             _check_like(st, pool._prot.state)
         canaries = self._agree(tuple(bool(it[2]) for it in items))
@@ -400,7 +404,7 @@ class Cohort:
                 1 + p.data_dim, p.group)
         return synd, torch.zeros_like(acc)
 
-    def commit_deferred(self, items: list) -> dict:
+    def commit_deferred(self, items: list, *, block: bool = False) -> dict:
         """Batched commit for bulk deferred-engine tenants: one stacked
         step over the live tenants, then one stacked flush over exactly
         the tenants whose windows came due.  The host cadence is each
@@ -410,7 +414,8 @@ class Cohort:
         t0 = time.perf_counter()
         tids = [it[0] for it in items]
         pools = [self.members[tid] for tid in tids]
-        states = [pool.to_zone(it[1]) for pool, it in zip(pools, items)]
+        states = [pool.to_zone(it[1], block=block)
+                  for pool, it in zip(pools, items)]
         canaries = self._agree(tuple(bool(it[2]) for it in items))
         live = [i for i, c in enumerate(canaries) if c]
         mode = self.protector.mode
@@ -612,9 +617,10 @@ class PoolGroup:
 
     def commit(self, updates: Dict[str, PyTree], *, canary_ok=True,
                data_cursor=0, rng_keys=None, batched: bool = True,
-               verify_old: bool = False) -> dict:
-        """Commit a wave of per-tenant global updates; returns {tid:
-        verdict}.
+               verify_old: bool = False, block: bool = False) -> dict:
+        """Commit a wave of per-tenant global updates (with `block`, this
+        process's block views of them, as `Pool.commit` takes); returns
+        {tid: verdict}.
 
         Each cohort's batchable members commit in one batched wave (sync or
         deferred by the cohort's window); the rest loop through their own
@@ -655,17 +661,18 @@ class PoolGroup:
             if items:
                 self._m_batches.inc()
                 if cohort.config.window > 1:
-                    out.update(cohort.commit_deferred(items))
+                    out.update(cohort.commit_deferred(items, block=block))
                 else:
-                    out.update(cohort.commit_sync(items,
-                                                  verify_old=verify_old))
+                    out.update(cohort.commit_sync(
+                        items, verify_old=verify_old, block=block))
             for tid, state_new, can, dc, rk in loop:
                 pool = cohort.members[tid]
                 # verify_old is a synchronous-engine feature
                 vkw = ({"verify_old": verify_old}
                        if pool.engine is None else {})
                 out[tid] = pool.commit(state_new, canary_ok=can,
-                                       data_cursor=dc, rng_key=rk, **vkw)
+                                       data_cursor=dc, rng_key=rk,
+                                       block=block, **vkw)
         return out
 
     def commit_async(self, updates: Dict[str, PyTree], *,
@@ -743,7 +750,17 @@ class PoolGroup:
         geometry, and each pool moves through `Pool.rescale` (flush,
         bit-exact reshard, protection rebuilt).  The metrics and the trace
         are shared, so tenant labels survive the move.  A split group moves
-        to a mesh split over its own group (`Pool.rescale`)."""
+        to a mesh split over its own group (`Pool.rescale`); a move that
+        changes the process count is refused (ROADMAP queue A: the
+        newcomers would need a cold admission of every tenant)."""
+        if not procs.same_group(self.mesh.group, new_mesh.group):
+            procs.refuse_regroup(self.mesh, new_mesh)
+            raise NotImplementedError(
+                f"PoolGroup.rescale from a zone on {self.mesh.world} "
+                f"process(es) to one on {new_mesh.world} changes the process "
+                "set: its tenants would need a cold admission on the "
+                "newcomers (ROADMAP queue A); rescale each Pool, or keep the "
+                "group's processes")
         self.drain()                   # waves never survive a rescale
         new = PoolGroup(
             new_mesh, capacity=self.capacity,

@@ -21,7 +21,7 @@ import time
 import torch
 
 from repro_torch import Fault, Pool, ProtectConfig, convert
-from repro_torch.dist.sharding import P, ZoneMesh
+from repro_torch.dist.sharding import P, ZoneMesh, split_mesh
 from repro_torch.runtime import failure
 
 TIMING = ("solve_ms", "reverify_ms", "total_ms", "queue_wait_ms")
@@ -159,9 +159,10 @@ def refusal_worker(group):
     type, message), or None where nothing was raised}.  The deferred
     engine, the ring, a staged canary, PoolGroup, a rescale and a reshard
     onto a mesh split over the same group, a Server whose batch G divides
-    and a Trainer whose microbatches W divides run there; a rescale that
-    changes the process count, a batch that G does not divide and
-    microbatches that W does not divide are refused."""
+    and a Trainer whose microbatches W divides run there; a rescale onto
+    a mesh with no common parent group (one process), a PoolGroup
+    rescale that changes the process count, a batch that G does not
+    divide and microbatches that W does not divide are refused."""
     from repro_torch.configs.base import ModelConfig, TrainConfig
     from repro_torch.core.epoch import DeferredProtector
     from repro_torch.dist import elastic
@@ -205,6 +206,9 @@ def refusal_worker(group):
         "trainer": _refused(lambda: trainer(2)),
         "rescale_regroup": _refused(lambda: sync.rescale(
             ZoneMesh((2, 2), axes))),
+        "pool_group_regroup": _refused(lambda: PoolGroup(
+            mesh, device="cpu").rescale(split_mesh((2, 2), axes, group,
+                                                   (0,)))),
         "server_batch": _refused(lambda: server(2)),
         "trainer_microbatches": _refused(lambda: trainer(1)),
         "indivisible": _refused(lambda: ZoneMesh((3, 1), axes,
