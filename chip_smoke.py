@@ -118,13 +118,29 @@
         recovered, 4 tokens more, a scrub; then r = 3 / window 4 and
         pipeline_depth 2 runs of 4 + 4 tokens; the tokens gathered in
         rank order equal to one process's;
-   zt — two workers: tr's trainer at microbatches 2 (qwen3-0.6b, seq
-        1024 x batch 8, (4, 2)) against one process at microbatches 2:
-        the init, step 1, step 2 with verify_old, rank 3 (process 1)
-        lost and recovered, step 3 with a failed canary, step 3, a
-        scrub; each step's loss and verdict equal.
+   zt — two workers: tr's trainer at microbatches 2 (qwen3-0.6b at 4
+        of its 28 layers, seq 1024 x batch 8, (4, 2)) against one
+        process at microbatches 2: the init, step 1, step 2 with
+        verify_old, rank 3 (process 1) lost and recovered, step 3 with a
+        failed canary, step 3, a scrub; each step's loss and verdict
+        equal.
    The workers time-slice the card: their kernel times are not the
    kernel table's.
+4d. The chaos campaign on the split zone (zc), four workers against one
+   process on the same meshes, each run's final pools held as zp's are:
+   ch's quick campaign and storm cell (1, 1) on 100 x 1 over four and
+   50 x 2 over two (rescale_under_traffic goes 4 -> 2 -> 4 processes);
+   g — a PoolGroup of four 266 MB tenants (mlpc r = 3) rescaled 100 x 1
+        over four -> 50 x 2 over two (workers 2 and 3 join as spares) ->
+        100 x 1 over four, a wave after each and a scrub tick finding
+        nothing, sync and at window 4;
+   r — a snapshot at 100 x 1 over four restored onto 50 x 2 over two by
+        a loss of ranks 7 and 31 past r = 1 (the spares send their
+        rows), then back to four and rank 57 (process 2) lost online;
+   e — rescale_under_traffic's 4 -> 2 alone: it ends on two processes.
+   Each run golden-exact on every process, each worker's recoveries one
+   process's, every rescale's and the restore's moved bytes those the
+   interval intersections reckon (printed with their ms).
 5. The deferred-epoch engine (window > 1) on the same zone:
    w3 — the bulk engine, streamed, mlpc r = 3, window 4: open, three
         in-window commits, the fourth (the boundary flush), a commit, a
@@ -214,11 +230,12 @@
    Each kernel the path launched is then held against its plain version
    on the card at the very inputs its first launch on the path had
    (recorded by `CallProbe` in d-f).
-9. The training plane (tr): qwen3-0.6b at its published width trained by
+9. The training plane (tr): qwen3-0.6b at its published width, at
+   TR_LAYERS = 14 of its 28 layers (full depth until PR 29), trained by
    `repro_torch.runtime.trainer.Trainer` (AdamW with f32 moments, lr
    1e-3, warmup 2; seq 1024 x batch 8 = 8,192 tokens a step of the
    synthetic stream) on the (4, 2) zone mesh at ProtectConfig's default
-   block_words, its 7.15 GB train state in a Pool:
+   block_words, its train state in a Pool (7.15 GB at full depth):
    a — start: the state made on the card from SEED, the pool opened;
    b — six steps (sixteen until PR 27) at mlpc r = 1, window 1, depth
         1, scrub every 6: 1-3 bulk commits, 4-6 with verify_old; the ms a
@@ -1753,13 +1770,16 @@ def split_path(dev, tag, phases, must_launch, launches=None,
                       f"{tag} {phase}: {k} {[g['extra'][k] for g in got]}"
                       f", one process {v}")
         for name, by_rank in want["hashes"].items():
+            # a spare (a worker outside the phase's mesh) hashed no pool
             if not isinstance(by_rank, dict):
-                check(all(g["hashes"][name] == by_rank for g in got),
+                have = [g for g in got if name in g["hashes"]]
+                check(have and all(g["hashes"][name] == by_rank
+                                   for g in have),
                       f"{tag} {phase}: {name} differs from one process")
                 continue
             merged = {}
             for g in got:
-                merged.update(g["hashes"][name])
+                merged.update(g["hashes"].get(name, {}))
             check(merged == by_rank, f"{tag} {phase}: {name} differs from "
                   "one process at ranks " + str(sorted(
                       r for r in by_rank if merged.get(r) != by_rank[r])))
@@ -1999,7 +2019,8 @@ PATH_ZS = ("fletcher_blocks", "fused_commit", "fused_commit_s",
            "sdelta_stack")
 ZT_WORLD = 2                          # zt: two data ranks each
 ZT_MICROBATCHES = 2                   # the one process's too
-ZT_LAYERS = None                      # the depth (None: the config's)
+ZT_LAYERS = 4                         # the depth (the config's 28 until
+                                      # PR 29's cut, made for zc g, r, e)
 ZT_LOST = 3                           # process 1's data rank
 PATH_ZT = ("fletcher_blocks", "fletcher_stream",
            "fused_verify_commit_stream")
@@ -2037,7 +2058,8 @@ def zg_phases(dev, group, smashed):
     quarantine, t3's three-rank loss recovered beside an async wave of
     the others, t0's eviction; the four at window 2 through a wave and
     the flushing one; then el's rescale walk (100 x 1 -> 50 x 2 -> 100 x
-    1, sync and window 4), each rescaled pool against a fresh one."""
+    1, sync and window 4), each rescaled pool against a fresh one, each
+    rescale's ms and moved bytes (none over one group) in its extras."""
     from repro_torch import Fault, ProtectConfig, ZoneMesh
     from repro_torch.runtime import failure
     from repro_torch.tenancy import PoolGroup
@@ -2129,11 +2151,21 @@ def zg_phases(dev, group, smashed):
             yield f"l_{tag}_commit_{i}", pool, {"hash_state": shape is None}
             if shape is None:
                 break
+            sent = 0 if group is None else group.stats["moved_bytes"]
+            sync(dev)
+            t0 = time.perf_counter()
             moved = pool.rescale(ZoneMesh(shape, ("data", "model"),
                                           group=group))
+            sync(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            sent = (0 if group is None else group.stats["moved_bytes"]
+                    - sent)
             check(moved.protector.group_size == shape[0] and moved.step == i,
                   f"zg {tag}: G {moved.protector.group_size}")
-            yield f"m_{tag}_rescale_{shape[0]}x{shape[1]}", moved
+            check(sent == 0, f"zg {tag}: a same-group rescale moved {sent} "
+                  "bytes")
+            yield f"m_{tag}_rescale_{shape[0]}x{shape[1]}", moved, {
+                "rescale_ms": ms, "moved_bytes": sent}
             same_as_fresh_open(moved, state, f"zg {tag} rescale {i}")
             yield f"n_{tag}_{i}_same_as_fresh", moved, {"hash": False}
             pool = moved
@@ -2397,6 +2429,10 @@ ZC_WORLD = 4                          # zc: 25 data ranks a worker at 100 x 1
 ZC_STORMS = 1                         # the storm cells zc runs (ch's quick
                                       # two, cut to one to make room)
 ZC_TIMEOUT_S = 900                    # the workers' spawn, at most
+ZC_RESTORE_LOST = (7, 31)             # zc r's loss past r = 1 on 50 x 2:
+                                      # processes 0 and 1
+ZC_RESTORE_SINGLE = 57                # zc r's online loss: process 2
+PATH_ZC = tuple(dict.fromkeys(PATH_CH + PATH_TG))
 
 
 def zc_meshes():
@@ -2406,17 +2442,155 @@ def zc_meshes():
     return (EL_SHAPES[1], EL_SHAPES[0])
 
 
+def zc_extras(out):
+    """A chaos run's extras as a zc phase gives them: the golden verdict
+    (agreed, so alike on every process), the trace violations, the
+    recoveries' (kind, step, verified), the steps a process sat out as a
+    spare, the commit and recovery ms, each rescale's and restore's ms
+    and moved bytes."""
+    recs = out["recoveries"]
+    return {
+        "same_golden_exact": bool(out["golden_exact"]),
+        "trace_violations": out["trace"]["violations"],
+        "recoveries": [(r["kind"], r.get("step"), r.get("verified"))
+                       for r in recs],
+        "spare_steps": out.get("spare_steps", []),
+        "commit_ms": out["commit_ms"], "recovery_ms": out["recovery_ms"],
+        "rescale_ms": [r["ms"] for r in recs if r["kind"] == "rescale"],
+        "moved_bytes": [r.get("moved_bytes") for r in recs
+                        if r["kind"] == "rescale"],
+        "restore_ms": [r["ms"] for r in recs
+                       if r["kind"] == "restore_replay"],
+        "restore_moved_bytes": [r.get("moved_bytes") for r in recs
+                                if r["kind"] == "restore_replay"]}
+
+
+def zc_group_phases(dev, group):
+    """zc g: tg's four tenants at CH_TENANT_BYTES each (mlpc r = 3) in a
+    PoolGroup opened on 100 x 1 over the four workers, a wave, a rescale
+    to 50 x 2 over two (workers 2 and 3 spares, in `PoolGroup.join`), a
+    wave (verified, on the sync engine), a rescale back to four, a wave
+    and a scrub tick that finds nothing; sync, then at window 4.  Each
+    rescale's extras: its ms and the bytes this process moved."""
+    import numpy as np
+    from repro_torch import ProtectConfig
+    from repro_torch.chaos import workload
+    from repro_torch.dist.sharding import P
+    from repro_torch.tenancy import PoolGroup
+
+    shapes = zc_meshes()
+    words = workload.n_words(CH_TENANT_BYTES, shapes[0][0])
+    specs = {"w": P("data")}
+    cold = {"w": torch.empty(words, dtype=torch.float32, device="meta")}
+    tids = [f"t{t}" for t in range(TENANTS)]
+
+    def pools(grp):
+        return {} if grp is None else {t: grp[t].pool for t in grp.tenants}
+
+    def moved_bytes():
+        return 0 if group is None else group.stats["moved_bytes"]
+
+    for tag, cfg in (("sync", dict(mode="mlpc", redundancy=R)),
+                     ("w4", dict(mode="mlpc", redundancy=R, window=4))):
+        mesh = workload.mesh_over(shapes[0], group)
+        grp = PoolGroup(mesh, device=dev)
+        for t, tid in enumerate(tids):
+            grp.admit(tid, cold, specs, config=ProtectConfig(**cfg))
+            grp[tid].pool.init({"w": workload.initial_state(
+                words // mesh.world, SEED + 13 * t, dev,
+                workload.block_offset(mesh, words))}, block=True)
+        yield f"g_{tag}_open", pools(grp), {"hash": False}
+        for i, shape in enumerate((shapes[1], shapes[0], None), start=1):
+            oks = None
+            if grp is not None:
+                c = np.float32((i % 7) * 1e-6)
+                ups = {tid: {"w": workload.fma(
+                    grp[tid].pool.block_state["w"], workload.GAIN, c)}
+                    for tid in tids}
+                vkw = {"verify_old": True} if tag == "sync" and i == 2 else {}
+                oks = {t: bool(v) for t, v in grp.commit(
+                    ups, data_cursor=i, block=True, **vkw).items()}
+                check(all(oks.values()), f"zc g {tag} wave {i}: {oks}")
+                del ups
+            yield f"g_{tag}_wave_{i}", pools(grp), {"hash_state": False}
+            if shape is None:
+                break
+            new = workload.mesh_over(shape, group)
+            m0 = moved_bytes()
+            sync(dev)
+            t0 = time.perf_counter()
+            if grp is not None:
+                grp = grp.rescale(new)
+            else:
+                grp = PoolGroup.join(mesh, new, device=dev)
+            sync(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            mesh = new
+            if grp is not None:
+                check(grp.tenants == tuple(tids) and all(
+                    grp[t].pool.protector.group_size == shape[0]
+                    for t in tids), f"zc g {tag}: {grp.tenants}")
+            yield f"g_{tag}_rescale_{i}", pools(grp), {
+                "rescale_ms": ms, "moved_bytes": moved_bytes() - m0,
+                "hash_state": False}
+        found = [(tid, kind, sorted(tuple(int(v) for v in loc)
+                                    for loc in rep.bad_locations))
+                 for tid, kind, rep in grp.scrub_tick()]
+        check(found and not any(locs for *_k, locs in found),
+              f"zc g {tag}: the scrub tick found {found}")
+        yield f"g_{tag}_scrub", pools(grp), {"same_found": found,
+                                             "hash": False}
+        del grp
+        gc.collect()
+        if on_card(dev):
+            torch.cuda.empty_cache()
+
+
+def zc_cross_runs(dev, group):
+    """zc r and zc e: {name: a builder of (workload, schedule, steps)}.
+    r: budget_exhaust_rearm's workload (r = 1, window 2) at CH_BYTES on a
+    snapshot at 100 x 1 over four, a rescale to 50 x 2 over two, a loss
+    of ZC_RESTORE_LOST past its budget (the restore from the four
+    processes' snapshot onto two, and the replay), a rescale back and a
+    loss of ZC_RESTORE_SINGLE recovered online.  e: ch's
+    rescale_under_traffic with its first rescale only (4 -> 2), so that
+    it ends on two processes."""
+    from repro_torch.chaos import scenarios, workload
+    from repro_torch.chaos.schedule import ChaosEvent, FaultSchedule
+    meshes = zc_meshes()
+    size = dict(meshes=meshes, n_bytes=CH_BYTES, device=dev, group=group)
+    over = [{}, {}]
+    if group is not None:
+        over = [{"procs": workload.fit_procs(m[0], group.world)}
+                for m in meshes]
+    E = ChaosEvent.make
+
+    def restore():
+        wl, _, n = scenarios.budget_exhaust_rearm(True, SEED, **size)
+        return wl, FaultSchedule([
+            E(2, "snapshot"),
+            E(4, "rescale", shape=tuple(meshes[1]), **over[1]),
+            E(8, "multi_loss", ranks=ZC_RESTORE_LOST),
+            E(12, "rescale", shape=tuple(meshes[0]), **over[0]),
+            E(16, "rank_loss", rank=ZC_RESTORE_SINGLE)], seed=SEED), n
+
+    def ends():
+        wl, sched, n = scenarios.rescale_under_traffic(True, SEED, **size)
+        return wl, FaultSchedule(list(sched)[:2], seed=SEED), n
+    return {"r_restore_across_rescale": restore, "e_ends_elsewhere": ends}
+
+
 def zc_phases(dev, group, smashed):
     """zc: ch's quick campaign, a phase a scenario (every one of SCENARIOS
     and GROUP_SCENARIOS, then the first ZC_STORMS storm cells), on
     `zc_meshes()` at CH_BYTES a workload (CH_TENANT_BYTES a tenant):
     split over the world of `group`, or on one process.  Each phase's
-    pools are the scenario's final ones; its extras the golden verdict
-    (agreed, so alike on every process), the trace violations, the
-    recoveries' (kind, step, verified), the steps a process sat out as a
-    spare, the commit and recovery ms, and each rescale's ms and moved
-    bytes."""
+    pools are the scenario's final ones (none on a spare); its extras
+    `zc_extras`.  Then zc g (`zc_group_phases`), and zc r and zc e
+    (`zc_cross_runs`), each run a phase."""
     from repro_torch.chaos import scenarios
+    from repro_torch.chaos.runner import ScenarioRunner
+    from repro_torch.obs import Tracer, validate_events
     del smashed
     size = dict(quick=True, seed=SEED, meshes=zc_meshes(), device=dev,
                 group=group, final=lambda pools: pools)
@@ -2433,18 +2607,22 @@ def zc_phases(dev, group, smashed):
         if on_card(dev):
             torch.cuda.empty_cache()
         out = job()
-        recs = out["recoveries"]
         pools = out.pop("final")
-        yield name, pools, {
-            "same_golden_exact": bool(out["golden_exact"]),
-            "trace_violations": out["trace"]["violations"],
-            "recoveries": [(r["kind"], r.get("step"), r.get("verified"))
-                           for r in recs],
-            "spare_steps": out.get("spare_steps", []),
-            "commit_ms": out["commit_ms"], "recovery_ms": out["recovery_ms"],
-            "rescale_ms": [r["ms"] for r in recs if r["kind"] == "rescale"],
-            "moved_bytes": [r.get("moved_bytes") for r in recs
-                            if r["kind"] == "rescale"]}
+        yield name, pools, zc_extras(out)
+        del out, pools
+    yield from zc_group_phases(dev, group)
+    for name, build in zc_cross_runs(dev, group).items():
+        gc.collect()
+        if on_card(dev):
+            torch.cuda.empty_cache()
+        wl, sched, n = build()
+        tracer = Tracer()
+        wl.set_tracer(tracer)
+        out = ScenarioRunner(wl, sched).run(n)
+        out["trace"] = {"violations": validate_events(tracer.events)}
+        pools = {} if wl.pool is None else {"w": wl.pool}
+        del wl
+        yield name, pools, zc_extras(out)
         del out, pools
 
 
@@ -2464,17 +2642,27 @@ def reckoned_moves(n_words, old_w, new_w, world):
 
 def chaos_procs_path(dev):
     """zc: ch's quick campaign split over four workers against one process
-    on the same meshes in the same order; every scenario golden-exact and
-    per-rank byte-equal at its end, each worker's recoveries one
-    process's (but for the steps it sat out), and the W-change rescales'
-    moved bytes those the interval intersections reckon."""
+    on the same meshes in the same order, then zc g (a PoolGroup across
+    process counts), zc r (a snapshot restored onto another mesh) and zc
+    e (a run that ends on two processes); every run golden-exact, every
+    phase per-rank byte-equal, each worker's recoveries one process's
+    (but for the steps it sat out: a rescale or a restore it took part
+    in stays), and the W-change rescales' and the restore's moved bytes
+    those the interval intersections reckon."""
     from repro_torch.chaos import workload
-    counts = split_path(dev, "zc", zc_phases, PATH_CH, world=ZC_WORLD,
+    counts = split_path(dev, "zc", zc_phases, PATH_ZC, world=ZC_WORLD,
                         timeout=ZC_TIMEOUT_S)
     one, workers = SPLIT_RUNS["zc"], SPLIT_WORKERS["zc"]
     n = workload.n_words(CH_BYTES, zc_meshes()[0][0])
+    ws = [workload.fit_procs(m[0], ZC_WORLD) for m in zc_meshes()]
+    by_tag = {want["phase"]: i for i, want in enumerate(one)}
+
+    def extra(tag, k):
+        return [lines[by_tag[tag]]["extra"][k] for lines in workers]
     for i, want in enumerate(one):
         tag, ext = want["phase"], want["extra"]
+        if "same_golden_exact" not in ext:
+            continue
         check(ext["same_golden_exact"] and not ext["trace_violations"],
               f"zc {tag}: one process not golden ({ext})")
         for rank, lines in enumerate(workers):
@@ -2484,22 +2672,47 @@ def chaos_procs_path(dev):
             sat = set(got["spare_steps"])
             check(got["recoveries"] == [
                 r for r in ext["recoveries"]
-                if r[1] not in sat or r[0] == "rescale"],
+                if r[1] not in sat or r[0] in ("rescale", "restore_replay")],
                 f"zc {tag} p{rank}: recoveries {got['recoveries']}, one "
                 f"process {ext['recoveries']}")
-        if tag != "rescale_under_traffic":
-            continue
-        ws = [workload.fit_procs(m[0], ZC_WORLD) for m in zc_meshes()]
+    for tag in ("rescale_under_traffic", "e_ends_elsewhere"):
         want_moves = [reckoned_moves(n, ws[0], ws[1], ZC_WORLD),
                       reckoned_moves(n, ws[1], ws[0], ZC_WORLD)]
-        got_moves = [[lines[i]["extra"]["moved_bytes"][k] for lines in workers]
-                     for k in range(2)]
-        emit(path="zc", phase="rescale_moves", procs=ws,
+        got = extra(tag, "moved_bytes")
+        got_moves = [[g[k] for g in got] for k in range(len(got[0]))]
+        emit(path="zc", phase=f"{tag}_moves", procs=ws,
              moved_bytes=got_moves, reckoned_bytes=want_moves,
              total_bytes=[sum(m) for m in got_moves],
-             rescale_ms=[lines[i]["extra"]["rescale_ms"] for lines in workers])
-        check(got_moves == want_moves, f"zc: moved {got_moves}, reckoned "
-              f"{want_moves}")
+             rescale_ms=extra(tag, "rescale_ms"))
+        check(got_moves == want_moves[:len(got_moves)],
+              f"zc {tag}: moved {got_moves}, reckoned {want_moves}")
+    tag = "r_restore_across_rescale"
+    kinds = [r[0] for r in one[by_tag[tag]]["extra"]["recoveries"]]
+    check(kinds == ["rescale", "restore_replay", "rescale", "rank_loss"],
+          f"zc r: recoveries {kinds}")
+    restored = [g[0] for g in extra(tag, "restore_moved_bytes")]
+    emit(path="zc", phase="r_restore_moves", moved_bytes=restored,
+         reckoned_bytes=reckoned_moves(n, ws[0], ws[1], ZC_WORLD),
+         restore_ms=extra(tag, "restore_ms"),
+         rescale_ms=extra(tag, "rescale_ms"))
+    check(restored == reckoned_moves(n, ws[0], ws[1], ZC_WORLD),
+          f"zc r: the restore moved {restored}")
+    words = workload.n_words(CH_TENANT_BYTES, zc_meshes()[0][0])
+    for mode in ("sync", "w4"):
+        for k, (old_w, new_w) in enumerate(((ws[0], ws[1]), (ws[1], ws[0])),
+                                           start=1):
+            tag = f"g_{mode}_rescale_{k}"
+            got = extra(tag, "moved_bytes")
+            want = [TENANTS * b for b in reckoned_moves(words, old_w, new_w,
+                                                        ZC_WORLD)]
+            emit(path="zc", phase=f"{tag}_moves", procs=(old_w, new_w),
+                 moved_bytes=got, reckoned_bytes=want,
+                 rescale_ms=extra(tag, "rescale_ms"),
+                 one_process_rescale_ms=one[by_tag[tag]]["extra"][
+                     "rescale_ms"])
+            check(got == want, f"zc {tag}: moved {got}, reckoned {want}")
+            check(one[by_tag[tag]]["extra"]["moved_bytes"] == 0,
+                  f"zc {tag}: one process moved bytes")
     return counts
 
 
@@ -4147,6 +4360,8 @@ TR_ARCH = "qwen3-0.6b"           # trained at its published width
 TR_REDUCED = False               # True: the config's reduced() (a CPU rehearsal)
 TR_MESH = (4, 2)                 # the reference launcher's default mesh
 TR_SEQ, TR_BATCH = 1024, 8       # 8,192 tokens a step
+TR_LAYERS = 14                   # the depth (the config's 28, cut to
+                                 # make room for zc's phases g, r, e)
 TR_STEPS = 6                     # steps of each full phase (b, c, d, g)
 TR_SCRUB = 6                     # scrub_period: b's last step scrubs
 TR_LR, TR_WARMUP, TR_TOTAL = 1e-3, 2, 100
@@ -4447,6 +4662,7 @@ def training_path(dev):
     run = PathRun(dev, "tr")
     probe = CallProbe(host=True)
     cfg, mesh = tr_model()
+    cfg = dataclasses.replace(cfg, n_layers=min(cfg.n_layers, TR_LAYERS))
     steps = TR_STEPS
     half = steps // 2
 

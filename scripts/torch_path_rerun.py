@@ -14,7 +14,9 @@ script then exits 1, naming the paths that failed).  `--root DIR` takes
 chip_smoke.py and src/ from the checkout at DIR, e.g. an unpacked older
 commit: run the two commits in turn, in one call, to compare them on one
 card.  `path chaos_procs_path` is zc alone: ch's quick campaign over four
-worker processes against one process.
+worker processes against one process, then its phases g (a PoolGroup
+rescaled 4 -> 2 -> 4 processes), r (a snapshot restored onto another
+mesh) and e (a run that ends on two processes).
 
 `xt-f32-batch1`: xt's path (xlstm-1.3b at one group, seq 4096, (4, 2),
 protected) at batch 1 with the config's f32 AdamW moments, in place of

@@ -23,12 +23,17 @@ bit-identical to golden.
 On a zone split over processes every process walks the whole schedule,
 spares included: a spare (a process outside the current mesh after a
 rescale that changed the process count) commits nothing and takes part
-only in the rescales and the golden verdict, the exchanges of the
-world's group.  Every host decision reads values that are alike on every
-process: the schedule, the synthetic straggler times, the combined
-faults, and the budget-exhausted error, which `Pool.recover` raises on
-every process of the zone or on none.  Records are each process's own
-(a spare's skip the steps it sat out, listed in `spare_steps`).
+only in the exchanges of the world's group: the rescales, the golden
+verdict, and a restore of a snapshot taken on another mesh, to which it
+may have to send its rows.  Every host decision reads values that are
+alike on every process: the schedule, the synthetic straggler times,
+the combined faults, and the budget-exhausted error, which `Pool.recover`
+raises on every process of the zone or on none; where the snapshot's
+mesh is not the current one, the zone's first process sends that
+verdict to every process at each fault step, so the spares enter the
+restore with the zone.  Records are each process's own (a spare's skip
+the steps it sat out, listed in `spare_steps`, but for a restore it
+took part in).
 """
 from __future__ import annotations
 
@@ -110,6 +115,29 @@ class ScenarioRunner:
             return Fault.rank_loss(ranks.pop())
         return Fault.multi_loss(*ranks)
 
+    def _restore(self, snap: dict, t: int, err: Optional[Exception],
+                 t0: Optional[float] = None) -> dict:
+        """The checkpoint-tier fallback at step t: restore the snapshot,
+        re-protect, replay the missed traffic exactly; its record (with
+        the bytes this process sent on a split zone).  `err` is the
+        budget-exhausted error (None on a spare that only sends)."""
+        wl = self.wl
+        root = procs.root_of(wl.mesh.group)
+        moved = 0 if root is None else root.stats["moved_bytes"]
+        t0 = time.perf_counter() if t0 is None else t0
+        wl.restore(snap)
+        wl.replay_to(t + 1)
+        sync(wl.device)
+        ms = (time.perf_counter() - t0) * 1e3
+        wl.metrics.histogram("chaos_disturbance_ms").observe(ms)
+        rec = {"step": t, "kind": "restore_replay", "ms": ms,
+               "replayed": t + 1 - snap["t"]}
+        if err is not None:
+            rec["error"] = str(err).splitlines()[0]
+        if root is not None:
+            rec["moved_bytes"] = root.stats["moved_bytes"] - moved
+        return rec
+
     # -- the loop ---------------------------------------------------------------
 
     def run(self, n_steps: int, *, golden: bool = True) -> dict:
@@ -163,10 +191,16 @@ class ScenarioRunner:
                 elif e.kind == "snapshot":
                     snap = wl.snapshot()
 
+            # a restore from another mesh is collective over the world:
+            # the zone's verdict goes to every process, spares included
+            shared = (root is not None and bool(mid or post)
+                      and snap["mesh"] is not wl.mesh)
             if pool is None:
                 # a spare: no block, so no traffic and no fault lands here
                 wl.traffic_step()
                 spare_steps.append(t)
+                if shared and root.broadcast_host(None, wl.mesh.members[0]):
+                    recoveries.append(self._restore(snap, t, None))
                 t += 1
                 continue
             pend: list = []
@@ -199,6 +233,7 @@ class ScenarioRunner:
                 ev = pool.inject(
                     lambda p, prot, _e=e: self._inject_prot(prot, _e))
                 pend.append(ev)
+            exhausted = None
             if pend:
                 fault = self._combine(pend)
                 t0 = time.perf_counter()
@@ -213,16 +248,12 @@ class ScenarioRunner:
                 except RuntimeError as err:
                     if "syndrome budget exhausted" not in str(err):
                         raise
-                    # checkpoint-tier fallback: restore the snapshot,
-                    # re-protect, replay the missed traffic exactly
-                    wl.restore(snap)
-                    wl.replay_to(t + 1)
-                    ms = (time.perf_counter() - t0) * 1e3
-                    h_disturb.observe(ms)
-                    recoveries.append({
-                        "step": t, "kind": "restore_replay", "ms": ms,
-                        "error": str(err).splitlines()[0],
-                        "replayed": t + 1 - snap["t"]})
+                    exhausted = err
+            if shared:
+                root.broadcast_host(exhausted is not None,
+                                    wl.mesh.members[0])
+            if exhausted is not None:
+                recoveries.append(self._restore(snap, t, exhausted, t0))
             t += 1
 
         out = {

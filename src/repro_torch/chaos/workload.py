@@ -21,8 +21,12 @@ the step is elementwise, so a block's step is the block of the global
 step, and the initial state of a block starts at its global word offset.
 A rescale may change the process count (`rescale(shape, procs)`): a
 process outside the new mesh is a spare, holds no pool, and takes part
-only in the exchanges of the world's group (the rescales and the golden
-verdict, agreed there).
+only in the exchanges of the world's group: the rescales, a snapshot
+restored onto another mesh than it was taken on (each process that held
+a block of it sends the rows the current mesh places elsewhere, the
+plan of `elastic.move_views`) and the golden verdict, whose run goes on
+the first mesh and whose final blocks move to the final one the same
+way, so a run may end on other processes than it began on.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ import torch
 
 from repro_torch import utils
 from repro_torch.configs.base import ProtectConfig
-from repro_torch.dist import procs, sharding
+from repro_torch.dist import elastic, procs, sharding
 from repro_torch.dist.sharding import P, ZoneMesh
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import Tracer
@@ -227,15 +231,19 @@ class PoolWorkload:
 
     def restore(self, snap: dict) -> None:
         """Re-arm from a snapshot: fresh protection over restored bytes
-        (the budget-exhausted path's checkpoint + re-protect)."""
-        if snap["mesh"] is not self.mesh and (
-                snap["mesh"].group is not None or self.mesh.group is not None):
-            raise NotImplementedError(
-                "a snapshot of a split zone restores onto the mesh it was "
-                "taken on")
+        (the budget-exhausted path's checkpoint + re-protect).  On a split
+        zone whose mesh is no longer the snapshot's, a collective over the
+        world: each process that held a block of the snapshot sends the
+        rows the current mesh places elsewhere, and each member of the
+        current mesh re-arms with its block (a spare of both walks the
+        step only)."""
         self.t = int(snap["t"])
+        block = snap["state"]
+        if snap["mesh"] is not self.mesh and self.mesh.group is not None:
+            block = elastic.move_views(block, self.specs, snap["mesh"],
+                                       self.mesh, self.abstract, self.device)
         if self.pool is not None:
-            self.pool.init(snap["state"], block=True)
+            self.pool.init(block, block=True)
 
     def replay_to(self, t_target: int) -> None:
         """Deterministically re-run traffic up to step `t_target`."""
@@ -277,19 +285,21 @@ class PoolWorkload:
     def golden(self, n_steps: int) -> Optional[dict]:
         """The fault-free reference: same seed, same steps, no chaos — run
         on a fresh pool on the first mesh and its processes, so nothing of
-        this run leaks in (this process's block; None on a spare).  Every
-        scenario ends on the processes it began on, so the blocks line
-        up."""
-        if self._mesh0.members != self.mesh.members:
-            raise NotImplementedError(
-                "the golden run compares blocks on the processes the run "
-                f"began on ({self._mesh0.members}), not {self.mesh.members}")
+        this run leaks in; this process's block of it on the current mesh
+        (None on a spare), its final blocks moved there as a restore moves
+        a snapshot's."""
         ref = PoolWorkload(self._mesh0, self.config,
                            n_bytes=self.n_words * 4, seed=self.seed,
                            device=self.device)
         for _ in range(n_steps):
             ref.traffic_step()
-        return ref.final_host()
+        out = ref.final_host()
+        if self._mesh0 is not self.mesh and self.mesh.group is not None:
+            out = elastic.move_views(out, self.specs, self._mesh0, self.mesh,
+                                     self.abstract, self.device)
+            out = None if out is None else utils.tree_map(
+                lambda x: x.cpu(), out)
+        return out
 
     def golden_exact(self, n_steps: int) -> bool:
         """This run's final state byte-equal to the golden run's: each

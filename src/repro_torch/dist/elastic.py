@@ -13,21 +13,28 @@ One device holds every zone stacked `(*mesh_dims, *local)`
 `shard` on the new one, on the device: the same function as the
 reference's trip through host memory, without the trip.
 
-On a zone split over processes, every process of the world calls it.
-Over one group (W divides both G) every process gathers the global state
-(the one copy `unshard` keeps) and keeps its block of the new mesh: that
-moves every row, where only the rows that change owner must move, and it
-is bit-exact.  Between two subgroups of one world — a change of the
-process count, W -> W' — only those rows move (`move_blocks`): under
-P("data") process p of W holds the contiguous ranks [p·G/W, (p+1)·G/W)
-of each data-sharded leaf's global dim, so the move is a set of interval
-intersections, each sent point to point from its old owner to its new
-one; a leaf replicated along `data` goes from the old mesh's first
-process (its copy at data coordinate 0) to each newcomer, and a process
-of both meshes keeps its own copy.  A process
+On a zone split over processes, every process of the world calls it,
+and only the rows that change owner move (`move_blocks`): under
+P("data") process p of W holds the contiguous ranks [p·n/W, (p+1)·n/W)
+of each data-sharded leaf's global dim of n, whatever G is, so the move
+is a set of interval intersections, each sent point to point from its
+old owner to its new one, and each process re-stacks its own block for
+the new block mesh.  Over one group (W divides both G) no row of a
+data-sharded leaf leaves its process and no process gathers the global
+state; between two subgroups of one world (a change of the process
+count, W -> W') a leaf replicated along `data` goes from the old mesh's
+first process (its copy at data coordinate 0) to each newcomer, and a
+process of both meshes keeps its own copy.  A leaf whose spec puts
+`data` after another axis of its dim holds no contiguous block and is
+refused (`_data_dim`).  No state that a split rescale moves has one:
+zg's tenants, the chaos workload, the Server's cache and the Trainer's
+state all lie on (data, model) meshes, where `spec_for` puts `data`
+alone on a dim (its ("pod", "data") rule needs a pod axis).  A process
 outside the old mesh (a spare) passes no state; one outside the new mesh
-gets none back.  A move with no common parent group (a one-process zone
-and a split one) is refused (`procs.refuse_regroup`).
+gets none back.  The same plan moves host blocks (`move_views`): a
+snapshot restored onto another mesh, a golden run's final blocks.  A
+move with no common parent group (a one-process zone and a split one)
+is refused (`procs.refuse_regroup`).
 
 The public entry point is `Pool.rescale(new_mesh)` (repro_torch/pool.py),
 which adds flush-before-rescale and the host step-counter carry on top of
@@ -52,18 +59,19 @@ def reshard_state(state: PyTree, specs: PyTree, old_mesh, new_mesh,
                   abstract: PyTree = None, device=None) -> PyTree:
     """Zone-stacked leaves on `old_mesh` -> zone-stacked on `new_mesh`
     (bit-exact; along replicated axes the copy at coordinate 0 moves).  On
-    a split zone every process calls it: over one group, or between two
-    subgroups of one world (`move_blocks`, which takes `abstract`, the
-    global shapes and dtypes, and on a process that holds no old block
-    `device`, where its new block goes)."""
+    a split zone every process calls it, over one group or between two
+    subgroups of one world, and only the rows that change owner move
+    (`move_blocks`, which takes `abstract`, the global shapes and dtypes,
+    and on a process that holds no old block `device`, where its new
+    block goes)."""
     procs.refuse_regroup(old_mesh, new_mesh)
-    if not procs.same_group(old_mesh.group, new_mesh.group):
-        return move_blocks(state, specs, old_mesh, new_mesh, abstract,
-                           device)
-    leaves, treedef = utils.tree_flatten(state)
-    return utils.tree_unflatten(treedef, [
-        sharding.shard(sharding.unshard(x, spec, old_mesh), spec, new_mesh)
-        for x, spec in zip(leaves, utils.tree_leaves(specs))])
+    if old_mesh.group is None and new_mesh.group is None:
+        leaves, treedef = utils.tree_flatten(state)
+        return utils.tree_unflatten(treedef, [
+            sharding.shard(sharding.unshard(x, spec, old_mesh), spec,
+                           new_mesh)
+            for x, spec in zip(leaves, utils.tree_leaves(specs))])
+    return move_blocks(state, specs, old_mesh, new_mesh, abstract, device)
 
 
 def _data_dim(spec, ndim: int, mesh) -> int:
@@ -74,7 +82,7 @@ def _data_dim(spec, ndim: int, mesh) -> int:
         if mesh.data_axis in axes:
             if axes[0] != mesh.data_axis:
                 raise NotImplementedError(
-                    f"spec {spec}: a move across process counts needs the "
+                    f"spec {spec}: a move between split meshes needs the "
                     f"data axis first in its dim's axes {axes}")
             return d
     return -1
@@ -112,53 +120,71 @@ def _piece(shape, d, lo, hi) -> tuple:
     return shape if d < 0 else (*shape[:d], hi - lo, *shape[d + 1:])
 
 
-def move_blocks(state: PyTree, specs: PyTree, old_mesh, new_mesh,
-                abstract: PyTree = None, device=None) -> PyTree:
-    """`reshard_state` between meshes over two process sets of one world:
-    every process of the world calls it, with `abstract` the global
-    state's shapes and dtypes (a spare of `old_mesh` with `state` None and
-    `device` its new block's device); returns this process's zone-stacked
-    block on `new_mesh`, or None on a spare of it.  Only the rows that
-    change owner move, point to point (`ZoneGroup.send_recv`, counted in
-    the world group's stats)."""
-    if abstract is None:
-        raise ValueError("a move across process sets needs the global "
-                         "state's shapes and dtypes (abstract)")
+def _global_abstract(views: list, specs: list, mesh) -> list:
+    """The global shapes and dtypes of a member's block views (meta
+    tensors): the data-sharded dim times the mesh's process count."""
+    out = []
+    for v, spec in zip(views, specs):
+        shape = list(v.shape)
+        d = _data_dim(spec, len(shape), mesh)
+        if d >= 0:
+            shape[d] *= mesh.world
+        out.append(torch.empty(shape, dtype=v.dtype, device="meta"))
+    return out
+
+
+def move_views(views: PyTree, specs: PyTree, old_mesh, new_mesh,
+               abstract: PyTree = None, device=None) -> PyTree:
+    """This process's block views on `old_mesh` (None on a spare of it)
+    -> its block views on `new_mesh` (None on a spare of it), both meshes
+    split over processes of one world.  Every process that holds a block
+    of either mesh calls it (a spare of both may: it sends and gets
+    nothing), with `abstract` the global shapes and dtypes (a member of
+    the old mesh may leave it None) and `device` where the new block goes
+    (by default the old block's).  Only the rows that change owner move,
+    point to point (`ZoneGroup.send_recv`, counted in the world group's
+    stats); the views may lie on the host (a snapshot's)."""
     root = procs.root_of(old_mesh.group) or procs.root_of(new_mesh.group)
     spec_leaves = utils.tree_leaves(specs)
+    mine = None if old_mesh.is_spare else utils.tree_leaves(views)
+    if abstract is None:
+        if mine is None:
+            raise ValueError("a move across process sets needs the global "
+                             "state's shapes and dtypes (abstract)")
+        abstract = _global_abstract(mine, spec_leaves, old_mesh)
     leaves, treedef = utils.tree_flatten(abstract)
     shapes = [tuple(x.shape) for x in leaves]
     dtypes = [x.dtype for x in leaves]
     me = root.rank
     plan = move_plan(shapes, spec_leaves, old_mesh, new_mesh)
-    views = {}
-    if not old_mesh.is_spare:
+    firsts = {}
+    if mine is not None:
         k = old_mesh.proc_rank
-        for i, x in enumerate(utils.tree_leaves(state)):
-            device = x.device
+        for i, v in enumerate(mine):
+            if device is None:
+                device = v.device
             d = _data_dim(spec_leaves[i], len(shapes[i]), old_mesh)
-            v = sharding.block_view(x, spec_leaves[i], old_mesh)
-            views[i] = (v, 0 if d < 0 else k * shapes[i][d]
-                        // old_mesh.world)
+            firsts[i] = 0 if d < 0 else k * shapes[i][d] // old_mesh.world
     if device is None:
         raise ValueError("a spare of the old mesh names the device of its "
                          "new block")
 
-    def cut(src_i, d, lo, hi):
-        v, first = views[src_i]
-        return v if d < 0 else v.narrow(d, lo - first, hi - lo)
+    def cut(i, d, lo, hi):
+        return mine[i] if d < 0 else mine[i].narrow(d, lo - firsts[i],
+                                                    hi - lo)
     sends: dict = {}
+    recvs: dict = {}
     for src, dst, i, d, lo, hi in plan:
         if src == me and dst != me:
             sends.setdefault(dst, []).append(
                 cut(i, d, lo, hi).contiguous().reshape(-1).view(torch.uint8))
-    sends = {q: torch.cat(ps) for q, ps in sends.items()}
-    recvs: dict = {}
-    for src, dst, i, d, lo, hi in plan:
-        if dst == me and src != me:
+        elif dst == me and src != me:
             recvs[src] = recvs.get(src, 0) + math.prod(
                 _piece(shapes[i], d, lo, hi)) * dtypes[i].itemsize
-    got = root.send_recv(sends, recvs, device)
+    got = {}
+    if sends or recvs:
+        got = root.send_recv({q: torch.cat(ps) for q, ps in sends.items()},
+                             recvs, device)
     if new_mesh.is_spare:
         return None
     parts: dict = {}
@@ -167,22 +193,47 @@ def move_blocks(state: PyTree, specs: PyTree, old_mesh, new_mesh,
         if dst != me:
             continue
         if src == me:
-            piece = cut(i, d, lo, hi)
+            piece = cut(i, d, lo, hi).to(device, copy=True)
         else:
             shape = _piece(shapes[i], d, lo, hi)
             nb = math.prod(shape) * dtypes[i].itemsize
-            buf = got[src][at[src]:at[src] + nb]
+            piece = got[src][at[src]:at[src] + nb].clone().view(
+                dtypes[i]).reshape(shape)
             at[src] += nb
-            piece = buf.clone().view(dtypes[i]).reshape(shape)
         parts.setdefault(i, []).append((d, piece))
     out = []
-    for i, spec in enumerate(spec_leaves):
+    for i in range(len(spec_leaves)):
         d = parts[i][0][0]
-        block = (parts[i][0][1] if d < 0 else
-                 torch.cat([p for _, p in parts[i]], dim=d))
-        out.append(sharding.shard(block.to(device), spec,
-                                  new_mesh.block_mesh))
+        out.append(parts[i][0][1] if d < 0 or len(parts[i]) == 1 else
+                   torch.cat([p for _, p in parts[i]], dim=d))
     return utils.tree_unflatten(treedef, out)
+
+
+def move_blocks(state: PyTree, specs: PyTree, old_mesh, new_mesh,
+                abstract: PyTree = None, device=None) -> PyTree:
+    """`reshard_state` between meshes split over processes of one world:
+    every process of the world calls it, with `abstract` the global
+    state's shapes and dtypes (a member of the old mesh may leave it None;
+    a spare of `old_mesh` has `state` None and names `device`, its new
+    block's device); returns this process's zone-stacked block on
+    `new_mesh`, or None on a spare of it.  The block views move by
+    `move_views`, and each member re-stacks its block for the new block
+    mesh."""
+    spec_leaves = utils.tree_leaves(specs)
+    views = None
+    if not old_mesh.is_spare:
+        views = [sharding.block_view(x, spec, old_mesh) for x, spec in
+                 zip(utils.tree_leaves(state), spec_leaves)]
+        device = views[0].device if device is None else device
+    treedef = utils.tree_flatten(abstract if state is None else state)[1]
+    blocks = move_views(views, spec_leaves, old_mesh, new_mesh,
+                        None if abstract is None
+                        else utils.tree_leaves(abstract), device)
+    if blocks is None:
+        return None
+    return utils.tree_unflatten(treedef, [
+        sharding.shard(b, spec, new_mesh.block_mesh)
+        for b, spec in zip(blocks, spec_leaves)])
 
 
 def move(prot, specs: PyTree, old_mesh, new_mesh, make_protector: Callable,
@@ -197,13 +248,11 @@ def move(prot, specs: PyTree, old_mesh, new_mesh, make_protector: Callable,
     when the process set changes."""
     state = None if prot is None else prot.state
     step = None if prot is None else int(prot.step)
-    if procs.same_group(old_mesh.group, new_mesh.group):
-        if new_mesh.is_spare:               # a spare of both: nothing moves
-            return None, None
-        state = reshard_state(state, specs, old_mesh, new_mesh)
-    else:
-        state = reshard_state(state, specs, old_mesh, new_mesh, abstract,
-                              device)
+    same = procs.same_group(old_mesh.group, new_mesh.group)
+    if same and new_mesh.is_spare:          # a spare of both: nothing moves
+        return None, None
+    state = reshard_state(state, specs, old_mesh, new_mesh, abstract, device)
+    if not same:
         root = procs.root_of(old_mesh.group) or procs.root_of(new_mesh.group)
         step = root.broadcast_host(step or 0, old_mesh.members[0])
     if new_mesh.is_spare:

@@ -46,11 +46,13 @@ it, a *spare* (`Spare`, `ZoneMesh.is_spare`): reading its rank or making
 an exchange there raises.  `Pool.rescale` / `elastic.reshard_state`
 move a pool between two meshes of one world — the same group, or two
 subgroups of it, which changes the process count (`Pool.join` on a
-process that was a spare); the rows that change owner go point to point
-(`send_recv`).  What stays refused: a move between meshes with no common
-parent group (a one-process zone and a split one, `refuse_regroup`), a
-W that does not divide G (`ZoneMesh`), a `PoolGroup.rescale` that changes
-the process count, a split server whose batch G does not divide, a split
+process that was a spare); `PoolGroup.rescale` / `PoolGroup.join` move a
+group of tenants so; the rows that change owner go point to point
+(`send_recv`), and so do a chaos snapshot restored onto another mesh and
+a golden run's final blocks.  What stays refused: a move between meshes
+with no common parent group (a one-process zone and a split one,
+`refuse_regroup`), a W that does not divide G (`ZoneMesh`), a split
+server whose batch G does not divide, a split
 trainer whose microbatches W does not divide (runtime/), and an NCCL
 group (NCCL, one card a process, is slice S7d): only gloo groups are
 zone groups.
@@ -145,13 +147,15 @@ class ZoneGroup:
                 if self.rank in members else None)
         return self._subs[members]
 
-    def broadcast_host(self, value: int, src: int) -> int:
-        """An int held by process `src` on every process (a host value
-        such as a step counter; not counted, like `barrier`)."""
-        t = torch.tensor([int(value)], dtype=torch.int64)
-        dist.broadcast(t, src=dist.get_global_rank(self.pg, src),
-                       group=self.pg)
-        return int(t)
+    def broadcast_host(self, value, src: int):
+        """A host value held by process `src` on every process: an int
+        such as a step counter, or any picklable value such as a group's
+        tenant table (the others pass None; not counted, like
+        `barrier`)."""
+        box = [value]
+        dist.broadcast_object_list(
+            box, src=dist.get_global_rank(self.pg, src), group=self.pg)
+        return box[0]
 
     def send_recv(self, sends: dict, recvs: dict, device) -> dict:
         """Point-to-point exchanges of byte buffers over this group: `sends`

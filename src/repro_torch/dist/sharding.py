@@ -62,6 +62,9 @@ class P(tuple):
     def __new__(cls, *entries):
         return super().__new__(cls, entries)
 
+    def __getnewargs__(self):
+        return tuple(self)                # pickled as P(*entries)
+
     def __repr__(self) -> str:
         return f"P{tuple.__repr__(self)}"
 

@@ -1101,10 +1101,12 @@ class Pool(EngineHost):
         both G) or over another subgroup of its world
         (`sharding.split_mesh`): every process of the world calls this, or
         `Pool.join` where it holds no pool of the old mesh; only the rows
-        that change owner move, and the step counter is sent to the
-        newcomers.  On a process that leaves (a spare of `new_mesh`) it
-        returns None, and this pool is not used again.  A move between a
-        one-process zone and a split one is refused."""
+        that change owner move (none of a data-sharded leaf over one
+        group, where no process gathers the global state), and the step
+        counter is sent to the newcomers.  On a process that leaves (a
+        spare of `new_mesh`) it returns None, and this pool is not used
+        again.  A move between a one-process zone and a split one is
+        refused."""
         if self.prot is None:
             raise RuntimeError("Pool.rescale before init()")
         procs.refuse_regroup(self.mesh, new_mesh)
@@ -1127,19 +1129,21 @@ class Pool(EngineHost):
     @classmethod
     def join(cls, old_mesh: sharding.ZoneMesh, new_mesh: sharding.ZoneMesh,
              abstract_state: PyTree, state_specs: PyTree,
-             config: Optional[ProtectConfig] = None, **kw) -> Optional["Pool"]:
+             config: Optional[ProtectConfig] = None, *,
+             into: Optional["Pool"] = None, **kw) -> Optional["Pool"]:
         """`rescale`'s counterpart on a process that is a spare of
         `old_mesh` (it holds no pool there): take part in the move of the
         old mesh's pools onto `new_mesh` and return this process's pool of
-        it (opened with `config` and `Pool`'s keywords), or None where it
-        is a spare of `new_mesh` too.  Every process of the world calls
+        it — `into`, a cold pool already built for `new_mesh`, or one
+        opened with `config` and `Pool`'s keywords —, or None where it is
+        a spare of `new_mesh` too.  Every process of the world calls
         `rescale` or this, in the same order."""
         if not old_mesh.is_spare:
             raise ValueError("a process that holds a pool of the old mesh "
                              "moves it with pool.rescale")
         procs.refuse_regroup(old_mesh, new_mesh)
-        into = (None if new_mesh.is_spare else
-                cls(new_mesh, abstract_state, state_specs, config, **kw))
+        if into is None and not new_mesh.is_spare:
+            into = cls(new_mesh, abstract_state, state_specs, config, **kw)
         device = (into.device if into is not None
                   else utils.resolve_device(kw.get("device")))
         _, prot = elastic.move(None, state_specs, old_mesh, new_mesh,

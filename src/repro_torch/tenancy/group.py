@@ -52,6 +52,10 @@ and the quarantine, which follows the caller's `recover` (a global
 argument), so every process stacks the same tenants in every wave.  A
 wave through the ring has landed when `commit_async` returns, as a split
 pool's ticket has.  `evict` returns the global state (a collective).
+`rescale` moves the group onto a mesh over its own group or over
+another subgroup of its world (the process count changes; `join` on a
+process outside the old mesh), every process admitting the tenants of
+the table the old mesh's first process sends.
 """
 from __future__ import annotations
 
@@ -744,38 +748,67 @@ class PoolGroup:
         self._quarantined.discard(tid)
         self.scheduler.set_quarantined(tid, False)
 
-    def rescale(self, new_mesh) -> "PoolGroup":
+    def _table(self) -> dict:
+        """What a fresh group on another mesh is built from, as host values
+        (it crosses the world to the newcomers): the admission and
+        scheduler settings, and each tenant in admission order with its
+        abstract state, specs, config, QoS class and weight."""
+        return {
+            "settings": dict(capacity=self.capacity,
+                             evict_on_full=self.evict_on_full,
+                             scrub_page_budget=self.scheduler.page_budget,
+                             full_scrub_every=self.scheduler.full_every,
+                             pipeline_depth=self.pipeline_depth),
+            "tenants": [(tid, h.pool.abstract_state, h.pool.state_specs,
+                         h.pool.config, h.qos, h.weight)
+                        for tid, h in self._tenants.items()]}
+
+    def rescale(self, new_mesh) -> Optional["PoolGroup"]:
         """Move every tenant to `new_mesh`; returns the new group.  Tenants
         are admitted cold into fresh cohorts built for the new zone
-        geometry, and each pool moves through `Pool.rescale` (flush,
-        bit-exact reshard, protection rebuilt).  The metrics and the trace
-        are shared, so tenant labels survive the move.  A split group moves
-        to a mesh split over its own group (`Pool.rescale`); a move that
-        changes the process count is refused (ROADMAP queue A: the
-        newcomers would need a cold admission of every tenant)."""
-        if not procs.same_group(self.mesh.group, new_mesh.group):
-            procs.refuse_regroup(self.mesh, new_mesh)
-            raise NotImplementedError(
-                f"PoolGroup.rescale from a zone on {self.mesh.world} "
-                f"process(es) to one on {new_mesh.world} changes the process "
-                "set: its tenants would need a cold admission on the "
-                "newcomers (ROADMAP queue A); rescale each Pool, or keep the "
-                "group's processes")
+        geometry, in this group's admission order, and each pool moves
+        through `Pool.rescale` (flush, bit-exact reshard, protection
+        rebuilt); no quarantine carries over.  The metrics and the trace
+        are shared, so tenant labels survive the move.
+
+        A split group moves to a mesh over its own group or over another
+        subgroup of its world (the process count changes): then every
+        process of the world takes part, a member of the old mesh here and
+        any other process in `PoolGroup.join`; the old mesh's first
+        process sends the tenant table (`_table`) to every process, so
+        all admit the same tenants in the same order, and only the rows
+        that change owner move.  A process outside `new_mesh` gets None,
+        and this group is not used again.  A move between a one-process
+        zone and a split one is refused (`procs.refuse_regroup`)."""
+        procs.refuse_regroup(self.mesh, new_mesh)
         self.drain()                   # waves never survive a rescale
-        new = PoolGroup(
-            new_mesh, capacity=self.capacity,
-            evict_on_full=self.evict_on_full,
-            scrub_page_budget=self.scheduler.page_budget,
-            full_scrub_every=self.scheduler.full_every,
-            pipeline_depth=self.pipeline_depth, device=self.device,
-            metrics=self.metrics, tracer=self.tracer)
-        for tid, handle in self._tenants.items():
-            cold = new.admit(tid, handle.pool.abstract_state,
-                             handle.pool.state_specs,
-                             config=handle.pool.config, qos=handle.qos,
-                             weight=handle.weight)
-            handle.pool.rescale(new_mesh, into=cold.pool)
-        return new
+        table = self._table()
+        if not procs.same_group(self.mesh.group, new_mesh.group):
+            table = procs.root_of(self.mesh.group).broadcast_host(
+                table, self.mesh.members[0])
+        return _regroup(table, self.mesh, new_mesh,
+                        {tid: h.pool for tid, h in self._tenants.items()},
+                        device=self.device, metrics=self.metrics,
+                        tracer=self.tracer)
+
+    @classmethod
+    def join(cls, old_mesh, new_mesh, *, device=None,
+             metrics: Optional[MetricsRegistry] = None,
+             tracer: Optional[Tracer] = None) -> Optional["PoolGroup"]:
+        """`rescale`'s counterpart on a process that is a spare of
+        `old_mesh` (it holds no group there): receive the tenant table,
+        take part in every tenant's move and return this process's group
+        on `new_mesh` (on `device`, publishing into `metrics` and
+        `tracer`), or None where it is a spare of `new_mesh` too."""
+        if not old_mesh.is_spare:
+            raise ValueError("a process that holds a group of the old mesh "
+                             "moves it with group.rescale")
+        procs.refuse_regroup(old_mesh, new_mesh)
+        table = procs.root_of(old_mesh.group).broadcast_host(
+            None, old_mesh.members[0])
+        return _regroup(table, old_mesh, new_mesh, None,
+                        device=utils.resolve_device(device),
+                        metrics=metrics, tracer=tracer)
 
     # -- telemetry ----------------------------------------------------------
 
@@ -806,3 +839,25 @@ class PoolGroup:
                 worst = status
         return {"status": worst, "per_tenant": per,
                 "quarantined": sorted(self._quarantined)}
+
+
+def _regroup(table: dict, old_mesh, new_mesh, pools: Optional[dict], *,
+             device, metrics, tracer) -> Optional[PoolGroup]:
+    """The move of `PoolGroup.rescale` / `join`: a fresh group on
+    `new_mesh` (None on a spare of it) with `table`'s settings, each tenant
+    admitted cold in `table`'s order and its pool moved into it — from
+    `pools` (this process's, on a member of the old mesh) by
+    `Pool.rescale`, else by `Pool.join`."""
+    new = (None if new_mesh.is_spare else
+           PoolGroup(new_mesh, device=device, metrics=metrics, tracer=tracer,
+                     **table["settings"]))
+    for tid, abstract, specs, config, qos, weight in table["tenants"]:
+        cold = (None if new is None else
+                new.admit(tid, abstract, specs, config=config, qos=qos,
+                          weight=weight).pool)
+        if pools is not None:
+            pools[tid].rescale(new_mesh, into=cold)
+        else:
+            Pool.join(old_mesh, new_mesh, abstract, specs, config,
+                      into=cold, device=device)
+    return new

@@ -144,7 +144,8 @@ class _Shifted(ZoneMesh):
         return ((self.proc_rank + 1) % self.world) * self.local_group_size
 
 
-def _reshard_wrong_offset(state, specs, old_mesh, new_mesh):
+def _reshard_wrong_offset(state, specs, old_mesh, new_mesh, abstract=None,
+                          device=None):
     """`elastic.reshard_state` keeping the next process's block."""
     shifted = copy.copy(new_mesh)
     shifted.__class__ = _Shifted

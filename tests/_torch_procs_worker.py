@@ -158,11 +158,12 @@ def refusal_worker(group):
     """What a zone split over `group` runs and refuses: {case: (error
     type, message), or None where nothing was raised}.  The deferred
     engine, the ring, a staged canary, PoolGroup, a rescale and a reshard
-    onto a mesh split over the same group, a Server whose batch G divides
-    and a Trainer whose microbatches W divides run there; a rescale onto
-    a mesh with no common parent group (one process), a PoolGroup
-    rescale that changes the process count, a batch that G does not
-    divide and microbatches that W does not divide are refused."""
+    onto a mesh split over the same group, a PoolGroup rescale that
+    changes the process count, a Server whose batch G divides and a
+    Trainer whose microbatches W divides run there; a rescale or a
+    PoolGroup rescale onto a mesh with no common parent group (one
+    process), a batch that G does not divide and microbatches that W does
+    not divide are refused."""
     from repro_torch.configs.base import ModelConfig, TrainConfig
     from repro_torch.core.epoch import DeferredProtector
     from repro_torch.dist import elastic
@@ -209,6 +210,8 @@ def refusal_worker(group):
         "pool_group_regroup": _refused(lambda: PoolGroup(
             mesh, device="cpu").rescale(split_mesh((2, 2), axes, group,
                                                    (0,)))),
+        "pool_group_one_process": _refused(lambda: PoolGroup(
+            mesh, device="cpu").rescale(ZoneMesh((2, 2), axes))),
         "server_batch": _refused(lambda: server(2)),
         "trainer_microbatches": _refused(lambda: trainer(1)),
         "indivisible": _refused(lambda: ZoneMesh((3, 1), axes,

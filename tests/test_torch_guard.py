@@ -2,7 +2,7 @@
 scripts (scripts/torch_*.py) and examples (examples/torch_*.py), and the
 split-zone tests' worker code (tests/_torch_procs_worker.py,
 tests/_torch_procs_window_worker.py, tests/_torch_procs_hosts_worker.py,
-tests/_torch_procs_chaos_worker.py)
+tests/_torch_procs_chaos_worker.py, tests/_torch_procs_regroup_worker.py)
 import neither JAX nor the reference; every configuration the reference accepts
 opens a pool (none is refused or downgraded), and rescale runs; a
 multi-rank loss beyond the redundancy is refused; and the pool's default
@@ -25,7 +25,8 @@ PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
                  ROOT / "tests" / "_torch_procs_worker.py",
                  ROOT / "tests" / "_torch_procs_window_worker.py",
                  ROOT / "tests" / "_torch_procs_hosts_worker.py",
-                 ROOT / "tests" / "_torch_procs_chaos_worker.py"]
+                 ROOT / "tests" / "_torch_procs_chaos_worker.py",
+                 ROOT / "tests" / "_torch_procs_regroup_worker.py"]
               + sorted((ROOT / "scripts").glob("torch_*.py"))
               + sorted((ROOT / "examples").glob("torch_*.py")))
 

@@ -53,24 +53,25 @@ def test_spawn_zone_raises_for_a_failed_or_hung_worker(kind, match):
 def test_split_mesh_refusals():
     """On a split mesh the deferred engine, the ring, a staged canary,
     PoolGroup, a rescale and a reshard onto a mesh split over the same
-    group, a Server and a Trainer run; what stays refused raises, each by
-    its message: a rescale onto a one-process mesh (no common parent
-    group), a PoolGroup rescale that changes the process count, a batch
-    that G does not divide (`batch % G`), microbatches that W does not
-    divide (`microbatches % W`), and a W that does not divide G."""
+    group, a PoolGroup rescale that changes the process count (2 -> 1 of
+    the two), a Server and a Trainer run; what stays refused raises, each
+    by its message: a rescale or a PoolGroup rescale onto a one-process
+    mesh (no common parent group), a batch that G does not divide (`batch
+    % G`), microbatches that W does not divide (`microbatches % W`), and a
+    W that does not divide G."""
     out = procs.spawn_zone(worker.refusal_worker, 2, timeout=120)
     for got in out:
         for what in ("window", "pipeline_depth", "staged_canary",
                      "deferred", "pool_group", "rescale", "reshard",
-                     "server", "trainer"):
+                     "pool_group_regroup", "server", "trainer"):
             assert got[what] is None, (what, got[what])
         for what, kind, match in (
                 ("rescale_regroup", "NotImplementedError",
                  "from a zone on 2 process(es) to one on 1 whose meshes "
                  "have no common parent group"),
-                ("pool_group_regroup", "NotImplementedError",
-                 "changes the process set: its tenants would need a cold "
-                 "admission on the newcomers (ROADMAP queue A)"),
+                ("pool_group_one_process", "NotImplementedError",
+                 "from a zone on 2 process(es) to one on 1 whose meshes "
+                 "have no common parent group"),
                 ("server_batch", "ValueError", "batch % G = 2 % 4 = 2"),
                 ("trainer_microbatches", "ValueError",
                  "microbatches % W = 1 % 2 = 1"),
