@@ -288,7 +288,8 @@
         sequence on `model`: every leaf but the slot positions is dirty
         whole every step, so every commit is bulk (the footprint and the
         path recorded);
-   b — 32 + 32 tokens at mlpc r = 1, window 1, depth 1, clocked: decode,
+   b — 16 + 16 tokens (halved to make room for mv) at mlpc r = 1,
+        window 1, depth 1, clocked: decode,
         zone copies, commit, scrub and the footprint's host time a step;
         equal to a fresh open;
    c — unprotected: b's tokens;
@@ -299,7 +300,7 @@
         2^-4 of the largest;
    d — a word of each leaf scribbled in rank 0 after prefill, scrubbed and
         repaired: the row equals b's there;
-   e — rank 1 lost 16 tokens later and recovered (the row equals b's),
+   e — rank 1 lost 8 tokens later and recovered (the row equals b's),
         on to the end: b's tokens and final row, checksums and digest;
    f — r = 3, window 4 (the deferred engine), depth 4 through the loss of
         ranks 0, 1 and 3 two commits into a window: b's tokens and final
@@ -329,7 +330,8 @@
    2048 (off every state axis), block_words 256, on (4, 2): its
    2,826,242,688 B recurrent state (mLSTM C, n, m, conv history; sLSTM
    c, n, h, m) in a Pool, rewritten whole every token, so every commit
-   is bulk and streamed.  a start; b 32 + 32 tokens at r = 1, clocked;
+   is bulk and streamed.  a start; b 16 + 16 tokens (halved to make
+   room for mv) at r = 1, clocked;
    c unprotected, b's tokens; h b's tokens teacher-forced through the
    served bf16 decode at all 48 blocks against an f32 forward that steps
    the recurrence a position at a time (`plain_mlstm`, `plain_slstm`),
@@ -351,6 +353,22 @@
    phases of xs; h against an f32 forward whose routed FFN loops over
    experts (`plain_moe`), every choice kept as a decode step keeps them,
    the share of expert choices the two routers make alike held to 0.9.
+15a. The moe served at its largest (mv): llama4-maverick-400b-a17b at
+   its published width (d_model 5120, 40 heads of 128 over 8 KV heads,
+   128 experts of 8192, top-1 + shared, vocab 202,048), one ("dense",
+   "moe") group of its 24 (18,553,267,200 parameters, 37.1 GB in bf16,
+   the attention as rg's), batch 64 (the reference's decode_32k global
+   batch of 128 halved: at 128 the path's peak on an H100 80GB HBM3 at
+   700 W was 77.2 GB reserved),
+   max_len 2048, (4, 2), block_words 256: a 1,073,741,824 B KV cache on
+   the patch path.  The phases of mo; the expert stacks are
+   widened to f32 a block of experts at a time (`moe.EXPERT_BLOCK_BYTES`)
+   and h's f32 forward widens a layer, and an expert, as it runs.  h
+   compares 32 sequences a pass; its f32 forward sends each token to the
+   expert the decode chose (top-1: a choice that differs swaps the whole
+   routed output), the share of choices its own router makes alike held
+   to 0.9 and the ones that differ counted.  Each phase prints its peak
+   reserved memory.
 16. The moe trained (mt): moonshot's train step at full width and two
    layers (checkpointed groups), seq 1024 x batch 1, routed in the (4,
    2) mesh's four groups (capacity 30 an expert), aux losses weighed in,
@@ -1186,7 +1204,7 @@ class PathRun:
     def __init__(self, dev, tag):
         from repro_torch.kernels import _build
         self.build, self.dev, self.tag = _build, dev, tag
-        self.peak = 0
+        self.peak = self.peak_reserved = 0
         # an earlier path's runtimes and their step clocks refer to each
         # other: only the cycle collector lets go of their tensors
         gc.collect()
@@ -1201,8 +1219,7 @@ class PathRun:
         (fn's result, the phase's launches)."""
         before = dict(self.build.LAUNCHES)
         torch.cuda.synchronize()
-        self.peak = max(self.peak, torch.cuda.max_memory_allocated(self.dev))
-        torch.cuda.reset_peak_memory_stats(self.dev)
+        self.peaks()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -1213,8 +1230,17 @@ class PathRun:
                     if v - before.get(k, 0)}
         (inv or invariants)(out if pool is None else pool, tag)
         emit(path=self.tag, phase=tag, ms=ms, launches=launched,
-             max_memory_allocated=peak)
+             max_memory_allocated=peak,
+             max_memory_reserved=torch.cuda.max_memory_reserved(self.dev))
         return out, launched
+
+    def peaks(self):
+        """Fold the peaks since the last reset into the path's, and reset
+        them."""
+        self.peak = max(self.peak, torch.cuda.max_memory_allocated(self.dev))
+        self.peak_reserved = max(self.peak_reserved,
+                                 torch.cuda.max_memory_reserved(self.dev))
+        torch.cuda.reset_peak_memory_stats(self.dev)
 
     def aside(self, fn):
         """Run `fn` (a comparison, not the path) with its launches
@@ -1230,10 +1256,13 @@ class PathRun:
         """`aside`, timed as a phase is (host ms ending in a synchronize):
         a comparison run whose wall is reported beside the path's."""
         torch.cuda.synchronize()
+        self.peaks()
         t0 = time.perf_counter()
         out = self.aside(fn)
         emit(path=self.tag, phase=tag, ms=(time.perf_counter() - t0) * 1e3,
-             launches="not counted (a comparison)")
+             launches="not counted (a comparison)",
+             max_memory_allocated=torch.cuda.max_memory_allocated(self.dev),
+             max_memory_reserved=torch.cuda.max_memory_reserved(self.dev))
         return out
 
     def end(self, must_launch):
@@ -1242,9 +1271,9 @@ class PathRun:
         missing = [k for k in must_launch if not counts.get(k)]
         check(not missing, f"{self.tag}: entry points never launched on "
               f"the path: {missing}")
-        peak = max(self.peak, torch.cuda.max_memory_allocated(self.dev))
-        emit(path=self.tag, phase="memory", max_memory_allocated=peak,
-             launches=counts)
+        self.peaks()
+        emit(path=self.tag, phase="memory", max_memory_allocated=self.peak,
+             max_memory_reserved=self.peak_reserved, launches=counts)
         return counts
 
 
@@ -3639,8 +3668,7 @@ class CallProbe:
             # check (the plain version's temporaries) reported with it
             name, args, kw = self.calls.pop(kernel)
             self.done.add(kernel)
-            run.peak = max(run.peak, torch.cuda.max_memory_allocated(run.dev))
-            torch.cuda.reset_peak_memory_stats(run.dev)
+            run.peaks()
             args = tuple(a.to(run.dev) if isinstance(a, torch.Tensor) else a
                          for a in args)
             got = run.aside(lambda: getattr(ops, name)(*args, **kw))
@@ -3957,15 +3985,19 @@ def plain_slstm(c, x):
                       c["outnorm"]) @ c["w_out"]
 
 
-def plain_moe(f, h, cfg, groups=None, record=None):
+def plain_moe(f, h, cfg, groups=None, record=None, follow=None):
     """A routed-expert FFN in f32, apart from the port: softmax router,
     top k, gates renormalized; each expert's MLP on the tokens that chose
-    it, gate-weighted and summed; the shared expert.  `groups`: a train
-    step's routing groups, each keeping an expert's first ceil(Tg k / E x
-    capacity_factor) choices in (token, rank) order; None keeps every
-    choice (a decode step's capacity is its whole group).  `record`: a
-    list the (top k indices, kept mask) are appended to.  Returns (out,
-    aux: the load-balance and router-z terms)."""
+    it, gate-weighted and summed; the shared expert.  An expert's weights
+    are widened to f32 (exact) when its MLP runs, so a stack is never
+    widened whole.  `groups`: a train step's routing groups, each keeping
+    an expert's first ceil(Tg k / E x capacity_factor) choices in (token,
+    rank) order; None keeps every choice (a decode step's capacity is its
+    whole group).  `record`: a list the (top k indices, kept mask) are
+    appended to.  `follow`: (T, k) expert indices the tokens go to in
+    place of the router's own top k (every choice kept), which `record`
+    still gets.  Returns (out, aux: the load-balance and router-z
+    terms)."""
     F = torch.nn.functional
     m = cfg.moe
     E, K = m.num_experts, m.top_k
@@ -3983,6 +4015,9 @@ def plain_moe(f, h, cfg, groups=None, record=None):
         keep = (rank < cap).reshape(T, K)
     if record is not None:
         record.append((idx, keep))
+    if follow is not None:
+        check(groups is None, "plain_moe: follow keeps every choice")
+        idx = follow.to(idx.device)
     gate = probs.gather(1, idx)
     gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
     out = torch.zeros_like(x)
@@ -3990,8 +4025,10 @@ def plain_moe(f, h, cfg, groups=None, record=None):
         tok, j = ((idx == e) & keep).nonzero(as_tuple=True)
         if tok.numel():
             xe = x[tok]
-            ye = (F.silu(xe @ f["wg"][e]) * (xe @ f["wi"][e])) @ f["wo"][e]
+            wi, wg, wo = (f[n][e].float() for n in ("wi", "wg", "wo"))
+            ye = (F.silu(xe @ wg) * (xe @ wi)) @ wo
             out = out.index_add(0, tok, ye * gate[tok, j, None])
+            del wi, wg, wo
     out = out.reshape(B, S, D)
     if m.shared_expert:
         s = f["shared"]
@@ -4018,9 +4055,29 @@ def plain_blocks(cfg, params):
     return out
 
 
+EXPERT_STACKS = ("wi", "wg", "wo")     # a moe block's (E, ., .) weights
+
+
+def plain_layer(t, p):
+    """A layer's weights as the plain forward runs them: widened to f32
+    (exact from bf16) as the layer runs, so a model's weights are never
+    widened whole; a moe block's expert stacks are left to `plain_moe`,
+    which widens them an expert at a time.  f32 leaves stay the same
+    tensors."""
+    from repro_torch import utils
+    if t != "moe":
+        return utils.tree_map(lambda w: w.float(), p)
+    f = p["ffn"]
+    out = utils.tree_map(lambda w: w.float(), dict(p, ffn={
+        k: v for k, v in f.items() if k not in EXPERT_STACKS}))
+    out["ffn"].update({k: f[k] for k in EXPERT_STACKS})
+    return out
+
+
 def plain_hidden(cfg, params, seq, *, mm=None, src=None, causal=True,
                  theta=None, kv_roll=0, mlstm_chunk=None, moe_groups=None,
-                 aux=None, record=None, enc_causal=False, cross=True):
+                 aux=None, record=None, follow=None, enc_causal=False,
+                 cross=True):
     """An f32 forward of the whole token sequence to the final norm, apart
     from the port's model code: no cache, no chunking, no checkpointing;
     attention by `scaled_dot_product_attention` with query head h on KV
@@ -4030,14 +4087,17 @@ def plain_hidden(cfg, params, seq, *, mm=None, src=None, causal=True,
     rows.  `src`: an encoder-decoder's source embeddings (B, S_src, D),
     run through the encoder (attention with no mask, rope from 0..S_src-1)
     and its norm; each decoder layer then attends to the tokens causally
-    and to the encoder's output with no mask and no rope.  `params`: f32
-    weights.  The keywords plant a fault for the checks' own tests: no
-    causal mask, another rope θ, every query head on the next KV head, a
-    causal encoder, no cross attention.  The xLSTM blocks by
+    and to the encoder's output with no mask and no rope.  `params`: the
+    weights at their own dtypes, each layer's widened to f32 as it runs
+    (`plain_layer`).  The keywords plant a fault for the checks' own
+    tests: no causal mask, another rope θ, every query head on the next KV
+    head, a causal encoder, no cross attention.  The xLSTM blocks by
     `plain_mlstm` (stepped, or in chunks of `mlstm_chunk`) and
     `plain_slstm`; a moe block's FFN by `plain_moe` (routed in
     `moe_groups`; `record`: a list each moe layer's choices are appended
-    to), its aux terms appended to `aux`.  (B, S) -> (B, S + P, D)."""
+    to; `follow`: a list of each moe layer's expert indices to route by,
+    taken in layer order), its aux terms appended to `aux`.  (B, S) ->
+    (B, S + P, D)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch import utils
     F = torch.nn.functional
@@ -4048,7 +4108,7 @@ def plain_hidden(cfg, params, seq, *, mm=None, src=None, causal=True,
     half = hd // 2
     theta = cfg.rope_theta if theta is None else theta
 
-    x = params["embed"]["tok"][seq.long()]
+    x = params["embed"]["tok"][seq.long()].float()
     if mm is not None:
         x = torch.cat([mm.float(), x], 1)
     S = x.shape[1]
@@ -4097,14 +4157,15 @@ def plain_hidden(cfg, params, seq, *, mm=None, src=None, causal=True,
     if cfg.enc_layers:
         enc = src.float()
         for i in range(cfg.enc_layers):
-            p = utils.tree_map(lambda w: w[i],
+            p = utils.tree_map(lambda w: w[i].float(),
                                params["enc_groups"]["b0_enc"])
             h = plain_norm(enc, p["ln1"]["scale"])
             enc = enc + attention(p["attn"], h, None, causal=enc_causal)
             enc = enc + mlp(p["ffn"], plain_norm(enc, p["ln2"]["scale"]))
-        enc = plain_norm(enc, params["enc_norm"]["scale"])
+        enc = plain_norm(enc, params["enc_norm"]["scale"].float())
 
     for t, p in plain_blocks(cfg, params):
+        p = plain_layer(t, p)
         if t == "mlstm":
             x = x + plain_mlstm(p["cell"], x, mlstm_chunk)
             continue
@@ -4122,41 +4183,47 @@ def plain_hidden(cfg, params, seq, *, mm=None, src=None, causal=True,
         h = plain_norm(x, p["ln2"]["scale"])
         f = p["ffn"]
         if t == "moe":
-            y, a = plain_moe(f, h, cfg, moe_groups, record)
+            y, a = plain_moe(f, h, cfg, moe_groups, record,
+                             None if follow is None else follow.pop(0))
             x = x + y
             if aux is not None:
                 aux.append(a)
             continue
         x = x + mlp(f, h)
-    return plain_norm(x, params["final_norm"]["scale"])
+    return plain_norm(x, params["final_norm"]["scale"].float())
 
 
 def plain_logits(params, x):
     """f32 logits of hidden states: the untied unembedding, or the token
-    table's transpose."""
+    table's transpose, widened to f32."""
     emb = params["embed"]
-    return x @ (emb["unembed"] if "unembed" in emb else emb["tok"].T)
+    return x @ (emb["unembed"].float() if "unembed" in emb
+                else emb["tok"].float().T)
 
 
 def sv_plain_logits(cfg, params, seq, **kw):
     """`plain_hidden` unembedded: (B, S) -> (B, S, V) f32 logits.
-    `params`: the weights as the server holds them, widened to f32; `kw`:
-    `plain_hidden`'s keywords."""
+    `params`: the weights as the server holds them (each widened to f32
+    where it is used); `kw`: `plain_hidden`'s keywords."""
     return plain_logits(params, plain_hidden(cfg, params, seq, **kw))
 
 
 def sv_decode_logits(model, params, seq, max_len, cross=None):
     """The port's decode, teacher-forced on `seq` from an empty cache of
     `max_len` slots (an encoder-decoder's cross K/V from `cross`): the
-    logits of every step, (B, S, V) f32."""
+    logits of every step, (B, S, V) f32, written into one tensor as they
+    come (no second copy of them all)."""
     cache = model.init_cache(seq.shape[0], max_len, seq.device)
     if cross is not None:
         cache["cross"] = cross
-    out = []
+    out = None
     for t in range(seq.shape[1]):
         logits, cache = model.decode_step(params, seq[:, t], cache, t)
-        out.append(logits)
-    return torch.stack(out, 1)
+        if out is None:
+            out = logits.new_empty((seq.shape[0], seq.shape[1],
+                                    logits.shape[-1]))
+        out[:, t] = logits
+    return out
 
 
 def sv_reference(cfg, params, prompt, toks, max_len, chunk=None,
@@ -4167,12 +4234,15 @@ def sv_reference(cfg, params, prompt, toks, max_len, chunk=None,
     tokens (unless `argmax` is False: a decode at another compute dtype
     than b's), and its logits must be finite and within `bound` of the
     f32 forward, scaled by the largest |logit| (None: measured only).
-    `plain_kw`: `plain_hidden`'s keywords.  `src`: an encoder-decoder's
+    `plain_kw`: `plain_hidden`'s keywords, or a function of a chunk's
+    first and last sequence (lo, hi) that returns them.  The f32 forward
+    runs on the decode's weights, each layer widened as it runs
+    (`plain_layer`), so no f32 copy of the model is made.  `src`: an
+    encoder-decoder's
     source (B, S_src, D), encoded and projected into the decode's cross
     cache as the server's is filled, and run through the f32 encoder.
     Returns the phase line's fields, with each position's largest error
     summed up."""
-    from repro_torch import utils
     from repro_torch.models.transformer import build_model
     model = build_model(cfg)
     cparams = model.compute_params(params)
@@ -4187,18 +4257,15 @@ def sv_reference(cfg, params, prompt, toks, max_len, chunk=None,
     # shape, so a smaller batch need not give the served tokens' bits
     cross = None if src is None else ed_cross(model, cparams, src)
     logits = sv_decode_logits(model, cparams, seq, max_len, cross)
-    # the served weights widened to f32, once the decode has let go of
-    # its own copies
     del cross
-    wide = utils.tree_map(lambda w: w.float(), cparams)
-    del cparams
     for lo in range(0, seq.shape[0], chunk):
         part = seq[lo:lo + chunk]
         got = logits[lo:lo + chunk]
-        kw = dict(plain_kw or {})
+        kw = dict((plain_kw(lo, lo + part.shape[0]) if callable(plain_kw)
+                   else plain_kw) or {})
         if src is not None:
             kw["src"] = src[lo:lo + chunk]
-        want = sv_plain_logits(cfg, wide, part, **kw)
+        want = sv_plain_logits(cfg, cparams, part, **kw)
         check(bool(torch.isfinite(got).all()
                    and torch.isfinite(want).all()), "h: non-finite logits")
         check(not argmax or torch.equal(
@@ -4920,13 +4987,14 @@ RG_OVERRIDES: dict = {}          # config fields replaced (a rehearsal's window)
 RG_MESH = (4, 2)                 # the reference launcher's default mesh
 RG_WIDE_MESH = (8, 1)            # rg g: the cache's sequence axis unsplit
 RG_BATCH = 128                   # the reference's decode_32k global batch
-RG_PROMPT, RG_NEW = 32, 32       # max_len is the window (2048)
+RG_PROMPT, RG_NEW = 16, 16       # max_len is the window (2048); halved
+                                 # from 32, 32 to make room for mv
 RG_BW = 256                      # block_words, as launch/serve.py sets it
 RG_SCRUB = 16
 RG_LOST = 1                      # the rank rg e loses
 RG_MULTI_LOST = (0, 1, 3)        # the ranks rg f loses at once
-RG_EVENT = 16                    # generated tokens before rg e's loss
-RG_F_EVENT = 18                  # before rg f's: two commits into a window
+RG_EVENT = 8                     # generated tokens before rg e's loss
+RG_F_EVENT = 10                  # before rg f's: two commits into a window
 RG_F_WINDOW = 4
 RG_H_CHUNK = 32                  # sequences of rg h's comparison a pass
 PATH_RG = ("fletcher_blocks", "fletcher_stream", "fused_commit",
@@ -5384,10 +5452,10 @@ XS_MESH = (4, 2)
 XS_BATCH = 4
 XS_MAX_LEN = 2048                # off every local state axis (6, 1, 2, 3,
                                  # 512, 1024, 4096): no leaf has a time axis
-XS_PROMPT, XS_NEW = 32, 32
+XS_PROMPT, XS_NEW = 16, 16       # halved from 32, 32 to make room for mv
 XS_BW = 256
 XS_SCRUB = 16
-XS_EVENT, XS_F_EVENT = 16, 18    # generated tokens before e's / f's loss
+XS_EVENT, XS_F_EVENT = 8, 10     # generated tokens before e's / f's loss
 PATH_XS = ("fletcher_blocks", "fletcher_stream", "sdelta_stack",
            "gf_scale")
 XT_LAYERS = 8                    # one group: 7 mLSTM + 1 sLSTM
@@ -5491,31 +5559,74 @@ PATH_MO = ("fletcher_blocks", "fused_commit", "fused_commit_s",
 MT_LAYERS = 2                    # two groups: the layer checkpointing
 MT_SEQ, MT_BATCH = 1024, 1
 MT_MESH = (4, 2)                 # routing in its 4 data-shard groups
+MV_ARCH = "llama4-maverick-400b-a17b"  # at its published width
+MV_REDUCED = False
+MV_LAYERS = 2                    # one ("dense", "moe") group: 37.1 GB
+MV_MESH = (4, 2)
+MV_BATCH = 64                    # the reference's decode_32k global batch
+                                 # (128) halved: at 128 mv's peak on an
+                                 # H100 80GB HBM3 was 77.2 GB reserved
+MV_MAX_LEN = 2048                # a 1,073,741,824 B KV cache
+MV_PROMPT, MV_NEW = 32, 32
+MV_BW = 256
+MV_SCRUB = 16
+MV_EVENT, MV_F_EVENT = 16, 18
+MV_H_CHUNK = 32                  # sequences of mv h's comparison a pass
+PATH_MV = PATH_MO
+
+
+def moe_reference(cfg, params, prompt, toks, max_len, chunk=None,
+                  follow=False):
+    """A moe model's h: b's tokens teacher-forced through the served bf16
+    decode against `sv_plain_logits` (every expert choice kept: a decode
+    step's capacity is its whole group), `chunk` sequences a comparison,
+    within SV_LOGIT_RTOL of the largest logit, its argmax b's tokens; the
+    share of (token, layer) expert choices the bf16 decode and the f32
+    forward make alike, held to ROUTER_AGREEMENT, and the count of those
+    that differ.  `follow`: the f32 forward sends each token to the
+    experts the decode chose (`RouteRecorder`) for the logit bound, while
+    the share is held on the choices its own router makes."""
+    B, S = prompt.shape[0], prompt.shape[1] + toks.shape[1] - 1
+    n_moe = (cfg.n_layers // len(cfg.pattern) * cfg.pattern.count("moe")
+             + cfg.tail_pattern.count("moe"))
+    plain = []
+
+    def kw(lo, hi):
+        """A chunk's keywords: its record and, following, the decode's
+        choices for its sequences, each layer's in (sequence, position)
+        order."""
+        if not follow:
+            return {"record": plain}
+        return {"record": plain, "follow": [torch.stack(
+            [rec.calls[t * n_moe + layer][0][lo:hi] for t in range(S)],
+            1).reshape((hi - lo) * S, -1) for layer in range(n_moe)]}
+    with RouteRecorder() as rec:
+        out = sv_reference(cfg, params, prompt, toks, max_len, chunk=chunk,
+                           plain_kw=kw)
+    steps = [rec.calls[t * n_moe:(t + 1) * n_moe] for t in range(S)]
+    port = [steps[t][layer] for layer in range(n_moe) for t in range(S)]
+    mine = []
+    for layer in range(n_moe):
+        i, k = (torch.cat(x) for x in zip(*plain[layer::n_moe]))
+        mine += [(i.reshape(B, S, -1)[:, t], k.reshape(B, S, -1)[:, t])
+                 for t in range(S)]
+    share = choice_agreement(port, mine)
+    choices = sum(i.numel() for i, _ in port)
+    out = dict(out, routing="the decode's" if follow else "its own",
+               expert_choice_agreement=share,
+               expert_choice_bound=ROUTER_AGREEMENT,
+               expert_choices=choices,
+               expert_choices_differing=round(choices * (1 - share)))
+    check(share >= ROUTER_AGREEMENT,
+          f"h: expert choices made alike {share} "
+          f"(floor {ROUTER_AGREEMENT}): {out}")
+    return out
 
 
 def mo_reference(cfg, params, prompt, toks):
-    """mo h: b's tokens teacher-forced through the served bf16 decode
-    against `sv_plain_logits` (every expert choice kept: a decode step's
-    capacity is its whole group), within SV_LOGIT_RTOL of the largest
-    logit, its argmax b's tokens; the share of (token, layer) expert
-    choices the bf16 decode and the f32 forward make alike, held to
-    ROUTER_AGREEMENT."""
-    plain = []
-    n_moe = cfg.n_layers
-    with RouteRecorder() as rec:
-        out = sv_reference(cfg, params, prompt, toks, MO_MAX_LEN,
-                           plain_kw={"record": plain})
-    B, S = prompt.shape[0], prompt.shape[1] + toks.shape[1] - 1
-    steps = [rec.calls[t * n_moe:(t + 1) * n_moe] for t in range(S)]
-    port = [steps[t][layer] for layer in range(n_moe) for t in range(S)]
-    mine = [(i.reshape(B, S, -1)[:, t], k.reshape(B, S, -1)[:, t])
-            for i, k in plain for t in range(S)]
-    out = dict(out, expert_choice_agreement=choice_agreement(port, mine),
-               expert_choice_bound=ROUTER_AGREEMENT)
-    check(out["expert_choice_agreement"] >= ROUTER_AGREEMENT,
-          f"h: expert choices made alike {out['expert_choice_agreement']} "
-          f"(floor {ROUTER_AGREEMENT}): {out}")
-    return out
+    """mo h: `moe_reference` over every sequence at once, the f32 forward
+    routed by its own router."""
+    return moe_reference(cfg, params, prompt, toks, MO_MAX_LEN)
 
 
 def moe_serving_path(dev):
@@ -5528,6 +5639,30 @@ def moe_serving_path(dev):
         MO_MAX_LEN, MO_PROMPT, MO_NEW, MO_BW, MO_SCRUB, RG_LOST,
         RG_MULTI_LOST, MO_EVENT, MO_F_EVENT, RG_F_WINDOW, "patch", PATH_MO,
         mo_reference))
+
+
+def mv_reference(cfg, params, prompt, toks):
+    """mv h: `moe_reference` MV_H_CHUNK sequences a pass (each pass
+    widens the unembedding, 4.14 GB), the f32 forward on the decode's
+    routes: with one expert a token, a choice the two routers make
+    differently swaps the token's whole routed output, and on its own
+    routes the f32 forward is past SV_LOGIT_RTOL at every such position
+    (`scripts/torch_path_rerun.py mv-h`)."""
+    return moe_reference(cfg, params, prompt, toks, MV_MAX_LEN, MV_H_CHUNK,
+                         follow=True)
+
+
+def maverick_serving_path(dev):
+    """llama4-maverick served at its published width, one ("dense",
+    "moe") group of its 24 (phases mv, as mo's)."""
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(get_config(MV_ARCH, reduced=MV_REDUCED),
+                              n_layers=MV_LAYERS)
+    return served_path(dev, ServeCell(
+        "mv", cfg, lambda: hybrid_params(cfg, dev), MV_MESH, MV_BATCH,
+        MV_MAX_LEN, MV_PROMPT, MV_NEW, MV_BW, MV_SCRUB, RG_LOST,
+        RG_MULTI_LOST, MV_EVENT, MV_F_EVENT, RG_F_WINDOW, "patch", PATH_MV,
+        mv_reference))
 
 
 def moe_step_path(dev):
@@ -5969,6 +6104,7 @@ def main():
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
 
+    t_run = time.perf_counter()
     scratch = tempfile.TemporaryDirectory()
     dr = dryrun_start(scratch.name)
     try:
@@ -5977,6 +6113,7 @@ def main():
         emit(phase="build", ms=(time.perf_counter() - t0) * 1e3,
              sources=list(_build.SOURCES))
         rows = run_paths(dev, dr)
+        emit(phase="total", ms=(time.perf_counter() - t_run) * 1e3)
     finally:
         if dr[0].poll() is None:
             dr[0].kill()
@@ -6007,7 +6144,8 @@ def run_paths(dev, dr):
                "tr": training_path, "rg": hybrid_serving_path,
                "rt": hybrid_training_path, "vl": vlm_path,
                "xs": xlstm_serving_path, "xt": xlstm_training_path,
-               "mo": moe_serving_path, "mt": moe_step_path,
+               "mo": moe_serving_path, "mv": maverick_serving_path,
+               "mt": moe_step_path,
                "es": encdec_serving_path, "et": encdec_training_path,
                "ex": examples_path,
                "dr": lambda d: dryrun_path(d, *dr),

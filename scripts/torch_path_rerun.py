@@ -6,6 +6,7 @@ one GPU.
     python3 scripts/torch_path_rerun.py xt-f32-batch1
     python3 scripts/torch_path_rerun.py xt-lr
     python3 scripts/torch_path_rerun.py decode-bits
+    python3 scripts/torch_path_rerun.py mv-h
 
 `path FN [FN ...]` builds the kernels and runs chip_smoke's path
 functions `FN` in turn (their phase lines as chip_smoke prints them; a
@@ -33,6 +34,12 @@ bf16) against the same step taken four rows at a time, as a server split
 over four processes takes it: whether the logits and the new cache are
 the same bits (chip_smoke's `by_blocks`), and which of the decode's ops
 give other bits by rows (chip_smoke's `zs_op_bits`).
+
+`mv-h`: chip_smoke's mv model (llama4-maverick at full width, one
+("dense", "moe") group) served unprotected at mv's batch and prompt, its
+tokens then held by mv h's check in both forms: the f32 forward routed
+by its own router, then by the decode's choices (`moe_reference`'s
+`follow`).  A form that fails prints its error as a line.
 
 Prints the card's name and power limit first, then one JSON line a phase
 or a run.
@@ -131,10 +138,39 @@ def decode_bits(cs, dev):
     cs.emit(path="decode_bits", **out)
 
 
+def mv_h(cs, dev):
+    from repro_torch import ProtectConfig, ZoneMesh
+    from repro_torch.configs.registry import get_config
+    from repro_torch.runtime.server import Server
+    cfg = dataclasses.replace(get_config(cs.MV_ARCH, reduced=cs.MV_REDUCED),
+                              n_layers=cs.MV_LAYERS)
+    params = cs.hybrid_params(cfg, dev)
+    srv = Server(cfg, ProtectConfig(), ZoneMesh(cs.MV_MESH, ("data", "model")),
+                 batch=cs.MV_BATCH, max_len=cs.MV_MAX_LEN,
+                 protect_cache=False, device=dev)
+    srv.start(params)
+    prompt = torch.randint(0, cfg.vocab, (cs.MV_BATCH, cs.MV_PROMPT),
+                           generator=torch.Generator(dev).manual_seed(
+                               cs.SEED + 1), device=dev)
+    toks = srv.generate(prompt, cs.MV_NEW)
+    del srv
+    for follow in (False, True):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            out = cs.moe_reference(cfg, params, prompt, toks, cs.MV_MAX_LEN,
+                                   cs.MV_H_CHUNK, follow=follow)
+        except AssertionError as err:
+            out = {"error": str(err)[:4000]}
+        cs.emit(path="mv_h", follow=follow,
+                max_memory_reserved=torch.cuda.max_memory_reserved(dev),
+                **out)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("what", choices=("path", "xt-f32-batch1", "xt-lr",
-                                     "decode-bits"))
+                                     "decode-bits", "mv-h"))
     ap.add_argument("fn", nargs="*", help="chip_smoke's path functions")
     ap.add_argument("--root", default=ROOT)
     args = ap.parse_args()
@@ -163,6 +199,8 @@ def main():
             sys.exit(f"torch_path_rerun: failed: {', '.join(failed)}")
     elif args.what == "decode-bits":
         decode_bits(cs, dev)
+    elif args.what == "mv-h":
+        mv_h(cs, dev)
     elif args.what == "xt-f32-batch1":
         xt_f32_batch1(cs, dev)
     else:

@@ -24,6 +24,11 @@ dispatch gather's gradient (a token's k copies) sums through
 `layers._RowGather`, and the combine adds each token's k contributions in
 the order the reference's scatter-add meets them (the sorted order:
 expert index ascending) through a (T, k, D) view.
+
+The expert stacks are widened to f32 for the gate and up products a block
+of experts at a time, each block's copy under `EXPERT_BLOCK_BYTES`:
+maverick's stacks are 21.47 GB each in f32, moonshot's 0.74 GB (one
+block).  Each expert's product is the same in any block.
 """
 from __future__ import annotations
 
@@ -136,12 +141,38 @@ def _combine_group(y: torch.Tensor, slot: torch.Tensor, order: torch.Tensor,
     return out
 
 
+# the most bytes of expert weights one product widens to f32 at once
+EXPERT_BLOCK_BYTES = 2 << 30
+
+
 def _expert_mm(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(G, E, C, X) @ (E, X, Y) -> (G, E, C, Y), one product an expert
     (no copy of the weights a group)."""
     G, E, C, X = h.shape
     out = torch.bmm(h.transpose(0, 1).reshape(E, G * C, X), w)
     return out.reshape(E, G, C, -1).transpose(0, 1)
+
+
+def _expert_blocks(w: torch.Tensor) -> list:
+    """Slices of a stack's expert axis, each block's f32 copy at most
+    EXPERT_BLOCK_BYTES (one expert at least)."""
+    E = w.shape[0]
+    n = max(1, EXPERT_BLOCK_BYTES // (4 * math.prod(w.shape[1:])))
+    return [slice(lo, min(lo + n, E)) for lo in range(0, E, n)]
+
+
+def _experts(p: dict, h: torch.Tensor, dt) -> torch.Tensor:
+    """Every expert's MLP on its dispatch rows, h (G, E, C, D) -> (G, E,
+    C, D): the gate and up products kept in f32, the down product's
+    rounded to the compute dtype, as the reference's."""
+    out = []
+    for sl in _expert_blocks(p["wi"]):
+        hb = h[:, sl]
+        a = _expert_mm(hb.float(), p["wi"][sl].to(dt).float())
+        gt = _expert_mm(hb.float(), p["wg"][sl].to(dt).float())
+        out.append(_expert_mm((torch.nn.functional.silu(gt) * a).to(dt),
+                              p["wo"][sl].to(dt)))
+    return out[0] if len(out) == 1 else torch.cat(out, 1)
 
 
 def apply_moe(p: dict, x: torch.Tensor, cfg, mesh=None) -> tuple:
@@ -162,12 +193,7 @@ def apply_moe(p: dict, x: torch.Tensor, cfg, mesh=None) -> tuple:
     (h, slot, _, flat_gate, order, keep, probs, flat_expert,
      logits) = _route_group(x.reshape(G, Tg, D), p["router"], E, k,
                             capacity, dt)
-    # the gate and up products kept in f32, the down product's rounded to
-    # the compute dtype, as the reference's
-    a = _expert_mm(h.float(), p["wi"].to(dt).float())
-    gt = _expert_mm(h.float(), p["wg"].to(dt).float())
-    y = _expert_mm((torch.nn.functional.silu(gt) * a).to(dt),
-                   p["wo"].to(dt))
+    y = _experts(p, h, dt)
     out = _combine_group(y, slot, order, flat_gate, k, dt)
     out = out.to(x.dtype).reshape(B, S, D)
     if m.shared_expert:

@@ -88,7 +88,9 @@ def _init_one(d: ParamDef, gen: torch.Generator, device) -> torch.Tensor:
         raise ValueError(d.init)
     x = torch.randn(d.shape, generator=gen, dtype=torch.float32,
                     device=device)
-    return (x * std).to(dt)
+    # scaled in place: the bits of `(x * std).to(dt)` without a second
+    # f32 copy of the leaf (21.47 GB for one of maverick's expert stacks)
+    return x.mul_(std).to(dt)
 
 
 def init_params(defs: PyTree, gen: torch.Generator, device=None) -> PyTree:
