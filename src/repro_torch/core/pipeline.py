@@ -32,6 +32,8 @@ from typing import Any, Callable, List, Optional
 
 import torch
 
+from repro_torch.obs.trace import layer
+
 
 def _device_event(ok: Any) -> Optional["torch.cuda.Event"]:
     """An event recorded now on the current stream of a CUDA verdict's
@@ -183,8 +185,10 @@ class CommitRing:
 
     def submit(self, ticket: CommitTicket) -> CommitTicket:
         """Enqueue; force-resolves the oldest ticket when full."""
-        while len(self._inflight) >= self.depth:
-            self._inflight.pop(0).result()
+        if len(self._inflight) >= self.depth:
+            with layer("ring.wait"):
+                while len(self._inflight) >= self.depth:
+                    self._inflight.pop(0).result()
         self._inflight.append(ticket)
         self._note_depth()
         return ticket
@@ -203,8 +207,10 @@ class CommitRing:
     def drain(self) -> List[CommitTicket]:
         """Resolve every in-flight ticket, in dispatch order."""
         done, self._inflight = self._inflight, []
-        for t in done:
-            t.result()
+        if done:
+            with layer("ring.wait"):
+                for t in done:
+                    t.result()
         self._note_depth()
         return done
 

@@ -56,6 +56,7 @@ from repro_torch.dist import collectives as coll
 from repro_torch.dist import sharding as shd
 from repro_torch.dist.sharding import P, ZoneMesh
 from repro_torch.kernels import ops as kops
+from repro_torch.obs.trace import layer
 
 PyTree = Any
 
@@ -540,14 +541,16 @@ class Protector:
         """The commit function for one (dirty set, verify) key — the
         reference's cache key less `donate`: this slice builds every
         successor functionally, never in place."""
-        key = ("commit",
-               tuple(int(p) for p in dirty_pages)
-               if dirty_pages is not None else None,
-               bool(verify_old))
-        if key not in self._programs:
-            self._programs[key] = self.make_commit(dirty_pages=dirty_pages,
-                                                   verify_old=verify_old)
-        return self._programs[key]
+        with layer("txn.commit_program"):
+            key = ("commit",
+                   tuple(int(p) for p in dirty_pages)
+                   if dirty_pages is not None else None,
+                   bool(verify_old))
+            if key not in self._programs:
+                with layer("txn.commit_build"):
+                    self._programs[key] = self.make_commit(
+                        dirty_pages=dirty_pages, verify_old=verify_old)
+            return self._programs[key]
 
     # -- scrub ----------------------------------------------------------------
 

@@ -1,13 +1,14 @@
 """repro_torch.obs — the pool telemetry plane (a copy of the reference's).
 
-Three cooperating pieces, all host-side and framework-free so they never
-touch a device tensor:
+Three cooperating pieces, all host-side: none touches a device tensor:
 
   * `MetricsRegistry` (obs/metrics.py) — counters / gauges /
     fixed-bucket histograms with online p50/p99.  Every `Pool` owns one;
     the scrubber and recovery paths publish into it.
   * `Tracer` (obs/trace.py) — structured JSONL span events for scrub and
-    recovery; `validate_events` checks well-formedness.
+    recovery; `validate_events` checks well-formedness.  Its layer spans
+    (`trace.layer`, `trace.layer_totals`) time the commit and the served
+    step while a profiler records.
   * `HealthReport` (obs/health.py) — green/degraded/critical from scrub
     findings, recovery history and the syndrome budget;
     `prometheus_text` (obs/export.py) renders the registry for scraping.

@@ -27,13 +27,28 @@ tests and `validate_events` consume.
   * every fault event id is referenced by >= 1 resolving span (a
     recovery, or a scrub whose repair fixed the damage);
   * no span references an unknown fault id (no orphan links).
+A span's begin carries `parent`, the id of the span of the same tracer
+that was open around it (None at the top).
+
+Layer spans (`layer(name)`) time the program's layers, and only while a
+profiler records operators: each is then a `pgl.<name>` range on the
+profiler's clock, beside the operators and device work it encloses, and a
+row of a process-wide table (`layer_totals()`: count, total and self ms,
+the enclosing layer span) that holds the latest profiling session.  The
+range is an operator range: a profiler mirrors a user annotation onto the
+device's timeline, where a reader of device work could take it for some.
+With no profiler recording, `layer` costs one flag check and records
+nothing.  Every `Tracer.span` is also a layer span of its kind.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
 from typing import IO, List, Optional
+
+import torch
 
 
 class Tracer:
@@ -61,6 +76,7 @@ class Tracer:
         self.segments: List[str] = []
         self.events: List[dict] = []
         self._next_id = 0
+        self._open: List[int] = []       # ids of the open spans, innermost last
         self._t0 = time.perf_counter()
         self._fh: Optional[IO] = None
         self._seg_lines = 0
@@ -149,14 +165,106 @@ class _Span:
         self.end_fields.update(fields)
 
     def __enter__(self) -> "_Span":
-        self.id = self.tracer.begin(self.kind, **self.fields)
+        opened = self.tracer._open
+        self.id = self.tracer.begin(
+            self.kind, parent=opened[-1] if opened else None, **self.fields)
+        opened.append(self.id)
+        self._layer = layer(self.kind)
+        self._layer.__enter__()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         if exc_type is not None:
             self.end_fields.setdefault("error", exc_type.__name__)
-        self.tracer.end(self.id, self.kind, **self.end_fields)
+        try:
+            self.tracer._open.remove(self.id)
+            self.tracer.end(self.id, self.kind, **self.end_fields)
+        finally:
+            self._layer.__exit__(exc_type, exc, tb)
         return False
+
+
+# -- layer spans ---------------------------------------------------------------
+
+LAYER_PREFIX = "pgl."
+
+
+# an operator-scoped range (~1 us a span under a profiler), which no
+# profiler mirrors onto the device's timeline
+_range = torch._C._profiler._RecordFunctionFast
+
+
+def _profiler_flag():
+    """The cheapest read of whether a profiler records operators: the
+    autograd profiler's module flag, else the C++ query."""
+    mod = getattr(torch.autograd, "profiler", None)
+    if isinstance(getattr(mod, "_is_profiler_enabled", None), bool):
+        return lambda: mod._is_profiler_enabled
+    return torch._C._autograd._profiler_enabled
+
+
+profiling = _profiler_flag()
+
+_OFF = contextlib.nullcontext()
+_table: dict = {}      # name -> [n, total ns, self ns, {parent: n}]
+_stack: list = []      # open layer spans: [name, parent, start ns, child ns]
+_stale = False         # a span ran with no profiler since the table's last row
+
+
+def layer(name: str):
+    """Context manager timing one layer of the program while a profiler
+    records: a `pgl.<name>` range and a row of the table.  With no
+    profiler recording: a shared no-op, and the next span under a profiler
+    starts a fresh table."""
+    global _stale
+    if not profiling():
+        _stale = True
+        return _OFF
+    return _Layer(name)
+
+
+class _Layer:
+    __slots__ = ("name", "range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.range = _range(LAYER_PREFIX + name)
+
+    def __enter__(self) -> "_Layer":
+        global _stale
+        if _stale:
+            _table.clear()
+            _stale = False
+        self.range.__enter__()
+        _stack.append([self.name, _stack[-1][0] if _stack else None,
+                       time.perf_counter_ns(), 0])
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        t1 = time.perf_counter_ns()
+        name, parent, t0, child = _stack.pop()
+        dt = t1 - t0
+        if _stack:
+            _stack[-1][3] += dt
+        row = _table.get(name)
+        if row is None:
+            row = _table[name] = [0, 0, 0, {}]
+        row[0] += 1
+        row[1] += dt
+        row[2] += dt - child
+        row[3][parent] = row[3].get(parent, 0) + 1
+        self.range.__exit__(exc_type, exc, tb)
+        return False
+
+
+def layer_totals() -> dict:
+    """{name: {"n", "total_ms", "self_ms", "parent"}} over the latest
+    profiling session: self is total less the child layer spans inside;
+    parent is the enclosing layer span's name (the most frequent one; None
+    at the top)."""
+    return {name: {"n": n, "total_ms": total / 1e6, "self_ms": own / 1e6,
+                   "parent": max(parents, key=parents.get)}
+            for name, (n, total, own, parents) in _table.items()}
 
 
 # -- validation ----------------------------------------------------------------

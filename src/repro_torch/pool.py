@@ -107,7 +107,7 @@ from repro_torch.dist.straggler import StragglerPolicy
 from repro_torch.kernels import ops as kops
 from repro_torch.obs import health as obs_health
 from repro_torch.obs.metrics import MetricsRegistry
-from repro_torch.obs.trace import Tracer
+from repro_torch.obs.trace import Tracer, layer
 
 PyTree = Any
 
@@ -566,12 +566,14 @@ class Pool(EngineHost):
         its `dirty_leaf_idx` leaves) and ignores `dirty_pages`; the
         synchronous engine takes `dirty_pages` and ignores `dirty_words`.
         `verify_old` is a synchronous-engine feature."""
-        t0 = time.perf_counter()
-        canary_ok = bool(canary_ok)
-        ok = self._enqueue(state_new, dirty_pages, dirty_words, data_cursor,
-                           rng_key, canary_ok, verify_old, block)
-        self._note_commit(canary_ok, (time.perf_counter() - t0) * 1e3)
-        return ok
+        with layer("pool.commit"):
+            t0 = time.perf_counter()
+            canary_ok = bool(canary_ok)
+            ok = self._enqueue(state_new, dirty_pages, dirty_words,
+                               data_cursor, rng_key, canary_ok, verify_old,
+                               block)
+            self._note_commit(canary_ok, (time.perf_counter() - t0) * 1e3)
+            return ok
 
     def _note_commit(self, canary_ok: Optional[bool], ms: float) -> None:
         """A commit's host bookkeeping: the count, the dispatch ms and, when
@@ -595,7 +597,8 @@ class Pool(EngineHost):
         `canary_ok` is a host bool, or a 0-d device bool (staged)."""
         if self.prot is None:
             raise RuntimeError("Pool.commit before init()")
-        zone = self.to_zone(state_new, block=block)
+        with layer("pool.to_zone"):
+            zone = self.to_zone(state_new, block=block)
         staged = isinstance(canary_ok, torch.Tensor)
         if self._engine is not None:
             if verify_old:
@@ -664,24 +667,27 @@ class Pool(EngineHost):
         at its end, so the ticket has landed on every process at once and
         `poll` resolves the same tickets on each with no exchange (the
         staged bookkeeping at resolution then stays in step)."""
-        t0 = time.perf_counter()
-        staged = isinstance(canary_ok, torch.Tensor)
-        if not staged:
-            canary_ok = bool(canary_ok)
-        ok = self._enqueue(state_new, dirty_pages, dirty_words, data_cursor,
-                           rng_key, canary_ok, verify_old, block)
-        split = self.mesh.group is not None
-        if split and ok.is_cuda:
-            torch.cuda.current_stream(ok.device).synchronize()
-        seq = self._ticket_seq
-        self._ticket_seq += 1
-        span_id = self.tracer.emit("commit_dispatch", seq=seq, staged=staged)
-        self._note_commit(None if staged else canary_ok,
-                          (time.perf_counter() - t0) * 1e3)
-        return self._ring.submit(CommitTicket(
-            seq, ok, dispatched_at=t0, span_id=span_id, extras=extras,
-            staged=staged, landed=split,
-            on_resolve=self._on_ticket_resolved))
+        with layer("pool.commit"):
+            t0 = time.perf_counter()
+            staged = isinstance(canary_ok, torch.Tensor)
+            if not staged:
+                canary_ok = bool(canary_ok)
+            ok = self._enqueue(state_new, dirty_pages, dirty_words,
+                               data_cursor, rng_key, canary_ok, verify_old,
+                               block)
+            split = self.mesh.group is not None
+            if split and ok.is_cuda:
+                torch.cuda.current_stream(ok.device).synchronize()
+            seq = self._ticket_seq
+            self._ticket_seq += 1
+            span_id = self.tracer.emit("commit_dispatch", seq=seq,
+                                       staged=staged)
+            self._note_commit(None if staged else canary_ok,
+                              (time.perf_counter() - t0) * 1e3)
+            return self._ring.submit(CommitTicket(
+                seq, ok, dispatched_at=t0, span_id=span_id, extras=extras,
+                staged=staged, landed=split,
+                on_resolve=self._on_ticket_resolved))
 
     def _on_ticket_resolved(self, ticket: CommitTicket) -> None:
         """Fires once a ticket: the resolve latency (with its span id as

@@ -56,6 +56,7 @@ from repro_torch.core import layout as layout_mod
 from repro_torch.dist import sharding
 from repro_torch.models import api
 from repro_torch.models.transformer import build_model
+from repro_torch.obs.trace import layer
 from repro_torch.pool import Pool, PoolHost
 
 PyTree = Any
@@ -200,34 +201,40 @@ class Server(PoolHost):
     def step(self, tokens: torch.Tensor) -> torch.Tensor:
         """One decode step for this process's rows of the batch (the whole
         batch on one process); returns their next tokens."""
-        next_tok, _, new_cache = self._decode(
-            self.params, tokens, self._current_cache(), self.pos)
-        if self.pool is not None:
-            # only the built engine's footprint spelling is computed
-            fp = (dict(dirty_words=self._dirty_words(self.pos))
-                  if self.pool.engine is not None
-                  else dict(dirty_pages=self._dirty_pages(self.pos)))
-            if self.pipeline_depth > 1:
-                # dispatch and move on; verdicts resolve as they land (the
-                # ring resolves the oldest past its depth) and `generate`
-                # drains at the end
-                self.pool.commit_async(new_cache, block=True, **fp)
-                self.pool.poll()
+        with layer("serve.step"):
+            cache = self._current_cache()
+            with layer("serve.decode"):
+                next_tok, _, new_cache = self._decode(
+                    self.params, tokens, cache, self.pos)
+            del cache       # the read view is not held through the commit
+            if self.pool is not None:
+                # only the built engine's footprint spelling is computed
+                with layer("serve.footprint"):
+                    fp = (dict(dirty_words=self._dirty_words(self.pos))
+                          if self.pool.engine is not None
+                          else dict(dirty_pages=self._dirty_pages(self.pos)))
+                if self.pipeline_depth > 1:
+                    # dispatch and move on; verdicts resolve as they land
+                    # (the ring resolves the oldest past its depth) and
+                    # `generate` drains at the end
+                    self.pool.commit_async(new_cache, block=True, **fp)
+                    self.pool.poll()
+                else:
+                    self.pool.commit(new_cache, block=True, **fp)
+                self.pool.maybe_scrub()
+                reg = self.pool.metrics
+                reg.counter("server_steps_total").inc()
+                if (self.metrics_dir and self.mesh.proc_rank == 0
+                        and (self.pos + 1) % self.metrics_every == 0):
+                    obs.write_metrics(reg, self.metrics_dir,
+                                      prefix="server",
+                                      stats=self.pool.stats())
             else:
-                self.pool.commit(new_cache, block=True, **fp)
-            self.pool.maybe_scrub()
-            reg = self.pool.metrics
-            reg.counter("server_steps_total").inc()
-            if (self.metrics_dir and self.mesh.proc_rank == 0
-                    and (self.pos + 1) % self.metrics_every == 0):
-                obs.write_metrics(reg, self.metrics_dir, prefix="server",
-                                  stats=self.pool.stats())
-        else:
-            self.cache = new_cache
-        self.pos += 1
-        for hook in list(self._step_hooks):
-            hook(self, {"pos": self.pos - 1})
-        return next_tok
+                self.cache = new_cache
+            self.pos += 1
+            for hook in list(self._step_hooks):
+                hook(self, {"pos": self.pos - 1})
+            return next_tok
 
     def prefill(self, prompt: torch.Tensor) -> torch.Tensor:
         """Feed a global prompt (B, S) through decode steps (this process's
